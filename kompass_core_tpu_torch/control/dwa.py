@@ -11,8 +11,12 @@ output vector back to the host.
 Horizon conventions match the reference Python wrapper: DWAConfig horizons
 are *steps* and multiplied by control_time_step before use.
 
+Moving obstacles (``DWAConfig(moving_obstacles=True)`` with
+``obstacle_velocities_world``) run the moving sweep, the port of TPU
+kernel K3.
+
 Not ported yet (raise ``NotImplementedError``, see ROADMAP.md): BOX
-robots, moving obstacles, custom costs and the debug velocity search.
+robots, custom costs and the debug velocity search.
 """
 
 import logging
@@ -107,7 +111,8 @@ class DWAConfig(FollowerConfig):
     )
     max_num_threads: int = field(default=1)  # accepted for API parity; unused
     drop_samples: bool = field(default=True)
-    # constant-velocity obstacle prediction: not ported yet, must stay False
+    # constant-velocity obstacle prediction within the rollout
+    # (ops/solver.py SolverSpec.moving_obstacles); off = the static world
     moving_obstacles: bool = field(default=False)
 
     def __attrs_post_init__(self):
@@ -181,8 +186,6 @@ class DWA(Follower):
             )
         if robot.geometry_type == RobotGeometry.Type.BOX:
             _not_ported("BOX-robot collision (_min_box_dist_sq)", "3c")
-        if config.moving_obstacles:
-            _not_ported("moving_obstacles=True (TPU kernel K3)", "3d")
 
         is_ackermann = robot.robot_type == RobotType.ACKERMANN
         super().__init__(config=config, is_ackermann=is_ackermann)
@@ -224,6 +227,7 @@ class DWA(Follower):
             num_ctrl_points=int(config.control_horizon),
             seg_size=seg_size,
             drop_samples=bool(config.drop_samples),
+            moving_obstacles=bool(config.moving_obstacles),
         )
         self._solvers = {}  # scan_size bucket -> (spec, solver, buffer)
         self._last_solver_io = None
@@ -382,11 +386,18 @@ class DWA(Follower):
         wy = sy * bx + cy * by + self.current_state.y
         return np.stack([wx, wy], axis=1).astype(np.float32)
 
-    def _gather_obstacles(self, laser_scan, point_cloud, map_points_world):
+    def _gather_obstacles(
+        self, laser_scan, point_cloud, map_points_world, velocities=None
+    ):
         """World-frame [N, 2] obstacle points from whichever input was
         given, with non-finite points DROPPED: one NaN point would defeat
         every collision comparison (NaN < r^2 is false) and poison the
-        obstacle cost."""
+        obstacle cost.
+
+        ``velocities`` [N, 2] (moving mode) must align row-wise with the
+        points and gets the same finite-row filter: a NaN velocity makes
+        the predicted position NaN at every step, and trackers emit NaN
+        velocities at track birth. Returns ``(obs, vels_or_None)``."""
         if map_points_world is not None:
             obs = np.atleast_2d(np.asarray(map_points_world, np.float32))
             # an empty local map means obstacle-free planning, not a crash
@@ -395,10 +406,22 @@ class DWA(Follower):
             )
         else:
             obs = self._obstacle_points_world(laser_scan, point_cloud)
+        vels = None
+        if velocities is not None:
+            vels = np.atleast_2d(np.asarray(velocities, np.float32))[:, :2]
+            if len(vels) != len(obs):
+                raise ValueError(
+                    f"obstacle velocities ({len(vels)} rows) must align "
+                    f"with the obstacle points ({len(obs)} rows)"
+                )
         finite = np.isfinite(obs).all(axis=1)
+        if vels is not None:
+            finite &= np.isfinite(vels).all(axis=1)
         if not finite.all():
             obs = obs[finite]
-        return obs
+            if vels is not None:
+                vels = vels[finite]
+        return obs, vels
 
     def _rotate_in_place_result(self, heading_error: float) -> SamplingControlResult:
         """Pure-rotation shortcut for large heading error, sized with the
@@ -428,14 +451,61 @@ class DWA(Follower):
     # main entry: one control tick
     # ------------------------------------------------------------------
 
-    def _obstacle_blocks(self, laser_scan, point_cloud, map_points_world):
-        """(obs_padded [bucket, 2], obs_count, bucket); pads sit at 1e8."""
-        obs = self._gather_obstacles(laser_scan, point_cloud, map_points_world)
+    def _obstacle_blocks(
+        self, laser_scan, point_cloud, map_points_world,
+        obstacle_velocities_world,
+    ):
+        """(obs_padded [bucket, 2], obs_count, vel_padded_or_None,
+        bucket). Pads sit at 1e8 with ZERO velocity: a pad point must not
+        march through the workspace."""
+        if (
+            obstacle_velocities_world is not None
+            and not self._config.moving_obstacles
+        ):
+            raise ValueError(
+                "obstacle_velocities_world requires "
+                "DWAConfig(moving_obstacles=True) — the static-world "
+                "solver program has no velocity inputs"
+            )
+        obs, obs_vels = self._gather_obstacles(
+            laser_scan, point_cloud, map_points_world,
+            velocities=obstacle_velocities_world,
+        )
         obs_count = len(obs)
         bucket = max(256, _round_up(obs_count, 256))
         obs_padded = np.full((bucket, 2), 1e8, dtype=np.float32)
         obs_padded[:obs_count] = obs
-        return obs_padded, obs_count, bucket
+        vel_padded = None
+        if self._config.moving_obstacles:
+            vel_padded = np.zeros((bucket, 2), dtype=np.float32)
+            if obs_vels is not None:
+                vel_padded[:obs_count] = obs_vels
+        return obs_padded, obs_count, vel_padded, bucket
+
+    @staticmethod
+    def tracked_obstacle_disc(center_xy, radius, velocity_xy, ring: int = 8):
+        """(points [ring+1, 2], velocities [ring+1, 2]) world-frame
+        obstacle disc for one tracked moving object: its center plus
+        ``ring`` circumference points, every point carrying the object's
+        velocity. Stack one disc per tracked object and pass them to
+        ``compute_velocity_commands(map_points_world=pts,
+        obstacle_velocities_world=vels)`` with
+        ``DWAConfig(moving_obstacles=True)``."""
+        cx, cy = float(center_xy[0]), float(center_xy[1])
+        ang = np.linspace(0.0, 2.0 * np.pi, int(ring), endpoint=False)
+        pts = np.concatenate(
+            [
+                np.array([[cx, cy]], np.float32),
+                np.stack(
+                    [cx + radius * np.cos(ang), cy + radius * np.sin(ang)],
+                    axis=1,
+                ).astype(np.float32),
+            ]
+        )
+        vels = np.broadcast_to(
+            np.asarray(velocity_xy, np.float32)[:2], pts.shape
+        ).copy()
+        return pts, vels
 
     def compute_velocity_commands(
         self, current_vel, laser_scan=None, point_cloud=None,
@@ -444,9 +514,13 @@ class DWA(Follower):
         """Full DWA tick (``DWA::findBestPath``, ``dwa.h:183-230``).
 
         ``map_points_world``: [N, >=2] obstacle points already in the world
-        frame (the reference's local-map input path)."""
-        if obstacle_velocities_world is not None:
-            _not_ported("obstacle_velocities_world (moving obstacles)", "3d")
+        frame (the reference's local-map input path).
+
+        ``obstacle_velocities_world``: [N, 2] world-frame velocity per
+        obstacle point, row-aligned with whichever obstacle input was
+        given. Requires ``DWAConfig(moving_obstacles=True)``; collision
+        and the obstacle cost then see each obstacle at ``obs + v * t *
+        dt`` along the rollout."""
         if self._path is None:
             raise ValueError(
                 "Global path not set; cannot run the DWA local planner"
@@ -464,11 +538,14 @@ class DWA(Follower):
 
         self._adapt_prediction_horizon()
 
-        obs_padded, obs_count, bucket = self._obstacle_blocks(
-            laser_scan, point_cloud, map_points_world
+        obs_padded, obs_count, vel_padded, bucket = self._obstacle_blocks(
+            laser_scan, point_cloud, map_points_world,
+            obstacle_velocities_world,
         )
         spec, solver, buf = self._solver_for(bucket)
-        self._assemble_solver_buffer(spec, buf, current_vel, obs_padded, obs_count)
+        self._assemble_solver_buffer(
+            spec, buf, current_vel, obs_padded, obs_count, vel_padded
+        )
 
         out = solver(buf).cpu().numpy()  # the tick's one host sync
         self._last_solver_io = (spec, buf, out)
@@ -503,7 +580,8 @@ class DWA(Follower):
     # FollowerTemplate-style API (reference control/dwa.py:255-424)
     # ------------------------------------------------------------------
 
-    def _assemble_solver_buffer(self, spec, buf, current_vel, obs_padded, obs_count):
+    def _assemble_solver_buffer(self, spec, buf, current_vel, obs_padded,
+                                obs_count, vel_padded):
         """Tracked segment + velocity window + pack, on the host."""
         start, end = self._tracked_segment_window()
         seg_x, seg_y, seg_arc, seg_total_len = segment_block(
@@ -521,6 +599,7 @@ class DWA(Follower):
             window, obs_padded, obs_count, seg_x, seg_y, seg_arc,
             end - start + 1, seg_total_len,
             self._path.total_path_length(), self._active_points,
+            obs_vel_xy=vel_padded,
         )
 
     def set_path(self, global_path, **_) -> None:

@@ -1,18 +1,26 @@
 """Hand-written CUDA kernels of the DWA tick, their plain PyTorch versions
 and their loader.
 
-``fused_min_dist_sq`` is the port of the TPU kernel
-``kompass_core_tpu/ops/pallas_kernels.py::_fused_kernel_vpu`` (reached
-there through ``fused_min_dist_sq`` with ``backend="pallas_vpu"``): both
-O(samples x steps x rows) sweeps of the tick, the obstacle min-distance
-field and the tracked-segment min-distance field, in one pass over the
-rollout points. The kernel source is ``csrc/fused_min_dist.cu``.
+Both sweeps of the tick, the obstacle min-distance field and the
+tracked-segment min-distance field, run in one pass over the rollout
+points, for one robot or a batch of robots (leading axis B):
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The
-library goes into ``build/kompass_core_tpu_torch/<hash of the sources>/``
-at the repository root. A missing ``nvcc`` or a failed build raises with
-the compiler's output; nothing falls back to the plain version.
+- ``fused_min_dist_sq`` is the port of the TPU kernel
+  ``kompass_core_tpu/ops/pallas_kernels.py::_fused_kernel_vpu`` (K1,
+  reached there through ``fused_min_dist_sq`` with
+  ``backend="pallas_vpu"``): static obstacle rows.
+- ``fused_min_dist_sq_moving`` is the port of
+  ``_fused_kernel_vpu_moving`` / ``_fused_kernel_mxu_moving`` (K3, reached
+  through ``fused_min_dist_sq_moving_pallas``): every obstacle row moves
+  at constant velocity, o + v * t * dt at rollout step t. The segment
+  rows stay static.
+
+The kernel source is ``csrc/fused_min_dist.cu``. The kernels are compiled
+at first use with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface, loaded with ``ctypes``. The library goes into
+``build/kompass_core_tpu_torch/<hash of the sources>/`` at the repository
+root. A missing ``nvcc`` or a failed build raises with the compiler's
+output; nothing falls back to the plain version.
 
 Device rule: a wrapper given CPU tensors runs the plain version (that is
 how the CPU tests run); given CUDA tensors it launches the kernel or
@@ -37,8 +45,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# plain version: largest [rows, T, R] broadcast slab, in elements
+# plain version: largest [robots, rows, T, R] broadcast slab, in elements
 _SLAB_ELEMS = 1 << 24
+_MAX_BATCH = 65535  # the kernel's grid.y
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -94,90 +103,192 @@ def _library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
-            fn = lib.kompass_fused_min_dist_sq
-            fn.restype = ctypes.c_int
             p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p, p, i, i, p, i, p, p, i, p, p, p, p]
+            lib.kompass_fused_min_dist_sq.restype = ctypes.c_int
+            lib.kompass_fused_min_dist_sq.argtypes = [
+                p, p, i, i, i, p, i, p, p, i, p, p, p, p,
+            ]
+            lib.kompass_fused_min_dist_sq_moving.restype = ctypes.c_int
+            lib.kompass_fused_min_dist_sq_moving.argtypes = [
+                p, p, i, i, i, p, p, p, i, p, p, i, p, p, p, p,
+            ]
             _lib = lib
     return _lib
 
 
-def _check_sweep_inputs(px, py, obs_xy, seg_x, seg_y, active_points):
-    tensors = (px, py, obs_xy, seg_x, seg_y, active_points)
+def _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt):
+    """Check the sweep's inputs; returns (B, S, T, O, G, batched).
+
+    Unbatched: px, py [S, T]; obs_xy (and obs_vel) [O, 2]; seg_x, seg_y
+    [G]; active_points (and dt) one value. Batched: the same with a
+    leading B, and active_points (and dt) [B]. No view is made: these
+    checks run on every launch, so they stay cheap."""
+    name = "fused_min_dist_sq" + ("_moving" if obs_vel is not None else "")
+    tensors = [px, py, obs_xy, seg_x, seg_y, active_points]
+    if obs_vel is not None:
+        tensors += [obs_vel, dt]
     device = px.device
     if any(t.device != device for t in tensors):
-        raise ValueError("fused_min_dist_sq: all tensors must be on one device")
+        raise ValueError(f"{name}: all tensors must be on one device")
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_min_dist_sq: unsupported device {device}")
-    if any(t.dtype != torch.float32 for t in tensors[:5]):
-        raise TypeError("fused_min_dist_sq: px, py, obs_xy, seg_x, seg_y must be float32")
-    if active_points.dtype != torch.int32 or active_points.numel() != 1:
-        raise TypeError("fused_min_dist_sq: active_points must be one int32")
-    if px.dim() != 2 or py.shape != px.shape or px.numel() == 0:
-        raise ValueError("fused_min_dist_sq: px, py must be non-empty [S, T]")
-    if px.numel() >= 2**31:
-        raise ValueError("fused_min_dist_sq: S * T must fit in int32")
-    if obs_xy.dim() != 2 or obs_xy.shape[1] != 2 or obs_xy.shape[0] == 0:
-        raise ValueError("fused_min_dist_sq: obs_xy must be non-empty [O, 2]")
-    if seg_x.dim() != 1 or seg_y.shape != seg_x.shape or seg_x.numel() == 0:
-        raise ValueError("fused_min_dist_sq: seg_x, seg_y must be non-empty [G]")
+        raise ValueError(f"{name}: unsupported device {device}")
+    if any(t.dtype != torch.float32 for t in tensors if t is not active_points):
+        raise TypeError(f"{name}: every tensor but active_points must be float32")
+    if active_points.dtype != torch.int32:
+        raise TypeError(f"{name}: active_points must be int32")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_min_dist_sq: all tensors must be contiguous")
+        raise ValueError(f"{name}: all tensors must be contiguous")
+    batched = px.dim() == 3
+    if batched:
+        B, S, T = px.shape
+        lead = (B,)
+    elif px.dim() == 2:
+        (S, T), B, lead = px.shape, 1, ()
+        if active_points.numel() != 1 or (dt is not None and dt.numel() != 1):
+            raise TypeError(f"{name}: active_points and dt must be one value")
+    else:
+        raise ValueError(f"{name}: px, py must be [S, T] or [B, S, T]")
+    O, G = obs_xy.shape[-2] if obs_xy.dim() > 1 else 0, seg_x.shape[-1]
+    if py.shape != px.shape or px.numel() == 0:
+        raise ValueError(f"{name}: px, py must be non-empty and of one shape")
+    if S * T >= 2**31 or B > _MAX_BATCH:
+        raise ValueError(f"{name}: S * T must fit in int32 and B <= {_MAX_BATCH}")
+    if obs_xy.shape != lead + (O, 2) or O == 0:
+        raise ValueError(f"{name}: obs_xy must be non-empty [O, 2] per robot")
+    if seg_x.shape != lead + (G,) or seg_y.shape != seg_x.shape or G == 0:
+        raise ValueError(f"{name}: seg_x, seg_y must be non-empty [G] per robot")
+    if batched and active_points.shape != lead:
+        raise ValueError(f"{name}: active_points must be [B]")
+    if obs_vel is not None and (obs_vel.shape != obs_xy.shape
+                                or (batched and dt.shape != lead)):
+        raise ValueError(f"{name}: obs_vel must match obs_xy and dt be [B]")
+    return B, S, T, O, G, batched
 
 
-def fused_min_dist_sq_reference(px, py, obs_xy, seg_x, seg_y, active_points):
-    """Plain PyTorch version of the fused kernel: the same operations,
-    rounded one by one, as a broadcast [S, T, R] min (in slabs of rows of
-    S so the broadcast stays bounded)."""
-    S, T = px.shape
-
-    def sweep(xs, ys):
-        rows = max(1, _SLAB_ELEMS // (T * xs.shape[0]))
-        parts = []
+def _sweep_reference(px, py, xs, ys, vx=None, vy=None, tau=None):
+    """[B, S, T] points vs [B, R] rows -> [B, S, T] min of |p - o|^2, the
+    operations rounded one by one; rows move as o + v * tau[B, T] when
+    velocities are given. Evaluated in slabs of robots and rows of S so
+    the [.., T, R] broadcast stays bounded."""
+    B, S, T = px.shape
+    R = xs.shape[1]
+    if vx is None:
+        ox, oy = xs[:, None, None, :], ys[:, None, None, :]  # [B, 1, 1, R]
+    else:
+        step = tau[:, :, None]  # [B, T, 1]
+        ox = (xs[:, None, :] + vx[:, None, :] * step)[:, None]  # [B, 1, T, R]
+        oy = (ys[:, None, :] + vy[:, None, :] * step)[:, None]
+    rows = max(1, _SLAB_ELEMS // (T * R))
+    robots = max(1, rows // S)
+    rows = min(rows, S)
+    out = px.new_empty(px.shape)
+    for b0 in range(0, B, robots):
+        b = slice(b0, b0 + robots)
         for s0 in range(0, S, rows):
-            dx = px[s0 : s0 + rows, :, None] - xs
-            dy = py[s0 : s0 + rows, :, None] - ys
-            parts.append(torch.amin(dx * dx + dy * dy, dim=-1))
-        return torch.cat(parts)
+            s = slice(s0, s0 + rows)
+            dx = px[b, s, :, None] - ox[b]
+            dy = py[b, s, :, None] - oy[b]
+            out[b, s] = torch.amin(dx * dx + dy * dy, dim=-1)
+    return out
 
-    active = torch.arange(T, device=px.device) < active_points.reshape(())
-    return (
-        torch.where(active, sweep(obs_xy[:, 0], obs_xy[:, 1]), torch.inf),
-        torch.where(active, sweep(seg_x, seg_y), torch.inf),
+
+def fused_min_dist_sq_reference(
+    px, py, obs_xy, seg_x, seg_y, active_points, obs_vel=None, dt=None
+):
+    """Plain PyTorch version of both kernels: the same operations, rounded
+    one by one. Shapes as for ``fused_min_dist_sq``; with ``obs_vel`` and
+    ``dt`` it is the moving sweep of ``fused_min_dist_sq_moving``."""
+    *_, T, _, _, batched = _check_sweep(
+        px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt
     )
-
-
-def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points):
-    """Both min-distance sweeps of the tick in one kernel launch.
-
-    px, py: [S, T] rollout points; obs_xy: [O, 2] obstacle rows; seg_x,
-    seg_y: [G] tracked-segment rows (pad rows sit at 1e8 and never win);
-    active_points: 0-d int32 on the same device, read by the kernel there.
-    Returns (d2_obs, d2_seg), each [S, T] f32, +inf where t >=
-    active_points. On CUDA it launches on the current stream without
-    synchronising and adds one to ``fused_min_dist_sq.launches``."""
-    _check_sweep_inputs(px, py, obs_xy, seg_x, seg_y, active_points)
-    if px.device.type == "cpu":
-        return fused_min_dist_sq_reference(
-            px, py, obs_xy, seg_x, seg_y, active_points
+    if not batched:
+        px, py, obs_xy, seg_x, seg_y = (
+            t.unsqueeze(0) for t in (px, py, obs_xy, seg_x, seg_y)
         )
+        active_points = active_points.reshape(1)
+        if obs_vel is not None:
+            obs_vel, dt = obs_vel.unsqueeze(0), dt.reshape(1)
+    t = torch.arange(T, device=px.device)
+    if obs_vel is None:
+        d2_obs = _sweep_reference(px, py, obs_xy[..., 0], obs_xy[..., 1])
+    else:
+        tau = t.to(torch.float32)[None, :] * dt[:, None]  # [B, T]
+        d2_obs = _sweep_reference(
+            px, py, obs_xy[..., 0], obs_xy[..., 1],
+            obs_vel[..., 0], obs_vel[..., 1], tau,
+        )
+    d2_seg = _sweep_reference(px, py, seg_x, seg_y)
+    active = (t[None, :] < active_points[:, None])[:, None, :]  # [B, 1, T]
+    d2_obs = torch.where(active, d2_obs, torch.inf)
+    d2_seg = torch.where(active, d2_seg, torch.inf)
+    if not batched:
+        return d2_obs[0], d2_seg[0]
+    return d2_obs, d2_seg
+
+
+def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None):
+    """Launch ``fn`` of the library on the current stream of the inputs'
+    card; returns the two output fields (shaped like px), or raises on a
+    refused launch."""
     lib = _library()
-    S, T = px.shape
+    B, S, T, O, G, _ = dims
     out_obs = torch.empty_like(px)
     out_seg = torch.empty_like(px)
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
-        err = lib.kompass_fused_min_dist_sq(
-            px.data_ptr(), py.data_ptr(), S * T, T,
-            obs_xy.data_ptr(), obs_xy.shape[0],
-            seg_x.data_ptr(), seg_y.data_ptr(), seg_x.shape[0],
-            active_points.data_ptr(), out_obs.data_ptr(), out_seg.data_ptr(),
-            stream,
+        mid = () if vel is None else (vel.data_ptr(), dt.data_ptr())
+        err = getattr(lib, fn)(
+            px.data_ptr(), py.data_ptr(), B, S * T, T, obs.data_ptr(), *mid,
+            O, sx.data_ptr(), sy.data_ptr(), G, ap.data_ptr(),
+            out_obs.data_ptr(), out_seg.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_min_dist_sq: kernel launch failed (cudaError {err})")
-    fused_min_dist_sq.launches += 1
+        raise RuntimeError(f"{fn}: kernel launch failed (cudaError {err})")
     return out_obs, out_seg
 
 
+def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points):
+    """Both static min-distance sweeps of the tick in one kernel launch.
+
+    px, py: [S, T] rollout points ([B, S, T] for B robots); obs_xy:
+    [O, 2] obstacle rows ([B, O, 2]); seg_x, seg_y: [G] tracked-segment
+    rows ([B, G]); pad rows sit at 1e8 and never win. active_points:
+    one int32 ([B] int32) on the same device, read by the kernel there.
+    Returns (d2_obs, d2_seg), each shaped like px, f32, +inf where t >=
+    active_points. On CUDA it launches on the current stream without
+    synchronising and adds one to ``fused_min_dist_sq.launches``."""
+    if px.device.type == "cpu":
+        return fused_min_dist_sq_reference(
+            px, py, obs_xy, seg_x, seg_y, active_points
+        )
+    dims = _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, None, None)
+    out = _launch("kompass_fused_min_dist_sq", dims, px, py, obs_xy, seg_x,
+                  seg_y, active_points)
+    fused_min_dist_sq.launches += 1
+    return out
+
+
+def fused_min_dist_sq_moving(px, py, obs_xy, obs_vel, dt, seg_x, seg_y,
+                             active_points):
+    """The moving obstacle sweep and the static segment sweep in one
+    kernel launch.
+
+    As ``fused_min_dist_sq``, plus obs_vel: [O, 2] world velocity per
+    obstacle row ([B, O, 2]; pad rows zero) and dt: the control step,
+    one f32 ([B] f32). At rollout step t an obstacle row sits at
+    o + v * (t * dt). A zero velocity gives ``fused_min_dist_sq``'s
+    values bit for bit. On CUDA it adds one to
+    ``fused_min_dist_sq_moving.launches``."""
+    if px.device.type == "cpu":
+        return fused_min_dist_sq_reference(
+            px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt
+        )
+    dims = _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt)
+    out = _launch("kompass_fused_min_dist_sq_moving", dims, px, py, obs_xy,
+                  seg_x, seg_y, active_points, obs_vel, dt)
+    fused_min_dist_sq_moving.launches += 1
+    return out
+
+
 fused_min_dist_sq.launches = 0
+fused_min_dist_sq_moving.launches = 0

@@ -4,30 +4,37 @@ Counterpart of ``kompass_core_tpu/ops/solver.py``:
 
     grid [S] -> rollout [S, T] (closed-form f32 cumsum)
              -> fused obstacle + segment min-distance sweep [S, T]
-                (``ops/kernels.fused_min_dist_sq``: a CUDA kernel on the
-                card, its plain version on the CPU)
+                (``ops/kernels.py``: a CUDA kernel on the card, its plain
+                version on the CPU; the moving-obstacle form when the
+                spec has ``moving_obstacles`` and velocities are given)
              -> drop / truncate semantics as masks (no ragged shapes)
              -> five costs -> weighted sum [S] -> first-minimum argmin
+
+A robot axis: every tensor may carry leading batch dimensions, the same
+on all of them (``[B, S, T]`` rollouts for ``[B]`` per-robot scalars).
+That is the JAX fleet's ``vmap`` written out, so one code path serves the
+single-robot packed solver (B = 1) and the fleet tick (B = robots).
 
 Rules kept from the JAX package: every shape is static for a
 ``SolverSpec``; the adaptive horizon is an ``active_points`` mask, never a
 resize; colliding samples get +inf cost instead of being dropped; a
 where-select precedes every sum so inf * 0 never makes NaN; everything on
-the device is float32 (the velocity window is built on the host in
-float64, ``ops/window.py``).
+the device is float32 (the single-robot velocity window is built on the
+host in float64, ``ops/window.py``; the fleet's on the device in float32,
+``_device_window``).
 
 No host sync inside the tick: the scalars (``active_points``,
-``obs_count``, ``seg_count``, ...) stay 0-d tensors on the device and
-nothing here calls ``.item()`` or branches in Python on a device value.
-Python branches only on the static ``SolverSpec``.
+``obs_count``, ``seg_count``, ...) stay tensors on the device and nothing
+here calls ``.item()`` or branches in Python on a device value. Python
+branches only on the static ``SolverSpec``.
 
 The JAX package's TPU layout workarounds (power-of-two sweep padding,
 one-hot masked sums in place of per-row gathers) are not carried over;
 their outputs are: ``torch.gather`` picks the same rows exactly.
 
-Not ported yet (raise ``NotImplementedError``): BOX robots, moving
-obstacles, device-window (fleet) mode, custom costs, the debug sampler and
-the standalone cost evaluator; see ROADMAP.md.
+Not ported yet (raise ``NotImplementedError``): BOX robots, the split
+mover sweep, custom costs, the debug sampler and the standalone cost
+evaluator; see ROADMAP.md.
 """
 
 import dataclasses
@@ -35,7 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .kernels import fused_min_dist_sq
+from .kernels import fused_min_dist_sq, fused_min_dist_sq_moving
 from .window import MIN_VEL, VelocityWindow
 
 _INF = float("inf")
@@ -59,9 +66,13 @@ class SolverSpec:
     scan_size: int  # padded obstacle-point capacity
     seg_size: int  # padded tracked-segment capacity
     drop_samples: bool = True
+    # True: the packed window block carries (current_vel[3], limits[9])
+    # and the window is built on the device (fleet mode)
     device_window: bool = False
     collision_box: Optional[Tuple[float, float]] = None
     dynamic_box: bool = False
+    # obstacles carry world velocities; the sweep evaluates each at
+    # obs + v * t * dt for rollout step t
     moving_obstacles: bool = False
 
     @property
@@ -109,20 +120,11 @@ def _check_ported(spec: SolverSpec) -> None:
             "BOX-robot collision (_min_box_dist_sq) is not ported yet "
             "(ROADMAP queue 1, item 3c)"
         )
-    if spec.moving_obstacles:
-        raise NotImplementedError(
-            "moving obstacles (TPU kernel K3) are not ported yet "
-            "(ROADMAP queue 1, item 3d)"
-        )
-    if spec.device_window:
-        raise NotImplementedError(
-            "the on-device velocity window (fleet mode) is not ported yet "
-            "(ROADMAP queue 1, item 5)"
-        )
 
 
 class SolverParams(NamedTuple):
-    """Dynamic solver parameters, each a 0-d float32 tensor."""
+    """Dynamic solver parameters, each a float32 tensor (one value per
+    robot)."""
 
     time_step: torch.Tensor
     robot_radius: torch.Tensor
@@ -169,13 +171,28 @@ class SolverParams(NamedTuple):
 
 
 class SolveResult(NamedTuple):
-    found: torch.Tensor  # bool scalar
-    cost: torch.Tensor  # f32 scalar (winning total cost)
-    best_index: torch.Tensor  # int64 scalar
+    """Per robot (leading batch dimensions of the inputs first)."""
+
+    found: torch.Tensor  # bool
+    cost: torch.Tensor  # f32 (winning total cost)
+    best_index: torch.Tensor  # int64
     velocities: torch.Tensor  # [T-1, 3] winning velocity sequence
     path: torch.Tensor  # [T, 2] winning rollout
     costs: torch.Tensor  # [S] total masked costs (inf = inadmissible)
-    num_admissible: torch.Tensor  # int32 scalar
+    num_admissible: torch.Tensor  # int32
+
+
+def _div(x, divisor: float):
+    """x / divisor as a true division on every device: PyTorch's CUDA
+    division by a host scalar multiplies by its reciprocal instead, one
+    rounding away from the CPU's (and the JAX package's) quotient."""
+    return x / torch.full_like(x, divisor)
+
+
+def _col(x, k: int = 1):
+    """A per-robot value [...] as [..., 1 (k times)], to broadcast
+    against k trailing per-sample axes."""
+    return x.reshape(x.shape + (1,) * k)
 
 
 # ---------------------------------------------------------------------------
@@ -183,38 +200,83 @@ class SolveResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _device_window(spec: SolverSpec, current_vel, limits, time_step):
+    """On-device dynamic window (fleet mode), float32 with the JAX
+    package's operation order: values ``lo + k * res`` and an inclusion
+    mask with a small tolerance at the boundary.
+
+    current_vel [..., 3], limits [..., 9] (per axis: max, acc, decel),
+    time_step [...] -> ``VelocityWindow`` of [..., n] tensors."""
+    vx0, vy0, w0 = (current_vel[..., i] for i in range(3))
+    lim = [limits[..., i] for i in range(9)]
+    dt = time_step
+    device = current_vel.device
+
+    def axis(v0, vmax, acc, dec, n):
+        # clamp the reported velocity into the limit band first: a
+        # non-omni robot of a mixed fleet carries zeroed vy limits
+        v0 = torch.minimum(torch.maximum(v0, -vmax), vmax)
+        hi = torch.minimum(vmax, v0 + acc * dt)
+        lo = torch.maximum(-vmax, v0 - dec * dt)
+        res = torch.clamp(_div(hi - lo, max(n - 1, 1)), min=0.001)
+        vals = _col(lo) + torch.arange(n, dtype=torch.float32, device=device) * _col(res)
+        mask = vals <= _col(hi + 1e-5 * torch.abs(hi) + 1e-7)
+        return vals, mask
+
+    vx_vals, vx_mask = axis(vx0, *lim[0:3], spec.n_vx)
+    if spec.is_omni:
+        vy_vals, vy_mask = axis(vy0, *lim[3:6], spec.n_vy)
+    else:
+        vy_vals = vx_vals.new_zeros(vx_vals.shape[:-1] + (spec.n_vy,))
+        vy_mask = (torch.arange(spec.n_vy, device=device) == 0).expand(
+            vy_vals.shape
+        )
+    w_vals, w_mask = axis(w0, *lim[6:9], spec.n_omega)
+    return VelocityWindow(vx_vals, vx_mask, vy_vals, vy_mask, w_vals, w_mask)
+
+
 def _each(x, k: int):
-    """[n] -> [n * k], every element k times in a row (a view expand, so
-    no device sync as repeat_interleave may need)."""
-    return x[:, None].expand(x.shape[0], k).reshape(-1)
+    """[..., n] -> [..., n * k], every element k times in a row (a view
+    expand, so no device sync as repeat_interleave may need)."""
+    return x.unsqueeze(-1).expand(x.shape + (k,)).reshape(x.shape[:-1] + (-1,))
+
+
+def _tile(x, k: int):
+    """[..., n] -> [..., k * n], the whole row k times."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    return x.unsqueeze(-2).expand(lead + (k, n)).reshape(lead + (k * n,))
 
 
 def _build_velocity_grid(spec: SolverSpec, window):
-    """Per-sample velocities [S, 3] + validity [S] in the reference's
-    sampling order (vx outer loop ascending; for omni the vy block
-    precedes the omega block per vx)."""
+    """Per-sample velocities [..., S, 3] + validity [..., S] in the
+    reference's sampling order (vx outer loop ascending; for omni the vy
+    block precedes the omega block per vx)."""
     vx_vals, vx_mask, vy_vals, vy_mask, w_vals, w_mask = window
     if not spec.is_omni:
         vx = _each(vx_vals, spec.n_omega)
-        w = w_vals.repeat(spec.n_vx)
+        w = _tile(w_vals, spec.n_vx)
         valid = (
             _each(vx_mask, spec.n_omega)
-            & w_mask.repeat(spec.n_vx)
+            & _tile(w_mask, spec.n_vx)
             & (vx.abs() >= MIN_VEL)
         )
         return torch.stack([vx, torch.zeros_like(vx), w], dim=-1), valid
 
     # omni: per vx, first the (vx, vy, 0) block then the (vx, 0, omega) block
+    lead = vx_vals.shape[:-1]
     blk = spec.n_vy + spec.n_omega
     vx = _each(vx_vals, blk)
-    vy = torch.cat([vy_vals, vy_vals.new_zeros(spec.n_omega)]).repeat(spec.n_vx)
-    w = torch.cat([w_vals.new_zeros(spec.n_vy), w_vals]).repeat(spec.n_vx)
-    ones_w = w_mask.new_ones(spec.n_omega)
-    ones_vy = vy_mask.new_ones(spec.n_vy)
-    blk_valid = (
-        torch.cat([vy_mask, ones_w]) & torch.cat([ones_vy, w_mask])
-    ).repeat(spec.n_vx)
-    is_omega = torch.cat([~ones_vy, ones_w]).repeat(spec.n_vx)
+    vy = _tile(torch.cat([vy_vals, vy_vals.new_zeros(lead + (spec.n_omega,))], -1),
+               spec.n_vx)
+    w = _tile(torch.cat([w_vals.new_zeros(lead + (spec.n_vy,)), w_vals], -1),
+              spec.n_vx)
+    ones_w = w_mask.new_ones(lead + (spec.n_omega,))
+    ones_vy = vy_mask.new_ones(lead + (spec.n_vy,))
+    blk_valid = _tile(
+        torch.cat([vy_mask, ones_w], -1) & torch.cat([ones_vy, w_mask], -1),
+        spec.n_vx,
+    )
+    is_omega = _tile(torch.cat([~ones_vy, ones_w], -1), spec.n_vx)
     # the omega block needs |vx| >= MIN_VEL; an all-~0 sample is skipped
     nonzero = (vx.abs() >= MIN_VEL) | (vy.abs() >= MIN_VEL) | (w.abs() >= MIN_VEL)
     valid = (
@@ -229,20 +291,29 @@ def _build_velocity_grid(spec: SolverSpec, window):
 def _rollout(spec: SolverSpec, params: SolverParams, state, vels):
     """Constant-velocity unicycle rollout in closed form: the position at
     step t uses the heading yaw0 + omega * t * dt before the step, so the
-    [S, T] rollout is an f32 prefix sum of rotated displacements."""
-    dt = params.time_step
-    x0, y0, yaw0 = state[0], state[1], state[2]
+    [..., S, T] rollout is an f32 prefix sum of rotated displacements."""
+    dt = _col(params.time_step, 2)
+    x0, y0, yaw0 = (_col(state[..., i], 2) for i in range(3))
     t = torch.arange(spec.max_points - 1, dtype=torch.float32, device=vels.device)
-    vx, vy, w = vels[:, 0:1], vels[:, 1:2], vels[:, 2:3]
-    yaw_t = yaw0 + w * t[None, :] * dt  # [S, T-1] heading before each step
+    vx, vy, w = vels[..., 0:1], vels[..., 1:2], vels[..., 2:3]
+    yaw_t = yaw0 + w * t * dt  # [..., S, T-1] heading before each step
     c = torch.cos(yaw_t)
     s = torch.sin(yaw_t)
     dx = (vx * c - vy * s) * dt
     dy = (vx * s + vy * c) * dt
-    start = vels.new_zeros(vels.shape[0], 1)
-    px = torch.cat([start + x0, x0 + torch.cumsum(dx, dim=1)], dim=1)
-    py = torch.cat([start + y0, y0 + torch.cumsum(dy, dim=1)], dim=1)
-    return px, py  # each [S, T]
+    start = vels.new_zeros(vels.shape[:-1] + (1,))
+    px = torch.cat([start + x0, x0 + _prefix_sum(dx)], dim=-1)
+    py = torch.cat([start + y0, y0 + _prefix_sum(dy)], dim=-1)
+    return px, py  # each [..., S, T]
+
+
+def _prefix_sum(d):
+    """Sequential f32 prefix sum along the last axis. The scan runs along
+    a leading axis of the transposed copy: PyTorch's CUDA kernel then
+    adds in sequence per column, the CPU's order (so the card's rollout
+    equals the CPU's bit for bit), and at [64, 2025, 29] it takes a
+    fraction of the innermost-axis scan's 0.75 ms."""
+    return torch.cumsum(d.transpose(-1, -2).contiguous(), dim=-2).transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------------
@@ -256,17 +327,18 @@ def _admissibility(spec, params, d2_obs, active_points, valid):
     A sample collides at a checked pose t in [1, active_points - 1] when
     d2 < (radius + margin)^2. Drop mode rejects it; truncate mode keeps it
     when its last free pose lies past the control horizon."""
-    T = d2_obs.shape[1]
+    T = d2_obs.shape[-1]
     t_idx = torch.arange(T, device=d2_obs.device)
-    check_mask = (t_idx >= 1) & (t_idx <= active_points - 1)
-    r = params.robot_radius + params.collision_margin
-    collide = (d2_obs < r * r) & check_mask[None, :]
+    ap = _col(active_points)
+    check_mask = (t_idx >= 1) & (t_idx <= ap - 1)  # [..., T]
+    r = _col(params.robot_radius + params.collision_margin, 2)
+    collide = (d2_obs < r * r) & check_mask.unsqueeze(-2)
 
-    any_col = collide.any(dim=1)
-    first_hit = collide.to(torch.int32).argmax(dim=1)  # first True
+    any_col = collide.any(dim=-1)
+    first_hit = collide.to(torch.int32).argmax(dim=-1)  # first True
     first_bad_pose = torch.where(any_col, first_hit, T + 1)
     i_col = first_bad_pose - 1  # step index at which the loop broke
-    last_free = torch.where(i_col > 0, i_col - 1, active_points - 1)
+    last_free = torch.where(i_col > 0, i_col - 1, ap - 1)
 
     if spec.drop_samples:
         truncate_ok = torch.zeros_like(any_col)
@@ -274,7 +346,7 @@ def _admissibility(spec, params, d2_obs, active_points, valid):
         truncate_ok = (
             any_col
             & (last_free > spec.num_ctrl_points)
-            & (last_free < active_points - 1)
+            & (last_free < ap - 1)
         )
     admissible = valid & (~any_col | truncate_ok)
     return admissible, truncate_ok, i_col, last_free
@@ -283,16 +355,16 @@ def _admissibility(spec, params, d2_obs, active_points, valid):
 def _apply_truncation(px, py, vels, truncate_ok, i_col, last_free):
     """Zero the velocities from the collision step on and freeze the path
     at path[last_free] (the reference's exact fill point)."""
-    T = px.shape[1]
-    t_idx = torch.arange(T, device=px.device)[None, :]
-    j_idx = torch.arange(T - 1, device=px.device)[None, :]
-    lf = last_free[:, None]
-    freeze = truncate_ok[:, None] & (t_idx > i_col[:, None])
-    px = torch.where(freeze, px.gather(1, lf), px)
-    py = torch.where(freeze, py.gather(1, lf), py)
-    zero_vel = truncate_ok[:, None] & (j_idx >= i_col[:, None])  # [S, T-1]
-    vel_traj = torch.where(zero_vel[:, :, None], 0.0, vels[:, None, :])
-    return px, py, vel_traj, freeze
+    T = px.shape[-1]
+    t_idx = torch.arange(T, device=px.device)
+    j_idx = torch.arange(T - 1, device=px.device)
+    lf = last_free.unsqueeze(-1)
+    freeze = truncate_ok.unsqueeze(-1) & (t_idx > i_col.unsqueeze(-1))
+    px = torch.where(freeze, px.gather(-1, lf), px)
+    py = torch.where(freeze, py.gather(-1, lf), py)
+    zero_vel = truncate_ok.unsqueeze(-1) & (j_idx >= i_col.unsqueeze(-1))
+    vel_traj = torch.where(zero_vel.unsqueeze(-1), 0.0, vels.unsqueeze(-2))
+    return px, py, vel_traj, freeze  # vel_traj [..., S, T-1, 3]
 
 
 # ---------------------------------------------------------------------------
@@ -301,29 +373,31 @@ def _apply_truncation(px, py, vels, truncate_ok, i_col, last_free):
 
 
 def _trajectory_end_points(px, py, active_points):
-    """[S] end-point coordinates at index active_points - 1."""
-    idx = (active_points - 1).clamp(0, px.shape[1] - 1).reshape(1)
-    return px.index_select(1, idx)[:, 0], py.index_select(1, idx)[:, 0]
+    """[..., S] end-point coordinates at index active_points - 1."""
+    idx = (active_points - 1).clamp(0, px.shape[-1] - 1).long()
+    idx = _col(idx, 2).expand(px.shape[:-1] + (1,))
+    return px.gather(-1, idx)[..., 0], py.gather(-1, idx)[..., 0]
 
 
 def _path_cost(px, py, d2_seg, seg_last_xy, seg_total_len, active_points):
     """Average distance of the active rollout points to the tracked
     segment plus the normalised end-point distance, halved.
 
-    ``d2_seg``: per-point min squared segment distance [S, T] from the
-    fused sweep. A zero-length segment skips the normalised end term."""
-    T = px.shape[1]
-    pt_mask = torch.arange(T, device=px.device) < active_points
+    ``d2_seg``: per-point min squared segment distance [..., S, T] from
+    the fused sweep. A zero-length segment skips the normalised end term."""
+    T = px.shape[-1]
+    pt_mask = torch.arange(T, device=px.device) < _col(active_points)
     d = torch.sqrt(d2_seg)
-    avg = torch.where(pt_mask[None, :], d, 0.0).sum(dim=1) / active_points.to(
-        torch.float32
+    avg = torch.where(pt_mask.unsqueeze(-2), d, 0.0).sum(dim=-1) / _col(
+        active_points.to(torch.float32)
     )
     end_x, end_y = _trajectory_end_points(px, py, active_points)
-    ex = end_x - seg_last_xy[0]
-    ey = end_y - seg_last_xy[1]
+    ex = end_x - _col(seg_last_xy[0])
+    ey = end_y - _col(seg_last_xy[1])
+    seg_len = _col(seg_total_len)
     end_dist = torch.where(
-        seg_total_len > 0.0,
-        torch.sqrt(ex * ex + ey * ey) / torch.clamp(seg_total_len, min=1e-9),
+        seg_len > 0.0,
+        torch.sqrt(ex * ex + ey * ey) / torch.clamp(seg_len, min=1e-9),
         0.0,
     )
     return (avg + end_dist) / 2.0
@@ -333,49 +407,50 @@ def _goal_cost(px, py, seg_x, seg_y, seg_arc, ref_total_len, active_points):
     """Remaining arc length from the segment point nearest the end point,
     plus the normalised euclidean tie-breaker; first minimum wins."""
     end_x, end_y = _trajectory_end_points(px, py, active_points)
-    dx = end_x[:, None] - seg_x[None, :]
-    dy = end_y[:, None] - seg_y[None, :]
-    d2 = dx * dx + dy * dy  # [S, G]; pad rows sit at 1e8
-    j_star = torch.argmin(d2, dim=1)
-    min_d2 = torch.amin(d2, dim=1)
-    arc_at = seg_arc[j_star]
-    return (ref_total_len - arc_at) / ref_total_len + torch.sqrt(min_d2) / ref_total_len
+    dx = end_x.unsqueeze(-1) - seg_x.unsqueeze(-2)
+    dy = end_y.unsqueeze(-1) - seg_y.unsqueeze(-2)
+    d2 = dx * dx + dy * dy  # [..., S, G]; pad rows sit at 1e8
+    j_star = torch.argmin(d2, dim=-1)
+    min_d2 = torch.amin(d2, dim=-1)
+    arc_at = seg_arc.gather(-1, j_star)
+    ref = _col(ref_total_len)
+    return (ref - arc_at) / ref + torch.sqrt(min_d2) / ref
 
 
 def _obstacles_cost(d2_obs, max_obstacles_dist):
     """Linear decay 1 -> 0 over [0, max_obstacles_dist] of the rollout's
     minimum obstacle distance."""
-    d = torch.sqrt(torch.amin(d2_obs, dim=1))
-    return torch.clamp(max_obstacles_dist - d, min=0.0) / max_obstacles_dist
+    d = torch.sqrt(torch.amin(d2_obs, dim=-1))
+    reach = _col(max_obstacles_dist)
+    return torch.clamp(reach - d, min=0.0) / reach
 
 
 def _smoothness_cost(vel_traj, active_points, acc_limits):
     """Squared velocity first differences over the acceleration limits,
     averaged over 3 * (active_points - 1)."""
-    S, Tm1, _ = vel_traj.shape
-    j = torch.arange(Tm1, device=vel_traj.device)
-    dm = ((j >= 1) & (j <= active_points - 2))[1:]  # aligned with dv
-    dv = vel_traj[:, 1:, :] - vel_traj[:, :-1, :]  # [S, T-2, 3]
-    cost = vel_traj.new_zeros(S)
+    j = torch.arange(vel_traj.shape[-2], device=vel_traj.device)
+    dm = ((j >= 1) & (j <= _col(active_points) - 2))[..., 1:]  # aligned with dv
+    dv = vel_traj[..., 1:, :] - vel_traj[..., :-1, :]  # [..., S, T-2, 3]
+    cost = vel_traj.new_zeros(vel_traj.shape[:-2])
     for c, acc in enumerate(acc_limits):
-        dvc = dv[:, :, c]
-        term = torch.where(dm[None, :], dvc * dvc, 0.0).sum(dim=1) / acc
-        cost = cost + torch.where(acc > 0, term, 0.0)
-    return cost / (3.0 * (active_points - 1).to(torch.float32))
+        dvc = dv[..., c]
+        term = torch.where(dm.unsqueeze(-2), dvc * dvc, 0.0).sum(dim=-1) / _col(acc)
+        cost = cost + torch.where(_col(acc) > 0, term, 0.0)
+    return cost / _col(3.0 * (active_points - 1).to(torch.float32))
 
 
 def _jerk_cost(vel_traj, active_points, acc_limits):
     """Squared velocity second differences, normalised like smoothness."""
-    S, Tm1, _ = vel_traj.shape
-    j = torch.arange(Tm1, device=vel_traj.device)
-    dm = ((j >= 2) & (j <= active_points - 2))[2:]
-    ddv = vel_traj[:, 2:, :] - 2.0 * vel_traj[:, 1:-1, :] + vel_traj[:, :-2, :]
-    cost = vel_traj.new_zeros(S)
+    j = torch.arange(vel_traj.shape[-2], device=vel_traj.device)
+    dm = ((j >= 2) & (j <= _col(active_points) - 2))[..., 2:]
+    ddv = (vel_traj[..., 2:, :] - 2.0 * vel_traj[..., 1:-1, :]
+           + vel_traj[..., :-2, :])
+    cost = vel_traj.new_zeros(vel_traj.shape[:-2])
     for c, acc in enumerate(acc_limits):
-        ddc = ddv[:, :, c]
-        term = torch.where(dm[None, :], ddc * ddc, 0.0).sum(dim=1) / acc
-        cost = cost + torch.where(acc > 0, term, 0.0)
-    return cost / (3.0 * (active_points - 1).to(torch.float32))
+        ddc = ddv[..., c]
+        term = torch.where(dm.unsqueeze(-2), ddc * ddc, 0.0).sum(dim=-1) / _col(acc)
+        cost = cost + torch.where(_col(acc) > 0, term, 0.0)
+    return cost / _col(3.0 * (active_points - 1).to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -383,68 +458,97 @@ def _jerk_cost(vel_traj, active_points, acc_limits):
 # ---------------------------------------------------------------------------
 
 
+def _sweeps(obs_xy, obs_vel, time_step, seg_x, seg_y, active_points):
+    """The fused sweep of this tick as a function of the rollout points:
+    the moving kernel when ``obs_vel`` is given, the static one else."""
+    obs_xy, seg_x, seg_y = (t.contiguous() for t in (obs_xy, seg_x, seg_y))
+    active_points = active_points.contiguous()
+    if obs_vel is None:
+        return lambda px, py: fused_min_dist_sq(
+            px, py, obs_xy, seg_x, seg_y, active_points
+        )
+    obs_vel, time_step = obs_vel.contiguous(), time_step.contiguous()
+    return lambda px, py: fused_min_dist_sq_moving(
+        px, py, obs_xy, obs_vel, time_step, seg_x, seg_y, active_points
+    )
+
+
 def dwa_solve(
     spec: SolverSpec,
     params: SolverParams,
-    state,  # [3] x, y, yaw (world)
-    window,  # VelocityWindow of tensors (host-built values, padded)
-    obs_xy,  # [R, 2] obstacle points, world frame, padded with 1e8
-    obs_count,  # 0-d int32: number of real obstacle points
-    seg_x,  # [SEG] tracked segment x, padded with 1e8
-    seg_y,  # [SEG]
-    seg_arc,  # [SEG] absolute prefix arc length on the full path
-    seg_count,  # 0-d int32
-    seg_total_len,  # 0-d f32 (View.totalSegmentLength)
-    ref_total_len,  # 0-d f32 (full interpolated path length)
-    active_points,  # 0-d int32 <= spec.max_points (adaptive horizon)
+    state,  # [..., 3] x, y, yaw (world)
+    window,  # VelocityWindow of [..., n] tensors (padded)
+    obs_xy,  # [..., R, 2] obstacle points, world frame, padded with 1e8
+    obs_count,  # [...] int32: number of real obstacle points
+    seg_x,  # [..., SEG] tracked segment x, padded with 1e8
+    seg_y,  # [..., SEG]
+    seg_arc,  # [..., SEG] absolute prefix arc length on the full path
+    seg_count,  # [...] int32
+    seg_total_len,  # [...] f32 (View.totalSegmentLength)
+    ref_total_len,  # [...] f32 (full interpolated path length)
+    active_points,  # [...] int32 <= spec.max_points (adaptive horizon)
+    obs_vel=None,  # [..., R, 2] world obstacle velocities (moving mode)
 ) -> SolveResult:
-    """One DWA tick on the device of ``state``: the first-minimum
-    trajectory over the dynamic window. Every tensor argument lies on
-    that device."""
+    """One DWA tick per robot on the device of ``state``: the
+    first-minimum trajectory over the dynamic window. Every tensor
+    argument lies on that device and carries the same leading robot
+    dimensions (none for one robot)."""
     _check_ported(spec)
-    S, T = spec.num_samples, spec.max_points
+    T = spec.max_points
     vels, valid = _build_velocity_grid(spec, window)
     px, py = _rollout(spec, params, state, vels)
 
     # both O(S * T * rows) sweeps in one fused pass; the obstacle field
-    # serves collision and the obstacle cost, the segment field the path cost
-    d2_obs, d2_seg = fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points)
+    # serves collision and the obstacle cost, the segment field the path
+    # cost. With velocities the obstacle rows move (TPU kernel K3's port)
+    moving = spec.moving_obstacles and obs_vel is not None
+    sweep = _sweeps(obs_xy, obs_vel if moving else None, params.time_step,
+                    seg_x, seg_y, active_points)
+    d2_obs, d2_seg = sweep(px, py)
 
     admissible, truncate_ok, i_col, last_free = _admissibility(
         spec, params, d2_obs, active_points, valid
     )
     if spec.drop_samples:
         # drop mode never truncates: constant velocity along every row
-        vel_traj = vels[:, None, :].expand(S, T - 1, 3)
+        vel_traj = vels.unsqueeze(-2).expand(vels.shape[:-1] + (T - 1, 3))
     else:
         px, py, vel_traj, frozen = _apply_truncation(
             px, py, vels, truncate_ok, i_col, last_free
         )
-        # frozen points sit at path[last_free]: both fields take their
-        # value there instead of a second sweep
-        lf = last_free[:, None]
-        d2_obs = torch.where(frozen, d2_obs.gather(1, lf), d2_obs)
-        d2_seg = torch.where(frozen, d2_seg.gather(1, lf), d2_seg)
+        if moving:
+            # a frozen point keeps its position while time still
+            # advances, so the obstacle track keeps moving relative to
+            # it: sweep again from the truncated positions, with the same
+            # kernel, so the cost sees the field admissibility was
+            # decided on
+            d2_obs, d2_seg = sweep(px, py)
+        else:
+            # frozen points sit at path[last_free]: both fields take
+            # their value there instead of a second sweep
+            lf = last_free.unsqueeze(-1)
+            d2_obs = torch.where(frozen, d2_obs.gather(-1, lf), d2_obs)
+            d2_seg = torch.where(frozen, d2_seg.gather(-1, lf), d2_seg)
 
     acc_limits = (params.acc_limit_vx, params.acc_limit_vy, params.acc_limit_omega)
-    total = px.new_zeros(S)
+    total = px.new_zeros(px.shape[:-1])
 
     has_path = ref_total_len > 0.0
-    last_i = torch.clamp(seg_count - 1, min=0).reshape(1)
-    seg_last_xy = (seg_x.index_select(0, last_i)[0], seg_y.index_select(0, last_i)[0])
+    last_i = _col(torch.clamp(seg_count - 1, min=0).long())
+    seg_last_xy = (seg_x.gather(-1, last_i)[..., 0], seg_y.gather(-1, last_i)[..., 0])
 
     goal = _goal_cost(px, py, seg_x, seg_y, seg_arc, ref_total_len, active_points)
     total = total + torch.where(
-        has_path & (params.weight_goal > 0), params.weight_goal * goal, 0.0
+        _col(has_path & (params.weight_goal > 0)), _col(params.weight_goal) * goal, 0.0
     )
     pathc = _path_cost(px, py, d2_seg, seg_last_xy, seg_total_len, active_points)
     total = total + torch.where(
-        has_path & (params.weight_path > 0), params.weight_path * pathc, 0.0
+        _col(has_path & (params.weight_path > 0)), _col(params.weight_path) * pathc, 0.0
     )
     obst = _obstacles_cost(d2_obs, params.max_obstacles_dist)
     total = total + torch.where(
-        (obs_count > 0) & (params.weight_obstacles > 0),
-        params.weight_obstacles * obst,
+        _col((obs_count > 0) & (params.weight_obstacles > 0)),
+        _col(params.weight_obstacles) * obst,
         0.0,
     )
     if not spec.drop_samples:
@@ -452,26 +556,28 @@ def dwa_solve(
         # smoothness and jerk are exactly zero
         smooth = _smoothness_cost(vel_traj, active_points, acc_limits)
         total = total + torch.where(
-            params.weight_smoothness > 0, params.weight_smoothness * smooth, 0.0
+            _col(params.weight_smoothness > 0),
+            _col(params.weight_smoothness) * smooth, 0.0,
         )
         jerk = _jerk_cost(vel_traj, active_points, acc_limits)
         total = total + torch.where(
-            params.weight_jerk > 0, params.weight_jerk * jerk, 0.0
+            _col(params.weight_jerk > 0), _col(params.weight_jerk) * jerk, 0.0
         )
 
     costs = torch.where(admissible, total, _INF)
-    best = torch.argmin(costs)  # first minimum, like the reference's `<` scan
-    row = best.reshape(1)
+    best = torch.argmin(costs, dim=-1)  # first minimum, like the reference's `<` scan
+    row = best.unsqueeze(-1)
+    win_vel = vel_traj.gather(-3, _col(row, 2).expand(row.shape + (T - 1, 3)))
+    win_x = px.gather(-2, _col(row).expand(row.shape + (T,)))
+    win_y = py.gather(-2, _col(row).expand(row.shape + (T,)))
     return SolveResult(
-        found=admissible.any(),
-        cost=costs.index_select(0, row)[0],
+        found=admissible.any(dim=-1),
+        cost=costs.gather(-1, row)[..., 0],
         best_index=best,
-        velocities=vel_traj.index_select(0, row)[0],
-        path=torch.stack(
-            [px.index_select(0, row)[0], py.index_select(0, row)[0]], dim=-1
-        ),
+        velocities=win_vel[..., 0, :, :],
+        path=torch.stack([win_x[..., 0, :], win_y[..., 0, :]], dim=-1),
         costs=costs,
-        num_admissible=admissible.sum().to(torch.int32),
+        num_admissible=admissible.sum(dim=-1).to(torch.int32),
     )
 
 
@@ -496,6 +602,7 @@ def packed_input_size(spec: SolverSpec) -> int:
         + _window_block_size(spec)
         + 2 * spec.scan_size
         + 3 * spec.seg_size
+        # trailing [vx | vy] obstacle-velocity block (moving mode only)
         + (2 * spec.scan_size if spec.moving_obstacles else 0)
     )
 
@@ -521,7 +628,9 @@ def pack_solver_input(
 ):
     """Serialize one tick's dynamic inputs into the packed buffer (host,
     numpy). Pass ``window=None`` with ``current_vel``/``limits_vec`` when
-    the spec uses device-window mode."""
+    the spec uses device-window mode. ``obs_vel_xy`` fills the trailing
+    velocity block of a ``moving_obstacles`` spec (omitted: zeros, the
+    static world)."""
     if spec.device_window and window is not None:
         raise ValueError(
             "spec.device_window=True: pass window=None with "
@@ -574,52 +683,73 @@ def pack_solver_input(
 
 
 def _unpack_inputs(spec: SolverSpec, buf):
-    """Parse the packed layout from a 1-D float32 tensor, on its device.
-    Returns (params, state, window, obs_xy, obs_count, seg_x, seg_y,
-    seg_arc, seg_count, seg_total_len, ref_total_len, active_points)."""
-    p = buf[8:20]
-    params = SolverParams(*p.unbind(0))
+    """Parse the packed layout from a float32 tensor [..., size], on its
+    device (leading dimensions are robots). Returns (params, state,
+    window, obs_xy, obs_count, seg_x, seg_y, seg_arc, seg_count,
+    seg_total_len, ref_total_len, active_points, obs_vel), the arguments
+    of ``dwa_solve``; obs_vel is None unless the spec is moving."""
+    params = SolverParams(*buf[..., 8:20].unbind(-1))
     o = _HDR
-    window = []
-    for n in (spec.n_vx, spec.n_vy, spec.n_omega):
-        window += [buf[o : o + n], buf[o + n : o + 2 * n] > 0.5]
-        o += 2 * n
+    if spec.device_window:
+        window = _device_window(
+            spec, buf[..., o : o + 3], buf[..., o + 3 : o + 12], params.time_step
+        )
+        o += _window_block_size(spec)
+    else:
+        arrays = []
+        for n in (spec.n_vx, spec.n_vy, spec.n_omega):
+            arrays += [buf[..., o : o + n], buf[..., o + n : o + 2 * n] > 0.5]
+            o += 2 * n
+        window = VelocityWindow(*arrays)
     r = spec.scan_size
-    obs_xy = torch.stack([buf[o : o + r], buf[o + r : o + 2 * r]], dim=1)
+    obs_xy = torch.stack([buf[..., o : o + r], buf[..., o + r : o + 2 * r]], dim=-1)
     o += 2 * r
     g = spec.seg_size
+    seg = [buf[..., o + k * g : o + (k + 1) * g] for k in range(3)]
+    o += 3 * g
+    obs_vel = None
+    if spec.moving_obstacles:
+        obs_vel = torch.stack(
+            [buf[..., o : o + r], buf[..., o + r : o + 2 * r]], dim=-1
+        )
     return (
         params,
-        buf[0:3],
-        VelocityWindow(*window),
+        buf[..., 0:3],
+        window,
         obs_xy,
-        buf[3].to(torch.int32),
-        buf[o : o + g],
-        buf[o + g : o + 2 * g],
-        buf[o + 2 * g : o + 3 * g],
-        buf[4].to(torch.int32),
-        buf[5],
-        buf[6],
-        buf[7].to(torch.int32),
+        buf[..., 3].to(torch.int32),
+        *seg,
+        buf[..., 4].to(torch.int32),
+        buf[..., 5],
+        buf[..., 6],
+        buf[..., 7].to(torch.int32),
+        obs_vel,
     )
 
 
 def _unpack_and_solve(spec: SolverSpec, buf):
-    """Unpack on the device, solve, and pack the output vector:
-    [found, cost, best_index, num_admissible,
-     vx[T-1], vy[T-1], omega[T-1], px[T], py[T]]."""
-    res = dwa_solve(spec, *_unpack_inputs(spec, buf))
+    """Unpack on the device, solve as a batch of one robot, and pack the
+    output vector: [found, cost, best_index, num_admissible,
+    vx[T-1], vy[T-1], omega[T-1], px[T], py[T]]."""
+    res = dwa_solve(spec, *_unpack_inputs(spec, buf.unsqueeze(0)))
     head = torch.stack(
         [
             res.found.to(torch.float32),
             res.cost,
             res.best_index.to(torch.float32),
             res.num_admissible.to(torch.float32),
-        ]
+        ],
+        dim=-1,
     )
-    return torch.cat(
-        [head, res.velocities.T.reshape(-1), res.path.T.reshape(-1)]
+    out = torch.cat(
+        [
+            head,
+            res.velocities.transpose(-1, -2).flatten(-2),
+            res.path.transpose(-1, -2).flatten(-2),
+        ],
+        dim=-1,
     )
+    return out[0]
 
 
 def unpack_solver_output(spec: SolverSpec, out):
@@ -644,12 +774,6 @@ def make_packed_dwa_solver(spec: SolverSpec, device):
     or tensor) -> f32[4 + 3*(T-1) + 2*T] tensor on ``device``. The input
     goes to the device in one copy; nothing in the solve waits for the
     device, so the caller's read of the output is the tick's one sync."""
-    if spec.dynamic_box:
-        raise ValueError(
-            "dynamic_box specs are not supported by the packed"
-            " single-buffer interface; use the fleet tick"
-            " or a static spec.collision_box"
-        )
     _check_ported(spec)
     device = torch.device(device)
     size = packed_input_size(spec)

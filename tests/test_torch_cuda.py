@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips on a host without a CUDA device (the
 decision is taken inside the test, never at import). Run on a GPU host
@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from kompass_core_tpu_torch.ops import kernels, solver
+from kompass_core_tpu_torch.parallel import DeviceFleet
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +98,97 @@ def test_packed_solve_on_card_matches_cpu(cuda):
     assert out[0] == ref[0] and out[3] == ref[3]  # found, num_admissible
     np.testing.assert_allclose(out[1], ref[1], rtol=1e-4)
     np.testing.assert_allclose(out[4:], ref[4:], rtol=1e-5, atol=1e-5)
+
+
+def _moving_case(seed, B, S, T, O, G, device):
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, span=10.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * span).to(device)
+
+    return (u(B, S, T), u(B, S, T), u(B, O, 2), u(B, O, 2, span=1.5),
+            (0.05 + torch.rand(B, generator=g) * 0.1).to(device), u(B, G), u(B, G))
+
+
+@pytest.mark.parametrize(
+    "B,S,T,O,G,active",
+    [(1, 2025, 30, 512, 384, 30), (1, 2025, 30, 512, 384, 11),
+     (3, 37, 7, 700, 333, 5), (8, 2025, 30, 768, 384, 30)],
+)
+def test_moving_kernel_bit_identical_to_plain(cuda, B, S, T, O, G, active):
+    px, py, obs, vel, dt, sx, sy = _moving_case(S + O + B, B, S, T, O, G, cuda)
+    vel[:, -5:] = 0.0
+    obs[:, -5:] = 1e8  # pad rows
+    ap = torch.full((B,), active, dtype=torch.int32, device=cuda)
+    before = kernels.fused_min_dist_sq_moving.launches
+    got = kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)
+    want = kernels.fused_min_dist_sq_reference(px, py, obs, sx, sy, ap, vel, dt)
+    torch.cuda.synchronize()
+    assert kernels.fused_min_dist_sq_moving.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+        assert bool(torch.isinf(g[..., active:]).all())
+
+
+def test_moving_kernel_at_zero_velocity_equals_the_static_kernel(cuda):
+    px, py, obs, vel, dt, sx, sy = _moving_case(5, 4, 300, 30, 512, 384, cuda)
+    ap = torch.tensor([30, 17, 2, 30], dtype=torch.int32, device=cuda)
+    moving = kernels.fused_min_dist_sq_moving(
+        px, py, obs, torch.zeros_like(vel), dt, sx, sy, ap
+    )
+    static = kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap)
+    for m, st in zip(moving, static):
+        assert torch.equal(m, st)
+
+
+def test_batched_static_kernel_equals_per_robot_launches(cuda):
+    px, py, obs, _, _, sx, sy = _moving_case(6, 5, 2025, 30, 768, 384, cuda)
+    ap = torch.tensor([30, 17, 2, 30, 9], dtype=torch.int32, device=cuda)
+    batch = kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap)
+    for b in range(5):
+        one = kernels.fused_min_dist_sq(px[b], py[b], obs[b], sx[b], sy[b], ap[b])
+        for g, w in zip(batch, one):
+            assert torch.equal(g[b], w)
+
+
+def test_fleet_tick_on_card_matches_cpu(cuda):
+    """Four diff-drive robots with tracked movers: the same fleet tick on
+    the card and on the CPU gives the same found, num_admissible and
+    command, and the cost within rel 1e-4; one moving-sweep launch."""
+    from kompass_core_tpu_torch.control import DWAConfig
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
+        RobotGeometry, RobotType,
+    )
+
+    robots = [Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+                    geometry_type=RobotGeometry.Type.CYLINDER,
+                    geometry_params=np.array([0.2, 0.4])) for _ in range(4)]
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
+        omega_limits=AngularCtrlLimits(max_vel=2.0, max_acc=6.0, max_decel=6.0),
+    )
+    config = DWAConfig(max_linear_samples=12, max_angular_samples=12,
+                       prediction_horizon=20, control_horizon=2)
+    fleets = [DeviceFleet(robots, limits, config, 128, path_capacity=1024,
+                          max_segments=16, tracked_obstacles=2, device=d)
+              for d in (cuda, "cpu")]
+    rng = np.random.default_rng(0)
+    states = np.zeros((4, 4), np.float32)
+    states[:, 0] = 0.0137
+    states[:, 1] = 2.0 * np.arange(4)
+    vels = np.tile(np.float32([0.4, 0.0, 0.1]), (4, 1))
+    ranges = rng.uniform(0.8, 10.0, (4, 128)).astype(np.float32)
+    angles = np.linspace(-np.pi, np.pi, 128, endpoint=False)
+    tracked = np.full((4, 2, 4), np.nan, np.float32)
+    tracked[:, 0] = (2.0, 1.0, 0.0, -0.6)
+    tracked[:, 0, 1] += states[:, 1]
+    for f in fleets:
+        f.set_paths([np.array([[0.0, 2.0 * i], [6.0, 2.0 * i]]) for i in range(4)])
+    before = kernels.fused_min_dist_sq_moving.launches
+    gpu, cpu = (f.tick(states, vels, ranges, angles, tracked=tracked) for f in fleets)
+    assert kernels.fused_min_dist_sq_moving.launches == before + 1
+    for key in ("found", "reached", "num_admissible", "active_points", "vx",
+                "vy", "omega"):
+        np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=key)
+    np.testing.assert_allclose(gpu["cost"], cpu["cost"], rtol=1e-4)

@@ -7,6 +7,10 @@ which is then advanced with the JAX command. The commanded velocities
 must agree within 1e-4 per tick (the solver parity tolerance; the
 rollouts differ only in the last bits, see ``test_torch_solver.py``).
 The port must also reach the goal on its own.
+
+In moving-obstacle mode the two controllers run in lockstep on the
+crossing-mover scenario of ``tests/test_moving_obstacles.py``, with the
+same command tolerance.
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from kompass_core_tpu.models import (
     RobotType,
 )
 from kompass_core_tpu_torch.control import DWA, DWAConfig, TrajectoryCostsWeights
+from kompass_core_tpu_torch.parallel import DeviceFleet
 
 from test_dwa_closed_loop import make_global_path
 
@@ -251,10 +256,9 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 3c"):
         DWA(robot=_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)),
             ctrl_limits=_limits(), device="cpu")
-    config = _config(4, 0.0, cls=DWAConfig)
-    config.moving_obstacles = True
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        DWA(robot=_robot(), ctrl_limits=_limits(), config=config, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5c"):
+        DeviceFleet([_robot()], _limits(), _config(4, 0.0, cls=DWAConfig),
+                    scan_rays=16, peer_avoidance=True, device="cpu")
     dwa = DWA(robot=_robot(), ctrl_limits=_limits(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 3e"):
         dwa.add_custom_cost(1.0, lambda *a: 0.0)
@@ -269,3 +273,113 @@ def test_check_states_feasibility():
     free = [RobotState(x=0.0, y=0.0), RobotState(x=0.0, y=0.5)]
     assert not dwa.check_states_feasibility(free, laser_scan=scan)
     assert dwa.check_states_feasibility([RobotState(x=0.95, y=0.0)], laser_scan=scan)
+
+
+# --- moving obstacles --------------------------------------------------------
+
+
+def _moving_pair(moving=True):
+    """The crossing-mover controllers of tests/test_moving_obstacles.py,
+    one per package."""
+    robot = _robot(RobotType.DIFFERENTIAL_DRIVE, params=(0.2, 0.5))
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=10.0, max_decel=10.0),
+        omega_limits=AngularCtrlLimits(
+            max_vel=2.0, max_acc=6.0, max_decel=6.0, max_steer=np.pi
+        ),
+    )
+    config = JaxDWAConfig(
+        max_linear_samples=8, max_angular_samples=8, prediction_horizon=20,
+        control_horizon=2, control_time_step=0.1, moving_obstacles=moving,
+        costs_weights=TrajectoryCostsWeights(
+            reference_path_distance_weight=2.0, goal_distance_weight=1.0,
+            obstacles_distance_weight=0.5, smoothness_weight=0.0,
+            jerk_weight=0.0,
+        ),
+    )
+    pair = (JaxDWA(robot=robot, ctrl_limits=limits, config=config),
+            DWA(robot=robot, ctrl_limits=limits, config=config, device="cpu"))
+    for d in pair:
+        d.set_path(np.array([[0.0, 0.0], [6.0, 0.0]]))
+        d.set_current_state(0.0, 0.0, 0.0)
+    return pair
+
+
+def test_moving_obstacle_disc_matches_jax():
+    args = ((1.0, 1.2), 0.15, (0.0, -1.2), 6)
+    for got, want in zip(DWA.tracked_obstacle_disc(*args),
+                         JaxDWA.tracked_obstacle_disc(*args)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_moving_lockstep_crossing_mover():
+    """A mover crossing the path at 1.2 m/s, given as a tracked disc with
+    its velocity: both packages give the same command every tick (the
+    state advanced with the JAX command, the mover along its track), and
+    the port's first plan clears the mover's track, which the static
+    model does not."""
+    jdwa, tdwa = _moving_pair()
+    center, vel = np.array([1.0, 1.2]), np.array([0.0, -1.2])
+    x = y = yaw = 0.0
+    vx, om = 0.9, 0.0
+    dt = 0.1
+    for tick in range(25):
+        pts, vels = DWA.tracked_obstacle_disc(center, 0.1, vel)
+        res = []
+        for d in (jdwa, tdwa):
+            d.set_current_state(x, y, yaw, vx)
+            res.append(d.compute_velocity_commands(
+                (vx, 0.0, om), map_points_world=pts,
+                obstacle_velocities_world=vels,
+            ))
+        assert res[1].is_found == res[0].is_found, f"tick {tick}"
+        if not res[0].is_found:
+            break
+        np.testing.assert_allclose(_commands(tdwa), _commands(jdwa),
+                                   atol=CMD_TOL, err_msg=f"tick {tick}")
+        assert res[1].cost == pytest.approx(res[0].cost, rel=1e-4)
+        if tick == 0:
+            t = np.arange(len(res[1].trajectory.path_x)) * dt
+            gap = np.hypot(res[1].trajectory.path_x - (center[0] + vel[0] * t),
+                           res[1].trajectory.path_y - (center[1] + vel[1] * t))
+            assert gap.min() > 0.25
+        vx, om = float(jdwa.linear_x_control[0]), float(jdwa.angular_control[0])
+        yaw += om * dt
+        x += vx * np.cos(yaw) * dt
+        y += vx * np.sin(yaw) * dt
+        center = center + vel * dt
+    assert x > 1.0, "the robot did not get past the crossing"
+
+
+def test_moving_nan_velocity_rows_are_dropped():
+    """A NaN velocity row is dropped like a NaN position: the tick finds a
+    finite command, the same as without that row, and the same as JAX."""
+    jdwa, tdwa = _moving_pair()
+    pts = np.array([[0.6, 0.0], [2.0, 2.0]])
+    vels = np.array([[np.nan, 0.0], [0.0, -1.0]])
+    res = [d.compute_velocity_commands((0.5, 0.0, 0.0), map_points_world=pts,
+                                       obstacle_velocities_world=vels)
+           for d in (jdwa, tdwa)]
+    assert res[1].is_found and np.isfinite(res[1].cost)
+    np.testing.assert_allclose(_commands(tdwa), _commands(jdwa), atol=CMD_TOL)
+    _, clean = _moving_pair()
+    res_clean = clean.compute_velocity_commands(
+        (0.5, 0.0, 0.0), map_points_world=pts[1:], obstacle_velocities_world=vels[1:]
+    )
+    np.testing.assert_array_equal(res[1].trajectory.path_x,
+                                  res_clean.trajectory.path_x)
+
+
+def test_moving_input_guards():
+    _, static = _moving_pair(moving=False)
+    with pytest.raises(ValueError, match="moving_obstacles=True"):
+        static.compute_velocity_commands(
+            (0.5, 0.0, 0.0), map_points_world=np.array([[1.0, 1.0]]),
+            obstacle_velocities_world=np.array([[0.0, 1.0]]),
+        )
+    _, moving = _moving_pair()
+    with pytest.raises(ValueError, match="align"):
+        moving.compute_velocity_commands(
+            (0.5, 0.0, 0.0), map_points_world=np.array([[1.0, 1.0]]),
+            obstacle_velocities_world=np.zeros((2, 2)),
+        )

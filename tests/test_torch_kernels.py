@@ -16,6 +16,18 @@ bit-identical to it on the card by ``chip_smoke.py`` and
   expansion cancels with an absolute error of a few f32 ulps of
   |p|^2 + |o|^2, so the points stay within +-1.5 m here, where that error
   is below 1e-5.
+
+The moving sweep (``fused_min_dist_sq_moving``, the port of TPU kernel K3)
+is held against:
+
+- the XLA form ``_min_obstacle_dist_sq_moving`` bit for bit: the same
+  operations in the same order (tau = f32(t) * dt, o + v * tau, then the
+  direct square), and XLA contracts none of them on the CPU;
+- the TPU kernel ``_fused_kernel_vpu_moving`` in Pallas interpret mode at
+  rel 1e-4 / atol 1e-5 over +-1.5 m and +-1 m/s: its 7-feature expansion
+  cancels like the static expansion, plus the |v|^2 tau^2 term;
+- the static sweep, bit for bit, at zero velocity;
+- per-robot calls, bit for bit, when robots go in one batch.
 """
 
 import numpy as np
@@ -25,9 +37,16 @@ import torch
 import jax.numpy as jnp
 
 from kompass_core_tpu.ops.pallas_kernels import fused_min_dist_sq as jax_fused
-from kompass_core_tpu.ops.solver import _min_obstacle_dist_sq
+from kompass_core_tpu.ops.solver import (
+    _min_obstacle_dist_sq,
+    _min_obstacle_dist_sq_moving,
+)
 from kompass_core_tpu_torch.ops import kernels
-from kompass_core_tpu_torch.ops.kernels import fused_min_dist_sq
+from kompass_core_tpu_torch.ops.kernels import (
+    fused_min_dist_sq,
+    fused_min_dist_sq_moving,
+    fused_min_dist_sq_reference,
+)
 
 torch.set_num_threads(2)
 
@@ -196,3 +215,176 @@ def test_library_path_is_keyed_by_the_sources():
     path = kernels.library_path()
     assert path.parent.parent == kernels.BUILD_DIR
     assert path == kernels.library_path()
+
+
+# --- the moving sweep (TPU kernel K3's port) and the robot axis --------------
+
+
+def _velocities(seed, O, vmax=1.0):
+    rng = np.random.default_rng(seed + 1000)
+    return rng.uniform(-vmax, vmax, (O, 2)).astype(np.float32)
+
+
+def _port_moving(d, vel, dt, active):
+    return fused_min_dist_sq_moving(
+        torch.from_numpy(d["px"]), torch.from_numpy(d["py"]),
+        torch.from_numpy(d["obs"]), torch.from_numpy(vel),
+        torch.tensor(dt, dtype=torch.float32), torch.from_numpy(d["sx"]),
+        torch.from_numpy(d["sy"]), torch.tensor(active, dtype=torch.int32),
+    )
+
+
+@pytest.mark.parametrize("seed,active", [(0, 12), (1, 9), (2, 2)])
+def test_moving_sweep_matches_jax_xla_moving_sweep_exactly(seed, active):
+    d = _inputs(seed)
+    vel = _velocities(seed, d["obs"].shape[0])
+    d2o, d2s = _port_moving(d, vel, 0.1, active)
+    T = d["px"].shape[1]
+    ref = _min_obstacle_dist_sq_moving(
+        jnp.asarray(d["px"]), jnp.asarray(d["py"]), jnp.asarray(d["obs"]),
+        jnp.asarray(vel), jnp.float32(0.1), jnp.arange(T) < active,
+    )
+    np.testing.assert_array_equal(d2o.numpy(), np.asarray(ref))
+    # the segment rows never move
+    np.testing.assert_array_equal(d2s.numpy(), _port(d, active)[1].numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moving_sweep_matches_tpu_kernel_interpret(seed):
+    d = _inputs(seed, span=1.5, obs_span=1.5)
+    vel = _velocities(seed, d["obs"].shape[0])
+    active = 9
+    T = d["px"].shape[1]
+    d2o, d2s = _port_moving(d, vel, 0.1, active)
+    ref_o, ref_s = jax_fused(
+        jnp.asarray(d["px"]), jnp.asarray(d["py"]), jnp.asarray(d["obs"]),
+        jnp.asarray(d["sx"]), jnp.asarray(d["sy"]), jnp.arange(T) < active,
+        variant="vpu", obs_vel=jnp.asarray(vel), time_step=jnp.float32(0.1),
+        interpret=True,
+    )
+    for got, ref in ((d2o.numpy(), ref_o), (d2s.numpy(), ref_s)):
+        np.testing.assert_allclose(
+            got[:, :active], np.asarray(ref)[:, :active], rtol=1e-4, atol=1e-5
+        )
+        assert np.isinf(np.asarray(ref)[:, active:]).all()
+        assert np.isinf(got[:, active:]).all()
+
+
+@pytest.mark.parametrize("dt", [0.1, 0.05])
+def test_zero_velocity_equals_the_static_sweep_bit_for_bit(dt):
+    d = _inputs(8)
+    d["obs"][:5] = 1e8  # pad rows
+    d["obs"][5, 0] = -0.0
+    static = _port(d, 10)
+    moving = _port_moving(d, np.zeros_like(d["obs"]), dt, 10)
+    for a, b in zip(static, moving):
+        assert torch.equal(a, b)
+
+
+def test_moving_pad_rows_with_zero_velocity_never_win():
+    d = _inputs(9, O=8)
+    vel = _velocities(9, 8)
+    d["obs"][4:] = 1e8
+    vel[4:] = 0.0
+    with_pads = _port_moving(d, vel, 0.1, 12)
+    d4 = dict(d, obs=d["obs"][:4].copy())
+    without = _port_moving(d4, vel[:4].copy(), 0.1, 12)
+    for a, b in zip(with_pads, without):
+        assert torch.equal(a, b)
+
+
+def test_moving_nan_propagates_like_amin():
+    d = _inputs(10, S=4, T=3, O=8, G=8)
+    vel = _velocities(10, 8)
+    vel[3, 1] = np.nan
+    d2o, d2s = _port_moving(d, vel, 0.1, 3)
+    # tau = 0 at t = 0 still gives NaN * 0 = NaN
+    assert np.isnan(d2o.numpy()).all()
+    assert np.isfinite(d2s.numpy()).all()
+
+
+def _batch(seeds, S=24, T=9, O=40, G=32):
+    ds = [_inputs(s, S=S, T=T, O=O, G=G) for s in seeds]
+    vels = [_velocities(s, O) for s in seeds]
+    stack = {k: torch.from_numpy(np.stack([d[k] for d in ds])) for k in ds[0]}
+    return ds, vels, stack, torch.from_numpy(np.stack(vels))
+
+
+@pytest.mark.parametrize("moving", [False, True])
+def test_batched_sweep_equals_per_robot_calls_bit_for_bit(moving):
+    """Three robots with their own rows, horizon and step in one call
+    give each robot's own call's values exactly."""
+    ds, vels, st, vel_b = _batch([11, 12, 13])
+    active = [9, 4, 2]
+    dts = [0.1, 0.05, 0.2]
+    ap = torch.tensor(active, dtype=torch.int32)
+    if moving:
+        got = fused_min_dist_sq_moving(
+            st["px"], st["py"], st["obs"], vel_b, torch.tensor(dts), st["sx"],
+            st["sy"], ap,
+        )
+    else:
+        got = fused_min_dist_sq(st["px"], st["py"], st["obs"], st["sx"], st["sy"], ap)
+    for b, d in enumerate(ds):
+        want = (_port_moving(d, vels[b], dts[b], active[b]) if moving
+                else _port(d, active[b]))
+        for g, w in zip(got, want):
+            assert g.shape == (3,) + w.shape
+            assert torch.equal(g[b], w)
+
+
+def test_batched_plain_version_slabs_span_robots(monkeypatch):
+    """Slabs that hold several whole robots, or part of one, give the
+    values of one broadcast."""
+    _, _, st, vel_b = _batch([14, 15, 16, 17], S=10, T=5, O=12, G=12)
+    args = (st["px"], st["py"], st["obs"], st["sx"], st["sy"],
+            torch.tensor([5, 3, 5, 1], dtype=torch.int32), vel_b,
+            torch.tensor([0.1, 0.1, 0.2, 0.3]))
+    whole = fused_min_dist_sq_reference(*args)
+    for elems in (2 * 10 * 5 * 12, 3 * 5 * 12):
+        monkeypatch.setattr(kernels, "_SLAB_ELEMS", elems)
+        for a, b in zip(whole, fused_min_dist_sq_reference(*args)):
+            assert torch.equal(a, b)
+
+
+def test_cpu_moving_run_does_not_count_a_launch():
+    before = (fused_min_dist_sq.launches, fused_min_dist_sq_moving.launches)
+    d = _inputs(6, S=4, T=3, O=8, G=8)
+    _port_moving(d, _velocities(6, 8), 0.1, 3)
+    assert (fused_min_dist_sq.launches, fused_min_dist_sq_moving.launches) == before
+
+
+@pytest.mark.parametrize(
+    "change,error",
+    [
+        (dict(vel=lambda t: t[:-1].contiguous()), ValueError),
+        (dict(vel=lambda t: t.double()), TypeError),
+        (dict(dt=lambda t: t.reshape(1).repeat(2)), TypeError),
+        (dict(active=lambda t: t.reshape(1).repeat(2)), TypeError),
+        (dict(vel=lambda t: t.T.contiguous().T), ValueError),
+    ],
+)
+def test_moving_wrapper_rejects_what_the_kernel_does_not_take(change, error):
+    d = _inputs(7, S=6, T=6, O=8, G=8)
+    args = dict(
+        px=torch.from_numpy(d["px"]), py=torch.from_numpy(d["py"]),
+        obs=torch.from_numpy(d["obs"]), vel=torch.from_numpy(_velocities(7, 8)),
+        dt=torch.tensor(0.1), sx=torch.from_numpy(d["sx"]),
+        sy=torch.from_numpy(d["sy"]), active=torch.tensor(6, dtype=torch.int32),
+    )
+    for k, fn in change.items():
+        args[k] = fn(args[k])
+    with pytest.raises(error):
+        fused_min_dist_sq_moving(*args.values())
+
+
+def test_batched_wrapper_rejects_mismatched_robot_axes():
+    _, _, st, vel_b = _batch([18, 19])
+    ap = torch.tensor([9, 9], dtype=torch.int32)
+    with pytest.raises(ValueError, match="per robot"):
+        fused_min_dist_sq(st["px"], st["py"], st["obs"][:1], st["sx"], st["sy"], ap)
+    with pytest.raises(ValueError, match=r"\[B\]"):
+        fused_min_dist_sq(st["px"], st["py"], st["obs"], st["sx"], st["sy"], ap[:1])
+    with pytest.raises(ValueError, match="dt"):
+        fused_min_dist_sq_moving(st["px"], st["py"], st["obs"], vel_b,
+                                 torch.tensor([0.1]), st["sx"], st["sy"], ap)

@@ -13,6 +13,11 @@ feeds both packages. Required, per tick:
 - ``best_index`` equal, or a tie: the JAX costs of both winners within
   rel 1e-6;
 - the packed output vectors agree (winning command and path at 1e-5).
+
+The same holds in moving-obstacle mode (each obstacle at o + v * t * dt,
+TPU kernel K3's function) in drop and truncate mode, and in device-window
+mode, whose float32 window must equal the JAX one bit for bit. A batch of
+robots through one ``dwa_solve`` gives each robot's own solve exactly.
 """
 
 import dataclasses
@@ -33,6 +38,7 @@ from kompass_core_tpu.ops.window import (
     sample_velocity_window,
 )
 from kompass_core_tpu_torch.ops import solver as tsolver
+from kompass_core_tpu_torch.ops.fleet_solver import FleetSpec, make_fleet_tick
 from kompass_core_tpu_torch.ops.kernels import fused_min_dist_sq_reference
 from kompass_core_tpu_torch.ops.window import VelocityWindow
 
@@ -56,8 +62,9 @@ def _jax_spec(is_omni, drop, n_lin=5, n_ang=4, max_points=12, scan=64, seg=128):
     )
 
 
-def _pack(jspec, sc):
-    """The JAX package's packing of one randomized oracle-style scenario."""
+def _pack(jspec, sc, obs_vel=None):
+    """The JAX package's packing of one randomized oracle-style scenario
+    (``obs_vel`` [n_obs, 2] fills a moving spec's velocity block)."""
     limits = sc["limits"].copy()
     if not jspec.is_omni:
         limits[3:6] = 0.0
@@ -84,11 +91,19 @@ def _pack(jspec, sc):
     args = (params_vec, sc["start_pose"], window, obs, len(sc["obs"]),
             seg[0], seg[1], seg_arc, n_seg, sc["seg_total"], sc["ref_total"],
             sc["active_points"])
+    kw = {}
+    if jspec.device_window:
+        args = args[:2] + (None,) + args[3:]
+        kw = dict(current_vel=sc["current_vel"], limits_vec=limits)
+    if obs_vel is not None:
+        vel = np.zeros((jspec.scan_size, 2), np.float32)
+        vel[: len(obs_vel)] = obs_vel
+        kw["obs_vel_xy"] = vel
     buf = np.zeros(jsolver.packed_input_size(jspec), np.float32)
-    jsolver.pack_solver_input(jspec, buf, *args)
+    jsolver.pack_solver_input(jspec, buf, *args, **kw)
     tspec = tsolver.spec_from_jax(jspec)
     tbuf = np.zeros(tsolver.packed_input_size(tspec), np.float32)
-    tsolver.pack_solver_input(tspec, tbuf, *args)
+    tsolver.pack_solver_input(tspec, tbuf, *args, **kw)
     assert tbuf.tobytes() == buf.tobytes(), "packed layouts diverged"
     return buf
 
@@ -99,7 +114,8 @@ _JAX_SOLVERS = {}
 def _jax_solve(jspec, buf):
     if jspec not in _JAX_SOLVERS:
         def solve(b):
-            res = jsolver.dwa_solve(jspec, *jsolver._unpack_inputs(jspec, b)[:12])
+            u = jsolver._unpack_inputs(jspec, b)
+            res = jsolver.dwa_solve(jspec, *u[:12], obs_vel=u[12])
             return res, jsolver._unpack_and_solve(jspec, b)
 
         _JAX_SOLVERS[jspec] = jax.jit(solve)
@@ -355,15 +371,27 @@ def test_spec_from_jax_rejects_other_backends():
         tsolver.spec_from_jax(jspec)
 
 
+def _split_mover_tick(spec):
+    fleet = FleetSpec(
+        dataclasses.replace(spec, moving_obstacles=True, device_window=True),
+        path_capacity=64, max_segments=4, tracked_obstacles=1,
+        split_mover_sweep=True,
+    )
+    return make_fleet_tick(fleet, CPU)
+
+
 @pytest.mark.parametrize(
-    "change,item",
-    [(dict(collision_box=(0.25, 0.15)), "3c"), (dict(moving_obstacles=True), "3d"),
-     (dict(device_window=True), "5")],
+    "build,item",
+    [(lambda s: tsolver.make_packed_dwa_solver(
+        dataclasses.replace(s, collision_box=(0.25, 0.15)), CPU), "3c"),
+     (lambda s: tsolver.make_packed_dwa_solver(
+         dataclasses.replace(s, dynamic_box=True), CPU), "3c"),
+     (_split_mover_tick, "5e")],
 )
-def test_unported_modes_raise_naming_their_roadmap_item(change, item):
-    spec = dataclasses.replace(tsolver.spec_from_jax(_jax_spec(False, True)), **change)
+def test_unported_modes_raise_naming_their_roadmap_item(build, item):
+    spec = tsolver.spec_from_jax(_jax_spec(False, True))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tsolver.make_packed_dwa_solver(spec, CPU)
+        build(spec)
 
 
 def test_packed_solver_rejects_a_wrong_size_buffer():
@@ -371,3 +399,142 @@ def test_packed_solver_rejects_a_wrong_size_buffer():
     solve = tsolver.make_packed_dwa_solver(spec, CPU)
     with pytest.raises(ValueError, match="packed input"):
         solve(np.zeros(tsolver.packed_input_size(spec) + 1, np.float32))
+
+
+# --- moving obstacles (K3's function), device window, robot axis ------------
+
+
+def _moving_scenario(rng, is_omni, active):
+    """An oracle-style scenario whose obstacles move at up to 1.2 m/s."""
+    sc = _scenario_inputs(rng, is_omni, active)
+    vel = rng.uniform(-1.2, 1.2, (len(sc["obs"]), 2)).astype(np.float32)
+    return sc, vel
+
+
+@pytest.mark.parametrize(
+    "name,seed,is_omni,drop",
+    [("diff_drive_drop", 55, False, True),
+     ("diff_drive_truncate", 66, False, False),
+     ("omni_truncate", 77, True, False)],
+)
+def test_moving_packed_tick_parity(name, seed, is_omni, drop):
+    jspec = dataclasses.replace(_jax_spec(is_omni, drop), moving_obstacles=True)
+    rng = np.random.default_rng(seed)
+    for i in range(8):
+        active = int(rng.integers(4, jspec.max_points + 1))
+        buf = _pack(jspec, *_moving_scenario(rng, is_omni, active))
+        try:
+            assert_tick_parity(*_jax_solve(jspec, buf), *_port_solve(jspec, buf))
+        except AssertionError as e:
+            raise AssertionError(f"[{name} scenario {i}] {e}") from e
+
+
+def test_moving_truncate_mode_sweeps_again_from_the_frozen_points():
+    """An obstacle crossing ahead: truncated samples exist, their costs
+    come from a second moving sweep over the frozen points (the frozen
+    pose keeps meeting the moving track), and they match JAX."""
+    jspec = dataclasses.replace(
+        _jax_spec(False, False, n_lin=3, n_ang=3, max_points=20, scan=32, seg=64),
+        moving_obstacles=True,
+    )
+    rng = np.random.default_rng(1)
+    sc = _scenario_inputs(rng, False, 20)
+    sc.update(
+        obs=np.array([[1.0, 0.6]]), start_pose=(0.0, 0.0, 0.0),
+        current_vel=(0.9, 0.0, 0.0), radius=0.2, margin=0.05,
+        seg_x=np.linspace(0, 3.9, 40), seg_y=np.zeros(40),
+        seg_arc=np.linspace(0, 3.9, 40), seg_total=3.9, ref_total=3.9,
+    )
+    sc["limits"][:3] = (1.0, 5.0, 10.0)
+    buf = _pack(jspec, sc, np.array([[0.0, -0.5]], np.float32))
+    jres, jout = _jax_solve(jspec, buf)
+    tres, tout = _port_solve(jspec, buf)
+    assert_tick_parity(jres, jout, tres, tout)
+    drop_res, _ = _port_solve(dataclasses.replace(jspec, drop_samples=True), buf)
+    assert int(tres.num_admissible) > int(drop_res.num_admissible)
+
+
+def test_moving_spec_with_zero_velocity_equals_the_static_spec():
+    """The velocity block at zero gives the static solve's output vector
+    bit for bit."""
+    jspec = _jax_spec(False, False)
+    mspec = dataclasses.replace(jspec, moving_obstacles=True)
+    rng = np.random.default_rng(3)
+    sc = _scenario_inputs(rng, False, 10)
+    _, static_out = _port_solve(jspec, _pack(jspec, sc))
+    _, moving_out = _port_solve(mspec, _pack(mspec, sc, np.zeros((len(sc["obs"]), 2))))
+    np.testing.assert_array_equal(static_out, moving_out)
+
+
+def test_velocities_need_the_moving_spec():
+    tspec = tsolver.spec_from_jax(_jax_spec(False, True))
+    buf = np.zeros(tsolver.packed_input_size(tspec), np.float32)
+    rng = np.random.default_rng(4)
+    sc = _scenario_inputs(rng, False, 10)
+    window = sample_velocity_window((0.2, 0.0, 0.0), sc["limits"], 0.1,
+                                    tspec.n_vx, tspec.n_vy, tspec.n_omega, False)
+    obs = np.full((tspec.scan_size, 2), 1e8, np.float32)
+    seg = np.zeros(tspec.seg_size, np.float32)
+    with pytest.raises(ValueError, match="moving_obstacles=False"):
+        tsolver.pack_solver_input(
+            tspec, buf, np.zeros(12, np.float32), (0.0, 0.0, 0.0), window, obs,
+            0, seg, seg, seg, 1, 0.0, 1.0, 10, obs_vel_xy=np.zeros_like(obs),
+        )
+
+
+@pytest.mark.parametrize("is_omni", [False, True])
+def test_device_window_equals_jax_bit_for_bit(is_omni):
+    from kompass_core_tpu.ops.solver import _device_window as jax_device_window
+
+    jspec = dataclasses.replace(_jax_spec(is_omni, True, n_lin=7, n_ang=9),
+                                device_window=True)
+    tspec = tsolver.spec_from_jax(jspec)
+    rng = np.random.default_rng(9)
+    for _ in range(20):
+        vel = rng.uniform(-1.5, 1.5, 3).astype(np.float32)
+        limits = rng.uniform(0.0, 4.0, 9).astype(np.float32)
+        if rng.integers(0, 2):
+            limits[3:6] = 0.0  # a non-omni row of a mixed fleet
+        dt = np.float32(rng.choice([0.1, 0.05, 0.2]))
+        jw = jax_device_window(jspec, jnp.asarray(vel), jnp.asarray(limits),
+                               jnp.float32(dt))
+        tw = tsolver._device_window(tspec, torch.from_numpy(vel),
+                                    torch.from_numpy(limits), torch.tensor(dt))
+        for j, t in zip(jw, tw):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("is_omni,moving", [(False, False), (True, True)])
+def test_device_window_packed_tick_parity(is_omni, moving):
+    jspec = dataclasses.replace(_jax_spec(is_omni, True), device_window=True,
+                                moving_obstacles=moving)
+    rng = np.random.default_rng(88)
+    for i in range(6):
+        sc, vel = _moving_scenario(rng, is_omni, int(rng.integers(4, 13)))
+        buf = _pack(jspec, sc, vel if moving else None)
+        try:
+            assert_tick_parity(*_jax_solve(jspec, buf), *_port_solve(jspec, buf))
+        except AssertionError as e:
+            raise AssertionError(f"[scenario {i}] {e}") from e
+
+
+@pytest.mark.parametrize("drop,moving", [(True, True), (False, False), (False, True)])
+def test_batched_solve_equals_per_robot_solves(drop, moving):
+    """Three packed buffers solved as one [3, ...] batch give each
+    robot's own solve bit for bit: the robot axis changes no value."""
+    jspec = dataclasses.replace(_jax_spec(False, drop), moving_obstacles=moving)
+    tspec = tsolver.spec_from_jax(jspec)
+    rng = np.random.default_rng(99)
+    bufs = []
+    for _ in range(3):
+        sc, vel = _moving_scenario(rng, False, int(rng.integers(4, 13)))
+        bufs.append(_pack(jspec, sc, vel if moving else None))
+    batch = tsolver.dwa_solve(
+        tspec, *tsolver._unpack_inputs(tspec, torch.from_numpy(np.stack(bufs)))
+    )
+    for b, buf in enumerate(bufs):
+        one = tsolver.dwa_solve(
+            tspec, *tsolver._unpack_inputs(tspec, torch.from_numpy(buf[None]))
+        )
+        for field, got, want in zip(one._fields, batch, one):
+            assert torch.equal(got[b], want[0]), field
