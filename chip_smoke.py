@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the DWA control tick and of the device fleet
-tick once on an NVIDIA GPU.
+"""Drive the PyTorch port of the DWA control tick, of the device fleet
+tick and of the local occupancy mapper once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -30,11 +30,28 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
    exactly once, makes no host sync between its input copy and its
    output copy, and on 4 ticks the rows of 4 sampled robots agree with
    the port's CPU tick on those robots' inputs and carry.
-6. Times: the single-robot tick latency over 220 ticks; K1 and its plain
+6. The mapper's per-cell kernel (K5's port) against its plain version on
+   the card, bit for bit, plain and Bayesian: 400 x 400 / 3600 with 0,
+   NaN and +inf beams; a ragged 333 x 517 / 1000 grid with an offset,
+   rotated laser; a batch of 64 robots against 64 one-robot launches.
+7. The mapping slice end to end: a Bayesian 400 x 400 ``LocalMapper`` on
+   ``cuda`` walking the S-curve for 30 updates from 3600-ray scans of the
+   posts and corridor walls, one 100k-point cloud update, and one call of
+   each 64-robot fleet mapper. Every update launches K5 exactly once; on
+   4 updates, the cloud update and 4 fleet robots the port's CPU run of
+   the same inputs gives the same layers, except cells that a beam whose
+   table differs between the devices explains (their count is printed).
+8. Times: the single-robot tick latency over 220 ticks; K1 and its plain
    version at the flagship shapes over 100 distinct inputs, in turns; the
    tracked and the static 64-robot fleet tick over 100 ticks each (host
    clock and CUDA events); K3 and its plain version at the fleet shapes
-   over 10 distinct inputs, in turns.
+   over 10 distinct inputs, in turns; ``update_from_scan`` over 100
+   updates, Bayesian and plain, and its host parts; K5 and its plain
+   version at one and at 64 robots over 10 distinct inputs, in turns;
+   the 64-robot Bayesian fleet mapper per call.
+
+Launch counts: the counts are set to 0 before the mapping slice; the
+kernels line reports K1 and K3 from phases 4 and 5 and K5 from phase 7.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -121,15 +138,16 @@ def obstacle_circles():
 CORRIDOR_X = 5.0
 
 
-def cast_scan(state, circles):
-    """A 512-ray scan from the robot's pose against the posts and the
-    corridor walls (x = +-5); no hit within range gives +inf."""
+def cast_scan(state, circles, rays=RAYS):
+    """A scan of ``rays`` rays (512 by default) from the robot's pose
+    against the posts and the corridor walls (x = +-5); no hit within
+    range gives +inf."""
     from kompass_core_tpu_torch.datatypes import LaserScanData
 
-    angles = np.linspace(-np.pi, np.pi, RAYS, endpoint=False)
+    angles = np.linspace(-np.pi, np.pi, rays, endpoint=False)
     th = state.yaw + angles
     dx, dy = np.cos(th), np.sin(th)
-    best = np.full(RAYS, np.inf)
+    best = np.full(rays, np.inf)
     for cx, cy, r in circles:
         ox, oy = cx - state.x, cy - state.y
         b = dx * ox + dy * oy
@@ -806,6 +824,433 @@ def phase_fleet_times(kernels, device, card):
     return k_ms, p_ms
 
 
+# --- the mapping slice --------------------------------------------------------
+
+# Mapper_Dense_400x400 (kompass_core_tpu/benchmark/runner.py): 3600 rays
+# into a 400 x 400 grid at 0.05 m; the Bayesian form uses the reference
+# benchmark's sensor model (p_prior, p_empty, p_occupied, range_sure,
+# range_max, wall_size)
+MAP_SPEC = (400, 400, 3600, 0.05)
+MAP_RAGGED = (333, 517, 1000, 0.05, 0.13, -0.21, 0.4)
+MAP_RAYS = 3600
+BAYES_SCALARS = (0.6, 0.1, 0.9, 0.1, 20.0, 0.2)
+MAP_ROBOTS = 64
+MAP_UPDATES = 30
+MAP_CPU_UPDATES = (0, 10, 20, 29)
+MAP_CPU_ROBOTS = (0, 21, 42, 63)
+CLOUD_POINTS = 100_000
+MAP_TIMED = 100
+MAP_KERNEL_INPUTS = 10
+MAP_FLEET_TIMED = 20
+
+MAP_SOURCE = "kompass_core_tpu_torch/csrc/scan_to_grid.cu"
+MAP_REPLACES = "kompass_core_tpu/ops/mapping.py:244"
+
+
+class Pose2D:
+    def __init__(self, x, y, yaw):
+        self.x, self.y, self.yaw = x, y, yaw
+
+    def pose_data(self):
+        from kompass_core_tpu_torch.datatypes import PoseData
+
+        pose = PoseData()
+        pose.set_position(x=self.x, y=self.y, z=0.0)
+        pose.set_yaw(self.yaw)
+        return pose
+
+
+def mapping_poses(n, stride=2):
+    """Poses walking the S-curve, facing along it."""
+    path = reference_path()
+    poses = []
+    for k in range(n):
+        i = (stride * k) % (len(path) - 1)
+        (x0, y0), (x1, y1) = path[i], path[i + 1]
+        poses.append(Pose2D(x0, y0, math.atan2(y1 - y0, x1 - x0)))
+    return poses
+
+
+def scan_model(**overrides):
+    from kompass_core_tpu_torch.datatypes import ScanModelConfig
+
+    p_prior, _, p_occupied, range_sure, range_max, wall_size = BAYES_SCALARS
+    kw = dict(p_prior=p_prior, p_occupied=p_occupied, range_sure=range_sure,
+              range_max=range_max, wall_size=wall_size)
+    kw.update(overrides)
+    return ScanModelConfig(**kw)  # p_empty = 1 - p_occupied = 0.1
+
+
+def cloud_points(seed):
+    """Mapper_PointCloud_100k's cloud: ranges 0.5-9.9 m, z in +-0.5 m."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0.5, 9.9, CLOUD_POINTS)
+    a = rng.uniform(0, 2 * np.pi, CLOUD_POINTS)
+    return np.stack([r * np.cos(a), r * np.sin(a),
+                     rng.uniform(-0.5, 0.5, CLOUD_POINTS)], 1).astype(np.float32)
+
+
+def _map_ranges(spec, robots, seed):
+    """[robots, B] ranges of 0.5-9.9 m with 0, NaN and +inf beams."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0.5, 9.9, (robots, spec.num_bins)).astype(np.float32)
+    r[:, ::97] = 0.0
+    r[:, 7::211], r[:, 13::307] = np.nan, np.inf
+    return torch.from_numpy(r)
+
+
+def _map_inputs(spec, ranges, device, seed):
+    """The per-cell pass's inputs as the mapper builds them."""
+    import torch
+
+    from kompass_core_tpu_torch.ops import mapping
+
+    geo = mapping._geometry_for(spec, 0.0, device)
+    tables, endpoint = mapping._beam_side(spec, geo, ranges.to(device))
+    rng = np.random.default_rng(seed)
+    prev = torch.from_numpy(rng.uniform(
+        0.05, 0.95, (ranges.shape[0], spec.grid_height, spec.grid_width)
+    ).astype(np.float32)).to(device)
+    return geo, tables, endpoint, prev, mapping._params(device, *BAYES_SCALARS)
+
+
+def _check_grids_equal(name, got, want):
+    """torch.equal of each output pair; returns the max abs difference."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, float((g.double() - w.double()).abs().max()))
+        assert torch.equal(g, w), f"{name}: kernel != plain (max abs {err})"
+    return err
+
+
+def phase_mapper_kernel_vs_plain(kernels, device):
+    """K5 and its plain version on the same card tensors must be equal,
+    in the plain and the Bayesian form."""
+    from kompass_core_tpu_torch.ops.mapping import MapperSpec
+
+    full, ragged = MapperSpec(*MAP_SPEC), MapperSpec(*MAP_RAGGED)
+
+    def shape(spec):
+        return f"{spec.grid_height}x{spec.grid_width}/{spec.num_bins}"
+
+    cases = [
+        (f"{shape(full)} with 0, NaN and +inf beams", full, 1),
+        (f"{shape(ragged)}, offset rotated laser", ragged, 1),
+        (f"{shape(full)}, a batch of {MAP_ROBOTS} robots", full, MAP_ROBOTS),
+    ]
+    max_err = 0.0
+    for seed, (name, spec, robots) in enumerate(cases):
+        geo, tables, endpoint, prev, params = _map_inputs(
+            spec, _map_ranges(spec, robots, seed), device, seed)
+        for bayes in (False, True):
+            extra = (prev, params) if bayes else ()
+            form = "Bayesian" if bayes else "plain"
+            got = kernels.scan_to_grid_cells(geo.base, geo.dist_m, tables,
+                                             endpoint, spec.start_cell, *extra)
+            want = kernels.scan_to_grid_cells_reference(
+                geo.base, geo.dist_m, tables, endpoint, spec.start_cell, *extra)
+            got, want = (x if bayes else (x,) for x in (got, want))
+            max_err = max(max_err, _check_grids_equal(f"{name} {form}", got, want))
+            occ = got[0]
+            codes = set(occ.unique().tolist())
+            assert codes == {-1, 0, 100}, f"{name}: codes {codes}"
+            if bayes:
+                prob = got[1]
+                assert bool(((prob > 0) & (prob < 1)).all()), f"{name}: prob range"
+            for b in range(robots if robots > 1 else 0):
+                one = kernels.scan_to_grid_cells(
+                    geo.base, geo.dist_m, tables[b:b + 1].contiguous(),
+                    endpoint[b:b + 1].contiguous(), spec.start_cell,
+                    *((prev[b:b + 1].contiguous(), params) if bayes else ()))
+                one = one if bayes else (one,)
+                max_err = max(max_err, _check_grids_equal(
+                    f"{name} {form} robot {b}", [g[b] for g in got],
+                    [o[0] for o in one]))
+            log(f"K5 == plain ({form}): {name}"
+                + (f"; batch == {robots} one-robot launches" if robots > 1 else ""))
+    return max_err
+
+
+def _mapper_state(mapper):
+    prev = None if mapper._prev_prob is None else mapper._prev_prob.cpu()
+    return (mapper._spec, prev, mapper._pose_robot_in_world, mapper.processed,
+            mapper.is_pointcloud)
+
+
+def _device_ranges(mapper, scan, device):
+    """The uniform ranges ``mapper`` computes from ``scan`` on ``device``."""
+    import torch
+
+    from kompass_core_tpu_torch.datatypes import PointCloudData
+    from kompass_core_tpu_torch.ops import mapping
+
+    if isinstance(scan, PointCloudData):
+        m = mapper.scan_model
+        return mapping.get_pointcloud_to_scan(mapper._spec.num_bins, device)(
+            scan.points, m.range_max, m.min_height, m.max_height)
+    return torch.from_numpy(mapper._uniform_ranges(scan)).to(device)
+
+
+def _explained_cells(spec, ranges_gpu, ranges_cpu):
+    """(number of beams whose table row differs between the devices, the
+    cells such a beam can change: those reading it as a candidate and the
+    endpoint cells that differ)."""
+    import torch
+
+    from kompass_core_tpu_torch.ops import kernels, mapping
+
+    cpu = torch.device("cpu")
+    geo = mapping._geometry_for(spec, 0.0, cpu)
+    t_gpu, e_gpu = mapping._beam_side(spec, geo, ranges_gpu.cpu().reshape(1, -1))
+    t_cpu, e_cpu = mapping._beam_side(spec, geo, ranges_cpu.reshape(1, -1))
+    t_dev, e_dev = mapping._beam_side(
+        spec, mapping._geometry_for(spec, 0.0, ranges_gpu.device),
+        ranges_gpu.reshape(1, -1))
+    assert torch.equal(t_dev.cpu(), t_gpu) and torch.equal(e_dev.cpu(), e_gpu), (
+        "the card's beam side differs from the CPU's on the same ranges")
+    differs = (t_gpu != t_cpu).any(dim=-1)[0]  # [B]
+    k = torch.arange(kernels.CANDIDATES) - kernels.CANDIDATES // 2
+    bins = torch.remainder(geo.base.long()[..., None] + k, spec.num_bins)
+    explained = differs[bins].any(dim=-1) | (e_gpu != e_cpu)[0]
+    return int(differs.sum()), explained
+
+
+def _mapper_cpu_check(mapper, state, pose, scan, what):
+    """The same update run by the port on the CPU from the card mapper's
+    state before it: beam tables first, then every layer. Returns the
+    number of beams whose table differs between the devices."""
+    import torch
+
+    from kompass_core_tpu_torch.mapping import LocalMapper
+
+    cpu = LocalMapper(mapper.config, mapper.scan_model,
+                      mapper.pose_laserscanner_in_robot, device="cpu")
+    spec, prev, pose_before, processed, is_pointcloud = state
+    if processed:
+        cpu._spec, cpu._prev_prob = spec, prev
+        cpu._pose_robot_in_world, cpu.processed = pose_before, True
+        cpu.is_pointcloud = is_pointcloud
+    cpu.update_from_scan(pose, scan)
+    n_diff, explained = _explained_cells(
+        mapper._spec, _device_ranges(mapper, scan, mapper.device),
+        _device_ranges(cpu, scan, torch.device("cpu")))
+    explained = explained.numpy()
+    layers = [("occupancy", mapper.occupancy, cpu.occupancy),
+              ("probabilistic occupancy", mapper.probabilistic_occupancy,
+               cpu.probabilistic_occupancy)]
+    if mapper.config.baysian_update:
+        layers.append(("probability", mapper._prev_prob.cpu().numpy(),
+                       cpu._prev_prob.numpy()))
+        warped = mapper.previous_grid_prob_transformed
+        assert np.array_equal(warped, cpu.previous_grid_prob_transformed), (
+            f"{what}: the warped grid differs from the CPU")
+    for name, g, c in layers:
+        bad = (g != c) & ~explained
+        assert not bad.any(), (
+            f"{what}: {int(bad.sum())} {name} cells differ from the CPU that no "
+            f"differing beam explains ({n_diff} beams differ)")
+    return n_diff
+
+
+def _assert_grid(mapper, what):
+    occ = mapper.occupancy
+    assert occ.shape == (MAP_SPEC[0], MAP_SPEC[1]) and occ.dtype == np.int32, what
+    assert set(np.unique(occ).tolist()) <= {-1, 0, 100}, what
+    assert (occ == 100).any() and (occ == 0).any(), f"{what}: no hits or no free cells"
+    if mapper.config.baysian_update:
+        prob = mapper._prev_prob  # repeated evidence saturates at 0 or 1
+        assert bool(((prob >= 0) & (prob <= 1)).all()), f"{what}: probabilities"
+
+
+def phase_mapping(kernels, device):
+    """The mapping slice: a Bayesian 400 x 400 LocalMapper walking the
+    S-curve for 30 updates, one 100k-point cloud update, and one call of
+    each 64-robot fleet mapper, on cuda, held against the CPU."""
+    import torch
+
+    from kompass_core_tpu_torch.datatypes import PointCloudData
+    from kompass_core_tpu_torch.mapping import LocalMapper, MapConfig
+    from kompass_core_tpu_torch.ops import mapping
+
+    height, width, bins, res = MAP_SPEC
+    mapper = LocalMapper(MapConfig(width=width * res, height=height * res,
+                                   resolution=res, baysian_update=True),
+                         scan_model(), device=device)
+    circles = obstacle_circles()
+    beam_diffs = []
+    for k, pose in enumerate(mapping_poses(MAP_UPDATES)):
+        scan = cast_scan(pose, circles, MAP_RAYS)
+        state = _mapper_state(mapper) if k in MAP_CPU_UPDATES else None
+        before = kernels.scan_to_grid_cells.launches
+        mapper.update_from_scan(pose.pose_data(), scan)
+        assert kernels.scan_to_grid_cells.launches == before + 1, (
+            f"update {k}: {kernels.scan_to_grid_cells.launches - before} K5 launches")
+        _assert_grid(mapper, f"update {k}")
+        if state is not None:
+            beam_diffs.append(_mapper_cpu_check(mapper, state, pose.pose_data(),
+                                                scan, f"update {k}"))
+    assert mapper._spec == mapping.MapperSpec(height, width, bins, res)
+    log(f"mapping slice: {MAP_UPDATES} Bayesian updates of {height}x{width} from "
+        f"{MAP_RAYS} rays; CPU-checked updates {list(MAP_CPU_UPDATES)}, beams "
+        f"whose table differs between card and CPU {beam_diffs}")
+
+    cloud = LocalMapper(MapConfig(width=width * res, height=height * res,
+                                  resolution=res),
+                        scan_model(angle_step=2 * np.pi / bins, range_max=10.0,
+                                   min_height=-1.0, max_height=1.0),
+                        device=device)
+    scan = PointCloudData(points=cloud_points(7))
+    before = kernels.scan_to_grid_cells.launches
+    cloud.update_from_scan(Pose2D(0.0, 0.0, 0.0).pose_data(), scan)
+    assert kernels.scan_to_grid_cells.launches == before + 1
+    _assert_grid(cloud, "cloud update")
+    cloud_diffs = _mapper_cpu_check(cloud, _mapper_state(cloud), Pose2D(
+        0.0, 0.0, 0.0).pose_data(), scan, "cloud update")
+    log(f"cloud update: {CLOUD_POINTS} points into {height}x{width}/{bins}; "
+        f"beams whose table differs between card and CPU {cloud_diffs}")
+
+    spec = mapping.MapperSpec(*MAP_SPEC)
+    ranges = _map_ranges(spec, MAP_ROBOTS, 11)
+    prev = torch.from_numpy(np.random.default_rng(12).uniform(
+        0.05, 0.95, (MAP_ROBOTS, height, width)).astype(np.float32))
+    rows = list(MAP_CPU_ROBOTS)
+    fleet_diffs = []
+    for bayes in (False, True):
+        before = kernels.scan_to_grid_cells.launches
+        if bayes:
+            out = mapping.get_scan_to_grid_bayesian_fleet(spec, device)(
+                ranges, prev, *BAYES_SCALARS)
+        else:
+            out = (mapping.get_scan_to_grid_fleet(spec, device)(ranges),)
+        assert kernels.scan_to_grid_cells.launches == before + 1
+        if bayes:
+            cpu = mapping.get_scan_to_grid_bayesian_fleet(spec, "cpu")(
+                ranges[rows], prev[rows], *BAYES_SCALARS)
+        else:
+            cpu = (mapping.get_scan_to_grid_fleet(spec, "cpu")(ranges[rows]),)
+        assert out[0].shape == (MAP_ROBOTS, height, width)
+        for j, r in enumerate(rows):
+            n_diff, explained = _explained_cells(spec, ranges[r].to(device), ranges[r])
+            fleet_diffs.append(n_diff)
+            for g, c in zip(out, cpu):
+                bad = (g[r].cpu() != c[j]) & ~explained
+                assert not bad.any(), f"fleet robot {r}: {int(bad.sum())} cells differ"
+    log(f"fleet mappers: {MAP_ROBOTS} robots x {height}x{width}/{bins}, plain and "
+        f"Bayesian, one launch each; robots {rows} equal the CPU (beams whose "
+        f"table differs: {fleet_diffs})")
+
+
+def _percentiles(lat):
+    lat = sorted(lat)
+    return statistics.median(lat), lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
+
+
+def phase_mapping_times(kernels, device, card):
+    """update_from_scan latency, its host parts, K5 against its plain
+    version, and the 64-robot fleet mapper."""
+    import torch
+
+    from kompass_core_tpu_torch.mapping import LocalMapper, MapConfig
+    from kompass_core_tpu_torch.ops import mapping
+
+    height, width, bins, res = MAP_SPEC
+    circles = obstacle_circles()
+    poses = mapping_poses(TIMED_WARMUP + MAP_TIMED, stride=1)
+    scans = [cast_scan(p, circles, MAP_RAYS) for p in poses]
+    for bayes in (True, False):
+        mapper = LocalMapper(MapConfig(width=width * res, height=height * res,
+                                       resolution=res, baysian_update=bayes),
+                             scan_model(), device=device)
+        lat = []
+        for i, (pose, scan) in enumerate(zip(poses, scans)):
+            pose = pose.pose_data()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mapper.update_from_scan(pose, scan)
+            torch.cuda.synchronize()
+            if i >= TIMED_WARMUP:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        p50, p99 = _percentiles(lat)
+        log(f"update_from_scan ({'Bayesian' if bayes else 'plain'}, {height}x{width}"
+            f"/{bins}, {card}): host clock over {len(lat)} updates median "
+            f"{p50:.4f} ms, p99 {p99:.4f} ms, min {min(lat):.4f}, max {max(lat):.4f}")
+
+    # the host parts of one update
+    def host_ms(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    scan, limit = scans[0], mapper.config.filter_limit
+    filtered = np.minimum(limit, np.maximum(0.0, scan.ranges))
+    r_host = mapping.resample_scan_uniform(scan.angles, filtered, bins, limit)
+    grid = torch.zeros((2, height, width), dtype=torch.int32, device=device)
+    parts = {
+        "resample_scan_uniform": host_ms(lambda: mapping.resample_scan_uniform(
+            scan.angles, filtered, bins, limit)),
+        "H2D ranges (14.4 KB)": host_ms(lambda: torch.from_numpy(r_host).to(device)),
+        "D2H two int32 grids (1.28 MB)": host_ms(lambda: grid.cpu().numpy()),
+    }
+    log(f"update_from_scan host parts ({card}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+
+    spec = mapping.MapperSpec(*MAP_SPEC)
+    results = {}
+    for robots in (1, MAP_ROBOTS):
+        inputs = [_map_inputs(spec, _map_ranges(spec, robots, 20 + i), device, i)
+                  for i in range(MAP_KERNEL_INPUTS)]
+
+        def timed(fn):
+            for geo, tables, endpoint, prev, params in inputs[:2]:
+                fn(geo.base, geo.dist_m, tables, endpoint, spec.start_cell, prev, params)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for geo, tables, endpoint, prev, params in inputs:
+                fn(geo.base, geo.dist_m, tables, endpoint, spec.start_cell, prev, params)
+            stop.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(stop) / len(inputs)
+
+        runs = [("plain", timed(kernels.scan_to_grid_cells_reference)),
+                ("kernel", timed(kernels.scan_to_grid_cells)),
+                ("kernel", timed(kernels.scan_to_grid_cells)),
+                ("plain", timed(kernels.scan_to_grid_cells_reference))]
+        k_ms = statistics.mean(t for n, t in runs if n == "kernel")
+        p_ms = statistics.mean(t for n, t in runs if n == "plain")
+        results[robots] = (k_ms, p_ms)
+        log(f"scan_to_grid_cells (Bayesian) at {robots} x {height}x{width}/{bins} "
+            f"({card}), CUDA events over {MAP_KERNEL_INPUTS} distinct inputs, in "
+            f"turns {[f'{n} {t:.5f} ms' for n, t in runs]}: kernel {k_ms:.5f} ms, "
+            f"plain {p_ms:.5f} ms")
+
+    ranges = _map_ranges(spec, MAP_ROBOTS, 30).to(device)
+    prev = torch.full((MAP_ROBOTS, height, width), 0.6, device=device)
+    fleet = mapping.get_scan_to_grid_bayesian_fleet(spec, device)
+    lat = []
+    for i in range(3 + MAP_FLEET_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        occ, prob = fleet(ranges, prev, *BAYES_SCALARS)
+        torch.cuda.synchronize()
+        if i >= 3:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p99 = _percentiles(lat)
+    log(f"Bayesian fleet mapper, {MAP_ROBOTS} robots x {height}x{width}/{bins}, "
+        f"device-resident inputs ({card}): host clock over {len(lat)} calls median "
+        f"{p50:.4f} ms, p99 {p99:.4f} ms")
+    return results[1]
+
+
 def main() -> int:
     import torch
 
@@ -824,8 +1269,17 @@ def main() -> int:
     k3_err = phase_moving_vs_plain(kernels, device)
     k1_launches = phase_slice(kernels, device)
     k3_launches = phase_fleet(kernels, device)
+    k5_err = phase_mapper_kernel_vs_plain(kernels, device)
+    kernels.fused_min_dist_sq.launches = 0
+    kernels.fused_min_dist_sq_moving.launches = 0
+    kernels.scan_to_grid_cells.launches = 0
+    phase_mapping(kernels, device)
+    k5_launches = kernels.scan_to_grid_cells.launches
+    assert kernels.fused_min_dist_sq.launches == 0
+    assert kernels.fused_min_dist_sq_moving.launches == 0
     k1_ms, k1_plain_ms = phase_times(kernels, device, card)
     k3_ms, k3_plain_ms = phase_fleet_times(kernels, device, card)
+    k5_ms, k5_plain_ms = phase_mapping_times(kernels, device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
 
     log(card)
@@ -837,6 +1291,9 @@ def main() -> int:
          "source": KERNEL_SOURCE, "replaces": MOVING_REPLACES,
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms},
+        {"name": "scan_to_grid_cells", "route": "cuda", "source": MAP_SOURCE,
+         "replaces": MAP_REPLACES, "launches": k5_launches,
+         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

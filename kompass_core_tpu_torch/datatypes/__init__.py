@@ -7,3 +7,5 @@ from kompass_core_tpu.datatypes.path import (  # noqa: F401
     ReferencePath,
 )
 from kompass_core_tpu.datatypes.pointcloud import PointCloudData  # noqa: F401
+from kompass_core_tpu.datatypes.pose import PoseData  # noqa: F401
+from kompass_core_tpu.datatypes.scan_model import ScanModelConfig  # noqa: F401

@@ -1,7 +1,7 @@
-"""Hand-written CUDA kernels of the DWA tick, their plain PyTorch versions
-and their loader.
+"""Hand-written CUDA kernels of the port, their plain PyTorch versions and
+their loader.
 
-Both sweeps of the tick, the obstacle min-distance field and the
+The DWA tick's two sweeps, the obstacle min-distance field and the
 tracked-segment min-distance field, run in one pass over the rollout
 points, for one robot or a batch of robots (leading axis B):
 
@@ -15,9 +15,18 @@ points, for one robot or a batch of robots (leading axis B):
   at constant velocity, o + v * t * dt at rollout step t. The segment
   rows stay static.
 
-The kernel source is ``csrc/fused_min_dist.cu``. The kernels are compiled
-at first use with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface, loaded with ``ctypes``. The library goes into
+The occupancy mapper's per-cell pass is one kernel:
+
+- ``scan_to_grid_cells`` is the port of
+  ``kompass_core_tpu/ops/mapping.py::_banded_lookup_dot_pallas`` (K5, the
+  candidate-beam lookup of ``_candidate_lookup``), fused with what the
+  JAX package does with the candidates: the diamond line test, the
+  OCCUPIED / EMPTY / UNEXPLORED combine and, in the Bayesian form, the
+  inverse sensor model of the nearest covering beam.
+
+The kernel sources are ``csrc/*.cu``. They are compiled at first use with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
+loaded with ``ctypes``. The library goes into
 ``build/kompass_core_tpu_torch/<hash of the sources>/`` at the repository
 root. A missing ``nvcc`` or a failed build raises with the compiler's
 output; nothing falls back to the plain version.
@@ -111,6 +120,10 @@ def _library() -> ctypes.CDLL:
             lib.kompass_fused_min_dist_sq_moving.restype = ctypes.c_int
             lib.kompass_fused_min_dist_sq_moving.argtypes = [
                 p, p, i, i, i, p, p, p, i, p, p, i, p, p, p, p,
+            ]
+            lib.kompass_scan_to_grid_cells.restype = ctypes.c_int
+            lib.kompass_scan_to_grid_cells.argtypes = [
+                p, p, i, i, p, i, p, i, i, p, p, i, p, p, p,
             ]
             _lib = lib
     return _lib
@@ -292,3 +305,155 @@ def fused_min_dist_sq_moving(px, py, obs_xy, obs_vel, dt, seg_x, seg_y,
 
 fused_min_dist_sq.launches = 0
 fused_min_dist_sq_moving.launches = 0
+
+
+# --- the mapper's per-cell pass (K5) ------------------------------------------
+
+OCCUPIED, EMPTY, UNEXPLORED = 100, 0, -1
+CANDIDATES = 5  # beams per cell: its nearest bin and 2 on each side
+N_MODEL_PARAMS = 6  # p_prior, p_empty, p_occupied, range_sure, range_max, wall_size
+
+
+def _sqrt(x):
+    """Correctly rounded float32 sqrt on every device (PyTorch's CPU
+    float32 sqrt is not); the kernel's ``__fsqrt_rn``."""
+    return torch.sqrt(x.double()).float()
+
+
+def _fma(a, b, c):
+    """a * b + c computed in float64 and rounded to float32: the FMA that
+    XLA's CPU backend fuses there, unless the float64 sum is inexact and
+    falls on a float32 midpoint. The kernel computes the same in double."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _check_cells(base, dist_m, tables, endpoint, prev, params):
+    """Check the per-cell pass's inputs; returns (R, H, W, B).
+
+    base [H, W] int32 (each cell's nearest bin, in [0, B)); dist_m [H, W]
+    f32; tables [R, B, 4] int32; endpoint [R, H, W] bool; the Bayesian
+    form adds prev [R, H, W] f32 and params [6] f32."""
+    name = "scan_to_grid_cells"
+    if (prev is None) != (params is None):
+        raise ValueError(f"{name}: give both prev and params, or neither")
+    tensors = [base, dist_m, tables, endpoint]
+    if prev is not None:
+        tensors += [prev, params]
+    device = base.device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    dtypes = [torch.int32, torch.float32, torch.int32, torch.bool,
+              torch.float32, torch.float32]
+    if any(t.dtype != d for t, d in zip(tensors, dtypes)):
+        raise TypeError(f"{name}: base and tables int32, endpoint bool, "
+                        "dist_m, prev and params float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: all tensors must be contiguous")
+    if base.dim() != 2 or tables.dim() != 3 or tables.shape[-1] != 4:
+        raise ValueError(f"{name}: base must be [H, W] and tables [R, B, 4]")
+    (H, W), (R, B, _) = base.shape, tables.shape
+    if H * W == 0 or B == 0 or R == 0:
+        raise ValueError(f"{name}: empty grid, scan or batch")
+    if H * W >= 2**31 or R > _MAX_BATCH:
+        raise ValueError(f"{name}: H * W must fit in int32 and R <= {_MAX_BATCH}")
+    if dist_m.shape != (H, W) or endpoint.shape != (R, H, W):
+        raise ValueError(f"{name}: dist_m must be [H, W] and endpoint [R, H, W]")
+    if prev is not None and (prev.shape != (R, H, W)
+                             or params.shape != (N_MODEL_PARAMS,)):
+        raise ValueError(f"{name}: prev must be [R, H, W] and params [6]")
+    return R, H, W, B
+
+
+def scan_to_grid_candidates(base, tables):
+    """[R, H, W, 5, 4]: a cell's candidate k is the table row of bin
+    (base + k - 2) mod B, what the JAX package's rolled tables deliver."""
+    B = tables.shape[1]
+    k = torch.arange(CANDIDATES, device=base.device) - CANDIDATES // 2
+    return tables[:, torch.remainder(base.long()[..., None] + k, B)]
+
+
+def scan_to_grid_cells_reference(base, dist_m, tables, endpoint, start_cell,
+                                 prev=None, params=None):
+    """Plain PyTorch version of the per-cell pass: the same operations
+    with the same roundings. Arguments as for ``scan_to_grid_cells``."""
+    _, H, W, _ = _check_cells(base, dist_m, tables, endpoint, prev, params)
+    si, sj = start_cell
+    device = base.device
+    cand = scan_to_grid_candidates(base, tables)  # [R, H, W, C, 4]
+    vx = (cand[..., 0] - si).to(torch.float32)
+    vy = (cand[..., 1] - sj).to(torch.float32)
+    di = (torch.arange(H, device=device) - si).to(torch.float32)[:, None, None]
+    dj = (torch.arange(W, device=device) - sj).to(torch.float32)[None, :, None]
+    # diamond (super-cover) test against the line from the sensor cell to
+    # each candidate's endpoint cell
+    L = _sqrt(_fma(vx, vx, vy * vy))
+    L_safe = torch.clamp(L, min=1e-6)
+    t = (di * vx + dj * vy) / L_safe
+    perp = torch.abs(di * vy - dj * vx) / L_safe
+    halfwidth = (torch.abs(vx) + torch.abs(vy)) / (2.0 * L_safe) + 1e-4
+    on_line = ((t >= -0.5) & (t <= L) & (perp <= halfwidth) & (L > 0)
+               & (cand[..., 3] != 0))
+    covered = on_line.any(dim=-1)
+    occ = torch.where(endpoint, OCCUPIED,
+                      torch.where(covered, EMPTY, UNEXPLORED)).to(torch.int32)
+    if prev is None:
+        return occ
+    # the nearest covering candidate: offsets 0, -1, +1, -2, +2 in turn
+    # (the JAX package's first argmax of -|k - 2|)
+    r_c = cand[..., 2].view(torch.float32)
+    r_sel = r_c[..., 4]
+    for k in (0, 3, 1, 2):
+        r_sel = torch.where(on_line[..., k], r_c[..., k], r_sel)
+    p_prior, p_empty, p_occupied, range_sure, range_max, wall_size = params.unbind()
+    one = torch.ones((), dtype=torch.float32, device=device)
+    # inverse sensor model and Bayes odds update (updateGridCellProbability)
+    p_f = torch.where(dist_m < r_sel - wall_size, p_empty, p_occupied)
+    delta = torch.where(dist_m < range_sure, 0.0 * one, one)
+    p_sensor = _fma(delta * ((dist_m - range_sure) / range_max),
+                    p_prior - p_f, p_f)
+    odds = (prev / (one - prev)) * (p_sensor / (one - p_sensor))
+    new = one - one / _fma(odds, (one - p_prior) / p_prior, one)
+    return occ, torch.where(covered, new, p_prior)
+
+
+def scan_to_grid_cells(base, dist_m, tables, endpoint, start_cell,
+                       prev=None, params=None):
+    """The mapper's per-cell pass over R robots' grids in one launch.
+
+    base: [H, W] int32, each cell's angularly nearest bin; dist_m: [H, W]
+    f32, each cell's distance to the sensor cell in metres; tables:
+    [R, B, 4] int32 per beam: endpoint cell i, j, range (f32 bits) and
+    validity; endpoint: [R, H, W] bool, the cells a valid beam ends in;
+    start_cell: the sensor cell (i, j). For the Bayesian form also prev:
+    [R, H, W] f32, the previous probability grid, and params: [6] f32
+    (p_prior, p_empty, p_occupied, range_sure, range_max, wall_size) on
+    the device.
+
+    Returns occ [R, H, W] int32, and in the Bayesian form (occ, prob
+    [R, H, W] f32). On CUDA it launches on the current stream without
+    synchronising and adds one to ``scan_to_grid_cells.launches``."""
+    if base.device.type == "cpu":
+        return scan_to_grid_cells_reference(base, dist_m, tables, endpoint,
+                                            start_cell, prev, params)
+    R, H, W, B = _check_cells(base, dist_m, tables, endpoint, prev, params)
+    lib = _library()
+    occ = torch.empty((R, H, W), dtype=torch.int32, device=base.device)
+    prob = None if prev is None else torch.empty_like(prev)
+    with torch.cuda.device(base.device):
+        stream = torch.cuda.current_stream(base.device).cuda_stream
+        err = lib.kompass_scan_to_grid_cells(
+            base.data_ptr(), dist_m.data_ptr(), H * W, W, tables.data_ptr(),
+            B, endpoint.data_ptr(), start_cell[0], start_cell[1],
+            None if prev is None else prev.data_ptr(),
+            None if params is None else params.data_ptr(), R,
+            occ.data_ptr(), None if prob is None else prob.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"scan_to_grid_cells: kernel launch failed (cudaError {err})")
+    scan_to_grid_cells.launches += 1
+    return occ if prob is None else (occ, prob)
+
+
+scan_to_grid_cells.launches = 0

@@ -192,3 +192,95 @@ def test_fleet_tick_on_card_matches_cpu(cuda):
                 "vy", "omega"):
         np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=key)
     np.testing.assert_allclose(gpu["cost"], cpu["cost"], rtol=1e-4)
+
+
+# --- the mapper's per-cell kernel (K5) ------------------------------------------
+
+
+def _mapper_inputs(spec, ranges, device, seed=0):
+    from kompass_core_tpu_torch.ops import mapping
+
+    geo = mapping._geometry_for(spec, 0.0, device)
+    tables, endpoint = mapping._beam_side(spec, geo, ranges.to(device))
+    rng = np.random.default_rng(seed)
+    prev = torch.from_numpy(rng.uniform(0.05, 0.95, (ranges.shape[0],
+                                                     spec.grid_height,
+                                                     spec.grid_width))
+                            .astype(np.float32)).to(device)
+    params = mapping._params(device, 0.6, 0.1, 0.9, 0.1, 20.0, 0.2)
+    return geo, tables, endpoint, prev, params
+
+
+def _scan(spec, robots, seed):
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0.05, 0.6 * spec.grid_height * spec.resolution,
+                    (robots, spec.num_bins)).astype(np.float32)
+    r[:, ::37] = 0.0
+    r[:, 5], r[:, 9] = np.nan, np.inf
+    return torch.from_numpy(r)
+
+
+@pytest.mark.parametrize(
+    "shape,robots",
+    [((400, 400, 3600, 0.05, 0.0, 0.0, 0.0), 1),
+     ((333, 517, 1000, 0.05, 0.13, -0.21, 0.4), 1),
+     ((200, 200, 720, 0.05, 0.0, 0.0, 0.0), 8)],
+)
+@pytest.mark.parametrize("bayesian", [False, True])
+def test_scan_to_grid_kernel_bit_identical_to_plain(cuda, shape, robots, bayesian):
+    from kompass_core_tpu_torch.ops.mapping import MapperSpec
+
+    spec = MapperSpec(*shape)
+    geo, tables, endpoint, prev, params = _mapper_inputs(
+        spec, _scan(spec, robots, 1), cuda)
+    extra = (prev, params) if bayesian else ()
+    before = kernels.scan_to_grid_cells.launches
+    got = kernels.scan_to_grid_cells(geo.base, geo.dist_m, tables, endpoint,
+                                     spec.start_cell, *extra)
+    want = kernels.scan_to_grid_cells_reference(geo.base, geo.dist_m, tables,
+                                                endpoint, spec.start_cell, *extra)
+    torch.cuda.synchronize()
+    assert kernels.scan_to_grid_cells.launches == before + 1
+    for g, w in zip(got if bayesian else (got,), want if bayesian else (want,)):
+        assert torch.equal(g, w)
+    if robots > 1:  # a batch equals one-robot launches
+        for b in range(robots):
+            one = kernels.scan_to_grid_cells(
+                geo.base, geo.dist_m, tables[b:b + 1].contiguous(),
+                endpoint[b:b + 1].contiguous(), spec.start_cell,
+                *((prev[b:b + 1].contiguous(), params) if bayesian else ()))
+            for g, w in zip(got if bayesian else (got,),
+                            one if bayesian else (one,)):
+                assert torch.equal(g[b], w[0])
+
+
+def test_local_mapper_bayesian_update_on_card_matches_cpu(cuda):
+    """One Bayesian LocalMapper update at the full 400 x 400 / 3600 size on
+    the card equals the same update on the CPU, with one K5 launch."""
+    from kompass_core_tpu.datatypes import LaserScanData
+    from kompass_core_tpu.datatypes.pose import PoseData
+    from kompass_core_tpu.datatypes.scan_model import ScanModelConfig
+    from kompass_core_tpu_torch.mapping import LocalMapper, MapConfig
+
+    config = MapConfig(width=20.0, height=20.0, resolution=0.05, baysian_update=True)
+    model = ScanModelConfig(p_prior=0.6, p_occupied=0.9, range_sure=0.1,
+                            range_max=20.0, wall_size=0.2)
+    mappers = [LocalMapper(config, model, device=d) for d in (cuda, "cpu")]
+    angles = np.linspace(-np.pi, np.pi, 3600, endpoint=False)
+    rng = np.random.default_rng(0)
+    pose = PoseData()
+    for k in range(2):
+        scan = LaserScanData(ranges=rng.uniform(0.5, 9.5, 3600), angles=angles)
+        pose.set_position(x=0.1 * k, y=0.05 * k, z=0.0)
+        pose.set_yaw(0.05 * k)
+        before = kernels.scan_to_grid_cells.launches
+        for m in mappers:
+            m.update_from_scan(pose, scan)
+        assert kernels.scan_to_grid_cells.launches == before + 1
+        gpu, cpu = mappers
+        np.testing.assert_array_equal(gpu.occupancy, cpu.occupancy)
+        np.testing.assert_array_equal(gpu.probabilistic_occupancy,
+                                      cpu.probabilistic_occupancy)
+        assert torch.equal(gpu._prev_prob.cpu(), cpu._prev_prob)
+        np.testing.assert_array_equal(gpu.previous_grid_prob_transformed,
+                                      cpu.previous_grid_prob_transformed)
