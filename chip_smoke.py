@@ -41,17 +41,39 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
    4 updates, the cloud update and 4 fleet robots the port's CPU run of
    the same inputs gives the same layers, except cells that a beam whose
    table differs between the devices explains (their count is printed).
-8. Times: the single-robot tick latency over 220 ticks; K1 and its plain
-   version at the flagship shapes over 100 distinct inputs, in turns; the
-   tracked and the static 64-robot fleet tick over 100 ticks each (host
-   clock and CUDA events); K3 and its plain version at the fleet shapes
-   over 10 distinct inputs, in turns; ``update_from_scan`` over 100
-   updates, Bayesian and plain, and its host parts; K5 and its plain
-   version at one and at 64 robots over 10 distinct inputs, in turns;
-   the 64-robot Bayesian fleet mapper per call.
+8. The expanded sweeps against their plain versions on the card, bit for
+   bit: K2's port (both sweeps) and K4's port (one sweep, launched over
+   the obstacle rows and over the segment rows) at the flagship shapes,
+   with pad rows, ragged tiles and a ragged block, and a batch of 64
+   robots against 64 one-robot launches.
+9. The scenario-batched solver slice end to end: ``make_fleet_solver`` on
+   ``cuda`` with 64 BASELINE scenarios (``bench.py``'s production serving
+   mode), backends ``xla``, ``pallas`` and ``pallas_v1``, 3 distinct
+   batches each. Every call launches exactly its backend's kernels (K1
+   once, K2 once, K4 twice); 4 rows of each backend's first batch agree
+   with the port's CPU solve of the same buffers; one 130-row call in
+   chunks of 64 agrees with one dispatch.
+10. The standalone cost evaluator at ``CostEvaluator_5k_Trajs``'s size
+    (5001 given trajectories x 1000 points, 1024 segment slots, no
+    obstacles): one K1 launch; 64 rows' costs agree with the CPU.
+11. A BOX robot's flagship DWA with a custom cost on ``cuda`` for 5
+    closed-loop ticks in lockstep with the same controller on the CPU,
+    then one ``debug_velocity_search`` on both.
+12. Times: the single-robot tick latency over 220 ticks; K1 and its plain
+    version at the flagship shapes over 100 distinct inputs, in turns; the
+    tracked and the static 64-robot fleet tick over 100 ticks each (host
+    clock and CUDA events); K3 and its plain version at the fleet shapes
+    over 10 distinct inputs, in turns; ``update_from_scan`` over 100
+    updates, Bayesian and plain, and its host parts; K5 and its plain
+    version at one and at 64 robots over 10 distinct inputs, in turns;
+    the 64-robot Bayesian fleet mapper per call; the 64-scenario fleet
+    solver per call and in solves/s for each backend; K2 and K4 against
+    their plain versions at the flagship and the 64-robot shapes, in
+    turns; the cost evaluator per call.
 
-Launch counts: the counts are set to 0 before the mapping slice; the
-kernels line reports K1 and K3 from phases 4 and 5 and K5 from phase 7.
+Launch counts: the counts are set to 0 before the mapping slice and
+again before the solver slice; the kernels line reports K1 and K3 from
+phases 4 and 5, K5 from phase 7 and K2 and K4 from phase 9.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -105,6 +127,26 @@ LANE_SPACING = 10.0
 KERNEL_SOURCE = "kompass_core_tpu_torch/csrc/fused_min_dist.cu"
 KERNEL_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:89"
 MOVING_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:171"
+EXPANDED_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:56"
+SINGLE_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:387"
+
+# the scenario-batched solver slice: bench.py's production serving mode
+# (config v1_batch64), 64 BASELINE scenarios per call
+SOLVER_ROBOTS = 64
+SOLVER_BACKENDS = ("xla", "pallas", "pallas_v1")
+SOLVER_BATCHES = 3
+SOLVER_CPU_ROWS = (0, 21, 42, 63)
+SOLVER_CHUNK = 64  # make_fleet_solver's default chunk_size
+SOLVER_RAGGED = 130  # rows of the chunked call: 3 chunks, the tail padded
+SOLVER_TIMED = 20
+# CostEvaluator_5k_Trajs (kompass_core_tpu/benchmark/runner.py:207-308):
+# given trajectories x points, segment slots
+EVAL_SHAPE = (5001, 1000, 1024)
+EVAL_CPU_ROWS = 64
+EVAL_TIMED = 10
+BOX_TICKS = 5
+BOX_PARAMS = (0.5, 0.4, 0.4)  # length, width, height: half extents 0.25 x 0.2
+BOX_COST_WEIGHT = 0.5
 
 
 def log(*args):
@@ -162,13 +204,13 @@ def cast_scan(state, circles, rays=RAYS):
     return LaserScanData(ranges=ranges, angles=angles, range_max=RANGE_MAX)
 
 
-def make_robot():
+def make_robot(box=False):
     from kompass_core_tpu_torch.models import Robot, RobotGeometry, RobotType
 
     robot = Robot(
         robot_type=RobotType.DIFFERENTIAL_DRIVE,
-        geometry_type=RobotGeometry.Type.CYLINDER,
-        geometry_params=np.array([0.25, 0.4]),
+        geometry_type=RobotGeometry.Type.BOX if box else RobotGeometry.Type.CYLINDER,
+        geometry_params=np.array(BOX_PARAMS if box else [0.25, 0.4]),
     )
     robot.state.x, robot.state.y, robot.state.yaw = 0.0, 0.0, math.pi / 2
     return robot
@@ -231,7 +273,7 @@ def phase_build(kernels):
     log(f"build: {'compiled' if fresh else 'found'} {lib} in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log("ptxas:", line.strip())
 
 
@@ -285,13 +327,14 @@ def phase_kernel_vs_plain(kernels, device):
     return max_err
 
 
-def _cpu_check(spec, buf, out, cpu_ties):
+def _cpu_check(spec, buf, out, cpu_ties, custom_costs=()):
     """The same packed input through the port on the CPU (plain sweep)."""
     import torch
 
     from kompass_core_tpu_torch.ops.solver import _unpack_inputs, dwa_solve
 
-    res = dwa_solve(spec, *_unpack_inputs(spec, torch.from_numpy(buf.copy())))
+    res = dwa_solve(spec, *_unpack_inputs(spec, torch.from_numpy(buf.copy())),
+                    custom_costs=custom_costs)
     found, cost, best, n_adm = bool(out[0] > 0.5), float(out[1]), int(out[2]), int(out[3])
     assert found == bool(res.found), "found differs from the CPU"
     assert n_adm == int(res.num_admissible), "num_admissible differs from the CPU"
@@ -380,6 +423,32 @@ def phase_slice(kernels, device):
     return launches
 
 
+def _in_turns(kernel, plain, inputs, warm=2):
+    """CUDA-event ms per call of ``plain`` and ``kernel`` over ``inputs``
+    (argument tuples), in turns plain, kernel, kernel, plain. Returns
+    (kernel ms, plain ms, the four runs)."""
+    import torch
+
+    def timed(fn):
+        for args in inputs[:warm]:
+            fn(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for args in inputs:
+            fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / len(inputs)
+
+    runs = [("plain", timed(plain)), ("kernel", timed(kernel)),
+            ("kernel", timed(kernel)), ("plain", timed(plain))]
+    return (statistics.mean(t for n, t in runs if n == "kernel"),
+            statistics.mean(t for n, t in runs if n == "plain"),
+            [f"{n} {t:.5f} ms" for n, t in runs])
+
+
 def phase_times(kernels, device, card):
     import torch
 
@@ -405,33 +474,14 @@ def phase_times(kernels, device, card):
         f"p99 {p99:.4f} ms, min {lat[0]:.4f} ms, max {lat[-1]:.4f} ms")
 
     gen = torch.Generator().manual_seed(2)
-    inputs = [_sweep_case(gen, device, 2025, 30, 512, 384)
-              for _ in range(KERNEL_INPUTS)]
     ap = torch.tensor(30, dtype=torch.int32, device=device)
-
-    def timed(fn):
-        for px, py, obs, sx, sy in inputs[:5]:
-            fn(px, py, obs, sx, sy, ap)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for px, py, obs, sx, sy in inputs:
-            fn(px, py, obs, sx, sy, ap)
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / len(inputs)
-
-    runs = [("plain", timed(kernels.fused_min_dist_sq_reference)),
-            ("kernel", timed(kernels.fused_min_dist_sq)),
-            ("kernel", timed(kernels.fused_min_dist_sq)),
-            ("plain", timed(kernels.fused_min_dist_sq_reference))]
-    k_ms = statistics.mean(t for n, t in runs if n == "kernel")
-    p_ms = statistics.mean(t for n, t in runs if n == "plain")
+    inputs = [(*_sweep_case(gen, device, 2025, 30, 512, 384), ap)
+              for _ in range(KERNEL_INPUTS)]
+    k_ms, p_ms, runs = _in_turns(kernels.fused_min_dist_sq,
+                                 kernels.fused_min_dist_sq_reference, inputs, warm=5)
     log(f"fused_min_dist_sq at 2025x30 vs 512+384 rows ({card}), CUDA events "
-        f"over {KERNEL_INPUTS} distinct inputs, in turns "
-        f"{[f'{n} {t:.5f} ms' for n, t in runs]}: kernel {k_ms:.5f} ms, "
-        f"plain {p_ms:.5f} ms")
+        f"over {KERNEL_INPUTS} distinct inputs, in turns {runs}: kernel "
+        f"{k_ms:.5f} ms, plain {p_ms:.5f} ms")
     return k_ms, p_ms
 
 
@@ -792,35 +842,18 @@ def phase_fleet_times(kernels, device, card):
 
     B, S, T, O, G = FLEET_SHAPE
     gen = torch.Generator().manual_seed(5)
-    inputs = [_moving_case(gen, device, B, S, T, O, G)
-              for _ in range(FLEET_KERNEL_INPUTS)]
     ap = torch.full((B,), T, dtype=torch.int32, device=device)
-
-    def timed(fn):
-        for px, py, obs, vel, dt, sx, sy in inputs[:2]:
-            fn(px, py, obs, sx, sy, ap, vel, dt)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for px, py, obs, vel, dt, sx, sy in inputs:
-            fn(px, py, obs, sx, sy, ap, vel, dt)
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / len(inputs)
+    inputs = [(px, py, obs, sx, sy, ap, vel, dt) for px, py, obs, vel, dt, sx, sy in
+              (_moving_case(gen, device, B, S, T, O, G)
+               for _ in range(FLEET_KERNEL_INPUTS))]
 
     def kernel(px, py, obs, sx, sy, ap, vel, dt):
         return kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)
 
-    runs = [("plain", timed(kernels.fused_min_dist_sq_reference)),
-            ("kernel", timed(kernel)), ("kernel", timed(kernel)),
-            ("plain", timed(kernels.fused_min_dist_sq_reference))]
-    k_ms = statistics.mean(t for n, t in runs if n == "kernel")
-    p_ms = statistics.mean(t for n, t in runs if n == "plain")
+    k_ms, p_ms, runs = _in_turns(kernel, kernels.fused_min_dist_sq_reference, inputs)
     log(f"fused_min_dist_sq_moving at B={B}, {S}x{T} vs {O}+{G} rows ({card}), "
         f"CUDA events over {FLEET_KERNEL_INPUTS} distinct inputs, in turns "
-        f"{[f'{n} {t:.5f} ms' for n, t in runs]}: kernel {k_ms:.5f} ms, "
-        f"plain {p_ms:.5f} ms")
+        f"{runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
     return k_ms, p_ms
 
 
@@ -1205,33 +1238,18 @@ def phase_mapping_times(kernels, device, card):
     spec = mapping.MapperSpec(*MAP_SPEC)
     results = {}
     for robots in (1, MAP_ROBOTS):
-        inputs = [_map_inputs(spec, _map_ranges(spec, robots, 20 + i), device, i)
-                  for i in range(MAP_KERNEL_INPUTS)]
-
-        def timed(fn):
-            for geo, tables, endpoint, prev, params in inputs[:2]:
-                fn(geo.base, geo.dist_m, tables, endpoint, spec.start_cell, prev, params)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for geo, tables, endpoint, prev, params in inputs:
-                fn(geo.base, geo.dist_m, tables, endpoint, spec.start_cell, prev, params)
-            stop.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(stop) / len(inputs)
-
-        runs = [("plain", timed(kernels.scan_to_grid_cells_reference)),
-                ("kernel", timed(kernels.scan_to_grid_cells)),
-                ("kernel", timed(kernels.scan_to_grid_cells)),
-                ("plain", timed(kernels.scan_to_grid_cells_reference))]
-        k_ms = statistics.mean(t for n, t in runs if n == "kernel")
-        p_ms = statistics.mean(t for n, t in runs if n == "plain")
+        inputs = []
+        for i in range(MAP_KERNEL_INPUTS):
+            geo, tables, endpoint, prev, params = _map_inputs(
+                spec, _map_ranges(spec, robots, 20 + i), device, i)
+            inputs.append((geo.base, geo.dist_m, tables, endpoint, spec.start_cell,
+                           prev, params))
+        k_ms, p_ms, runs = _in_turns(kernels.scan_to_grid_cells,
+                                     kernels.scan_to_grid_cells_reference, inputs)
         results[robots] = (k_ms, p_ms)
         log(f"scan_to_grid_cells (Bayesian) at {robots} x {height}x{width}/{bins} "
             f"({card}), CUDA events over {MAP_KERNEL_INPUTS} distinct inputs, in "
-            f"turns {[f'{n} {t:.5f} ms' for n, t in runs]}: kernel {k_ms:.5f} ms, "
-            f"plain {p_ms:.5f} ms")
+            f"turns {runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
 
     ranges = _map_ranges(spec, MAP_ROBOTS, 30).to(device)
     prev = torch.full((MAP_ROBOTS, height, width), 0.6, device=device)
@@ -1251,6 +1269,414 @@ def phase_mapping_times(kernels, device, card):
     return results[1]
 
 
+# --- the expanded sweeps and the scenario-batched solver slice ----------------
+
+
+def _sweep_counters(kernels):
+    return {"K1": kernels.fused_min_dist_sq, "K2": kernels.fused_min_dist_sq_expanded,
+            "K3": kernels.fused_min_dist_sq_moving, "K4": kernels.min_dist_sq_expanded}
+
+
+def _expanded_pair(kernels, px, py, obs, sx, sy, ap, plain=False):
+    """(K2's two fields, K4 over the obstacle rows, K4 over the segment
+    rows): the kernels, or with ``plain`` their plain versions."""
+    import torch
+
+    seg = torch.stack([sx, sy], dim=-1).contiguous()
+    if plain:
+        k2, k4 = (kernels.fused_min_dist_sq_expanded_reference,
+                  kernels.min_dist_sq_expanded_reference)
+    else:
+        k2, k4 = kernels.fused_min_dist_sq_expanded, kernels.min_dist_sq_expanded
+    return k2(px, py, obs, sx, sy, ap), k4(px, py, obs, ap), k4(px, py, seg, ap)
+
+
+def phase_expanded_vs_plain(kernels, device):
+    """K2 and K4 against their plain versions on the same card tensors,
+    bit for bit; K4 over either row set gives K2's field."""
+    import torch
+
+    S, T, O, G = SLICE_SHAPE
+    gen = torch.Generator().manual_seed(6)
+    cases = []
+    for active in (T, 17):
+        cases.append((f"flagship active={active}",
+                      _moving_case(gen, device, 1, S, T, O, G), active))
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 1, S, T, O, G)
+    obs[:, O - 112:] = 1e8
+    sx[:, G - 83:], sy[:, G - 83:] = 1e8, 1e8
+    cases.append(("pad rows at 1e8 (112 obstacle, 83 segment)",
+                  (px, py, obs, vel, dt, sx, sy), T))
+    cases.append(("O=700, G=333 (ragged tiles)",
+                  _moving_case(gen, device, 1, S, T, 700, 333), T))
+    cases.append(("S*T=259 (ragged block), B=3",
+                  _moving_case(gen, device, 3, 37, 7, O, G), 5))
+    errs = [0.0, 0.0]
+    for name, (px, py, obs, _vel, _dt, sx, sy), active in cases:
+        ap = torch.full((px.shape[0],), active, dtype=torch.int32, device=device)
+        k2, k4o, k4s = _expanded_pair(kernels, px, py, obs, sx, sy, ap)
+        w2, w4o, w4s = _expanded_pair(kernels, px, py, obs, sx, sy, ap, plain=True)
+        torch.cuda.synchronize()
+        errs[0] = max(errs[0], _check_equal(f"K2 {name}", k2, w2, active))
+        errs[1] = max(errs[1], _check_equal(f"K4 {name}", (k4o, k4s), (w4o, w4s),
+                                            active))
+        assert torch.equal(k4o, k2[0]) and torch.equal(k4s, k2[1]), (
+            f"{name}: K4's fields differ from K2's")
+        log(f"K2 == plain, K4 == plain == K2's fields: {name}")
+
+    B = SOLVER_ROBOTS
+    px, py, obs, _vel, _dt, sx, sy = _moving_case(gen, device, B, S, T, O, G)
+    active = torch.randint(2, T + 1, (B,), generator=gen, dtype=torch.int32)
+    ap = active.to(device)
+    batch = _expanded_pair(kernels, px, py, obs, sx, sy, ap)
+    want = _expanded_pair(kernels, px, py, obs, sx, sy, ap, plain=True)
+    errs[0] = max(errs[0], _check_equal("batched K2 vs plain", batch[0], want[0]))
+    errs[1] = max(errs[1], _check_equal("batched K4 vs plain", batch[1:], want[1:]))
+    for b in range(B):
+        one = _expanded_pair(kernels, px[b], py[b], obs[b], sx[b], sy[b], ap[b])
+        errs[0] = max(errs[0], _check_equal(
+            f"batched K2 robot {b}", tuple(f[b] for f in batch[0]), one[0],
+            int(active[b])))
+        errs[1] = max(errs[1], _check_equal(
+            f"batched K4 robot {b}", (batch[1][b], batch[2][b]), one[1:],
+            int(active[b])))
+    torch.cuda.synchronize()
+    log(f"batched K2 and K4 == per-robot launches == plain: B={B}, {S}x{T} points, "
+        f"{O} + {G} rows")
+    return errs
+
+
+def baseline_spec(backend):
+    """``kompass_core_tpu/benchmark/baseline.py``'s flagship solve (45 x 45
+    samples, 30 steps, 512 obstacle and 384 segment slots, drop mode) as
+    the port's ``SolverSpec`` with ``backend``."""
+    from kompass_core_tpu_torch.ops.solver import SolverSpec
+
+    return SolverSpec(is_omni=False, n_vx=45, n_vy=1, n_omega=45, max_points=30,
+                      num_ctrl_points=6, scan_size=512, seg_size=384,
+                      drop_samples=True, backend=backend)
+
+
+def baseline_scenario(spec, rng, robot_index):
+    """``bench.py``'s ``build_scenario`` with the port's functions: robot i
+    at x = 0.1 i with yaw 0.05 i, a 3 m arc of segment at 1 cm, 512
+    obstacles scattered at 2.5-9 m around it. Returns its packed buffer."""
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, RobotCtrlLimits,
+    )
+    from kompass_core_tpu_torch.ops.solver import pack_solver_input, packed_input_size
+    from kompass_core_tpu_torch.ops.window import sample_velocity_window
+
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
+        omega_limits=AngularCtrlLimits(max_vel=2.0, max_acc=3.0, max_decel=3.0),
+    ).to_array()
+    limits[3:6] = 0.0
+    x0, yaw0 = 0.1 * robot_index, 0.05 * robot_index
+    n_seg = min(301, spec.seg_size)
+    s = 0.01 * np.arange(n_seg, dtype=np.float32)
+    seg_x = np.full(spec.seg_size, 1e8, np.float32)
+    seg_y = np.full(spec.seg_size, 1e8, np.float32)
+    seg_arc = np.zeros(spec.seg_size, np.float32)
+    seg_x[:n_seg] = x0 + s * np.cos(yaw0)
+    seg_y[:n_seg] = s * np.sin(yaw0) + 0.5 * 0.2 * s**2
+    seg_arc[:n_seg] = s
+    ranges = rng.uniform(2.5, 9.0, spec.scan_size)
+    angles = np.linspace(-np.pi, np.pi, spec.scan_size, endpoint=False)
+    obs = np.stack([ranges * np.cos(angles + yaw0) + x0,
+                    ranges * np.sin(angles + yaw0)], axis=1).astype(np.float32)
+    window = sample_velocity_window((0.5, 0.0, 0.1), limits, 0.1, spec.n_vx,
+                                    spec.n_vy, spec.n_omega, spec.is_omni)
+    params = np.array([0.1, 0.3, 0.05, 2.0, 1.0, 1.0, 0.1, 0.05, 5.0, 0.0, 3.0,
+                       10.0 / 3], np.float32)
+    buf = np.zeros(packed_input_size(spec), np.float32)
+    pack_solver_input(spec, buf, params_vec=params, state=(x0, 0.0, yaw0),
+                      window=window, obs_xy=obs, obs_count=spec.scan_size,
+                      seg_x=seg_x, seg_y=seg_y, seg_arc=seg_arc, seg_count=n_seg,
+                      seg_total_len=float(s[-1]), ref_total_len=10.0,
+                      active_points=spec.max_points)
+    return buf
+
+
+def baseline_batches(spec, count, seed=0):
+    """``count`` distinct [SOLVER_ROBOTS, L] batches: the same scenarios
+    with the robots' x moved by 1e-4 m per batch, as ``bench.py`` makes
+    them."""
+    rng = np.random.default_rng(seed)
+    base = np.stack([baseline_scenario(spec, rng, i) for i in range(SOLVER_ROBOTS)])
+    batches = []
+    for k in range(count):
+        v = base.copy()
+        v[:, 0] += np.float32(1e-4 * k)
+        batches.append(v)
+    return batches
+
+
+def _rows_agree(out, ref, what):
+    """Two packed output matrices of the same inputs: the same found and
+    num_admissible, the cost within COST_REL, the winner the same or a
+    tie. Returns (rows bit-equal, winners that differ)."""
+    assert out.shape == ref.shape, what
+    ties = 0
+    for r, (o, c) in enumerate(zip(out, ref)):
+        assert o[0] == c[0] and o[3] == c[3], f"{what} row {r}: found / admissible"
+        if o[0] > 0.5:
+            assert math.isclose(o[1], c[1], rel_tol=COST_REL), f"{what} row {r}: cost"
+        if o[2] != c[2]:
+            assert abs(o[1] - c[1]) <= TIE_REL * abs(c[1]), f"{what} row {r}: winner"
+            ties += 1
+    return int((out == ref).all(axis=1).sum()), ties
+
+
+def phase_fleet_solver(kernels, device):
+    """The scenario-batched solver slice on cuda: make_fleet_solver with
+    64 BASELINE scenarios per call for each backend."""
+    from kompass_core_tpu_torch.parallel import make_fleet_solver
+
+    counters = _sweep_counters(kernels)
+    expect = {"xla": {"K1": 1}, "pallas": {"K2": 1}, "pallas_v1": {"K4": 2}}
+    ties = []
+    for backend in SOLVER_BACKENDS:
+        spec = baseline_spec(backend)
+        out_size = 4 + 3 * (spec.max_points - 1) + 2 * spec.max_points
+        solve = make_fleet_solver(spec, device)
+        found = 0
+        for k, bufs in enumerate(baseline_batches(spec, SOLVER_BATCHES)):
+            before = {n: c.launches for n, c in counters.items()}
+            out = solve(bufs).cpu().numpy()
+            made = {n: c.launches - before[n] for n, c in counters.items()}
+            assert {n: v for n, v in made.items() if v} == expect[backend], (
+                f"{backend} call {k}: launches {made}")
+            assert out.shape == (SOLVER_ROBOTS, out_size), out.shape
+            assert np.isfinite(out[:, 4:]).all(), f"{backend} call {k}: non-finite"
+            found += int((out[:, 0] > 0.5).sum())
+            if k == 0:
+                for r in SOLVER_CPU_ROWS:
+                    _cpu_check(spec, bufs[r], out[r], ties)
+        log(f"fleet solver ({backend}): {SOLVER_BATCHES} calls x {SOLVER_ROBOTS} "
+            f"scenarios, {found} found, launches per call {expect[backend]}; "
+            f"rows {list(SOLVER_CPU_ROWS)} of the first call agree with the CPU")
+        assert found >= 0.9 * SOLVER_BATCHES * SOLVER_ROBOTS, f"{backend}: found"
+    log(f"fleet solver CPU ties: {ties}")
+
+    spec = baseline_spec("xla")
+    rows = np.concatenate(baseline_batches(spec, 3, seed=1))[:SOLVER_RAGGED]
+    chunks = -(-SOLVER_RAGGED // SOLVER_CHUNK)
+    before = kernels.fused_min_dist_sq.launches
+    chunked = make_fleet_solver(spec, device, chunk_size=SOLVER_CHUNK)(rows)
+    chunked = chunked.cpu().numpy()
+    assert kernels.fused_min_dist_sq.launches == before + chunks, "chunked launches"
+    whole = make_fleet_solver(spec, device, chunk_size=None)(rows).cpu().numpy()
+    equal, n_ties = _rows_agree(chunked, whole, "chunked vs one dispatch")
+    log(f"fleet solver, {SOLVER_RAGGED} rows in chunks of {SOLVER_CHUNK} ({chunks} "
+        f"launches, tail padded) vs one dispatch: {equal} of {SOLVER_RAGGED} rows "
+        f"bit-equal, winner ties {n_ties}")
+
+
+def heavy_samples(S, T, dt=0.01, v1=1.0, max_fluct=0.5):
+    """CostEvaluator_5k_Trajs's sample set: a straight centre trajectory
+    and pairs with a sinusoidal linear or angular fluctuation."""
+    i = np.arange(T, dtype=np.float32)
+    fl = np.sin(2.0 * np.pi * i / T).astype(np.float32)
+    k = np.arange(S)
+    amp = max_fluct / max((S - 1) // 2, 1)
+    a = (((k + 1) // 2) * amp).astype(np.float32)[:, None]
+    odd = (k % 2 == 1)[:, None]  # linear-fluctuation samples
+    ang = ((k % 2 == 0) & (k > 0))[:, None]  # angular-fluctuation samples
+    px = np.broadcast_to(np.float32(dt * v1) * i, (S, T)).copy()
+    py = np.where(odd, np.float32(dt) * (a * fl) * i, 0.0).astype(np.float32)
+    vx = np.full((S, T - 1), v1, np.float32)
+    vy = np.where(odd, a * fl[:-1], 0.0).astype(np.float32)
+    w = np.where(ang, a * fl[:-1], 0.0).astype(np.float32)
+    return px, py, np.stack([vx, vy, w], axis=-1)
+
+
+def evaluator_inputs(device, params_device=None):
+    """(params, the evaluator's 12 array arguments) at EVAL_SHAPE: a
+    straight 10 m path at 1 cm, 4 costs at weight 1, no obstacles."""
+    from kompass_core_tpu_torch.ops.solver import SolverParams
+
+    S, T, G = EVAL_SHAPE
+    px, py, vels = heavy_samples(S, T)
+    s = 0.01 * np.arange(1001, dtype=np.float32)
+    seg_x = np.full(G, 1e8, np.float32)
+    seg_y = np.full(G, 1e8, np.float32)
+    seg_arc = np.zeros(G, np.float32)
+    seg_x[:1001], seg_y[:1001], seg_arc[:1001] = s, 0.0, s
+    params = SolverParams.create(
+        0.01, 0.3, 0.05,
+        {"reference_path_distance_weight": 1.0, "goal_distance_weight": 1.0,
+         "obstacles_distance_weight": 0.0, "smoothness_weight": 1.0,
+         "jerk_weight": 1.0},
+        (3.0, 3.0, 3.0), 10.0 / 3, device=device)
+    obs = np.full((128, 2), 1e8, np.float32)
+    return params, [px, py, vels, obs, np.int32(0), seg_x, seg_y, seg_arc,
+                    np.int32(1001), np.float32(10.0), np.float32(10.0), np.int32(T)]
+
+
+def phase_evaluator(kernels, device):
+    """The standalone cost evaluator at CostEvaluator_5k_Trajs's size on
+    cuda; a sample of rows against the CPU."""
+    import torch
+
+    from kompass_core_tpu_torch.ops.solver import get_cost_evaluator
+
+    S, T, G = EVAL_SHAPE
+    params, args = evaluator_inputs(device)
+    dev_args = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
+    before = kernels.fused_min_dist_sq.launches
+    res = get_cost_evaluator(device, with_obstacles=False)(params, *dev_args)
+    costs = res.costs.cpu()
+    assert kernels.fused_min_dist_sq.launches == before + 1, "evaluator launches"
+    assert costs.shape == (S,) and bool(torch.isfinite(costs).all())
+    assert bool(res.found) and int(res.num_admissible) == S
+    assert int(res.best_index) == int(torch.argmin(costs))
+    rows = np.linspace(0, S - 1, EVAL_CPU_ROWS).astype(np.int64)
+    cpu_params, _ = evaluator_inputs("cpu")
+    cpu = get_cost_evaluator("cpu", with_obstacles=False)(
+        cpu_params, *(a[rows] for a in args[:3]), *args[3:]).costs
+    got = costs[torch.from_numpy(rows)]
+    np.testing.assert_allclose(got.numpy(), cpu.numpy(), rtol=COST_REL)
+    log(f"cost evaluator: {S} trajectories x {T} points vs {G} segment slots, "
+        f"no obstacles, one K1 launch; best {int(res.best_index)} cost "
+        f"{float(res.cost):.6f}; {EVAL_CPU_ROWS} rows agree with the CPU "
+        f"(max rel {float(((got - cpu) / cpu).abs().max()):.3g})")
+
+
+def turn_rate_cost(vel_traj, px, py, active_points):
+    """A custom cost: the first command's turn rate (favours straight
+    motion); the same value on every device."""
+    import torch
+
+    return torch.abs(vel_traj[..., 0, 2])
+
+
+def _commands(dwa):
+    return [float(v[0]) for v in (dwa.linear_x_control, dwa.angular_control)]
+
+
+def phase_box_dwa(kernels, device):
+    """A BOX robot's DWA with a custom cost on cuda, in lockstep with the
+    same controller on the CPU, then one debug velocity search on both."""
+    robot = make_robot(box=True)
+    dwas = [make_dwa(robot, dev) for dev in (device, "cpu")]
+    for dwa in dwas:
+        dwa.add_custom_cost(BOX_COST_WEIGHT, turn_rate_cost)
+    custom = ((BOX_COST_WEIGHT, turn_rate_cost),)
+    circles = obstacle_circles()
+    ties = []
+    for i in range(BOX_TICKS):
+        scan = cast_scan(robot.state, circles)
+        before = kernels.fused_min_dist_sq.launches
+        ok = [dwa.loop_step(current_state=robot.state, laser_scan=scan)
+              for dwa in dwas]
+        assert ok == [True, True], f"box tick {i}: {ok}"
+        assert kernels.fused_min_dist_sq.launches == before + 1, f"box tick {i}"
+        spec, buf, out = dwas[0].last_solver_io
+        assert spec.collision_box == (BOX_PARAMS[0] / 2, BOX_PARAMS[1] / 2)
+        gpu, cpu = dwas
+        assert gpu.has_result() and cpu.has_result(), f"box tick {i}: not found"
+        assert math.isclose(gpu.result_cost, cpu.result_cost, rel_tol=COST_REL)
+        if _commands(gpu) != _commands(cpu):
+            _cpu_check(spec, buf, out, ties, custom)
+            assert ties, f"box tick {i}: commands differ without a tie"
+        apply_first_command(robot, gpu)
+    vel = (robot.state.vx, robot.state.vy, robot.state.omega)
+    scan = cast_scan(robot.state, circles)
+    debug = [[np.asarray(a) for a in dwa.debug_velocity_search(vel, laser_scan=scan)]
+             for dwa in dwas]
+    (gx, gy, gc, ga), (cx, cy, cc, ca) = debug
+    assert gx.shape == (SAMPLES * SAMPLES, HORIZON) and gc.shape == (SAMPLES * SAMPLES,)
+    assert np.array_equal(ga, ca), "debug admissibility differs from the CPU"
+    assert np.array_equal(np.isfinite(gc), ga), "debug costs vs admissibility"
+    np.testing.assert_allclose(gc[ga], cc[ca], rtol=COST_REL)
+    np.testing.assert_allclose(gx, cx, atol=1e-4)
+    np.testing.assert_allclose(gy, cy, atol=1e-4)
+    log(f"BOX DWA ({BOX_PARAMS[0]} x {BOX_PARAMS[1]} m) with a custom cost: "
+        f"{BOX_TICKS} ticks on cuda in lockstep with the CPU, one K1 launch each, "
+        f"ties {ties}; debug_velocity_search: {int(ga.sum())} of {ga.size} "
+        f"samples admissible on both devices")
+
+
+def phase_solver_times(kernels, device, card):
+    """The fleet solver per backend, K2 and K4 against their plain
+    versions, and the cost evaluator."""
+    import torch
+
+    from kompass_core_tpu_torch.ops.solver import get_cost_evaluator
+    from kompass_core_tpu_torch.parallel import make_fleet_solver
+
+    for backend in SOLVER_BACKENDS:
+        spec = baseline_spec(backend)
+        solve = make_fleet_solver(spec, device)
+        inputs = [torch.from_numpy(v).to(device)
+                  for v in baseline_batches(spec, 3 + SOLVER_TIMED, seed=2)]
+        lat = []
+        for v in inputs[:3]:
+            solve(v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for v in inputs[3:]:
+            solve(v)
+        torch.cuda.synchronize()
+        chained = (time.perf_counter() - t0) * 1e3 / SOLVER_TIMED
+        for v in inputs[3:]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            solve(v)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        p50, p99 = _percentiles(lat)
+        log(f"fleet solver ({backend}), {SOLVER_ROBOTS} BASELINE scenarios per call, "
+            f"device-resident distinct inputs ({card}): chained over {SOLVER_TIMED} "
+            f"calls {chained:.4f} ms per call, {SOLVER_ROBOTS * 1e3 / chained:.1f} "
+            f"solves/s; one call with sync median {p50:.4f} ms, p99 {p99:.4f} ms")
+
+    results = {}
+    S, T, O, G = SLICE_SHAPE
+    gen = torch.Generator().manual_seed(7)
+    for robots in (1, SOLVER_ROBOTS):
+        cases = [_moving_case(gen, device, robots, S, T, O, G)
+                 for _ in range(FLEET_KERNEL_INPUTS)]
+        ap = torch.full((robots,), T, dtype=torch.int32, device=device)
+        k2_inputs = [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in cases]
+        k4_inputs = [(px, py, obs, ap) for px, py, obs, *_ in cases]
+        k2 = _in_turns(kernels.fused_min_dist_sq_expanded,
+                       kernels.fused_min_dist_sq_expanded_reference, k2_inputs)
+        k4 = _in_turns(kernels.min_dist_sq_expanded,
+                       kernels.min_dist_sq_expanded_reference, k4_inputs)
+        results[robots] = (k2, k4)
+        for name, rows, (k_ms, p_ms, runs) in (
+                ("fused_min_dist_sq_expanded (K2)", f"{O}+{G}", k2),
+                ("min_dist_sq_expanded (K4)", f"{O}", k4)):
+            log(f"{name} at B={robots}, {S}x{T} vs {rows} rows ({card}), CUDA events "
+                f"over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
+                f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
+
+    params, args = evaluator_inputs(device)
+    dev_args = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
+    ev = get_cost_evaluator(device, with_obstacles=False)
+    ref_lens = [torch.tensor(10.0 + 1e-4 * k, device=device)
+                for k in range(2 + EVAL_TIMED)]
+    for rtl in ref_lens[:2]:
+        ev(params, *dev_args[:10], rtl, dev_args[11])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for rtl in ref_lens[2:]:
+        ev(params, *dev_args[:10], rtl, dev_args[11])
+    stop.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / EVAL_TIMED
+    S, T, G = EVAL_SHAPE
+    log(f"cost evaluator, {S} trajectories x {T} points, {G} segment slots ({card}): "
+        f"{start.elapsed_time(stop) / EVAL_TIMED:.4f} ms per call by CUDA events, "
+        f"{host:.4f} ms by the host clock, over {EVAL_TIMED} distinct inputs")
+    return results[1]
+
+
 def main() -> int:
     import torch
 
@@ -1261,6 +1687,7 @@ def main() -> int:
     from kompass_core_tpu_torch.ops import kernels
 
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     phase_environment(kernels)
     card = card_line()
     phase_build(kernels)
@@ -1277,20 +1704,39 @@ def main() -> int:
     k5_launches = kernels.scan_to_grid_cells.launches
     assert kernels.fused_min_dist_sq.launches == 0
     assert kernels.fused_min_dist_sq_moving.launches == 0
+    k2_err, k4_err = phase_expanded_vs_plain(kernels, device)
+    for counter in _sweep_counters(kernels).values():
+        counter.launches = 0
+    phase_fleet_solver(kernels, device)
+    k2_launches = kernels.fused_min_dist_sq_expanded.launches
+    k4_launches = kernels.min_dist_sq_expanded.launches
+    assert kernels.fused_min_dist_sq_moving.launches == 0
+    phase_evaluator(kernels, device)
+    phase_box_dwa(kernels, device)
     k1_ms, k1_plain_ms = phase_times(kernels, device, card)
     k3_ms, k3_plain_ms = phase_fleet_times(kernels, device, card)
     k5_ms, k5_plain_ms = phase_mapping_times(kernels, device, card)
+    (k2_ms, k2_plain_ms, _), (k4_ms, k4_plain_ms, _) = phase_solver_times(
+        kernels, device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
 
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [
         {"name": "fused_min_dist_sq", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": k1_launches,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "fused_min_dist_sq_expanded", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": EXPANDED_REPLACES,
+         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2_plain_ms},
         {"name": "fused_min_dist_sq_moving", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": MOVING_REPLACES,
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms},
+        {"name": "min_dist_sq_expanded", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": SINGLE_REPLACES, "launches": k4_launches,
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
         {"name": "scan_to_grid_cells", "route": "cuda", "source": MAP_SOURCE,
          "replaces": MAP_REPLACES, "launches": k5_launches,
          "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms},

@@ -13,12 +13,12 @@ are *steps* and multiplied by control_time_step before use.
 
 Moving obstacles (``DWAConfig(moving_obstacles=True)`` with
 ``obstacle_velocities_world``) run the moving sweep, the port of TPU
-kernel K3.
-
-Not ported yet (raise ``NotImplementedError``, see ROADMAP.md): BOX
-robots, custom costs and the debug velocity search.
+kernel K3. BOX robots get the exact oriented-box collision check; custom
+costs (``add_custom_cost``) are torch functions; ``debug_velocity_search``
+returns every rollout with its cost.
 """
 
+import dataclasses
 import logging
 import math
 from typing import List, Optional, Union
@@ -44,6 +44,8 @@ from ..ops.solver import (
     COLLISION_MARGIN_FACTOR,
     SolverSpec,
     check_states_feasibility,
+    get_debug_dwa_solver,
+    get_packed_dwa_solver,
     make_packed_dwa_solver,
     pack_solver_input,
     packed_input_size,
@@ -143,13 +145,6 @@ class SamplingControlResult:
     trajectory: TrajectoryResult = field(default=Factory(TrajectoryResult))
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to kompass_core_tpu_torch yet "
-        f"(ROADMAP queue 1, item {item})"
-    )
-
-
 class DWA(Follower):
     """Dynamic Window Approach local planner on a PyTorch device.
 
@@ -184,9 +179,6 @@ class DWA(Follower):
                 "prediction_horizon must be >= 2 steps (a rollout needs at "
                 "least one velocity command)"
             )
-        if robot.geometry_type == RobotGeometry.Type.BOX:
-            _not_ported("BOX-robot collision (_min_box_dist_sq)", "3c")
-
         is_ackermann = robot.robot_type == RobotType.ACKERMANN
         super().__init__(config=config, is_ackermann=is_ackermann)
 
@@ -218,6 +210,13 @@ class DWA(Follower):
             self._base_horizon,
             self.ctrl_limits.vx_limits.max_vel,
         )
+        # BOX robots get the exact oriented-rectangle collision check: the
+        # circumscribed circle would block corridors the box passes
+        # lengthwise
+        collision_box = None
+        if robot.geometry_type == RobotGeometry.Type.BOX:
+            gp = np.asarray(robot.geometry_params, np.float64)
+            collision_box = (float(gp[0]) / 2.0, float(gp[1]) / 2.0)
         self._spec_proto = dict(
             is_omni=self._is_omni,
             n_vx=n_vx,
@@ -227,9 +226,11 @@ class DWA(Follower):
             num_ctrl_points=int(config.control_horizon),
             seg_size=seg_size,
             drop_samples=bool(config.drop_samples),
+            collision_box=collision_box,
             moving_obstacles=bool(config.moving_obstacles),
         )
         self._solvers = {}  # scan_size bucket -> (spec, solver, buffer)
+        self._custom_costs: List = []
         self._last_solver_io = None
 
         # sensor-to-body 2D transform (position + quaternion yaw)
@@ -265,14 +266,23 @@ class DWA(Follower):
         self._config.octree_resolution = float(resolution)
 
     def add_custom_cost(self, weight: float, cost_fn):
-        _not_ported("add_custom_cost", "3e")
+        """Register a custom torch cost ``fn(vel_traj [B, S, T-1, 3],
+        px [B, S, T], py [B, S, T], active_points [B]) -> [B, S]`` (the
+        reference's ``DWA::addCustomCost``; B = 1 here)."""
+        self._custom_costs.append((float(weight), cost_fn))
+        self._solvers.clear()
 
     def _solver_for(self, scan_bucket: int):
         if scan_bucket not in self._solvers:
             spec = SolverSpec(scan_size=scan_bucket, **self._spec_proto)
+            if self._custom_costs:
+                solver = make_packed_dwa_solver(
+                    spec, self._device, tuple(self._custom_costs))
+            else:
+                solver = get_packed_dwa_solver(spec, self._device)
             self._solvers[scan_bucket] = (
                 spec,
-                make_packed_dwa_solver(spec, self._device),
+                solver,
                 np.zeros(packed_input_size(spec), dtype=np.float32),
             )
         return self._solvers[scan_bucket]
@@ -672,11 +682,43 @@ class DWA(Follower):
     def has_result(self) -> bool:
         return self._result.is_found
 
-    def debug_velocity_search(self, *args, **kwargs):
-        _not_ported("debug_velocity_search (the debug sampler)", "3f")
+    def debug_velocity_search(
+        self, current_vel, laser_scan=None, point_cloud=None,
+        drop_samples=None, map_points_world=None,
+        obstacle_velocities_world=None,
+    ):
+        """Every rollout with its cost and admissibility, for
+        visualisation (the reference's ``DWA::debugVelocitySearch``),
+        ranked against the same scene, packing and custom costs as
+        ``compute_velocity_commands``. ``drop_samples`` overrides the
+        admissibility mode. Returns (paths_x [S, T], paths_y [S, T],
+        costs [S], admissible [S]) as numpy arrays."""
+        if self._path is None:
+            raise ValueError("Global path not set")
+        self.determine_target()
+        self._adapt_prediction_horizon()
+        obs_padded, obs_count, vel_padded, bucket = self._obstacle_blocks(
+            laser_scan, point_cloud, map_points_world,
+            obstacle_velocities_world,
+        )
+        spec, _solver, buf = self._solver_for(bucket)
+        if drop_samples is not None and bool(drop_samples) != spec.drop_samples:
+            spec = dataclasses.replace(spec, drop_samples=bool(drop_samples))
+            buf = np.zeros(packed_input_size(spec), dtype=np.float32)
+        self._assemble_solver_buffer(
+            spec, buf, current_vel, obs_padded, obs_count, vel_padded
+        )
+        out = get_debug_dwa_solver(spec, self._device,
+                                   tuple(self._custom_costs))(buf)
+        self._debugging_samples = tuple(t.cpu().numpy() for t in out)
+        return self._debugging_samples
 
     def get_debugging_samples(self):
-        _not_ported("get_debugging_samples (the debug sampler)", "3f")
+        """The latest debug sample set; raises if ``debug_velocity_search``
+        was not called (the reference's ``dwa.cpp:235-243``)."""
+        if not hasattr(self, "_debugging_samples"):
+            raise ValueError("No debugging samples are available")
+        return self._debugging_samples
 
     def check_states_feasibility(self, states, laser_scan=None, point_cloud=None) -> bool:
         """True if any given state COLLIDES with the sensor data (the

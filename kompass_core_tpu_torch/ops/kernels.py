@@ -3,17 +3,30 @@ their loader.
 
 The DWA tick's two sweeps, the obstacle min-distance field and the
 tracked-segment min-distance field, run in one pass over the rollout
-points, for one robot or a batch of robots (leading axis B):
+points, for one robot or a batch of robots (leading axis B). Which form
+runs follows the solver's ``SolverSpec.backend``, as in the JAX package:
 
 - ``fused_min_dist_sq`` is the port of the TPU kernel
   ``kompass_core_tpu/ops/pallas_kernels.py::_fused_kernel_vpu`` (K1,
-  reached there through ``fused_min_dist_sq`` with
-  ``backend="pallas_vpu"``): static obstacle rows.
+  backends ``"xla"`` and ``"pallas_vpu"``): static obstacle rows, in the
+  direct form (p - o)^2.
+- ``fused_min_dist_sq_expanded`` is the port of ``_fused_kernel_mxu``
+  (K2, backend ``"pallas"``): the same two sweeps in the TPU kernel's
+  expanded form |o|^2 - 2 o.p, + |p|^2, clamped at 0.
+- ``min_dist_sq_expanded`` is the port of ``_min_dist_kernel`` (K4,
+  backend ``"pallas_v1"``): one expanded sweep, launched once for the
+  obstacle rows and once for the segment rows.
 - ``fused_min_dist_sq_moving`` is the port of
   ``_fused_kernel_vpu_moving`` / ``_fused_kernel_mxu_moving`` (K3, reached
-  through ``fused_min_dist_sq_moving_pallas``): every obstacle row moves
-  at constant velocity, o + v * t * dt at rollout step t. The segment
-  rows stay static.
+  through ``fused_min_dist_sq_moving_pallas``, every backend with moving
+  obstacles): every obstacle row moves at constant velocity, o + v * t *
+  dt at rollout step t. The segment rows stay static.
+
+The expanded form cancels as the coordinates grow: its absolute error is
+a few float32 ulps of |p|^2 + |o|^2, about 1e-5 m^2 within 10 m of the
+origin, where the JAX package's scenarios lie (``bench.py``), and a
+hundred times that at 100 m. It is ported as the TPU kernels compute it;
+the port's own sweeps (K1, K3) use the direct form.
 
 The occupancy mapper's per-cell pass is one kernel:
 
@@ -24,8 +37,9 @@ The occupancy mapper's per-cell pass is one kernel:
   OCCUPIED / EMPTY / UNEXPLORED combine and, in the Bayesian form, the
   inverse sensor model of the nearest covering beam.
 
-The kernel sources are ``csrc/*.cu``. They are compiled at first use with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
+The kernel sources are ``csrc/*.cu``. At first use each source is
+compiled with its own ``nvcc`` for ``sm_90a``, all at once, and the
+objects are linked into one shared library with a plain C interface,
 loaded with ``ctypes``. The library goes into
 ``build/kompass_core_tpu_torch/<hash of the sources>/`` at the repository
 root. A missing ``nvcc`` or a failed build raises with the compiler's
@@ -49,10 +63,9 @@ _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kompass_core_tpu_torch"
 _LIB_NAME = "libkompass_torch_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 # plain version: largest [robots, rows, T, R] broadcast slab, in elements
 _SLAB_ELEMS = 1 << 24
@@ -77,32 +90,52 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the kernels' library for the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(_CSRC_DIR.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / _LIB_NAME
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns their outputs (stderr + stdout)
+    or raises with the first failure's command and output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}: "
+                f"{' '.join(cmd)}\n{err}{out}"
+            )
+    return [err + out for out, err in outs]
+
+
 def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into the library unless it is already built.
+    """Compile ``csrc/*.cu`` into the library unless it is already built:
+    one ``nvcc`` per source, all started together, then one link.
 
     Returns its path. The compiler's report (``-Xptxas -v``: registers,
     shared memory, spills) is kept beside it as ``nvcc.log``."""
     lib = library_path()
     if lib.exists():
         return lib
-    sources = [str(s) for s in sorted(_CSRC_DIR.glob("*.cu"))]
+    sources = sorted(_CSRC_DIR.glob("*.cu"))
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
-    (lib.parent / "nvcc.log").write_text(proc.stderr + proc.stdout)
+    tag = f"{os.getpid()}.tmp"
+    objs = [lib.with_name(f".{src.stem}.{tag}.o") for src in sources]
+    tmp = lib.with_name(f".{lib.name}.{tag}")
+    nvcc = _nvcc()
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                         for src, obj in zip(sources, objs)])
+        logs += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    (lib.parent / "nvcc.log").write_text("".join(logs))
     os.replace(tmp, lib)
     return lib
 
@@ -121,6 +154,14 @@ def _library() -> ctypes.CDLL:
             lib.kompass_fused_min_dist_sq_moving.argtypes = [
                 p, p, i, i, i, p, p, p, i, p, p, i, p, p, p, p,
             ]
+            lib.kompass_fused_min_dist_sq_expanded.restype = ctypes.c_int
+            lib.kompass_fused_min_dist_sq_expanded.argtypes = [
+                p, p, i, i, i, p, i, p, p, i, p, p, p, p,
+            ]
+            lib.kompass_min_dist_sq_expanded.restype = ctypes.c_int
+            lib.kompass_min_dist_sq_expanded.argtypes = [
+                p, p, i, i, i, p, i, p, p, p,
+            ]
             lib.kompass_scan_to_grid_cells.restype = ctypes.c_int
             lib.kompass_scan_to_grid_cells.argtypes = [
                 p, p, i, i, p, i, p, i, i, p, p, i, p, p, p,
@@ -129,15 +170,18 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt):
+def _check_sweep(name, px, py, obs_xy, seg_x, seg_y, active_points,
+                 obs_vel=None, dt=None):
     """Check the sweep's inputs; returns (B, S, T, O, G, batched).
 
     Unbatched: px, py [S, T]; obs_xy (and obs_vel) [O, 2]; seg_x, seg_y
     [G]; active_points (and dt) one value. Batched: the same with a
-    leading B, and active_points (and dt) [B]. No view is made: these
-    checks run on every launch, so they stay cheap."""
-    name = "fused_min_dist_sq" + ("_moving" if obs_vel is not None else "")
-    tensors = [px, py, obs_xy, seg_x, seg_y, active_points]
+    leading B, and active_points (and dt) [B]. The single sweep has no
+    segment rows (seg_x None, G = 0). No view is made: these checks run
+    on every launch, so they stay cheap."""
+    tensors = [px, py, obs_xy, active_points]
+    if seg_x is not None:
+        tensors += [seg_x, seg_y]
     if obs_vel is not None:
         tensors += [obs_vel, dt]
     device = px.device
@@ -161,14 +205,16 @@ def _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt):
             raise TypeError(f"{name}: active_points and dt must be one value")
     else:
         raise ValueError(f"{name}: px, py must be [S, T] or [B, S, T]")
-    O, G = obs_xy.shape[-2] if obs_xy.dim() > 1 else 0, seg_x.shape[-1]
+    O = obs_xy.shape[-2] if obs_xy.dim() > 1 else 0
+    G = 0 if seg_x is None else seg_x.shape[-1]
     if py.shape != px.shape or px.numel() == 0:
         raise ValueError(f"{name}: px, py must be non-empty and of one shape")
     if S * T >= 2**31 or B > _MAX_BATCH:
         raise ValueError(f"{name}: S * T must fit in int32 and B <= {_MAX_BATCH}")
     if obs_xy.shape != lead + (O, 2) or O == 0:
         raise ValueError(f"{name}: obs_xy must be non-empty [O, 2] per robot")
-    if seg_x.shape != lead + (G,) or seg_y.shape != seg_x.shape or G == 0:
+    if seg_x is not None and (seg_x.shape != lead + (G,)
+                              or seg_y.shape != seg_x.shape or G == 0):
         raise ValueError(f"{name}: seg_x, seg_y must be non-empty [G] per robot")
     if batched and active_points.shape != lead:
         raise ValueError(f"{name}: active_points must be [B]")
@@ -178,11 +224,13 @@ def _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt):
     return B, S, T, O, G, batched
 
 
-def _sweep_reference(px, py, xs, ys, vx=None, vy=None, tau=None):
+def _sweep_reference(px, py, xs, ys, vx=None, vy=None, tau=None,
+                     expanded=False):
     """[B, S, T] points vs [B, R] rows -> [B, S, T] min of |p - o|^2, the
     operations rounded one by one; rows move as o + v * tau[B, T] when
-    velocities are given. Evaluated in slabs of robots and rows of S so
-    the [.., T, R] broadcast stays bounded."""
+    velocities are given. ``expanded``: the min of |o|^2 - 2 (o . p)
+    instead (the caller adds |p|^2). Evaluated in slabs of robots and rows
+    of S so the [.., T, R] broadcast stays bounded."""
     B, S, T = px.shape
     R = xs.shape[1]
     if vx is None:
@@ -191,6 +239,8 @@ def _sweep_reference(px, py, xs, ys, vx=None, vy=None, tau=None):
         step = tau[:, :, None]  # [B, T, 1]
         ox = (xs[:, None, :] + vx[:, None, :] * step)[:, None]  # [B, 1, T, R]
         oy = (ys[:, None, :] + vy[:, None, :] * step)[:, None]
+    if expanded:
+        onorm = ox * ox + oy * oy
     rows = max(1, _SLAB_ELEMS // (T * R))
     robots = max(1, rows // S)
     rows = min(rows, S)
@@ -199,65 +249,99 @@ def _sweep_reference(px, py, xs, ys, vx=None, vy=None, tau=None):
         b = slice(b0, b0 + robots)
         for s0 in range(0, S, rows):
             s = slice(s0, s0 + rows)
-            dx = px[b, s, :, None] - ox[b]
-            dy = py[b, s, :, None] - oy[b]
-            out[b, s] = torch.amin(dx * dx + dy * dy, dim=-1)
+            if expanded:
+                cross = ox[b] * px[b, s, :, None] + oy[b] * py[b, s, :, None]
+                out[b, s] = torch.amin(onorm[b] - 2.0 * cross, dim=-1)
+            else:
+                dx = px[b, s, :, None] - ox[b]
+                dy = py[b, s, :, None] - oy[b]
+                out[b, s] = torch.amin(dx * dx + dy * dy, dim=-1)
     return out
 
 
-def fused_min_dist_sq_reference(
-    px, py, obs_xy, seg_x, seg_y, active_points, obs_vel=None, dt=None
-):
-    """Plain PyTorch version of both kernels: the same operations, rounded
-    one by one. Shapes as for ``fused_min_dist_sq``; with ``obs_vel`` and
-    ``dt`` it is the moving sweep of ``fused_min_dist_sq_moving``."""
+def _reference(name, px, py, obs_xy, seg_x, seg_y, active_points,
+               obs_vel=None, dt=None, expanded=False):
+    """The plain version of every sweep kernel; returns (d2_obs, d2_seg),
+    or d2_obs alone when there are no segment rows."""
     *_, T, _, _, batched = _check_sweep(
-        px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt
+        name, px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt
     )
     if not batched:
-        px, py, obs_xy, seg_x, seg_y = (
-            t.unsqueeze(0) for t in (px, py, obs_xy, seg_x, seg_y)
-        )
+        px, py, obs_xy = (t.unsqueeze(0) for t in (px, py, obs_xy))
+        if seg_x is not None:
+            seg_x, seg_y = seg_x.unsqueeze(0), seg_y.unsqueeze(0)
         active_points = active_points.reshape(1)
         if obs_vel is not None:
             obs_vel, dt = obs_vel.unsqueeze(0), dt.reshape(1)
     t = torch.arange(T, device=px.device)
     if obs_vel is None:
-        d2_obs = _sweep_reference(px, py, obs_xy[..., 0], obs_xy[..., 1])
+        fields = [_sweep_reference(px, py, obs_xy[..., 0], obs_xy[..., 1],
+                                   expanded=expanded)]
     else:
         tau = t.to(torch.float32)[None, :] * dt[:, None]  # [B, T]
-        d2_obs = _sweep_reference(
+        fields = [_sweep_reference(
             px, py, obs_xy[..., 0], obs_xy[..., 1],
             obs_vel[..., 0], obs_vel[..., 1], tau,
-        )
-    d2_seg = _sweep_reference(px, py, seg_x, seg_y)
+        )]
+    if seg_x is not None:
+        fields.append(_sweep_reference(px, py, seg_x, seg_y, expanded=expanded))
+    if expanded:
+        # + |p|^2, then max(., 0) keeping a NaN (the kernel's epilogue)
+        pnorm = px * px + py * py
+        fields = [f + pnorm for f in fields]
+        fields = [torch.where(f < 0.0, 0.0, f) for f in fields]
     active = (t[None, :] < active_points[:, None])[:, None, :]  # [B, 1, T]
-    d2_obs = torch.where(active, d2_obs, torch.inf)
-    d2_seg = torch.where(active, d2_seg, torch.inf)
+    fields = [torch.where(active, f, torch.inf) for f in fields]
     if not batched:
-        return d2_obs[0], d2_seg[0]
-    return d2_obs, d2_seg
+        fields = [f[0] for f in fields]
+    return fields[0] if seg_x is None else tuple(fields)
+
+
+def fused_min_dist_sq_reference(
+    px, py, obs_xy, seg_x, seg_y, active_points, obs_vel=None, dt=None
+):
+    """Plain PyTorch version of K1 and K3: the same operations, rounded
+    one by one. Shapes as for ``fused_min_dist_sq``; with ``obs_vel`` and
+    ``dt`` it is the moving sweep of ``fused_min_dist_sq_moving``."""
+    name = "fused_min_dist_sq" + ("_moving" if obs_vel is not None else "")
+    return _reference(name, px, py, obs_xy, seg_x, seg_y, active_points,
+                      obs_vel, dt)
+
+
+def fused_min_dist_sq_expanded_reference(px, py, obs_xy, seg_x, seg_y,
+                                         active_points):
+    """Plain PyTorch version of K2, operation by operation: per row
+    cross = ox * px + oy * py, |o|^2 - 2 * cross, the min over the rows,
+    + |p|^2, max(., 0). Shapes as for ``fused_min_dist_sq``."""
+    return _reference("fused_min_dist_sq_expanded", px, py, obs_xy, seg_x,
+                      seg_y, active_points, expanded=True)
+
+
+def min_dist_sq_expanded_reference(px, py, rows, active_points):
+    """Plain PyTorch version of K4: K2's obstacle sweep alone, over
+    ``rows``. Shapes as for ``min_dist_sq_expanded``."""
+    return _reference("min_dist_sq_expanded", px, py, rows, None, None,
+                      active_points, expanded=True)
 
 
 def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None):
     """Launch ``fn`` of the library on the current stream of the inputs'
-    card; returns the two output fields (shaped like px), or raises on a
-    refused launch."""
+    card; returns the output fields (shaped like px; one without segment
+    rows), or raises on a refused launch."""
     lib = _library()
     B, S, T, O, G, _ = dims
-    out_obs = torch.empty_like(px)
-    out_seg = torch.empty_like(px)
+    outs = [torch.empty_like(px) for _ in range(1 if sx is None else 2)]
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         mid = () if vel is None else (vel.data_ptr(), dt.data_ptr())
+        seg = () if sx is None else (sx.data_ptr(), sy.data_ptr(), G)
         err = getattr(lib, fn)(
             px.data_ptr(), py.data_ptr(), B, S * T, T, obs.data_ptr(), *mid,
-            O, sx.data_ptr(), sy.data_ptr(), G, ap.data_ptr(),
-            out_obs.data_ptr(), out_seg.data_ptr(), stream,
+            O, *seg, ap.data_ptr(), *(o.data_ptr() for o in outs), stream,
         )
     if err != 0:
         raise RuntimeError(f"{fn}: kernel launch failed (cudaError {err})")
-    return out_obs, out_seg
+    return outs[0] if sx is None else tuple(outs)
 
 
 def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points):
@@ -274,10 +358,49 @@ def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points):
         return fused_min_dist_sq_reference(
             px, py, obs_xy, seg_x, seg_y, active_points
         )
-    dims = _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, None, None)
+    dims = _check_sweep("fused_min_dist_sq", px, py, obs_xy, seg_x, seg_y,
+                        active_points)
     out = _launch("kompass_fused_min_dist_sq", dims, px, py, obs_xy, seg_x,
                   seg_y, active_points)
     fused_min_dist_sq.launches += 1
+    return out
+
+
+def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points):
+    """K2: both static sweeps in the TPU kernel's expanded form, in one
+    kernel launch.
+
+    Arguments and result as for ``fused_min_dist_sq``; each value is
+    max(min over the rows of (|o|^2 - 2 o.p) + |p|^2, 0), which cancels
+    as the coordinates grow (see the module's docstring): meant for
+    points and rows within about 10 m of the origin. On CUDA it adds one
+    to ``fused_min_dist_sq_expanded.launches``."""
+    if px.device.type == "cpu":
+        return fused_min_dist_sq_expanded_reference(
+            px, py, obs_xy, seg_x, seg_y, active_points
+        )
+    dims = _check_sweep("fused_min_dist_sq_expanded", px, py, obs_xy, seg_x,
+                        seg_y, active_points)
+    out = _launch("kompass_fused_min_dist_sq_expanded", dims, px, py, obs_xy,
+                  seg_x, seg_y, active_points)
+    fused_min_dist_sq_expanded.launches += 1
+    return out
+
+
+def min_dist_sq_expanded(px, py, rows, active_points):
+    """K4: one expanded sweep (K2's obstacle sweep alone) in one kernel
+    launch.
+
+    px, py: [S, T] ([B, S, T]); rows: [R, 2] ([B, R, 2]), pads at 1e8;
+    active_points as for ``fused_min_dist_sq``. Returns d2 shaped like
+    px. On CUDA it adds one to ``min_dist_sq_expanded.launches``."""
+    if px.device.type == "cpu":
+        return min_dist_sq_expanded_reference(px, py, rows, active_points)
+    dims = _check_sweep("min_dist_sq_expanded", px, py, rows, None, None,
+                        active_points)
+    out = _launch("kompass_min_dist_sq_expanded", dims, px, py, rows, None,
+                  None, active_points)
+    min_dist_sq_expanded.launches += 1
     return out
 
 
@@ -296,7 +419,8 @@ def fused_min_dist_sq_moving(px, py, obs_xy, obs_vel, dt, seg_x, seg_y,
         return fused_min_dist_sq_reference(
             px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt
         )
-    dims = _check_sweep(px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt)
+    dims = _check_sweep("fused_min_dist_sq_moving", px, py, obs_xy, seg_x,
+                        seg_y, active_points, obs_vel, dt)
     out = _launch("kompass_fused_min_dist_sq_moving", dims, px, py, obs_xy,
                   seg_x, seg_y, active_points, obs_vel, dt)
     fused_min_dist_sq_moving.launches += 1
@@ -304,6 +428,8 @@ def fused_min_dist_sq_moving(px, py, obs_xy, obs_vel, dt, seg_x, seg_y,
 
 
 fused_min_dist_sq.launches = 0
+fused_min_dist_sq_expanded.launches = 0
+min_dist_sq_expanded.launches = 0
 fused_min_dist_sq_moving.launches = 0
 
 

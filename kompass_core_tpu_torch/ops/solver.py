@@ -3,12 +3,15 @@
 Counterpart of ``kompass_core_tpu/ops/solver.py``:
 
     grid [S] -> rollout [S, T] (closed-form f32 cumsum)
-             -> fused obstacle + segment min-distance sweep [S, T]
-                (``ops/kernels.py``: a CUDA kernel on the card, its plain
-                version on the CPU; the moving-obstacle form when the
-                spec has ``moving_obstacles`` and velocities are given)
+             -> obstacle + segment min-distance sweeps [S, T]
+                (``ops/kernels.py``: CUDA kernels on the card, their plain
+                versions on the CPU; which kernel follows
+                ``SolverSpec.backend`` as in the JAX package, see
+                ``_sweeps``)
+             -> BOX robots: the oriented-box surface distance [S, T]
              -> drop / truncate semantics as masks (no ragged shapes)
-             -> five costs -> weighted sum [S] -> first-minimum argmin
+             -> five costs + custom costs -> weighted sum [S]
+             -> first-minimum argmin
 
 A robot axis: every tensor may carry leading batch dimensions, the same
 on all of them (``[B, S, T]`` rollouts for ``[B]`` per-robot scalars).
@@ -32,20 +35,33 @@ The JAX package's TPU layout workarounds (power-of-two sweep padding,
 one-hot masked sums in place of per-row gathers) are not carried over;
 their outputs are: ``torch.gather`` picks the same rows exactly.
 
-Not ported yet (raise ``NotImplementedError``): BOX robots, the split
-mover sweep, custom costs, the debug sampler and the standalone cost
-evaluator; see ROADMAP.md.
+Also here: the standalone cost evaluator (``evaluate_trajectory_costs``),
+the debug sampler (``dwa_sample_debug``) and the cached solvers. The
+split mover sweep (``mover4``) is not ported (ROADMAP item 5e).
 """
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .kernels import fused_min_dist_sq, fused_min_dist_sq_moving
+from .kernels import (
+    _SLAB_ELEMS,
+    fused_min_dist_sq,
+    fused_min_dist_sq_expanded,
+    fused_min_dist_sq_moving,
+    min_dist_sq_expanded,
+)
 from .window import MIN_VEL, VelocityWindow
 
 _INF = float("inf")
+_PAD = 1e8
+
+# the JAX package's SolverSpec.backend values: "xla" and "pallas_vpu"
+# compute the direct-form sweep (K1), "pallas" the expanded form (K2),
+# "pallas_v1" the expanded form as two single sweeps (K4)
+BACKENDS = ("xla", "pallas_vpu", "pallas", "pallas_v1")
 
 # Voxel-inflation margin as a multiple of the map resolution (calibrated in
 # the JAX package, tests/test_collision_model.py).
@@ -54,8 +70,8 @@ COLLISION_MARGIN_FACTOR = 0.7
 
 @dataclasses.dataclass(frozen=True, eq=True)
 class SolverSpec:
-    """Static geometry of the solver: the JAX ``SolverSpec`` without
-    ``backend`` (the port has one sweep implementation)."""
+    """Static geometry of the solver: the JAX ``SolverSpec``, field by
+    field."""
 
     is_omni: bool
     n_vx: int
@@ -66,6 +82,8 @@ class SolverSpec:
     scan_size: int  # padded obstacle-point capacity
     seg_size: int  # padded tracked-segment capacity
     drop_samples: bool = True
+    # which sweep kernel runs (BACKENDS; dispatch in _sweeps)
+    backend: str = "xla"
     # True: the packed window block carries (current_vel[3], limits[9])
     # and the window is built on the device (fleet mode)
     device_window: bool = False
@@ -75,6 +93,12 @@ class SolverSpec:
     # obs + v * t * dt for rollout step t
     moving_obstacles: bool = False
 
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend {self.backend!r} is not one of {BACKENDS}"
+            )
+
     @property
     def num_samples(self) -> int:
         if self.is_omni:
@@ -82,20 +106,9 @@ class SolverSpec:
         return self.n_vx * self.n_omega
 
 
-# JAX backends that all compute the same sweep function as the port
-_SAME_FUNCTION_BACKENDS = ("xla", "pallas_vpu", "pallas")
-
-
 def spec_from_jax(jax_spec) -> SolverSpec:
     """The port's ``SolverSpec`` for a ``kompass_core_tpu`` ``SolverSpec``,
-    field by field as plain Python values. Its ``backend`` must be one
-    that computes the port's sweep function."""
-    backend = jax_spec.backend
-    if backend not in _SAME_FUNCTION_BACKENDS:
-        raise ValueError(
-            f"backend {backend!r} has no counterpart in the port; expected "
-            f"one of {_SAME_FUNCTION_BACKENDS}"
-        )
+    field by field as plain Python values."""
     box = jax_spec.collision_box
     return SolverSpec(
         is_omni=bool(jax_spec.is_omni),
@@ -107,19 +120,12 @@ def spec_from_jax(jax_spec) -> SolverSpec:
         scan_size=int(jax_spec.scan_size),
         seg_size=int(jax_spec.seg_size),
         drop_samples=bool(jax_spec.drop_samples),
+        backend=str(jax_spec.backend),
         device_window=bool(jax_spec.device_window),
         collision_box=None if box is None else (float(box[0]), float(box[1])),
         dynamic_box=bool(jax_spec.dynamic_box),
         moving_obstacles=bool(jax_spec.moving_obstacles),
     )
-
-
-def _check_ported(spec: SolverSpec) -> None:
-    if spec.collision_box is not None or spec.dynamic_box:
-        raise NotImplementedError(
-            "BOX-robot collision (_min_box_dist_sq) is not ported yet "
-            "(ROADMAP queue 1, item 3c)"
-        )
 
 
 class SolverParams(NamedTuple):
@@ -321,17 +327,69 @@ def _prefix_sum(d):
 # ---------------------------------------------------------------------------
 
 
-def _admissibility(spec, params, d2_obs, active_points, valid):
+def _min_box_dist_sq(params, state, vels, px, py, obs_xy, active_points,
+                     half_extents, obs_vel=None):
+    """[..., S, T] min squared distance from the robot's oriented BOX body
+    to any obstacle point: zero inside the footprint, +inf where t >=
+    active_points. The body at pose t heads yaw0 + omega * t * dt.
+
+    ``half_extents``: (half length, half width) as two floats (static
+    ``collision_box``) or two [...] tensors (``dynamic_box``). With
+    ``obs_vel`` the rows move as in the moving sweep. Plain torch, as XLA
+    fuses it in the JAX package; evaluated in slabs of samples so the
+    [..., S, T, O] broadcast stays bounded."""
+    T = px.shape[-1]
+    S = px.shape[-2]
+    lead = px.shape[:-2]
+    t = torch.arange(T, dtype=torch.float32, device=px.device)
+    dt = _col(params.time_step, 2)
+    yaw = _col(state[..., 2], 2) + vels[..., 2:3] * t * dt  # [..., S, T]
+    c = torch.cos(yaw).unsqueeze(-1)
+    s = torch.sin(yaw).unsqueeze(-1)
+    ox = obs_xy[..., None, None, :, 0]  # [..., 1, 1, O]
+    oy = obs_xy[..., None, None, :, 1]
+    if obs_vel is not None:
+        tau = (t * _col(params.time_step))[..., None, :, None]  # [..., 1, T, 1]
+        ox = ox + obs_vel[..., None, None, :, 0] * tau
+        oy = oy + obs_vel[..., None, None, :, 1] * tau
+    hl, hw = half_extents
+    if isinstance(hl, torch.Tensor):
+        hl, hw = _col(hl, 3), _col(hw, 3)
+    robots = max(1, lead.numel())
+    rows = max(1, _SLAB_ELEMS // (robots * T * obs_xy.shape[-2]))
+    out = px.new_empty(px.shape)
+    for s0 in range(0, S, rows):
+        sl = slice(s0, s0 + rows)
+        dxw = ox - px[..., sl, :, None]
+        dyw = oy - py[..., sl, :, None]
+        cs, ss = c[..., sl, :, :], s[..., sl, :, :]
+        bx = cs * dxw + ss * dyw  # body-frame obstacle coordinates
+        by = -ss * dxw + cs * dyw
+        ex = torch.clamp(torch.abs(bx) - hl, min=0.0)
+        ey = torch.clamp(torch.abs(by) - hw, min=0.0)
+        out[..., sl, :] = torch.amin(ex * ex + ey * ey, dim=-1)
+    active = torch.arange(T, device=px.device) < _col(active_points)
+    return torch.where(active.unsqueeze(-2), out, _INF)
+
+
+def _admissibility(spec, params, d2_obs, active_points, valid,
+                   surface_distance=False):
     """Drop / truncate semantics of the reference sampler as masks.
 
     A sample collides at a checked pose t in [1, active_points - 1] when
     d2 < (radius + margin)^2. Drop mode rejects it; truncate mode keeps it
-    when its last free pose lies past the control horizon."""
+    when its last free pose lies past the control horizon. With
+    ``surface_distance`` (BOX robots) d2 is measured from the body's
+    surface, so only the margin counts, and at least 1e-6: inside the
+    footprint (d2 == 0) always collides."""
     T = d2_obs.shape[-1]
     t_idx = torch.arange(T, device=d2_obs.device)
     ap = _col(active_points)
     check_mask = (t_idx >= 1) & (t_idx <= ap - 1)  # [..., T]
-    r = _col(params.robot_radius + params.collision_margin, 2)
+    if surface_distance:
+        r = _col(torch.clamp(params.collision_margin, min=1e-6), 2)
+    else:
+        r = _col(params.robot_radius + params.collision_margin, 2)
     collide = (d2_obs < r * r) & check_mask.unsqueeze(-2)
 
     any_col = collide.any(dim=-1)
@@ -458,19 +516,97 @@ def _jerk_cost(vel_traj, active_points, acc_limits):
 # ---------------------------------------------------------------------------
 
 
-def _sweeps(obs_xy, obs_vel, time_step, seg_x, seg_y, active_points):
-    """The fused sweep of this tick as a function of the rollout points:
-    the moving kernel when ``obs_vel`` is given, the static one else."""
+def _sweeps(spec, obs_xy, obs_vel, time_step, seg_x, seg_y, active_points):
+    """The tick's two sweeps as a function of the rollout points, returning
+    (d2_obs, d2_seg). The kernel follows the JAX package's dispatch
+    (``kompass_core_tpu/ops/solver.py:687-727``):
+
+    - moving obstacles (``obs_vel`` given), any backend: K3, the moving
+      sweep (the JAX package routes every Pallas backend to its one fused
+      moving kernel, and its XLA form computes K3's function);
+    - ``"xla"`` and ``"pallas_vpu"``: K1, the direct form;
+    - ``"pallas"``: K2, the expanded form;
+    - ``"pallas_v1"``: K4, the expanded form as two single sweeps, the
+      obstacle rows and then the segment rows.
+    """
     obs_xy, seg_x, seg_y = (t.contiguous() for t in (obs_xy, seg_x, seg_y))
     active_points = active_points.contiguous()
-    if obs_vel is None:
-        return lambda px, py: fused_min_dist_sq(
+    if obs_vel is not None:
+        obs_vel, time_step = obs_vel.contiguous(), time_step.contiguous()
+        return lambda px, py: fused_min_dist_sq_moving(
+            px, py, obs_xy, obs_vel, time_step, seg_x, seg_y, active_points
+        )
+    if spec.backend == "pallas":
+        return lambda px, py: fused_min_dist_sq_expanded(
             px, py, obs_xy, seg_x, seg_y, active_points
         )
-    obs_vel, time_step = obs_vel.contiguous(), time_step.contiguous()
-    return lambda px, py: fused_min_dist_sq_moving(
-        px, py, obs_xy, obs_vel, time_step, seg_x, seg_y, active_points
+    if spec.backend == "pallas_v1":
+        seg_xy = torch.stack([seg_x, seg_y], dim=-1)
+        return lambda px, py: (
+            min_dist_sq_expanded(px, py, obs_xy, active_points),
+            min_dist_sq_expanded(px, py, seg_xy, active_points),
+        )
+    return lambda px, py: fused_min_dist_sq(
+        px, py, obs_xy, seg_x, seg_y, active_points
     )
+
+
+def _weighted_costs(params, px, py, vel_traj, d2_obs, d2_seg, obs_count,
+                    seg_x, seg_y, seg_arc, seg_count, seg_total_len,
+                    ref_total_len, active_points, velocity_costs,
+                    custom_costs):
+    """[..., S] weighted sum of the costs, in the JAX package's order:
+    goal, path, obstacles (skipped when ``d2_obs`` is None), smoothness
+    and jerk (when ``velocity_costs``), then each custom cost
+    ``(weight, fn)`` as ``weight * fn(vel_traj, px, py, active_points)``."""
+    acc_limits = (params.acc_limit_vx, params.acc_limit_vy, params.acc_limit_omega)
+    total = px.new_zeros(px.shape[:-1])
+
+    has_path = ref_total_len > 0.0
+    last_i = _col(torch.clamp(seg_count - 1, min=0).long())
+    seg_last_xy = (seg_x.gather(-1, last_i)[..., 0], seg_y.gather(-1, last_i)[..., 0])
+
+    goal = _goal_cost(px, py, seg_x, seg_y, seg_arc, ref_total_len, active_points)
+    total = total + torch.where(
+        _col(has_path & (params.weight_goal > 0)), _col(params.weight_goal) * goal, 0.0
+    )
+    pathc = _path_cost(px, py, d2_seg, seg_last_xy, seg_total_len, active_points)
+    total = total + torch.where(
+        _col(has_path & (params.weight_path > 0)), _col(params.weight_path) * pathc, 0.0
+    )
+    if d2_obs is not None:
+        obst = _obstacles_cost(d2_obs, params.max_obstacles_dist)
+        total = total + torch.where(
+            _col((obs_count > 0) & (params.weight_obstacles > 0)),
+            _col(params.weight_obstacles) * obst,
+            0.0,
+        )
+    if velocity_costs:
+        smooth = _smoothness_cost(vel_traj, active_points, acc_limits)
+        total = total + torch.where(
+            _col(params.weight_smoothness > 0),
+            _col(params.weight_smoothness) * smooth, 0.0,
+        )
+        jerk = _jerk_cost(vel_traj, active_points, acc_limits)
+        total = total + torch.where(
+            _col(params.weight_jerk > 0), _col(params.weight_jerk) * jerk, 0.0
+        )
+    for weight, fn in custom_costs:
+        total = total + float(weight) * fn(vel_traj, px, py, active_points)
+    return total
+
+
+def _winner(costs, vel_traj, px, py):
+    """(best index, its cost, velocities [..., T-1, 3], path [..., T, 2]):
+    the first minimum, like the reference's ``<`` scan."""
+    T = px.shape[-1]
+    best = torch.argmin(costs, dim=-1)
+    row = best.unsqueeze(-1)
+    win_vel = vel_traj.gather(-3, _col(row, 2).expand(row.shape + (T - 1, 3)))
+    win_x = px.gather(-2, _col(row).expand(row.shape + (T,)))
+    win_y = py.gather(-2, _col(row).expand(row.shape + (T,)))
+    return (best, costs.gather(-1, row)[..., 0], win_vel[..., 0, :, :],
+            torch.stack([win_x[..., 0, :], win_y[..., 0, :]], dim=-1))
 
 
 def dwa_solve(
@@ -488,27 +624,51 @@ def dwa_solve(
     ref_total_len,  # [...] f32 (full interpolated path length)
     active_points,  # [...] int32 <= spec.max_points (adaptive horizon)
     obs_vel=None,  # [..., R, 2] world obstacle velocities (moving mode)
-) -> SolveResult:
+    *,
+    custom_costs: Sequence = (),
+    collision_box_dyn=None,  # [..., 2] box half-extents (spec.dynamic_box)
+    return_all_paths: bool = False,
+):
     """One DWA tick per robot on the device of ``state``: the
     first-minimum trajectory over the dynamic window. Every tensor
     argument lies on that device and carries the same leading robot
-    dimensions (none for one robot)."""
-    _check_ported(spec)
+    dimensions (none for one robot).
+
+    ``custom_costs``: ``(weight, fn)`` pairs, ``fn(vel_traj [..., S, T-1,
+    3], px [..., S, T], py [..., S, T], active_points [...]) -> [..., S]``
+    (reference ``DWA::addCustomCost``). BOX robots (``spec.collision_box``,
+    or ``spec.dynamic_box`` with ``collision_box_dyn``) decide
+    admissibility on the body's surface distance; the obstacle cost keeps
+    the point distance. ``return_all_paths``: return ``(result, (px,
+    py))``, the paths the costs were computed on (truncated in truncate
+    mode)."""
     T = spec.max_points
     vels, valid = _build_velocity_grid(spec, window)
     px, py = _rollout(spec, params, state, vels)
 
-    # both O(S * T * rows) sweeps in one fused pass; the obstacle field
-    # serves collision and the obstacle cost, the segment field the path
-    # cost. With velocities the obstacle rows move (TPU kernel K3's port)
+    # both O(S * T * rows) sweeps; the obstacle field serves collision and
+    # the obstacle cost, the segment field the path cost
     moving = spec.moving_obstacles and obs_vel is not None
-    sweep = _sweeps(obs_xy, obs_vel if moving else None, params.time_step,
-                    seg_x, seg_y, active_points)
+    sweep = _sweeps(spec, obs_xy, obs_vel if moving else None,
+                    params.time_step, seg_x, seg_y, active_points)
     d2_obs, d2_seg = sweep(px, py)
 
-    admissible, truncate_ok, i_col, last_free = _admissibility(
-        spec, params, d2_obs, active_points, valid
-    )
+    if spec.collision_box is not None or (
+        spec.dynamic_box and collision_box_dyn is not None
+    ):
+        half = spec.collision_box
+        if half is None:
+            half = (collision_box_dyn[..., 0], collision_box_dyn[..., 1])
+        d2_col = _min_box_dist_sq(params, state, vels, px, py, obs_xy,
+                                  active_points, half,
+                                  obs_vel if moving else None)
+        admissible, truncate_ok, i_col, last_free = _admissibility(
+            spec, params, d2_col, active_points, valid, surface_distance=True
+        )
+    else:
+        admissible, truncate_ok, i_col, last_free = _admissibility(
+            spec, params, d2_obs, active_points, valid
+        )
     if spec.drop_samples:
         # drop mode never truncates: constant velocity along every row
         vel_traj = vels.unsqueeze(-2).expand(vels.shape[:-1] + (T - 1, 3))
@@ -530,55 +690,134 @@ def dwa_solve(
             d2_obs = torch.where(frozen, d2_obs.gather(-1, lf), d2_obs)
             d2_seg = torch.where(frozen, d2_seg.gather(-1, lf), d2_seg)
 
-    acc_limits = (params.acc_limit_vx, params.acc_limit_vy, params.acc_limit_omega)
-    total = px.new_zeros(px.shape[:-1])
-
-    has_path = ref_total_len > 0.0
-    last_i = _col(torch.clamp(seg_count - 1, min=0).long())
-    seg_last_xy = (seg_x.gather(-1, last_i)[..., 0], seg_y.gather(-1, last_i)[..., 0])
-
-    goal = _goal_cost(px, py, seg_x, seg_y, seg_arc, ref_total_len, active_points)
-    total = total + torch.where(
-        _col(has_path & (params.weight_goal > 0)), _col(params.weight_goal) * goal, 0.0
+    # in drop mode every row keeps one velocity: smoothness and jerk are
+    # exactly zero, so they are not computed
+    total = _weighted_costs(
+        params, px, py, vel_traj, d2_obs, d2_seg, obs_count, seg_x, seg_y,
+        seg_arc, seg_count, seg_total_len, ref_total_len, active_points,
+        not spec.drop_samples, custom_costs,
     )
-    pathc = _path_cost(px, py, d2_seg, seg_last_xy, seg_total_len, active_points)
-    total = total + torch.where(
-        _col(has_path & (params.weight_path > 0)), _col(params.weight_path) * pathc, 0.0
-    )
-    obst = _obstacles_cost(d2_obs, params.max_obstacles_dist)
-    total = total + torch.where(
-        _col((obs_count > 0) & (params.weight_obstacles > 0)),
-        _col(params.weight_obstacles) * obst,
-        0.0,
-    )
-    if not spec.drop_samples:
-        # only truncated samples change velocity; in drop mode both
-        # smoothness and jerk are exactly zero
-        smooth = _smoothness_cost(vel_traj, active_points, acc_limits)
-        total = total + torch.where(
-            _col(params.weight_smoothness > 0),
-            _col(params.weight_smoothness) * smooth, 0.0,
-        )
-        jerk = _jerk_cost(vel_traj, active_points, acc_limits)
-        total = total + torch.where(
-            _col(params.weight_jerk > 0), _col(params.weight_jerk) * jerk, 0.0
-        )
-
     costs = torch.where(admissible, total, _INF)
-    best = torch.argmin(costs, dim=-1)  # first minimum, like the reference's `<` scan
-    row = best.unsqueeze(-1)
-    win_vel = vel_traj.gather(-3, _col(row, 2).expand(row.shape + (T - 1, 3)))
-    win_x = px.gather(-2, _col(row).expand(row.shape + (T,)))
-    win_y = py.gather(-2, _col(row).expand(row.shape + (T,)))
-    return SolveResult(
+    best, cost, velocities, path = _winner(costs, vel_traj, px, py)
+    res = SolveResult(
         found=admissible.any(dim=-1),
-        cost=costs.gather(-1, row)[..., 0],
+        cost=cost,
         best_index=best,
-        velocities=win_vel[..., 0, :, :],
-        path=torch.stack([win_x[..., 0, :], win_y[..., 0, :]], dim=-1),
+        velocities=velocities,
+        path=path,
         costs=costs,
         num_admissible=admissible.sum(dim=-1).to(torch.int32),
     )
+    if return_all_paths:
+        return res, (px, py)
+    return res
+
+
+def evaluate_trajectory_costs(
+    params: SolverParams,
+    px,  # [S, T] given rollout x ([B, S, T] for B robots)
+    py,  # [S, T]
+    vel_traj,  # [S, T-1, 3] given velocity profiles
+    obs_xy,  # [O, 2] padded obstacle points (1e8 pads)
+    obs_count,  # int32
+    seg_x,  # [G] tracked segment, padded with 1e8
+    seg_y,
+    seg_arc,  # [G] absolute prefix arc lengths
+    seg_count,
+    seg_total_len,
+    ref_total_len,
+    active_points,
+    custom_costs: Sequence = (),
+    with_obstacles: bool = True,
+) -> SolveResult:
+    """Standalone cost evaluation of GIVEN trajectories (the reference's
+    ``CostEvaluator::getMinTrajectoryCost``): every cost, smoothness and
+    jerk included, and the first-minimum winner. Both sweeps run through
+    K1's port, the segment field for the path cost; with
+    ``with_obstacles=False`` the obstacle rows are one 1e8 pad row and
+    the obstacle field is dropped (the reference skips its kernel without
+    obstacle points). ``found`` is S > 0 and ``num_admissible`` is S."""
+    S = px.shape[-2]
+    lead = px.shape[:-2]
+    if not with_obstacles:
+        obs_xy = px.new_full(lead + (1, 2), _PAD)
+    d2_obs, d2_seg = fused_min_dist_sq(
+        px.contiguous(), py.contiguous(), obs_xy.contiguous(),
+        seg_x.contiguous(), seg_y.contiguous(), active_points.contiguous(),
+    )
+    total = _weighted_costs(
+        params, px, py, vel_traj, d2_obs if with_obstacles else None, d2_seg,
+        obs_count, seg_x, seg_y, seg_arc, seg_count, seg_total_len,
+        ref_total_len, active_points, True, custom_costs,
+    )
+    best, cost, velocities, path = _winner(total, vel_traj, px, py)
+    return SolveResult(
+        found=torch.full(lead, S > 0, dtype=torch.bool, device=px.device),
+        cost=cost,
+        best_index=best,
+        velocities=velocities,
+        path=path,
+        costs=total,
+        num_admissible=torch.full(lead, S, dtype=torch.int32, device=px.device),
+    )
+
+
+def _as_device(x, device):
+    """Arguments for the solvers on ``device``: tensors and numpy arrays
+    moved there (float64 to float32, int64 to int32, as the JAX package
+    canonicalises them), Python floats as float32 and ints as int32,
+    NamedTuples (``SolverParams``, ``VelocityWindow``) field by field."""
+    if isinstance(x, tuple):
+        parts = [_as_device(v, device) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    if x is None:
+        return None
+    if isinstance(x, bool):
+        return torch.tensor(x, device=device)
+    if isinstance(x, int):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+    if isinstance(x, float):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    t = x if isinstance(x, torch.Tensor) else torch.tensor(x)  # a copy of numpy
+    narrow = {torch.float64: torch.float32, torch.int64: torch.int32}
+    return t.to(device=device, dtype=narrow.get(t.dtype, t.dtype))
+
+
+@functools.lru_cache(maxsize=16)
+def _cost_evaluator(device, with_obstacles):
+    def evaluate(*args, **kw):
+        # the first 13 are the tensors; a 14th would be custom_costs
+        args = _as_device(args[:13], device) + args[13:]
+        kw = {k: v if k == "custom_costs" else _as_device(v, device)
+              for k, v in kw.items()}
+        return evaluate_trajectory_costs(*args, with_obstacles=with_obstacles,
+                                         **kw)
+
+    return evaluate
+
+
+def get_cost_evaluator(device, with_obstacles: bool = True):
+    """Process-wide standalone cost evaluator on ``device``: takes
+    ``evaluate_trajectory_costs``'s arguments (tensors, numpy arrays or
+    Python numbers; moved to ``device``)."""
+    return _cost_evaluator(torch.device(device), bool(with_obstacles))
+
+
+def make_dwa_solver(spec: SolverSpec, device, custom_costs: Sequence = ()):
+    """The solver for a fixed ``SolverSpec`` on ``device``: takes
+    ``dwa_solve``'s dynamic arguments (tensors, numpy arrays or Python
+    numbers; moved to ``device``) and its keywords but ``custom_costs``,
+    which are bound here."""
+    device = torch.device(device)
+    custom_costs = tuple(custom_costs)
+
+    def solve(*args, **kw):
+        kw = {k: v if k == "return_all_paths" else _as_device(v, device)
+              for k, v in kw.items()}
+        return dwa_solve(spec, *_as_device(args, device),
+                         custom_costs=custom_costs, **kw)
+
+    return solve
 
 
 # ---------------------------------------------------------------------------
@@ -727,11 +966,14 @@ def _unpack_inputs(spec: SolverSpec, buf):
     )
 
 
-def _unpack_and_solve(spec: SolverSpec, buf):
-    """Unpack on the device, solve as a batch of one robot, and pack the
-    output vector: [found, cost, best_index, num_admissible,
-    vx[T-1], vy[T-1], omega[T-1], px[T], py[T]]."""
-    res = dwa_solve(spec, *_unpack_inputs(spec, buf.unsqueeze(0)))
+def _unpack_and_solve(spec: SolverSpec, buf, custom_costs=()):
+    """Unpack on the device, solve and pack the output vector: buf
+    [..., size] -> [..., 4 + 3 * (T-1) + 2 * T], the leading dimensions
+    robots solved as one batch. Output layout: [found, cost, best_index,
+    num_admissible, vx[T-1], vy[T-1], omega[T-1], px[T], py[T]]."""
+    lead = buf.shape[:-1]
+    rows = buf.reshape(-1, buf.shape[-1])
+    res = dwa_solve(spec, *_unpack_inputs(spec, rows), custom_costs=custom_costs)
     head = torch.stack(
         [
             res.found.to(torch.float32),
@@ -749,7 +991,7 @@ def _unpack_and_solve(spec: SolverSpec, buf):
         ],
         dim=-1,
     )
-    return out[0]
+    return out.reshape(lead + out.shape[-1:])
 
 
 def unpack_solver_output(spec: SolverSpec, out):
@@ -769,22 +1011,84 @@ def unpack_solver_output(spec: SolverSpec, out):
     return found, cost, best_index, num_admissible, vx, vy, omega, px, py
 
 
-def make_packed_dwa_solver(spec: SolverSpec, device):
+def _reject_dynamic_box(spec: SolverSpec, what: str) -> None:
+    """The packed buffer carries no per-robot half-extents: a dynamic_box
+    spec would silently fall back to the circle model with the radius
+    counted twice (the JAX package's contract)."""
+    if spec.dynamic_box:
+        raise ValueError(
+            f"dynamic_box specs are not supported by the packed {what}; "
+            "use a static spec.collision_box"
+        )
+
+
+def make_packed_dwa_solver(spec: SolverSpec, device, custom_costs: Sequence = ()):
     """Single-buffer solver on ``device``: f32[packed_input_size] (numpy
     or tensor) -> f32[4 + 3*(T-1) + 2*T] tensor on ``device``. The input
     goes to the device in one copy; nothing in the solve waits for the
-    device, so the caller's read of the output is the tick's one sync."""
-    _check_ported(spec)
+    device, so the caller's read of the output is the tick's one sync.
+    ``custom_costs`` as for ``dwa_solve``."""
+    _reject_dynamic_box(spec, "single-buffer interface")
     device = torch.device(device)
-    size = packed_input_size(spec)
+    custom_costs = tuple(custom_costs)
 
     def solve(buf):
-        buf = torch.as_tensor(buf, dtype=torch.float32, device=device)
-        if buf.shape != (size,):
-            raise ValueError(f"packed input must be [{size}], got {list(buf.shape)}")
-        return _unpack_and_solve(spec, buf)
+        return _unpack_and_solve(spec, _packed_input(spec, buf, device), custom_costs)
 
     return solve
+
+
+def _packed_input(spec: SolverSpec, buf, device):
+    """One packed buffer (numpy or tensor) as a float32 [size] tensor on
+    ``device``, in one copy; raises on another shape."""
+    buf = torch.as_tensor(buf, dtype=torch.float32, device=device)
+    size = packed_input_size(spec)
+    if buf.shape != (size,):
+        raise ValueError(f"packed input must be [{size}], got {list(buf.shape)}")
+    return buf
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_solver(spec, device):
+    return make_packed_dwa_solver(spec, device)
+
+
+def get_packed_dwa_solver(spec: SolverSpec, device):
+    """Process-wide shared packed solver (no custom costs) for ``spec`` on
+    ``device``: controllers with identical specs reuse one."""
+    return _packed_solver(spec, torch.device(device))
+
+
+def dwa_sample_debug(spec: SolverSpec, buf, custom_costs: Sequence = ()):
+    """Every rollout with its cost and admissibility, from one packed
+    buffer tensor [size] on its device (the reference's
+    ``DWA::debugVelocitySearch`` + ``getDebuggingSamples``). Returns (px
+    [S, T], py [S, T], costs [S], admissible [S]); in truncate mode the
+    paths are the truncated ones the costs were computed on.
+    ``custom_costs`` must be the production solver's, so the debug ranking
+    agrees with the executed command."""
+    _reject_dynamic_box(spec, "debug interface")
+    res, (px, py) = dwa_solve(
+        spec, *_unpack_inputs(spec, buf.unsqueeze(0)),
+        custom_costs=custom_costs, return_all_paths=True,
+    )
+    return px[0], py[0], res.costs[0], torch.isfinite(res.costs[0])
+
+
+@functools.lru_cache(maxsize=16)
+def _debug_solver(spec, device, custom_costs):
+    _reject_dynamic_box(spec, "debug interface")
+
+    def debug(buf):
+        return dwa_sample_debug(spec, _packed_input(spec, buf, device), custom_costs)
+
+    return debug
+
+
+def get_debug_dwa_solver(spec: SolverSpec, device, custom_costs: Sequence = ()):
+    """Cached debug sampler for ``spec`` on ``device``: f32[size] (numpy
+    or tensor) -> ``dwa_sample_debug``'s four tensors on ``device``."""
+    return _debug_solver(spec, torch.device(device), tuple(custom_costs))
 
 
 def check_states_feasibility(states_xy, obs_xy, radius, margin, *, device):

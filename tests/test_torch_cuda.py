@@ -284,3 +284,88 @@ def test_local_mapper_bayesian_update_on_card_matches_cpu(cuda):
         assert torch.equal(gpu._prev_prob.cpu(), cpu._prev_prob)
         np.testing.assert_array_equal(gpu.previous_grid_prob_transformed,
                                       cpu.previous_grid_prob_transformed)
+
+
+# --- the expanded sweeps (K2, K4) and the fleet solver's backends ---------------
+
+
+@pytest.mark.parametrize(
+    "B,S,T,O,G,active",
+    [(0, 2025, 30, 512, 384, 30), (0, 2025, 30, 512, 384, 17),
+     (0, 37, 7, 700, 333, 5), (0, 1, 2, 1, 1, 2), (8, 2025, 30, 512, 384, 30)],
+)
+def test_expanded_kernels_bit_identical_to_plain(cuda, B, S, T, O, G, active):
+    """K2 (both sweeps) and K4 (one sweep, over the obstacle rows and
+    over the segment rows) equal their plain versions, pad rows and
+    ragged tiles included; K4's fields are K2's."""
+    px, py, obs, _, _, sx, sy = _moving_case(S + O + B + 1, max(B, 1), S, T, O,
+                                             G, cuda)
+    obs[:, -3:] = 1e8
+    if B == 0:
+        px, py, obs, sx, sy = px[0], py[0], obs[0], sx[0], sy[0]
+        ap = torch.tensor(active, dtype=torch.int32, device=cuda)
+    else:
+        ap = torch.full((B,), active, dtype=torch.int32, device=cuda)
+    seg = torch.stack([sx, sy], dim=-1).contiguous()
+    before = (kernels.fused_min_dist_sq_expanded.launches,
+              kernels.min_dist_sq_expanded.launches)
+    k2 = kernels.fused_min_dist_sq_expanded(px, py, obs, sx, sy, ap)
+    k4 = (kernels.min_dist_sq_expanded(px, py, obs, ap),
+          kernels.min_dist_sq_expanded(px, py, seg, ap))
+    want = kernels.fused_min_dist_sq_expanded_reference(px, py, obs, sx, sy, ap)
+    want4 = kernels.min_dist_sq_expanded_reference(px, py, obs, ap)
+    torch.cuda.synchronize()
+    assert (kernels.fused_min_dist_sq_expanded.launches,
+            kernels.min_dist_sq_expanded.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(k4[0], want4)
+    for g, w, single in zip(k2, want, k4):
+        assert torch.equal(g, w) and torch.equal(g, single)
+        assert bool(torch.isinf(g[..., active:]).all())
+        assert bool((g[..., :active] >= 0).all())
+
+
+@pytest.mark.parametrize("backend,kernel,per_call", [
+    ("xla", "fused_min_dist_sq", 1), ("pallas", "fused_min_dist_sq_expanded", 1),
+    ("pallas_v1", "min_dist_sq_expanded", 2)])
+def test_fleet_solver_on_card_matches_cpu(cuda, backend, kernel, per_call):
+    """Eight flagship-shaped scenarios (45 x 45 samples, 30 steps, 512
+    obstacle and 384 segment slots) through ``make_fleet_solver`` on the
+    card and on the CPU: the same found, num_admissible and command (or
+    a tie), the cost within rel 1e-4, and the backend's launches."""
+    from kompass_core_tpu_torch.ops.window import sample_velocity_window
+    from kompass_core_tpu_torch.parallel import make_fleet_solver
+
+    spec = solver.SolverSpec(
+        is_omni=False, n_vx=45, n_vy=1, n_omega=45, max_points=30,
+        num_ctrl_points=6, scan_size=512, seg_size=384, backend=backend,
+    )
+    rng = np.random.default_rng(1)
+    limits = np.array([1.0, 5.0, 10.0, 0.0, 0.0, 0.0, 2.0, 3.0, 3.0])
+    bufs = np.zeros((8, solver.packed_input_size(spec)), np.float32)
+    for i in range(8):
+        window = sample_velocity_window((0.5, 0.0, 0.1), limits, 0.1, 45, 1, 45,
+                                        False)
+        ang = np.linspace(-np.pi, np.pi, 512, endpoint=False)
+        r = rng.uniform(2.5, 9.0, 512)
+        obs = np.stack([r * np.cos(ang) + 0.1 * i, r * np.sin(ang)], 1)
+        s = 0.01 * np.arange(301, dtype=np.float32)
+        seg = [np.full(384, 1e8, np.float32) for _ in range(2)]
+        arc = np.zeros(384, np.float32)
+        seg[0][:301], seg[1][:301], arc[:301] = 0.1 * i + s, 0.1 * s * s, s
+        params = np.array([0.1, 0.3, 0.05, 2.0, 1.0, 1.0, 0.1, 0.05, 5.0, 0.0,
+                           3.0, 10 / 3], np.float32)
+        solver.pack_solver_input(spec, bufs[i], params, (0.1 * i, 0.0, 0.0),
+                                 window, obs, 512, seg[0], seg[1], arc, 301,
+                                 3.0, 10.0, 30)
+    counter = getattr(kernels, kernel)
+    before = counter.launches
+    out = make_fleet_solver(spec, cuda)(bufs).cpu().numpy()
+    assert counter.launches == before + per_call
+    ref = make_fleet_solver(spec, "cpu")(bufs).numpy()
+    for o, c in zip(out, ref):
+        assert o[0] == c[0] and o[3] == c[3] and o[0] == 1.0
+        np.testing.assert_allclose(o[1], c[1], rtol=1e-4)
+        if o[2] == c[2]:
+            np.testing.assert_allclose(o[4:], c[4:], rtol=1e-5, atol=1e-5)
+        else:
+            assert abs(o[1] - c[1]) <= 1e-6 * abs(c[1])

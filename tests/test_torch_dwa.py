@@ -253,17 +253,19 @@ def test_device_is_required_and_explicit():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        DWA(robot=_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)),
-            ctrl_limits=_limits(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 5c"):
         DeviceFleet([_robot()], _limits(), _config(4, 0.0, cls=DWAConfig),
                     scan_rays=16, peer_avoidance=True, device="cpu")
-    dwa = DWA(robot=_robot(), ctrl_limits=_limits(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3e"):
-        dwa.add_custom_cost(1.0, lambda *a: 0.0)
-    with pytest.raises(NotImplementedError, match="item 3f"):
-        dwa.debug_velocity_search((0.0, 0.0, 0.0))
+    with pytest.raises(NotImplementedError, match="item 5f"):
+        DeviceFleet([_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4))],
+                    _limits(), _config(4, 0.0, cls=DWAConfig), scan_rays=16,
+                    device="cpu")
+    # what no longer raises: BOX robots, custom costs, the debug search
+    dwa = DWA(robot=_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)),
+              ctrl_limits=_limits(), device="cpu")
+    dwa.add_custom_cost(1.0, lambda vel, px, py, ap: px[..., -1] * 0.0)
+    with pytest.raises(ValueError, match="No debugging samples"):
+        dwa.get_debugging_samples()
 
 
 def test_check_states_feasibility():

@@ -15,6 +15,7 @@ def test_port_import_loads_no_jax_and_no_triton():
         "import kompass_core_tpu_torch.ops, kompass_core_tpu_torch.models\n"
         "import kompass_core_tpu_torch.datatypes\n"
         "import kompass_core_tpu_torch.parallel\n"
+        "import kompass_core_tpu_torch.parallel.fleet\n"
         "import kompass_core_tpu_torch.ops.fleet_solver\n"
         "import kompass_core_tpu_torch.mapping, kompass_core_tpu_torch.ops.mapping\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

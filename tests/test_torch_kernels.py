@@ -28,6 +28,13 @@ is held against:
   cancels like the static expansion, plus the |v|^2 tau^2 term;
 - the static sweep, bit for bit, at zero velocity;
 - per-robot calls, bit for bit, when robots go in one batch.
+
+The expanded sweeps (``fused_min_dist_sq_expanded``, the port of TPU
+kernel K2, and ``min_dist_sq_expanded``, K4) are held against the TPU
+kernels ``_fused_kernel_mxu`` in interpret mode and
+``min_obstacle_dist_sq_mxu``'s interpret form at rel 2e-4 / atol 1e-4
+(see ``EXPANDED_RTOL``), single and batched, at the JAX package's
+coordinates.
 """
 
 import numpy as np
@@ -388,3 +395,147 @@ def test_batched_wrapper_rejects_mismatched_robot_axes():
     with pytest.raises(ValueError, match="dt"):
         fused_min_dist_sq_moving(st["px"], st["py"], st["obs"], vel_b,
                                  torch.tensor([0.1]), st["sx"], st["sy"], ap)
+
+
+# --- the expanded forms: K2 (both sweeps) and K4 (one sweep) -----------------
+
+from kompass_core_tpu.ops.pallas_kernels import min_obstacle_dist_sq_mxu
+from kompass_core_tpu_torch.ops.kernels import (
+    fused_min_dist_sq_expanded,
+    fused_min_dist_sq_expanded_reference,
+    min_dist_sq_expanded,
+    min_dist_sq_expanded_reference,
+)
+
+# Not bit for bit: XLA's CPU dot computes the cross term as
+# fma(oy, py, ox * px), and K2's interpret form also fuses |p|^2 into an
+# FMA where K4's does not, while the port rounds every operation on its
+# own, as the kernels are specified (15-35% of the values differ by an
+# ulp or two of |p|^2 + |o|^2). Held at the tolerance the JAX package's
+# kernel bench holds these kernels to (benchmark/kernel_bench.py:111-113).
+EXPANDED_RTOL, EXPANDED_ATOL = 2e-4, 1e-4
+
+
+def _expanded(d, active):
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    ap = torch.tensor(active, dtype=torch.int32)
+    return (fused_min_dist_sq_expanded(t["px"], t["py"], t["obs"], t["sx"],
+                                       t["sy"], ap),
+            min_dist_sq_expanded(t["px"], t["py"], t["obs"], ap))
+
+
+@pytest.mark.parametrize("seed,active", [(0, 12), (1, 9), (2, 2)])
+def test_expanded_sweeps_match_tpu_kernels_interpret(seed, active):
+    """K2's plain version against ``_fused_kernel_mxu`` and K4's against
+    ``min_obstacle_dist_sq_mxu``'s interpret form, at the JAX package's
+    coordinates (within 10 m of the origin)."""
+    d = _inputs(seed, span=5.0, obs_span=8.0)
+    (k2_obs, k2_seg), k4 = _expanded(d, active)
+    T = d["px"].shape[1]
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    mask = jnp.arange(T) < active
+    ref_o, ref_s = jax_fused(j["px"], j["py"], j["obs"], j["sx"], j["sy"],
+                             mask, variant="mxu", interpret=True)
+    ref_4 = min_obstacle_dist_sq_mxu(j["px"], j["py"], j["obs"], mask,
+                                     interpret=True)
+    for got, ref in ((k2_obs, ref_o), (k2_seg, ref_s), (k4, ref_4)):
+        got, ref = got.numpy(), np.asarray(ref)
+        np.testing.assert_allclose(got[:, :active], ref[:, :active],
+                                   rtol=EXPANDED_RTOL, atol=EXPANDED_ATOL)
+        assert np.isinf(got[:, active:]).all() and np.isinf(ref[:, active:]).all()
+        assert (got[:, :active] >= 0).all()
+    # K4 over the obstacle rows is K2's obstacle field, value for value
+    assert torch.equal(k4, k2_obs)
+
+
+def test_expanded_sweeps_are_the_expansion_of_the_direct_form():
+    """At the JAX package's coordinates the expanded fields stay within
+    a few ulps of |p|^2 + |o|^2 of the direct form's (K1)."""
+    d = _inputs(20, S=30, T=10, O=40, G=40, span=10.0, obs_span=10.0)
+    (k2_obs, k2_seg), _ = _expanded(d, 10)
+    d2o, d2s = _port(d, 10)
+    for got, ref in ((k2_obs, d2o), (k2_seg, d2s)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-4)
+
+
+def test_expanded_point_on_a_row_clamps_at_zero():
+    """p == o: the expansion may round below zero; the clamp gives >= 0,
+    and a NaN row still propagates like amin."""
+    pt = np.float32(3.7)
+    d = dict(
+        px=np.full((1, 3), pt, np.float32), py=np.full((1, 3), -pt, np.float32),
+        obs=np.array([[pt, -pt], [1e8, 1e8]], np.float32),
+        sx=np.array([pt, np.nan], np.float32), sy=np.array([-pt, 0.0], np.float32),
+    )
+    (d2o, d2s), k4 = _expanded(d, 3)
+    assert (d2o.numpy() >= 0).all() and (d2o.numpy() < 1e-5).all()
+    assert torch.equal(d2o, k4)
+    assert np.isnan(d2s.numpy()).all()
+
+
+def test_expanded_pad_rows_stay_finite_and_never_win():
+    d = _inputs(21, O=300)
+    (with_pads, _), k4 = _expanded(d, 12)
+    d["obs"][200:] = 1e8
+    (padded, _), _ = _expanded(d, 12)
+    (without, _), _ = _expanded(dict(d, obs=d["obs"][:200].copy()), 12)
+    assert torch.equal(padded, without)
+    d["obs"][:] = 1e8
+    (all_pads, _), _ = _expanded(d, 12)
+    assert np.isfinite(all_pads.numpy()).all() and (all_pads.numpy() > 1e15).all()
+
+
+def test_expanded_batched_equals_per_robot_calls_bit_for_bit():
+    """Three robots in one call give each robot's own call's values
+    exactly, and each robot's rows hold against the TPU kernels in
+    interpret mode."""
+    ds, _, st, _ = _batch([31, 32, 33])
+    active = [9, 4, 2]
+    ap = torch.tensor(active, dtype=torch.int32)
+    k2 = fused_min_dist_sq_expanded(st["px"], st["py"], st["obs"], st["sx"],
+                                    st["sy"], ap)
+    k4 = min_dist_sq_expanded(st["px"], st["py"], st["obs"], ap)
+    for b, d in enumerate(ds):
+        (one_o, one_s), one_4 = _expanded(d, active[b])
+        assert torch.equal(k2[0][b], one_o) and torch.equal(k2[1][b], one_s)
+        assert torch.equal(k4[b], one_4)
+        j = {k: jnp.asarray(v) for k, v in d.items()}
+        mask = jnp.arange(d["px"].shape[1]) < active[b]
+        ref_o, ref_s = jax_fused(j["px"], j["py"], j["obs"], j["sx"], j["sy"],
+                                 mask, variant="mxu", interpret=True)
+        ref_4 = min_obstacle_dist_sq_mxu(j["px"], j["py"], j["obs"], mask,
+                                         interpret=True)
+        for got, ref in ((k2[0][b], ref_o), (k2[1][b], ref_s), (k4[b], ref_4)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                       rtol=EXPANDED_RTOL, atol=EXPANDED_ATOL)
+
+
+def test_expanded_plain_version_slabs_agree_with_one_broadcast(monkeypatch):
+    d = _inputs(22, S=33, T=7, O=40, G=24)
+    whole = _expanded(d, 7)
+    monkeypatch.setattr(kernels, "_SLAB_ELEMS", 7 * 40 * 5)
+    slabs = _expanded(d, 7)
+    for a, b in zip((*whole[0], whole[1]), (*slabs[0], slabs[1])):
+        assert torch.equal(a, b)
+
+
+def test_cpu_expanded_runs_do_not_count_a_launch():
+    before = (fused_min_dist_sq_expanded.launches, min_dist_sq_expanded.launches)
+    _expanded(_inputs(23, S=4, T=3, O=8, G=8), 3)
+    assert (fused_min_dist_sq_expanded.launches,
+            min_dist_sq_expanded.launches) == before
+
+
+def test_expanded_wrappers_reject_what_the_kernels_do_not_take():
+    d = _inputs(24, S=6, T=6, O=8, G=8)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    ap = torch.tensor(6, dtype=torch.int32)
+    with pytest.raises(ValueError, match="O, 2"):
+        min_dist_sq_expanded(t["px"], t["py"], t["obs"][:, :1].contiguous(), ap)
+    with pytest.raises(TypeError):
+        min_dist_sq_expanded(t["px"], t["py"], t["obs"], ap.long())
+    with pytest.raises(ValueError, match="G"):
+        fused_min_dist_sq_expanded_reference(t["px"], t["py"], t["obs"],
+                                             t["sx"][:-1], t["sy"], ap)
+    assert torch.equal(min_dist_sq_expanded_reference(t["px"], t["py"], t["obs"], ap),
+                       min_dist_sq_expanded(t["px"], t["py"], t["obs"], ap))

@@ -18,6 +18,12 @@ The same holds in moving-obstacle mode (each obstacle at o + v * t * dt,
 TPU kernel K3's function) in drop and truncate mode, and in device-window
 mode, whose float32 window must equal the JAX one bit for bit. A batch of
 robots through one ``dwa_solve`` gives each robot's own solve exactly.
+
+Per ``SolverSpec.backend`` the port runs the JAX backend's sweep kernel
+(K1, K2, K4, or K3 with movers), the JAX side its Pallas kernels in
+interpret mode, and the same tolerances hold for every backend: the
+expanded form's rounding (an ulp or two of |p|^2 + |o|^2 at these
+coordinates, within about 5 m of the origin) stays below them.
 """
 
 import dataclasses
@@ -31,6 +37,7 @@ import pytest
 import torch
 
 from kompass_core_tpu.datatypes.path import InterpolationType, ReferencePath
+from kompass_core_tpu.ops import pallas_kernels as jpallas
 from kompass_core_tpu.ops import solver as jsolver
 from kompass_core_tpu.ops.window import (
     compute_linear_sample_split,
@@ -39,6 +46,10 @@ from kompass_core_tpu.ops.window import (
 )
 from kompass_core_tpu_torch.ops import solver as tsolver
 from kompass_core_tpu_torch.ops.fleet_solver import FleetSpec, make_fleet_tick
+from kompass_core_tpu_torch.parallel.fleet import (
+    make_fleet_solver,
+    make_sample_parallel_solver,
+)
 from kompass_core_tpu_torch.ops.kernels import fused_min_dist_sq_reference
 from kompass_core_tpu_torch.ops.window import VelocityWindow
 
@@ -356,18 +367,22 @@ def test_spec_from_jax_copies_every_field():
         assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
     assert tspec.num_samples == jspec.num_samples
     assert tsolver.packed_input_size(tspec) == jsolver.packed_input_size(jspec)
-    assert not hasattr(tspec, "backend")
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_vpu"])
+@pytest.mark.parametrize("backend", tsolver.BACKENDS)
 def test_spec_from_jax_accepts_same_function_backends(backend):
+    """Every JAX backend is accepted and kept: each runs its own sweep
+    kernel's port (``_sweeps``)."""
     jspec = dataclasses.replace(_jax_spec(False, True), backend=backend)
-    assert tsolver.spec_from_jax(jspec) == tsolver.spec_from_jax(_jax_spec(False, True))
+    tspec = tsolver.spec_from_jax(jspec)
+    assert tspec.backend == backend
+    assert tspec == dataclasses.replace(
+        tsolver.spec_from_jax(_jax_spec(False, True)), backend=backend)
 
 
 def test_spec_from_jax_rejects_other_backends():
-    jspec = dataclasses.replace(_jax_spec(False, True), backend="pallas_v1")
-    with pytest.raises(ValueError, match="pallas_v1"):
+    jspec = dataclasses.replace(_jax_spec(False, True), backend="mosaic")
+    with pytest.raises(ValueError, match="mosaic"):
         tsolver.spec_from_jax(jspec)
 
 
@@ -382,10 +397,8 @@ def _split_mover_tick(spec):
 
 @pytest.mark.parametrize(
     "build,item",
-    [(lambda s: tsolver.make_packed_dwa_solver(
-        dataclasses.replace(s, collision_box=(0.25, 0.15)), CPU), "3c"),
-     (lambda s: tsolver.make_packed_dwa_solver(
-         dataclasses.replace(s, dynamic_box=True), CPU), "3c"),
+    [(lambda s: make_fleet_solver(s, CPU, mesh=object()), "9"),
+     (lambda s: make_sample_parallel_solver(s, object()), "9"),
      (_split_mover_tick, "5e")],
 )
 def test_unported_modes_raise_naming_their_roadmap_item(build, item):
@@ -538,3 +551,92 @@ def test_batched_solve_equals_per_robot_solves(drop, moving):
         )
         for field, got, want in zip(one._fields, batch, one):
             assert torch.equal(got[b], want[0]), field
+
+
+# --- SolverSpec.backend: each JAX backend against its kernel's port ----------
+
+@pytest.fixture
+def jax_pallas_interpret(monkeypatch):
+    """The JAX package's Pallas sweeps in interpret mode, as
+    ``tests/test_pallas_kernels.py`` runs them on the CPU."""
+    fused, single = jpallas.fused_min_dist_sq, jpallas.min_obstacle_dist_sq_mxu
+    monkeypatch.setattr(jpallas, "fused_min_dist_sq",
+                        lambda *a, **k: fused(*a, **{**k, "interpret": True}))
+    monkeypatch.setattr(jpallas, "min_obstacle_dist_sq_mxu",
+                        lambda *a, **k: single(*a, **{**k, "interpret": True}))
+
+
+def _jax_solver(jspec):
+    """_jax_solve's function, traced anew (under the interpret patch)."""
+    def solve(b):
+        u = jsolver._unpack_inputs(jspec, b)
+        return (jsolver.dwa_solve(jspec, *u[:12], obs_vel=u[12]),
+                jsolver._unpack_and_solve(jspec, b))
+
+    jitted = jax.jit(solve)
+
+    def run(buf):
+        res, out = jitted(jnp.asarray(buf))
+        return res, np.asarray(out)
+
+    return run
+
+
+@pytest.mark.parametrize(
+    "backend,drop,moving",
+    [(b, d, False) for b in tsolver.BACKENDS for d in (True, False)]
+    + [(b, False, True) for b in ("pallas_vpu", "pallas", "pallas_v1")],
+)
+def test_backend_packed_tick_parity(jax_pallas_interpret, backend, drop, moving):
+    """The port's solve with each backend against the JAX solve with the
+    same backend, its Pallas kernels in interpret mode; with movers every
+    Pallas backend runs K3's function (the JAX 7-feature expansion on
+    one side, K3's direct form on the other). The solver's tolerance
+    holds for every backend."""
+    jspec = dataclasses.replace(_jax_spec(False, drop), backend=backend,
+                                moving_obstacles=moving)
+    solve = _jax_solver(jspec)
+    rng = np.random.default_rng(200 + 10 * tsolver.BACKENDS.index(backend)
+                                + 2 * drop + moving)
+    for i in range(4):
+        sc, vel = _moving_scenario(rng, False, int(rng.integers(4, 13)))
+        buf = _pack(jspec, sc, vel if moving else None)
+        try:
+            assert_tick_parity(*solve(buf), *_port_solve(jspec, buf))
+        except AssertionError as e:
+            raise AssertionError(f"[{backend} scenario {i}] {e}") from e
+
+
+@pytest.mark.parametrize(
+    "backend,drop,moving,expected",
+    [("xla", True, False, {"K1": 1}),
+     ("pallas_vpu", False, False, {"K1": 1}),
+     ("pallas", False, False, {"K2": 1}),
+     ("pallas_v1", True, False, {"K4": 2}),
+     ("pallas", True, True, {"K3": 1}),
+     ("pallas_v1", False, True, {"K3": 2})],
+)
+def test_backend_runs_its_kernel(monkeypatch, backend, drop, moving, expected):
+    """One solve calls exactly the kernels its backend names: K4 once
+    for the obstacles and once for the segment; with movers K3, again
+    for the truncate-mode re-sweep."""
+    calls = {}
+    for name, key in (("fused_min_dist_sq", "K1"),
+                      ("fused_min_dist_sq_expanded", "K2"),
+                      ("fused_min_dist_sq_moving", "K3"),
+                      ("min_dist_sq_expanded", "K4")):
+        def counted(*args, _fn=getattr(tsolver, name), _key=key):
+            calls[_key] = calls.get(_key, 0) + 1
+            return _fn(*args)
+
+        monkeypatch.setattr(tsolver, name, counted)
+    jspec = dataclasses.replace(_jax_spec(False, drop), backend=backend,
+                                moving_obstacles=moving)
+    sc, vel = _moving_scenario(np.random.default_rng(7), False, 10)
+    _port_solve_packed_only(jspec, _pack(jspec, sc, vel if moving else None))
+    assert calls == expected
+
+
+def _port_solve_packed_only(jspec, buf):
+    tspec = tsolver.spec_from_jax(jspec)
+    return tsolver.make_packed_dwa_solver(tspec, CPU)(buf.copy())
