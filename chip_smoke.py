@@ -12,12 +12,18 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 1. Environment: the card's name and power limit, torch and nvcc versions.
 2. Build: compiles the kernels of ``kompass_core_tpu_torch/csrc/`` with
    nvcc for sm_90a into ``build/kompass_core_tpu_torch/`` and prints the
-   build time and the compiler's register report.
+   build time, the compiler's register report and each kernel's SASS
+   instruction count (the sweeps' hottest loop per (point, row) pair);
+   builds and loads the port's native host library with g++ (fails if it
+   does not load).
 3. Kernels vs plain versions on the card, bit-identical outputs
    (``torch.equal``): the static sweep (K1's port) at the flagship and
    edge shapes; the batched static sweep against per-robot launches; the
-   moving sweep (K3's port) at the flagship and fleet shapes, at zero
-   velocity against K1, with pad rows, ragged tiles and a ragged block.
+   moving sweep (K3's port) at the flagship and fleet shapes, with pad
+   rows, ragged tiles, rows past one tile, samples past one block, T = 1,
+   a ragged block and NaN / +-inf points and rows (NaN where the plain
+   version has it), and at zero velocity against K1 at the flagship and
+   fleet shapes.
 4. The single-robot slice end to end: the flagship DWA (2025 samples x
    30 steps, 512-ray scan, 384 segment slots) through ``DWA.loop_step``
    on ``cuda`` for 60 closed-loop ticks in drop mode and 10 in truncate
@@ -33,7 +39,11 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 6. The mapper's per-cell kernel (K5's port) against its plain version on
    the card, bit for bit, plain and Bayesian: 400 x 400 / 3600 with 0,
    NaN and +inf beams; a ragged 333 x 517 / 1000 grid with an offset,
-   rotated laser; a batch of 64 robots against 64 one-robot launches.
+   rotated laser; a batch of 64 robots against 64 one-robot launches;
+   both grids with tables whose every beam ends on a cell that lies on
+   its line test's bound; in each case the beam pass (the call's first
+   launch) against ``line_test_bounds``, and once more with endpoints
+   across the 15-bit clip range.
 7. The mapping slice end to end: a Bayesian 400 x 400 ``LocalMapper`` on
    ``cuda`` walking the S-curve for 30 updates from 3600-ray scans of the
    posts and corridor walls, one 100k-point cloud update, and one call of
@@ -69,11 +79,16 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     the 64-robot Bayesian fleet mapper per call; the 64-scenario fleet
     solver per call and in solves/s for each backend; K2 and K4 against
     their plain versions at the flagship and the 64-robot shapes, in
-    turns; the cost evaluator per call.
+    turns; the cost evaluator per call. Each kernel's time is printed
+    beside its bound (the larger of its FP32 operations at 33.5 T
+    single-rounded operations/s and its bytes at 3.35 TB/s) and its
+    share of it.
 
 Launch counts: the counts are set to 0 before the mapping slice and
 again before the solver slice; the kernels line reports K1 and K3 from
-phases 4 and 5, K5 from phase 7 and K2 and K4 from phase 9.
+phases 4 and 5, K5 from phase 7 and K2 and K4 from phase 9. Its times
+are K1, K2 and K4 at the flagship shapes (one robot), K3 and K5 at 64
+robots.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -83,6 +98,7 @@ non-zero and prints no result.
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +124,13 @@ TRUNCATE_TICKS = 10
 TIMED_TICKS = 220
 TIMED_WARMUP = 10
 KERNEL_INPUTS = 100
+
+# the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s, and
+# FP32 operations/s outside the tensor cores. 67 TFLOP/s counts an FMA as
+# two operations; the kernels round every operation on its own (no FMA),
+# so each operation is one instruction, at half that rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12 / 2
 
 COST_REL = 1e-4  # CPU vs card, per tick (the port's solver parity tolerance)
 TIE_REL = 1e-6  # two winners within this are a tie of sin/cos ulps
@@ -267,6 +290,8 @@ def phase_environment(kernels):
 
 
 def phase_build(kernels):
+    from kompass_core_tpu_torch import native
+
     fresh = not kernels.library_path().exists()
     t0 = time.perf_counter()
     lib = kernels.build_library()
@@ -275,6 +300,76 @@ def phase_build(kernels):
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log("ptxas:", line.strip())
+    sass_report(kernels, lib)
+    t0 = time.perf_counter()
+    loaded = native.native_available()
+    log(f"native host library: {'loaded' if loaded else 'NOT loaded'} "
+        f"{native.library_path()} in {time.perf_counter() - t0:.2f} s")
+    assert loaded, "the port's native host library did not build or load"
+
+
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
+
+
+def sass_loops(text):
+    """(the opcodes of one function's SASS, [the opcodes of each loop
+    body]): a loop is a branch back to a label or an address above it."""
+    ops, where, loops = [], {}, []
+    for line in text.splitlines():
+        label = _SASS_LABEL.match(line)
+        if label:
+            where[label.group(1)] = len(ops)
+            continue
+        m = _SASS_LINE.search(line)
+        if not m:
+            continue
+        where[f"0x{int(m.group(1), 16):x}"] = len(ops)
+        ops.append(m.group(2).split(".")[0])
+        target = _SASS_TARGET.search(m.group(3))
+        if ops[-1] == "BRA" and target:
+            key = target.group(1) or f"0x{int(target.group(2), 16):x}"
+            if key in where and where[key] < len(ops) - 1:
+                loops.append(ops[where[key]:])
+    return ops, loops
+
+
+def sass_report(kernels, lib):
+    """Each kernel's SASS instruction count (cuobjdump -sass, kept beside
+    the library as sass.txt), and for the sweeps their hottest loop (the
+    loop body densest in FMUL: the unrolled row loop, not the tile loop
+    around it; in K3 the fminf form) and its instructions per (point, row)
+    pair: a pair has 2 FMUL in the direct form and 3 in the expanded one
+    (template form 2)."""
+    from collections import Counter
+    from pathlib import Path
+
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        log(f"sass: {cuobjdump} not found, no instruction counts")
+        return
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    (lib.parent / "sass.txt").write_text(out)
+    for func in re.split(r"\n\s*Function : ", out)[1:]:
+        name, body = func.split("\n", 1)
+        name = name.strip()
+        ops, loops = sass_loops(body)
+        line = f"sass: {name}: {len(ops)} instructions"
+        loops = [Counter(loop) for loop in loops]
+        if "min_dist_kernel" in name and loops:
+            hot = max(loops, key=lambda c: (c["FMUL"] / sum(c.values()), c["FMUL"]))
+            pairs = hot["FMUL"] / (3 if "ILi2E" in name else 2)
+            mix = ", ".join(f"{k} {v}" for k, v in hot.most_common(8))
+            line += (f"; hottest loop {sum(hot.values())} instructions for "
+                     f"{pairs:g} pairs = {sum(hot.values()) / pairs:.2f} per pair "
+                     f"({mix})")
+        else:
+            mix = ", ".join(f"{k} {v}" for k, v in Counter(ops).most_common(12))
+            line += f" ({mix})"
+        log(line)
 
 
 def _sweep_case(gen, device, S, T, O, G, span=10.0):
@@ -423,6 +518,40 @@ def phase_slice(kernels, device):
     return launches
 
 
+def bound(ops, nbytes):
+    """(the least ms the card could take, what bounds it): the larger of
+    ops at FP32_OPS_PER_S and bytes at HBM_BYTES_PER_S."""
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sweep_bound(px, rows, active, segments=0, moving=False, fields=2):
+    """The bound of a min-distance sweep of [B, S, T] points (``px``)
+    against ``rows`` obstacle rows and ``segments`` segment rows per robot,
+    active steps [B] (``active``): 6 FP32 operations per active (point,
+    row) pair (2 sub, 2 mul, add, min), and in the moving sweep 4 per
+    (robot, active step, obstacle row) to move the row; bytes: points,
+    rows (and velocities), ``fields`` outputs per point, once each."""
+    B, S, T = (1, *px.shape) if px.dim() == 2 else px.shape
+    steps = float(active.clamp(max=T).sum()) if active.dim() else float(min(int(active), T))
+    pairs = steps * S * (rows + segments)
+    ops = 6.0 * pairs + (4.0 * steps * rows if moving else 0.0)
+    nbytes = 4.0 * (2 * B * S * T + B * (2 * rows * (2 if moving else 1) + 2 * segments)
+                    + fields * B * S * T)
+    return bound(ops, nbytes)
+
+
+def cells_bound(robots, height, width, bins, bayes=True):
+    """The bound of the mapper's per-cell pass: bytes per robot and cell
+    (endpoint flag, occupancy, and in the Bayesian form the previous and
+    new probability), per cell (nearest bin, distance) and per beam (its
+    16-byte table row; the bounds are the call's own scratch); operations:
+    the 5 line tests (4 mul, 2 add, 3 compares each) per robot and cell."""
+    cells = height * width
+    nbytes = robots * cells * (1 + 4 + (8 if bayes else 0)) + cells * 8 + robots * bins * 16
+    return bound(45.0 * robots * cells, nbytes)
+
+
 def _in_turns(kernel, plain, inputs, warm=2):
     """CUDA-event ms per call of ``plain`` and ``kernel`` over ``inputs``
     (argument tuples), in turns plain, kernel, kernel, plain. Returns
@@ -479,10 +608,12 @@ def phase_times(kernels, device, card):
               for _ in range(KERNEL_INPUTS)]
     k_ms, p_ms, runs = _in_turns(kernels.fused_min_dist_sq,
                                  kernels.fused_min_dist_sq_reference, inputs, warm=5)
+    b_ms, b_by = sweep_bound(inputs[0][0], 512, ap, segments=384)
     log(f"fused_min_dist_sq at 2025x30 vs 512+384 rows ({card}), CUDA events "
         f"over {KERNEL_INPUTS} distinct inputs, in turns {runs}: kernel "
-        f"{k_ms:.5f} ms, plain {p_ms:.5f} ms")
-    return k_ms, p_ms
+        f"{k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms ({b_by}), "
+        f"{b_ms / k_ms:.1%} of it")
+    return k_ms, p_ms, b_ms, b_by
 
 
 
@@ -537,6 +668,19 @@ def _moving_case(gen, device, B, S, T, O, G, span=10.0, vmax=1.5):
     return px, py, obs, vel, dt, sx, sy
 
 
+def _non_finite(px, py, obs, vel, sx, sy):
+    """NaN and +-inf in robot 0's points, obstacle rows, velocities and
+    segment rows; robot 1 stays finite; robot 2 has one NaN obstacle row
+    in its first tile of rows and a finite second tile."""
+    nan, inf = float("nan"), float("inf")
+    obs[2, 5, 1] = nan
+    px[0, 3, 4], py[0, 7, 0], px[0, 11, -1] = nan, inf, -inf
+    obs[0, 5, 0], obs[0, 9, 1], obs[0, -1] = nan, inf, -inf
+    vel[0, 17, 1] = inf  # inf * tau at t = 0 is NaN
+    sx[0, 2], sy[0, 4] = nan, -inf
+    return px, py, obs, vel, sx, sy
+
+
 def phase_moving_vs_plain(kernels, device):
     """The moving sweep (K3's port) against its plain version, and at
     zero velocity against K1, bit for bit."""
@@ -555,8 +699,16 @@ def phase_moving_vs_plain(kernels, device):
                   (px, py, obs, vel, dt, sx, sy), 30))
     cases.append(("O=700, G=333 (ragged tiles)",
                   _moving_case(gen, device, 1, 2025, 30, 700, 333), 30))
+    cases.append(("O=1100, G=1025 (rows past one tile)",
+                  _moving_case(gen, device, 2, 2025, 30, 1100, 1025), 30))
+    cases.append(("S=1025 (samples past one block), B=2",
+                  _moving_case(gen, device, 2, 1025, 30, 768, 384), 30))
+    cases.append(("T=1, B=3", _moving_case(gen, device, 3, 2025, 1, 768, 384), 1))
     cases.append(("S*T=259 (ragged block), B=3",
                   _moving_case(gen, device, 3, 37, 7, 512, 384), 5))
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 3, 300, 30, 1100, 384)
+    cases.append(("NaN and +-inf points and rows (robots 0 and 2; robot 1 finite)",
+                  (*_non_finite(px, py, obs, vel, sx, sy)[:4], dt, sx, sy), 30))
     cases.append((f"fleet shapes B={B}, O={O}",
                   _moving_case(gen, device, B, S, T, O, G), None))
     max_err = 0.0
@@ -570,16 +722,25 @@ def phase_moving_vs_plain(kernels, device):
         got = kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)
         want = kernels.fused_min_dist_sq_reference(px, py, obs, sx, sy, ap, vel, dt)
         torch.cuda.synchronize()
-        max_err = max(max_err, _check_equal(name, got, want, active))
+        if name.startswith("NaN"):
+            for g, w in zip(got, want):
+                assert torch.equal(g.isnan(), w.isnan()), f"{name}: NaN differs"
+                assert torch.equal(g.nan_to_num(), w.nan_to_num()), name
+            assert bool(got[0][0].isnan().any()) and not bool(got[0][1].isnan().any())
+            assert bool(got[0][2].isnan().all()), f"{name}: a NaN row was dropped"
+        else:
+            max_err = max(max_err, _check_equal(name, got, want, active))
         log(f"moving kernel == plain: {name}")
-    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 4, 2025, 30, 512, 384)
-    ap = torch.tensor([30, 17, 2, 30], dtype=torch.int32, device=device)
-    got = kernels.fused_min_dist_sq_moving(px, py, obs, torch.zeros_like(vel),
-                                           dt, sx, sy, ap)
-    k1 = kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap)
-    torch.cuda.synchronize()
-    max_err = max(max_err, _check_equal("zero velocity vs K1", got, k1))
-    log("moving kernel at zero velocity == K1")
+    for shape in ((4, 2025, 30, 512, 384), FLEET_SHAPE):
+        px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, *shape)
+        ap = torch.randint(2, shape[2] + 1, (shape[0],), generator=gen,
+                           dtype=torch.int32).to(device)
+        got = kernels.fused_min_dist_sq_moving(px, py, obs, torch.zeros_like(vel),
+                                               dt, sx, sy, ap)
+        k1 = kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _check_equal(f"zero velocity vs K1 {shape}", got, k1))
+        log(f"moving kernel at zero velocity == K1: B, S, T, O, G = {shape}")
     return max_err
 
 
@@ -851,10 +1012,12 @@ def phase_fleet_times(kernels, device, card):
         return kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)
 
     k_ms, p_ms, runs = _in_turns(kernel, kernels.fused_min_dist_sq_reference, inputs)
+    b_ms, b_by = sweep_bound(inputs[0][0], O, ap, segments=G, moving=True)
     log(f"fused_min_dist_sq_moving at B={B}, {S}x{T} vs {O}+{G} rows ({card}), "
         f"CUDA events over {FLEET_KERNEL_INPUTS} distinct inputs, in turns "
-        f"{runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
-    return k_ms, p_ms
+        f"{runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms "
+        f"({b_by}), {b_ms / k_ms:.1%} of it")
+    return k_ms, p_ms, b_ms, b_by
 
 
 # --- the mapping slice --------------------------------------------------------
@@ -960,9 +1123,51 @@ def _check_grids_equal(name, got, want):
     return err
 
 
+def boundary_tables(spec, geo):
+    """[1, B, 4] tables whose beam b ends in the farthest cell whose
+    nearest bin is b (the sensor cell for a bin no cell reads): that cell
+    lies on its line test's t = L bound, the cells beside it on the
+    diamond's edges."""
+    import torch
+
+    base = geo.base.cpu().reshape(-1).long()
+    dist = geo.dist_m.cpu().reshape(-1)
+    B, W = spec.num_bins, spec.grid_width
+    far = torch.full((B,), -1.0).scatter_reduce(0, base, dist, "amax")
+    cell = torch.zeros(B, dtype=torch.long)
+    hit = dist == far[base]
+    cell[base[hit]] = torch.nonzero(hit)[:, 0]
+    si, sj = spec.start_cell
+    e_i = torch.where(far >= 0, cell // W, si).to(torch.int32)
+    e_j = torch.where(far >= 0, cell % W, sj).to(torch.int32)
+    r = torch.rand(B, generator=torch.Generator().manual_seed(0)) * 5.0
+    return torch.stack([e_i, e_j, r.view(torch.int32), (far >= 0).to(torch.int32)],
+                       -1)[None].contiguous()
+
+
+def _check_beam_pass(kernels, name, geo, tables, endpoint, start_cell):
+    """K5's first launch, the beam pass, against ``line_test_bounds`` on
+    the same card tensors, bit for bit."""
+    import torch
+
+    si, sj = start_cell
+    _, _, got = kernels._scan_to_grid_cells_cuda(geo.base, geo.dist_m, tables,
+                                                 endpoint, start_cell, None, None)
+    want = kernels.line_test_bounds((tables[..., 0] - si).float(),
+                                    (tables[..., 1] - sj).float())
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., :3], want.view(torch.int32)), (
+        f"{name}: beam pass != line_test_bounds")
+    assert not bool(got[..., 3].any()), f"{name}: beam pass padding"
+    log(f"K5 beam pass == line_test_bounds: {name}")
+
+
 def phase_mapper_kernel_vs_plain(kernels, device):
     """K5 and its plain version on the same card tensors must be equal,
-    in the plain and the Bayesian form."""
+    in the plain and the Bayesian form, and the beam pass against
+    ``line_test_bounds``."""
+    import torch
+
     from kompass_core_tpu_torch.ops.mapping import MapperSpec
 
     full, ragged = MapperSpec(*MAP_SPEC), MapperSpec(*MAP_RAGGED)
@@ -974,23 +1179,29 @@ def phase_mapper_kernel_vs_plain(kernels, device):
         (f"{shape(full)} with 0, NaN and +inf beams", full, 1),
         (f"{shape(ragged)}, offset rotated laser", ragged, 1),
         (f"{shape(full)}, a batch of {MAP_ROBOTS} robots", full, MAP_ROBOTS),
+        (f"{shape(full)}, every beam ending on a line-test boundary cell", full, 0),
+        (f"{shape(ragged)}, every beam ending on a line-test boundary cell", ragged, 0),
     ]
     max_err = 0.0
     for seed, (name, spec, robots) in enumerate(cases):
         geo, tables, endpoint, prev, params = _map_inputs(
-            spec, _map_ranges(spec, robots, seed), device, seed)
+            spec, _map_ranges(spec, max(robots, 1), seed), device, seed)
+        if robots == 0:
+            tables = boundary_tables(spec, geo).to(device)
+        _check_beam_pass(kernels, name, geo, tables, endpoint, spec.start_cell)
         for bayes in (False, True):
             extra = (prev, params) if bayes else ()
             form = "Bayesian" if bayes else "plain"
-            got = kernels.scan_to_grid_cells(geo.base, geo.dist_m, tables,
-                                             endpoint, spec.start_cell, *extra)
             want = kernels.scan_to_grid_cells_reference(
                 geo.base, geo.dist_m, tables, endpoint, spec.start_cell, *extra)
-            got, want = (x if bayes else (x,) for x in (got, want))
+            want = want if bayes else (want,)
+            got = kernels.scan_to_grid_cells(geo.base, geo.dist_m, tables,
+                                             endpoint, spec.start_cell, *extra)
+            got = got if bayes else (got,)
             max_err = max(max_err, _check_grids_equal(f"{name} {form}", got, want))
             occ = got[0]
             codes = set(occ.unique().tolist())
-            assert codes == {-1, 0, 100}, f"{name}: codes {codes}"
+            assert {0, 100} <= codes <= {-1, 0, 100}, f"{name}: codes {codes}"
             if bayes:
                 prob = got[1]
                 assert bool(((prob > 0) & (prob < 1)).all()), f"{name}: prob range"
@@ -1005,6 +1216,12 @@ def phase_mapper_kernel_vs_plain(kernels, device):
                     [o[0] for o in one]))
             log(f"K5 == plain ({form}): {name}"
                 + (f"; batch == {robots} one-robot launches" if robots > 1 else ""))
+    geo, tables, endpoint, _, _ = _map_inputs(full, _map_ranges(full, 2, 9), device, 9)
+    gen = torch.Generator().manual_seed(9)
+    tables[..., :2] = torch.randint(-2**15, 2**15, tables[..., :2].shape, generator=gen,
+                                    dtype=torch.int32).to(device)
+    _check_beam_pass(kernels, "endpoints across the 15-bit clip range, 2 robots",
+                     geo, tables, endpoint, full.start_cell)
     return max_err
 
 
@@ -1246,10 +1463,12 @@ def phase_mapping_times(kernels, device, card):
                            prev, params))
         k_ms, p_ms, runs = _in_turns(kernels.scan_to_grid_cells,
                                      kernels.scan_to_grid_cells_reference, inputs)
-        results[robots] = (k_ms, p_ms)
+        b_ms, b_by = cells_bound(robots, height, width, bins)
+        results[robots] = (k_ms, p_ms, b_ms, b_by)
         log(f"scan_to_grid_cells (Bayesian) at {robots} x {height}x{width}/{bins} "
             f"({card}), CUDA events over {MAP_KERNEL_INPUTS} distinct inputs, in "
-            f"turns {runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
+            f"turns {runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it")
 
     ranges = _map_ranges(spec, MAP_ROBOTS, 30).to(device)
     prev = torch.full((MAP_ROBOTS, height, width), 0.6, device=device)
@@ -1266,7 +1485,7 @@ def phase_mapping_times(kernels, device, card):
     log(f"Bayesian fleet mapper, {MAP_ROBOTS} robots x {height}x{width}/{bins}, "
         f"device-resident inputs ({card}): host clock over {len(lat)} calls median "
         f"{p50:.4f} ms, p99 {p99:.4f} ms")
-    return results[1]
+    return results[MAP_ROBOTS]
 
 
 # --- the expanded sweeps and the scenario-batched solver slice ----------------
@@ -1641,17 +1860,20 @@ def phase_solver_times(kernels, device, card):
         ap = torch.full((robots,), T, dtype=torch.int32, device=device)
         k2_inputs = [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in cases]
         k4_inputs = [(px, py, obs, ap) for px, py, obs, *_ in cases]
-        k2 = _in_turns(kernels.fused_min_dist_sq_expanded,
-                       kernels.fused_min_dist_sq_expanded_reference, k2_inputs)
-        k4 = _in_turns(kernels.min_dist_sq_expanded,
-                       kernels.min_dist_sq_expanded_reference, k4_inputs)
+        k2 = (*_in_turns(kernels.fused_min_dist_sq_expanded,
+                         kernels.fused_min_dist_sq_expanded_reference, k2_inputs),
+              *sweep_bound(cases[0][0], O, ap, segments=G))
+        k4 = (*_in_turns(kernels.min_dist_sq_expanded,
+                         kernels.min_dist_sq_expanded_reference, k4_inputs),
+              *sweep_bound(cases[0][0], O, ap, fields=1))
         results[robots] = (k2, k4)
-        for name, rows, (k_ms, p_ms, runs) in (
+        for name, rows, (k_ms, p_ms, runs, b_ms, b_by) in (
                 ("fused_min_dist_sq_expanded (K2)", f"{O}+{G}", k2),
                 ("min_dist_sq_expanded (K4)", f"{O}", k4)):
             log(f"{name} at B={robots}, {S}x{T} vs {rows} rows ({card}), CUDA events "
                 f"over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
-                f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
+                f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms "
+                f"({b_by}), {b_ms / k_ms:.1%} of it")
 
     params, args = evaluator_inputs(device)
     dev_args = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
@@ -1713,33 +1935,37 @@ def main() -> int:
     assert kernels.fused_min_dist_sq_moving.launches == 0
     phase_evaluator(kernels, device)
     phase_box_dwa(kernels, device)
-    k1_ms, k1_plain_ms = phase_times(kernels, device, card)
-    k3_ms, k3_plain_ms = phase_fleet_times(kernels, device, card)
-    k5_ms, k5_plain_ms = phase_mapping_times(kernels, device, card)
-    (k2_ms, k2_plain_ms, _), (k4_ms, k4_plain_ms, _) = phase_solver_times(
-        kernels, device, card)
+    k1_times = phase_times(kernels, device, card)
+    k3_times = phase_fleet_times(kernels, device, card)
+    k5_times = phase_mapping_times(kernels, device, card)
+    (k2_ms, k2_plain_ms, _, *k2_bound), (k4_ms, k4_plain_ms, _, *k4_bound) = (
+        phase_solver_times(kernels, device, card))
     assert "jax" not in sys.modules, "the port loaded jax"
+    assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
+        "the port loaded the JAX package")
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by):
+        # library_ms: no single PyTorch call computes any of these functions
+        # (torch.cdist gives distances, not their squares, and the min over
+        # the rows is a second call; nothing computes the line test)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [
-        {"name": "fused_min_dist_sq", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": k1_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fused_min_dist_sq_expanded", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": EXPANDED_REPLACES,
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms},
-        {"name": "fused_min_dist_sq_moving", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": MOVING_REPLACES,
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain_ms},
-        {"name": "min_dist_sq_expanded", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": SINGLE_REPLACES, "launches": k4_launches,
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
-        {"name": "scan_to_grid_cells", "route": "cuda", "source": MAP_SOURCE,
-         "replaces": MAP_REPLACES, "launches": k5_launches,
-         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms},
+        row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES, k1_launches,
+            k1_err, *k1_times),
+        row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
+            k2_launches, k2_err, k2_ms, k2_plain_ms, *k2_bound),
+        row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
+            k3_launches, k3_err, *k3_times),
+        row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES, k4_launches,
+            k4_err, k4_ms, k4_plain_ms, *k4_bound),
+        row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
+            *k5_times),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

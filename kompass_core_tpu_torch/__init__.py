@@ -3,9 +3,10 @@ ported to PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The JAX package stays the reference; this package keeps its file layout
 and names (``ops/solver.py`` here is the counterpart of
-``kompass_core_tpu/ops/solver.py``). JAX-free host modules of the JAX
-package (path and scan datatypes, robot models, the native host library,
-geometry and config helpers) are shared by import, never copied.
+``kompass_core_tpu/ops/solver.py``). It imports nothing of the JAX
+package: the host modules it needs (path and scan datatypes, robot
+models, the native host library, geometry and config helpers) are its
+own copies, with the same code and numerics.
 
 Every entry point takes its ``torch.device`` explicitly; nothing picks a
 device for the caller.

@@ -27,19 +27,18 @@ import numpy as np
 import torch
 from attrs import Factory, define, field
 
-from kompass_core_tpu.datatypes.laserscan import LaserScanData
-from kompass_core_tpu.datatypes.path import ReferencePath
-from kompass_core_tpu.models import (
+from ..datatypes.laserscan import LaserScanData
+from ..datatypes.path import ReferencePath
+from ..models import (
     Robot,
     RobotCtrlLimits,
     RobotGeometry,
     RobotState,
     RobotType,
 )
-from kompass_core_tpu.native import scan_to_obstacle_block, segment_block
-from kompass_core_tpu.utils.config import base_validators
-from kompass_core_tpu.utils.geometry import yaw_from_quaternion
-
+from ..native import scan_to_obstacle_block, segment_block
+from ..utils.config import base_validators
+from ..utils.geometry import yaw_from_quaternion
 from ..ops.solver import (
     COLLISION_MARGIN_FACTOR,
     SolverSpec,

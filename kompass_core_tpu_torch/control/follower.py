@@ -21,18 +21,18 @@ from typing import Optional
 
 from attrs import define, field
 
-from kompass_core_tpu.datatypes.path import InterpolationType, ReferencePath
-from kompass_core_tpu.models import RobotState
-from kompass_core_tpu.native import (
+from ..datatypes.path import InterpolationType, ReferencePath
+from ..models import RobotState
+from ..native import (
     closest_point_on_segment,
     find_closest_segment,
     speed_factor,
 )
-from kompass_core_tpu.utils.angles import (
+from ..utils.angles import (
     normalize_to_0_2pi,
     normalize_to_minus_pi_pi,
 )
-from kompass_core_tpu.utils.config import BaseAttrs, base_validators
+from ..utils.config import BaseAttrs, base_validators
 
 
 @define

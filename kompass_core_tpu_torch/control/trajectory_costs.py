@@ -6,7 +6,7 @@ Mirrors the reference's ``TrajectoryCostsWeights``
 
 from attrs import define, field
 
-from kompass_core_tpu.utils.config import BaseAttrs, base_validators
+from ..utils.config import BaseAttrs, base_validators
 
 
 @define

@@ -1,11 +1,8 @@
-"""Sensor and path datatypes, shared with ``kompass_core_tpu`` by import
-(JAX-free host code)."""
+"""Sensor and path datatypes: the port's own copies of the JAX package's
+host code (NumPy and attrs, no JAX), with the same code and numerics."""
 
-from kompass_core_tpu.datatypes.laserscan import LaserScanData  # noqa: F401
-from kompass_core_tpu.datatypes.path import (  # noqa: F401
-    InterpolationType,
-    ReferencePath,
-)
-from kompass_core_tpu.datatypes.pointcloud import PointCloudData  # noqa: F401
-from kompass_core_tpu.datatypes.pose import PoseData  # noqa: F401
-from kompass_core_tpu.datatypes.scan_model import ScanModelConfig  # noqa: F401
+from .laserscan import LaserScanData  # noqa: F401
+from .path import InterpolationType, ReferencePath  # noqa: F401
+from .pointcloud import PointCloudData  # noqa: F401
+from .pose import PoseData  # noqa: F401
+from .scan_model import ScanModelConfig  # noqa: F401

@@ -18,16 +18,15 @@ import numpy as np
 import torch
 from attrs import define, field
 
-from kompass_core_tpu.datatypes.laserscan import LaserScanData
-from kompass_core_tpu.datatypes.pointcloud import PointCloudData
-from kompass_core_tpu.datatypes.pose import (
+from ..datatypes.laserscan import LaserScanData
+from ..datatypes.pointcloud import PointCloudData
+from ..datatypes.pose import (
     PoseData,
     get_relative_pose,
     transform_point_from_local_to_global,
 )
-from kompass_core_tpu.datatypes.scan_model import ScanModelConfig
-from kompass_core_tpu.utils.config import BaseAttrs, base_validators
-
+from ..datatypes.scan_model import ScanModelConfig
+from ..utils.config import BaseAttrs, base_validators
 from ..ops.mapping import (
     EMPTY,
     OCCUPIED,

@@ -1,10 +1,20 @@
-"""Robot models, shared with ``kompass_core_tpu`` by import (JAX-free
-host code): the port's ``DWA`` takes the same ``Robot`` and
-``RobotCtrlLimits`` objects as the JAX one."""
+"""Robot models: the port's own copies of the JAX package's host code
+(NumPy and attrs, no JAX), with the same code and numerics."""
 
-from kompass_core_tpu.models import (  # noqa: F401
+from .footprint import (  # noqa: F401
+    CircularFootprint,
+    RectangleFootprint,
+    footprint_types,
+)
+from .robot import (  # noqa: F401
+    AckermannControl,
     AngularCtrlLimits,
+    DifferentialDriveControl,
     LinearCtrlLimits,
+    MotionControl,
+    MotionModel2D,
+    MotionModel2DParams,
+    OmniControl,
     Robot,
     RobotCtrlLimits,
     RobotGeometry,

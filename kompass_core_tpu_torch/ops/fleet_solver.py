@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from .kernels import _sqrt
 from .solver import (
     SolverParams,
     SolverSpec,
@@ -212,7 +213,7 @@ def _device_determine_target(paths: FleetPaths, closest_idx, seg_idx,
     sx, sy = _pick(paths.x, start_i), _pick(paths.y, start_i)
     ex, ey = _pick(paths.x, end_i), _pick(paths.y, end_i)
     heading = torch.atan2(ey - sy, ex - sx)
-    return cidx, new_seg, pos, heading, torch.sqrt(min_d2)
+    return cidx, new_seg, pos, heading, _sqrt(min_d2)
 
 
 def _scan_to_world_obs(spec: SolverSpec, ranges, angles, sensor_pose, x, y, yaw):
@@ -268,7 +269,9 @@ def _fleet_step(
     # --- goal / losing-goal (follower.cpp:109-142) ---
     goal_i = paths.n_points - 1
     gx, gy = _pick(paths.x, goal_i), _pick(paths.y, goal_i)
-    d_goal = torch.sqrt((x - gx) * (x - gx) + (y - gy) * (y - gy))
+    # square roots before a decision are correctly rounded (_sqrt), as
+    # XLA's are: PyTorch's CPU float32 sqrt can miss by an ulp
+    d_goal = _sqrt((x - gx) * (x - gx) + (y - gy) * (y - gy))
     at_end = (carry.seg_idx + 1) >= (paths.n_segs - 1)
     improving = d_goal < carry.goal_dist
     new_goal_dist = torch.where(at_end & improving, d_goal, carry.goal_dist)
@@ -295,7 +298,7 @@ def _fleet_step(
     kappa_max = torch.amax(
         torch.where(in_peek, torch.abs(paths.curvature), 0.0), dim=-1
     )
-    cap = torch.sqrt(
+    cap = _sqrt(
         8.0 * curv_tol / torch.clamp(kappa_max, min=1e-9)
     ) / torch.clamp(vx_max, min=1e-3)
     adaptive = torch.where(

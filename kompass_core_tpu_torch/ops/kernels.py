@@ -35,7 +35,10 @@ The occupancy mapper's per-cell pass is one kernel:
   candidate-beam lookup of ``_candidate_lookup``), fused with what the
   JAX package does with the candidates: the diamond line test, the
   OCCUPIED / EMPTY / UNEXPLORED combine and, in the Bayesian form, the
-  inverse sensor model of the nearest covering beam.
+  inverse sensor model of the nearest covering beam. What depends only
+  on the beam (the line's length and the test's bounds,
+  ``line_test_bounds``) is computed once per beam by a first launch in
+  the same call, so a cell's test makes no division and no square root.
 
 The kernel sources are ``csrc/*.cu``. At first use each source is
 compiled with its own ``nvcc`` for ``sm_90a``, all at once, and the
@@ -52,6 +55,7 @@ raises.
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import threading
@@ -69,7 +73,8 @@ LINK_FLAGS = (*_ARCH, "-shared")
 
 # plain version: largest [robots, rows, T, R] broadcast slab, in elements
 _SLAB_ELEMS = 1 << 24
-_MAX_BATCH = 65535  # the kernel's grid.y
+# a grid dimension's limit: the robots, K3's steps and K5's 8-row tiles
+_MAX_BATCH = 65535
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -164,7 +169,7 @@ def _library() -> ctypes.CDLL:
             ]
             lib.kompass_scan_to_grid_cells.restype = ctypes.c_int
             lib.kompass_scan_to_grid_cells.argtypes = [
-                p, p, i, i, p, i, p, i, i, p, p, i, p, p, p,
+                p, p, i, i, p, i, p, i, i, p, p, i, p, p, p, p,
             ]
             _lib = lib
     return _lib
@@ -221,6 +226,8 @@ def _check_sweep(name, px, py, obs_xy, seg_x, seg_y, active_points,
     if obs_vel is not None and (obs_vel.shape != obs_xy.shape
                                 or (batched and dt.shape != lead)):
         raise ValueError(f"{name}: obs_vel must match obs_xy and dt be [B]")
+    if obs_vel is not None and T > _MAX_BATCH:
+        raise ValueError(f"{name}: T must be <= {_MAX_BATCH} (the kernel's grid.y)")
     return B, S, T, O, G, batched
 
 
@@ -437,12 +444,14 @@ fused_min_dist_sq_moving.launches = 0
 
 OCCUPIED, EMPTY, UNEXPLORED = 100, 0, -1
 CANDIDATES = 5  # beams per cell: its nearest bin and 2 on each side
-N_MODEL_PARAMS = 6  # p_prior, p_empty, p_occupied, range_sure, range_max, wall_size
+# p_prior, p_empty, p_occupied, range_sure, range_max, wall_size, and
+# (1 - p_prior) / p_prior, the odds update's constant
+N_MODEL_PARAMS = 7
 
 
 def _sqrt(x):
-    """Correctly rounded float32 sqrt on every device (PyTorch's CPU
-    float32 sqrt is not); the kernel's ``__fsqrt_rn``."""
+    """Correctly rounded float32 sqrt on every device, through float64
+    (PyTorch's CPU float32 sqrt is not correctly rounded)."""
     return torch.sqrt(x.double()).float()
 
 
@@ -453,12 +462,57 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def _quotient_bound(h, d):
+    """The largest float32 F such that, for every float32 n, the float32
+    quotient RN(n / d) is <= h exactly when n <= F (float32 tensors, d > 0,
+    h a positive normal float).
+
+    Round to nearest gives h for an exact quotient x below the midpoint m
+    of h and its successor, and the successor above m. With x = n / d and
+    d > 0, x < m is n < a = m * d, which float64 holds exactly (m has 25
+    significant bits, d at most 24). The lowest set bit of a is that of m
+    (the half-ulp bit) times that of d, so a has at least 25 significant
+    bits and is never a float32 itself: no n sits on the midpoint, and
+    the floats that pass are those up to the largest float32 below a. So
+    the division's decision becomes one compare, with the same outcome
+    for every n."""
+    inf = torch.full_like(h, math.inf)
+    a = (h.double() + torch.nextafter(h, inf).double()) * 0.5 * d.double()
+    f = a.float()
+    return torch.where(f.double() > a, torch.nextafter(f, -inf), f)
+
+
+def line_test_bounds(vx, vy):
+    """The diamond line test's bounds per beam, [..., 3] float32: (t_lo,
+    t_hi, p_hi) for the line from the sensor cell to the endpoint offset
+    (vx, vy) (float32, integer-valued).
+
+    The JAX package's test of a cell at offset (di, dj) from the sensor
+    cell (``_line_membership``) is t >= -0.5, t <= L, perp <= halfwidth
+    and L > 0, with L = sqrt(vx^2 + vy^2), L_safe = max(L, 1e-6),
+    t = (di vx + dj vy) / L_safe, perp = |di vy - dj vx| / L_safe and
+    halfwidth = (|vx| + |vy|) / (2 L_safe) + 1e-4, each rounded to
+    float32. Here L, L_safe and halfwidth are computed once per beam with
+    the same roundings, and each division's decision becomes a compare
+    of its numerator (``_quotient_bound``): the test is t_lo <= n_t <= t_hi
+    and |n_p| <= p_hi, with n_t = di vx + dj vy and n_p = di vy - dj vx.
+    A zero-length line gets t_hi = -inf and covers no cell. The kernel's
+    beam pass computes the same operations in the same order."""
+    L = _sqrt(_fma(vx, vx, vy * vy))
+    L_safe = torch.clamp(L, min=1e-6)
+    halfwidth = (torch.abs(vx) + torch.abs(vy)) / (2.0 * L_safe) + 1e-4
+    t_lo = -_quotient_bound(torch.full_like(L, 0.5), L_safe)
+    t_hi = torch.where(L > 0, _quotient_bound(L, L_safe), -math.inf)
+    p_hi = _quotient_bound(halfwidth, L_safe)
+    return torch.stack([t_lo, t_hi, p_hi], dim=-1)
+
+
 def _check_cells(base, dist_m, tables, endpoint, prev, params):
     """Check the per-cell pass's inputs; returns (R, H, W, B).
 
     base [H, W] int32 (each cell's nearest bin, in [0, B)); dist_m [H, W]
     f32; tables [R, B, 4] int32; endpoint [R, H, W] bool; the Bayesian
-    form adds prev [R, H, W] f32 and params [6] f32."""
+    form adds prev [R, H, W] f32 and params [7] f32."""
     name = "scan_to_grid_cells"
     if (prev is None) != (params is None):
         raise ValueError(f"{name}: give both prev and params, or neither")
@@ -482,18 +536,20 @@ def _check_cells(base, dist_m, tables, endpoint, prev, params):
     (H, W), (R, B, _) = base.shape, tables.shape
     if H * W == 0 or B == 0 or R == 0:
         raise ValueError(f"{name}: empty grid, scan or batch")
-    if H * W >= 2**31 or R > _MAX_BATCH:
-        raise ValueError(f"{name}: H * W must fit in int32 and R <= {_MAX_BATCH}")
+    if H * W >= 2**31 or R * B >= 2**31 or R > _MAX_BATCH or H > 8 * _MAX_BATCH:
+        raise ValueError(f"{name}: H * W and R * B must fit in int32, H <= "
+                         f"{8 * _MAX_BATCH} and R <= {_MAX_BATCH}")
     if dist_m.shape != (H, W) or endpoint.shape != (R, H, W):
         raise ValueError(f"{name}: dist_m must be [H, W] and endpoint [R, H, W]")
     if prev is not None and (prev.shape != (R, H, W)
                              or params.shape != (N_MODEL_PARAMS,)):
-        raise ValueError(f"{name}: prev must be [R, H, W] and params [6]")
+        raise ValueError(f"{name}: prev must be [R, H, W] and params "
+                         f"[{N_MODEL_PARAMS}]")
     return R, H, W, B
 
 
 def scan_to_grid_candidates(base, tables):
-    """[R, H, W, 5, 4]: a cell's candidate k is the table row of bin
+    """[R, H, W, 5, words]: a cell's candidate k is the table row of bin
     (base + k - 2) mod B, what the JAX package's rolled tables deliver."""
     B = tables.shape[1]
     k = torch.arange(CANDIDATES, device=base.device) - CANDIDATES // 2
@@ -507,20 +563,22 @@ def scan_to_grid_cells_reference(base, dist_m, tables, endpoint, start_cell,
     _, H, W, _ = _check_cells(base, dist_m, tables, endpoint, prev, params)
     si, sj = start_cell
     device = base.device
-    cand = scan_to_grid_candidates(base, tables)  # [R, H, W, C, 4]
+    # the beam pass: each beam's line-test bounds, beside its table row
+    bounds = line_test_bounds((tables[..., 0] - si).to(torch.float32),
+                              (tables[..., 1] - sj).to(torch.float32))
+    wide = torch.cat([tables, bounds.view(torch.int32)], dim=-1)
+    cand = scan_to_grid_candidates(base, wide)  # [R, H, W, C, 7]
     vx = (cand[..., 0] - si).to(torch.float32)
     vy = (cand[..., 1] - sj).to(torch.float32)
     di = (torch.arange(H, device=device) - si).to(torch.float32)[:, None, None]
     dj = (torch.arange(W, device=device) - sj).to(torch.float32)[None, :, None]
     # diamond (super-cover) test against the line from the sensor cell to
-    # each candidate's endpoint cell
-    L = _sqrt(_fma(vx, vx, vy * vy))
-    L_safe = torch.clamp(L, min=1e-6)
-    t = (di * vx + dj * vy) / L_safe
-    perp = torch.abs(di * vy - dj * vx) / L_safe
-    halfwidth = (torch.abs(vx) + torch.abs(vy)) / (2.0 * L_safe) + 1e-4
-    on_line = ((t >= -0.5) & (t <= L) & (perp <= halfwidth) & (L > 0)
-               & (cand[..., 3] != 0))
+    # each candidate's endpoint cell, by the beam's bounds
+    n_t = di * vx + dj * vy
+    n_p = torch.abs(di * vy - dj * vx)
+    bounds = cand[..., 4:7].view(torch.float32)
+    on_line = ((n_t >= bounds[..., 0]) & (n_t <= bounds[..., 1])
+               & (n_p <= bounds[..., 2]) & (cand[..., 3] != 0))
     covered = on_line.any(dim=-1)
     occ = torch.where(endpoint, OCCUPIED,
                       torch.where(covered, EMPTY, UNEXPLORED)).to(torch.int32)
@@ -532,7 +590,8 @@ def scan_to_grid_cells_reference(base, dist_m, tables, endpoint, start_cell,
     r_sel = r_c[..., 4]
     for k in (0, 3, 1, 2):
         r_sel = torch.where(on_line[..., k], r_c[..., k], r_sel)
-    p_prior, p_empty, p_occupied, range_sure, range_max, wall_size = params.unbind()
+    (p_prior, p_empty, p_occupied, range_sure, range_max, wall_size,
+     odds_k) = params.unbind()
     one = torch.ones((), dtype=torch.float32, device=device)
     # inverse sensor model and Bayes odds update (updateGridCellProbability)
     p_f = torch.where(dist_m < r_sel - wall_size, p_empty, p_occupied)
@@ -540,22 +599,23 @@ def scan_to_grid_cells_reference(base, dist_m, tables, endpoint, start_cell,
     p_sensor = _fma(delta * ((dist_m - range_sure) / range_max),
                     p_prior - p_f, p_f)
     odds = (prev / (one - prev)) * (p_sensor / (one - p_sensor))
-    new = one - one / _fma(odds, (one - p_prior) / p_prior, one)
+    new = one - one / _fma(odds, odds_k, one)
     return occ, torch.where(covered, new, p_prior)
 
 
 def scan_to_grid_cells(base, dist_m, tables, endpoint, start_cell,
                        prev=None, params=None):
-    """The mapper's per-cell pass over R robots' grids in one launch.
+    """The mapper's per-cell pass over R robots' grids in one call: a
+    beam pass (each beam's ``line_test_bounds``), then the cell pass.
 
     base: [H, W] int32, each cell's angularly nearest bin; dist_m: [H, W]
     f32, each cell's distance to the sensor cell in metres; tables:
     [R, B, 4] int32 per beam: endpoint cell i, j, range (f32 bits) and
-    validity; endpoint: [R, H, W] bool, the cells a valid beam ends in;
-    start_cell: the sensor cell (i, j). For the Bayesian form also prev:
-    [R, H, W] f32, the previous probability grid, and params: [6] f32
-    (p_prior, p_empty, p_occupied, range_sure, range_max, wall_size) on
-    the device.
+    validity; endpoint: [R, H, W] bool, the cells a valid beam ends in; start_cell:
+    the sensor cell (i, j). For the Bayesian form also prev: [R, H, W]
+    f32, the previous probability grid, and params: [7] f32 (p_prior,
+    p_empty, p_occupied, range_sure, range_max, wall_size,
+    (1 - p_prior) / p_prior) on the device.
 
     Returns occ [R, H, W] int32, and in the Bayesian form (occ, prob
     [R, H, W] f32). On CUDA it launches on the current stream without
@@ -563,10 +623,21 @@ def scan_to_grid_cells(base, dist_m, tables, endpoint, start_cell,
     if base.device.type == "cpu":
         return scan_to_grid_cells_reference(base, dist_m, tables, endpoint,
                                             start_cell, prev, params)
+    occ, prob, _ = _scan_to_grid_cells_cuda(base, dist_m, tables, endpoint,
+                                            start_cell, prev, params)
+    scan_to_grid_cells.launches += 1
+    return occ if prob is None else (occ, prob)
+
+
+def _scan_to_grid_cells_cuda(base, dist_m, tables, endpoint, start_cell,
+                             prev, params):
+    """Both passes on the card: (occ, prob or None, the beam pass's
+    bounds [R, B, 4] int32: t_lo, t_hi, p_hi as f32 bits, and 0)."""
     R, H, W, B = _check_cells(base, dist_m, tables, endpoint, prev, params)
     lib = _library()
     occ = torch.empty((R, H, W), dtype=torch.int32, device=base.device)
     prob = None if prev is None else torch.empty_like(prev)
+    bounds = torch.empty_like(tables)
     with torch.cuda.device(base.device):
         stream = torch.cuda.current_stream(base.device).cuda_stream
         err = lib.kompass_scan_to_grid_cells(
@@ -574,12 +645,12 @@ def scan_to_grid_cells(base, dist_m, tables, endpoint, start_cell,
             B, endpoint.data_ptr(), start_cell[0], start_cell[1],
             None if prev is None else prev.data_ptr(),
             None if params is None else params.data_ptr(), R,
-            occ.data_ptr(), None if prob is None else prob.data_ptr(), stream,
+            bounds.data_ptr(), occ.data_ptr(),
+            None if prob is None else prob.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"scan_to_grid_cells: kernel launch failed (cudaError {err})")
-    scan_to_grid_cells.launches += 1
-    return occ if prob is None else (occ, prob)
+    return occ, prob, bounds
 
 
 scan_to_grid_cells.launches = 0

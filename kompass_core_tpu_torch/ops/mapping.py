@@ -165,11 +165,14 @@ def _model_params(values, device: torch.device) -> torch.Tensor:
 
 def _params(device, p_prior, p_empty, p_occupied, range_sure, range_max,
             wall_size) -> torch.Tensor:
-    """The inverse sensor model's scalars as a [6] f32 tensor on the
-    device, cached per value."""
-    values = tuple(_f32(v) for v in (p_prior, p_empty, p_occupied,
-                                     range_sure, range_max, wall_size))
-    return _model_params(values, torch.device(device))
+    """The inverse sensor model's scalars and the odds update's constant
+    (1 - p_prior) / p_prior (a float32 division) as a [7] f32 tensor on
+    the device, cached per value."""
+    values = tuple(np.float32(v) for v in (p_prior, p_empty, p_occupied,
+                                           range_sure, range_max, wall_size))
+    odds_k = (np.float32(1.0) - values[0]) / values[0]
+    return _model_params(tuple(map(float, values + (odds_k,))),
+                         torch.device(device))
 
 
 def _sanitize_beams(ranges):

@@ -22,9 +22,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from kompass_core_tpu.datatypes.path import ReferencePath
-from kompass_core_tpu.models import RobotCtrlLimits, RobotGeometry, RobotType
-
+from ..datatypes.path import ReferencePath
+from ..models import RobotCtrlLimits, RobotGeometry, RobotType
 from ..control.dwa import DWAConfig, _round_up, segment_capacity
 from ..ops.fleet_solver import (
     OUT_FIELDS,

@@ -141,6 +141,54 @@ def test_moving_kernel_at_zero_velocity_equals_the_static_kernel(cuda):
         assert torch.equal(m, st)
 
 
+@pytest.mark.parametrize(
+    "B,S,T,O,G",
+    [(2, 1025, 30, 1100, 333),  # S past one block of samples, two row tiles
+     (3, 1023, 1, 768, 384),    # T = 1
+     (1, 2025, 30, 1024, 1025)],
+)
+def test_moving_kernel_ragged_shapes(cuda, B, S, T, O, G):
+    px, py, obs, vel, dt, sx, sy = _moving_case(S + O + G, B, S, T, O, G, cuda)
+    ap = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    got = kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)
+    want = kernels.fused_min_dist_sq_reference(px, py, obs, sx, sy, ap, vel, dt)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) and bool(torch.isfinite(g).all())
+
+
+def test_moving_kernel_keeps_nan_and_inf(cuda):
+    """NaN and +-inf in points, obstacle rows, velocities and segment
+    rows: robot 0 has all of them, robot 1 none (the fminf path), robot 2
+    a NaN obstacle row only and robot 3 a NaN point only."""
+    px, py, obs, vel, dt, sx, sy = _moving_case(9, 4, 300, 30, 1100, 384, cuda)
+    nan, inf = float("nan"), float("inf")
+    px[0, 3, 4], py[0, 7, 0], px[0, 11, 29] = nan, inf, -inf
+    obs[0, 5, 0], obs[0, 9, 1], obs[0, 1050] = nan, inf, -inf
+    vel[0, 17, 1] = inf  # inf * tau at t = 0 is NaN
+    sx[0, 2], sy[0, 4] = nan, -inf
+    obs[2, 600, 1] = nan
+    py[3, 100, 12] = nan
+    ap = torch.tensor([30, 30, 17, 30], dtype=torch.int32, device=cuda)
+    got = kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)
+    want = kernels.fused_min_dist_sq_reference(px, py, obs, sx, sy, ap, vel, dt)
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    assert bool(got[0][0].isnan().any()) and not bool(got[0][1].isnan().any())
+    assert bool(got[0][2, :, :17].isnan().all()) and bool(got[0][3, 100, 12].isnan())
+
+
+@pytest.mark.parametrize("B,S,O", [(1, 2025, 512), (8, 2025, 768)])
+def test_moving_kernel_at_zero_velocity_equals_k1_at_path_shapes(cuda, B, S, O):
+    px, py, obs, vel, dt, sx, sy = _moving_case(B + S, B, S, 30, O, 384, cuda)
+    ap = torch.randint(2, 31, (B,), dtype=torch.int32).to(cuda)
+    moving = kernels.fused_min_dist_sq_moving(
+        px, py, obs, torch.zeros_like(vel), dt, sx, sy, ap)
+    static = kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap)
+    for m, st in zip(moving, static):
+        assert torch.equal(m, st)
+
+
 def test_batched_static_kernel_equals_per_robot_launches(cuda):
     px, py, obs, _, _, sx, sy = _moving_case(6, 5, 2025, 30, 768, 384, cuda)
     ap = torch.tensor([30, 17, 2, 30, 9], dtype=torch.int32, device=cuda)
@@ -254,12 +302,53 @@ def test_scan_to_grid_kernel_bit_identical_to_plain(cuda, shape, robots, bayesia
                 assert torch.equal(g[b], w[0])
 
 
+@pytest.mark.parametrize("shape", [(61, 61, 72, 0.1), (120, 90, 360, 0.05, 0.1, -0.2, 0.3)])
+def test_scan_to_grid_kernel_on_line_test_boundaries(cuda, shape):
+    """Every beam ends on a cell that reads it, which lies on the t = L
+    bound: kernel == plain, plain and Bayesian."""
+    from chip_smoke import boundary_tables
+    from kompass_core_tpu_torch.ops.mapping import MapperSpec
+
+    spec = MapperSpec(*shape)
+    geo, _, endpoint, prev, params = _mapper_inputs(spec, _scan(spec, 1, 2), cuda)
+    tables = boundary_tables(spec, geo).to(cuda)
+    for extra in ((), (prev, params)):
+        want = kernels.scan_to_grid_cells_reference(geo.base, geo.dist_m, tables,
+                                                    endpoint, spec.start_cell, *extra)
+        got = kernels.scan_to_grid_cells(geo.base, geo.dist_m, tables, endpoint,
+                                         spec.start_cell, *extra)
+        for g, w in zip(got if extra else (got,), want if extra else (want,)):
+            assert torch.equal(g, w)
+        occ = want[0] if extra else want
+        assert int((occ == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("clip_range", [False, True])
+def test_scan_to_grid_beam_pass_equals_line_test_bounds(cuda, clip_range):
+    """K5's first launch writes each beam's line_test_bounds bit for bit:
+    for the beam side's tables (zero-length lines included), and for
+    endpoints anywhere in the 15-bit clip range."""
+    from kompass_core_tpu_torch.ops.mapping import MapperSpec
+
+    spec = MapperSpec(120, 90, 360, 0.05, 0.1, -0.2, 0.3)
+    geo, tables, endpoint, _, _ = _mapper_inputs(spec, _scan(spec, 3, 4), cuda)
+    if clip_range:
+        g = torch.Generator().manual_seed(5)
+        tables[..., :2] = torch.randint(-2**15, 2**15, tables[..., :2].shape,
+                                        generator=g, dtype=torch.int32).to(cuda)
+    si, sj = spec.start_cell
+    _, _, got = kernels._scan_to_grid_cells_cuda(geo.base, geo.dist_m, tables,
+                                                 endpoint, spec.start_cell, None, None)
+    want = kernels.line_test_bounds((tables[..., 0] - si).float(),
+                                    (tables[..., 1] - sj).float())
+    assert torch.equal(got[..., :3], want.view(torch.int32))
+    assert not bool(got[..., 3].any())
+
+
 def test_local_mapper_bayesian_update_on_card_matches_cpu(cuda):
     """One Bayesian LocalMapper update at the full 400 x 400 / 3600 size on
     the card equals the same update on the CPU, with one K5 launch."""
-    from kompass_core_tpu.datatypes import LaserScanData
-    from kompass_core_tpu.datatypes.pose import PoseData
-    from kompass_core_tpu.datatypes.scan_model import ScanModelConfig
+    from kompass_core_tpu_torch.datatypes import LaserScanData, PoseData, ScanModelConfig
     from kompass_core_tpu_torch.mapping import LocalMapper, MapConfig
 
     config = MapConfig(width=20.0, height=20.0, resolution=0.05, baysian_update=True)

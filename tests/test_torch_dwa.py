@@ -1,7 +1,8 @@
 """The port's DWA controller against the JAX package's, on the CPU.
 
-Both controllers take the same Robot, RobotCtrlLimits and DWAConfig
-objects and run in lockstep on the scenarios of
+Both controllers take a Robot, RobotCtrlLimits and DWAConfig built from
+the same values (the port's own host objects, ``to_port``) and run in
+lockstep on the scenarios of
 ``tests/test_dwa_closed_loop.py``: every tick both see the same state,
 which is then advanced with the JAX command. The commanded velocities
 must agree within 1e-4 per tick (the solver parity tolerance; the
@@ -31,9 +32,12 @@ from kompass_core_tpu.models import (
     RobotType,
 )
 from kompass_core_tpu_torch.control import DWA, DWAConfig, TrajectoryCostsWeights
+from kompass_core_tpu_torch.datatypes import LaserScanData as PortLaserScanData
+from kompass_core_tpu_torch.models import RobotState as PortRobotState
 from kompass_core_tpu_torch.parallel import DeviceFleet
 
 from test_dwa_closed_loop import make_global_path
+from test_torch_host_modules import to_port
 
 torch.set_num_threads(2)
 CMD_TOL = 1e-4
@@ -90,14 +94,16 @@ def _run_lockstep(robot, config, scan, max_steps=150):
     """Drive both controllers from one state, advanced with the JAX
     command; returns (goal reached, ticks)."""
     jdwa = JaxDWA(robot=robot, ctrl_limits=_limits(), config=config)
-    tdwa = DWA(robot=robot, ctrl_limits=_limits(), config=config, device="cpu")
+    tdwa = DWA(robot=to_port(robot), ctrl_limits=to_port(_limits()),
+               config=config, device="cpu")
     for d in (jdwa, tdwa):
         d.set_path(make_global_path())
     _start(robot)
     steps = ticks = 0
     while steps < max_steps:
         ok = jdwa.loop_step(current_state=robot.state, laser_scan=scan)
-        assert tdwa.loop_step(current_state=robot.state, laser_scan=scan) == ok
+        assert tdwa.loop_step(current_state=to_port(robot.state),
+                              laser_scan=to_port(scan)) == ok
         if not ok:
             assert tdwa.reached_end() == jdwa.reached_end()
             return jdwa.reached_end(), ticks
@@ -117,7 +123,9 @@ def _run_lockstep(robot, config, scan, max_steps=150):
 
 
 def _run_port_alone(robot, config, scan, max_steps=150):
-    dwa = DWA(robot=robot, ctrl_limits=_limits(), config=config, device="cpu")
+    robot, scan = to_port(robot), to_port(scan)
+    dwa = DWA(robot=robot, ctrl_limits=to_port(_limits()), config=config,
+              device="cpu")
     dwa.set_path(make_global_path())
     _start(robot)
     steps = 0
@@ -169,11 +177,13 @@ def _one_tick_pair(config, state, **inputs):
     out = []
     for d in (
         JaxDWA(robot=robot, ctrl_limits=_limits(), config=config),
-        DWA(robot=robot, ctrl_limits=_limits(), config=config, device="cpu"),
+        DWA(robot=to_port(robot), ctrl_limits=to_port(_limits()),
+            config=config, device="cpu"),
     ):
         d.set_path(np.array([[0.0, 0.0], [0.0, 3.0]]))
         d.set_current_state(*state)
         out.append((d, d.compute_velocity_commands((0.0, 0.0, 0.0), **inputs)))
+        inputs = {k: to_port(v) for k, v in inputs.items()}
     return out
 
 
@@ -228,53 +238,55 @@ def test_rotate_in_place_keeps_corrected_sign():
     robot = _robot(RobotType.DIFFERENTIAL_DRIVE)
     config = _config(4, 0.0)
     dwas = [JaxDWA(robot=robot, ctrl_limits=_limits(), config=config),
-            DWA(robot=robot, ctrl_limits=_limits(), config=config, device="cpu")]
-    for d in dwas:
+            DWA(robot=to_port(robot), ctrl_limits=to_port(_limits()),
+                config=config, device="cpu")]
+    for d, state in zip(dwas, (RobotState, PortRobotState)):
         d.set_path(np.array([[0.0, 0.0], [0.0, 3.0]]))
-        assert d.loop_step(current_state=RobotState(x=0.0, y=0.0, yaw=0.0))
+        assert d.loop_step(current_state=state(x=0.0, y=0.0, yaw=0.0))
     assert dwas[1].angular_control[0] > 0.0
     assert dwas[1].last_solver_io is None
     np.testing.assert_allclose(_commands(dwas[1]), _commands(dwas[0]), atol=1e-6)
 
 
 def test_loop_step_before_set_path_is_false():
-    dwa = DWA(robot=_robot(), ctrl_limits=_limits(), config=_config(4, 0.0),
-              device="cpu")
-    assert not dwa.loop_step(current_state=RobotState())
+    dwa = DWA(robot=to_port(_robot()), ctrl_limits=to_port(_limits()),
+              config=_config(4, 0.0), device="cpu")
+    assert not dwa.loop_step(current_state=PortRobotState())
     with pytest.raises(ValueError, match="path"):
         dwa.compute_velocity_commands((0.0, 0.0, 0.0))
 
 
 def test_device_is_required_and_explicit():
     with pytest.raises(TypeError):
-        DWA(robot=_robot(), ctrl_limits=_limits())
-    dwa = DWA(robot=_robot(), ctrl_limits=_limits(), device="cpu")
+        DWA(robot=to_port(_robot()), ctrl_limits=to_port(_limits()))
+    dwa = DWA(robot=to_port(_robot()), ctrl_limits=to_port(_limits()), device="cpu")
     assert dwa.device == torch.device("cpu")
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 5c"):
-        DeviceFleet([_robot()], _limits(), _config(4, 0.0, cls=DWAConfig),
-                    scan_rays=16, peer_avoidance=True, device="cpu")
+        DeviceFleet([to_port(_robot())], to_port(_limits()),
+                    _config(4, 0.0, cls=DWAConfig), scan_rays=16,
+                    peer_avoidance=True, device="cpu")
+    box = to_port(_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)))
     with pytest.raises(NotImplementedError, match="item 5f"):
-        DeviceFleet([_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4))],
-                    _limits(), _config(4, 0.0, cls=DWAConfig), scan_rays=16,
-                    device="cpu")
+        DeviceFleet([box], to_port(_limits()), _config(4, 0.0, cls=DWAConfig),
+                    scan_rays=16, device="cpu")
     # what no longer raises: BOX robots, custom costs, the debug search
-    dwa = DWA(robot=_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)),
-              ctrl_limits=_limits(), device="cpu")
+    dwa = DWA(robot=box, ctrl_limits=to_port(_limits()), device="cpu")
     dwa.add_custom_cost(1.0, lambda vel, px, py, ap: px[..., -1] * 0.0)
     with pytest.raises(ValueError, match="No debugging samples"):
         dwa.get_debugging_samples()
 
 
 def test_check_states_feasibility():
-    dwa = DWA(robot=_robot(), ctrl_limits=_limits(), device="cpu")
+    dwa = DWA(robot=to_port(_robot()), ctrl_limits=to_port(_limits()), device="cpu")
     dwa.set_current_state(0.0, 0.0, 0.0)
-    scan = LaserScanData(ranges=np.array([1.0]), angles=np.array([0.0]))
-    free = [RobotState(x=0.0, y=0.0), RobotState(x=0.0, y=0.5)]
+    scan = PortLaserScanData(ranges=np.array([1.0]), angles=np.array([0.0]))
+    free = [PortRobotState(x=0.0, y=0.0), PortRobotState(x=0.0, y=0.5)]
     assert not dwa.check_states_feasibility(free, laser_scan=scan)
-    assert dwa.check_states_feasibility([RobotState(x=0.95, y=0.0)], laser_scan=scan)
+    assert dwa.check_states_feasibility([PortRobotState(x=0.95, y=0.0)],
+                                        laser_scan=scan)
 
 
 # --- moving obstacles --------------------------------------------------------
@@ -300,7 +312,8 @@ def _moving_pair(moving=True):
         ),
     )
     pair = (JaxDWA(robot=robot, ctrl_limits=limits, config=config),
-            DWA(robot=robot, ctrl_limits=limits, config=config, device="cpu"))
+            DWA(robot=to_port(robot), ctrl_limits=to_port(limits),
+                config=config, device="cpu"))
     for d in pair:
         d.set_path(np.array([[0.0, 0.0], [6.0, 0.0]]))
         d.set_current_state(0.0, 0.0, 0.0)

@@ -1,7 +1,8 @@
 """The port's DeviceFleet (parallel/fleet_v2.py over ops/fleet_solver.py)
 against the JAX package's, on the CPU.
 
-Both fleets are built from the same robots, limits and config: three
+Both fleets are built from the same robots, limits and config (the
+port's own host objects, ``to_port``, for the port's fleet): three
 diff-drive cylinders with per-robot limits (the middle one slow) and
 sensor poses (the last one's sensor faces backwards), 8 x 8 samples, a
 20-step horizon and 64 rays; one plain, one with M = 2 tracked slots. The
@@ -45,6 +46,8 @@ from kompass_core_tpu_torch.ops.fleet_solver import (
     make_fleet_tick,
 )
 from kompass_core_tpu_torch.parallel import DeviceFleet
+
+from test_torch_host_modules import to_port
 
 torch.set_num_threads(2)
 
@@ -93,11 +96,17 @@ def _config():
     )
 
 
+def _host(cls, objs):
+    """The robots and limits for a fleet of ``cls``: the port's own host
+    objects (built from the same values) for the port's fleet."""
+    return to_port(objs) if cls is DeviceFleet else objs
+
+
 def _fleet(cls, tracked=0, **kw):
     args = dict(path_capacity=1024, max_segments=16, sensor_poses=SENSOR_POSES,
                 tracked_obstacles=tracked)
     args.update(kw)
-    return cls(_robots(), LIMITS, _config(), N_RAYS, **args)
+    return cls(*_host(cls, (_robots(), LIMITS)), _config(), N_RAYS, **args)
 
 
 def _port(tracked=0, **kw):
@@ -216,14 +225,14 @@ def test_robot_count_padding_matches_jax(n):
     robots, config = _robots(n), _config()
     jf = JaxDeviceFleet(robots, _limits(1.0), config, 8, path_capacity=64,
                         max_segments=4)
-    tf = DeviceFleet(robots, _limits(1.0), config, 8, path_capacity=64,
-                     max_segments=4, device="cpu")
+    tf = DeviceFleet(*to_port((robots, _limits(1.0))), config, 8,
+                     path_capacity=64, max_segments=4, device="cpu")
     assert tf._n == jf._n and tf._inputs.shape == jf._inputs.shape
 
 
 def test_device_is_required_and_explicit():
     with pytest.raises(TypeError):
-        DeviceFleet(_robots(), LIMITS, _config(), N_RAYS)
+        DeviceFleet(*to_port((_robots(), LIMITS)), _config(), N_RAYS)
     assert _port().device == torch.device("cpu")
 
 
@@ -240,8 +249,9 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, item):
 
 def test_unported_box_robots_and_k_tick_loop_raise():
     with pytest.raises(NotImplementedError, match="item 5f"):
-        DeviceFleet(_robots(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)),
-                    _limits(1.0), _config(), N_RAYS, device="cpu")
+        DeviceFleet(*to_port((_robots(geometry=RobotGeometry.Type.BOX,
+                                      params=(0.5, 0.3, 0.4)), _limits(1.0))),
+                    _config(), N_RAYS, device="cpu")
     fleet = _port()
     fleet.set_paths(_lanes())
     states, vels = _start()
@@ -418,7 +428,7 @@ def test_truncate_mode_tracked_lockstep():
     truncated samples sweep the movers a second time from their frozen
     points (two moving-sweep launches per tick), and smoothness and jerk
     count."""
-    fleets = [cls(_robots(), LIMITS, _truncate_config(), N_RAYS,
+    fleets = [cls(*_host(cls, (_robots(), LIMITS)), _truncate_config(), N_RAYS,
                   path_capacity=1024, max_segments=16, tracked_obstacles=2,
                   **kw)
               for cls, kw in ((JaxDeviceFleet, {}), (DeviceFleet, dict(device="cpu")))]
@@ -452,7 +462,7 @@ def test_mixed_kinematics_fleet_lockstep():
         ),
     )
     limits = [LIMITS[0], omni_limits, LIMITS[2]]
-    fleets = [cls(robots, limits, _config(), N_RAYS, path_capacity=1024,
+    fleets = [cls(*_host(cls, (robots, limits)), _config(), N_RAYS, path_capacity=1024,
                   max_segments=16, **kw)
               for cls, kw in ((JaxDeviceFleet, {}), (DeviceFleet, dict(device="cpu")))]
     assert fleets[1].spec.solver.is_omni
@@ -530,3 +540,28 @@ def test_snapshot_rejects_a_different_fleet():
     sd["num_robots"] = np.int32(2)
     with pytest.raises(ValueError, match="shape mismatch"):
         _port().load_state_dict(sd)
+
+
+@pytest.mark.parametrize("reached", [False, True])
+def test_goal_reached_at_a_misrounded_square_root(reached):
+    """The goal test d <= tol, at a distance whose square (5.55078125 =
+    (14^2 + 35^2) / 256) is one where a float32 sqrt that is not correctly
+    rounded (PyTorch's on an AVX-512 CPU) comes out one ulp low. The
+    tolerance sits at the correctly rounded root, or one ulp below it; the
+    port must decide "reached" as the JAX fleet does in both cases."""
+    d2 = (14.0**2 + 35.0**2) / 256.0
+    root = np.float32(np.sqrt(d2))
+    config = _config()
+    config.goal_dist_tolerance = float(root if reached else
+                                       np.nextafter(root, np.float32(0.0)))
+    fleets = [cls(*_host(cls, (_robots(), LIMITS)), config, N_RAYS,
+                  path_capacity=1024, max_segments=16,
+                  sensor_poses=SENSOR_POSES, **kw)
+              for cls, kw in ((JaxDeviceFleet, {}), (DeviceFleet, dict(device="cpu")))]
+    for f in fleets:
+        f.set_paths(_lanes(4.0))
+    states, vels = _start()
+    states[:, 0] = 4.0 - 14.0 / 16.0
+    states[:, 1] -= 35.0 / 16.0
+    _, (out,) = lockstep(*fleets, states, vels, 1)
+    np.testing.assert_array_equal(out["reached"], reached)

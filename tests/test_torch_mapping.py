@@ -11,7 +11,9 @@ per-cell candidates (endpoint cells, ranges and validity, bit for bit),
 the occupancy grids, the probability grids and the warped grids (bit
 for bit: the port reproduces XLA's reciprocal multiplies and FMAs, see
 ``kompass_core_tpu_torch/ops/mapping.py``), the pointcloud scans and
-every layer of the two ``LocalMapper``s run in lockstep.
+every layer of the two ``LocalMapper``s run in lockstep (the port's
+mapper is given the port's own scan, pose and model objects, built from
+the same values by ``to_port``).
 
 The lockstep grids are 64 cells wide. XLA compiles the columns left over
 by its 8-wide vector loop with other FMA choices, so on a 60-wide grid
@@ -21,6 +23,7 @@ probability); the port rounds every column alike.
 """
 
 import json
+import math
 import os
 import jax
 import numpy as np
@@ -36,6 +39,8 @@ from kompass_core_tpu.ops import mapping as jm
 from kompass_core_tpu_torch.mapping import OCCUPANCY_TYPE, LocalMapper, MapConfig
 from kompass_core_tpu_torch.ops import kernels
 from kompass_core_tpu_torch.ops import mapping as pm
+
+from test_torch_host_modules import to_port
 
 RES = os.path.join(os.path.dirname(__file__), "resources", "reference")
 
@@ -367,7 +372,7 @@ def _mapper_pair(bayesian, scan_model=None, laser_pose=None, **config):
     jax_mapper = JaxLocalMapper(JaxMapConfig(baysian_update=bayesian, **config),
                                 scan_model, laser_pose)
     port = LocalMapper(MapConfig(baysian_update=bayesian, **config),
-                       scan_model, laser_pose, device="cpu")
+                       *to_port((scan_model, laser_pose)), device="cpu")
     return jax_mapper, port
 
 
@@ -381,7 +386,7 @@ def test_local_mapper_lockstep(bayesian, sensor):
     for k, pose in enumerate(_poses(4)):
         scan = _room_scan(pose, seed=k) if sensor == "laserscan" else _room_cloud(pose, k)
         jax_mapper.update_from_scan(pose, scan)
-        port.update_from_scan(pose, scan)
+        port.update_from_scan(*to_port((pose, scan)))
         _assert_same_layers(jax_mapper, port, f"update {k}")
     assert port._spec == pm.mapper_spec_from_jax(jax_mapper._spec)
     assert (port.occupancy == OCCUPANCY_TYPE.OCCUPIED.value).sum() > 10
@@ -398,7 +403,7 @@ def test_local_mapper_sensor_switch_mid_run():
     for k, (pose, kind) in enumerate(zip(poses, "llcll")):
         scan = _room_scan(pose, seed=k) if kind == "l" else _room_cloud(pose, k)
         jax_mapper.update_from_scan(pose, scan)
-        port.update_from_scan(pose, scan)
+        port.update_from_scan(*to_port((pose, scan)))
         _assert_same_layers(jax_mapper, port, f"update {k} ({kind})")
         assert port._spec.num_bins == jax_mapper._spec.num_bins
 
@@ -412,12 +417,12 @@ def test_local_mapper_continues_a_jax_mappers_state():
         jax_mapper.update_from_scan(poses[k], _room_scan(poses[k], seed=k))
     port._spec = pm.mapper_spec_from_jax(jax_mapper._spec)
     port._prev_prob = torch.from_numpy(np.array(jax_mapper._prev_prob))
-    port._pose_robot_in_world = jax_mapper._pose_robot_in_world
+    port._pose_robot_in_world = to_port(jax_mapper._pose_robot_in_world)
     port.processed = jax_mapper.processed
     for k in range(2, 5):
         scan = _room_scan(poses[k], seed=k)
         jax_mapper.update_from_scan(poses[k], scan)
-        port.update_from_scan(poses[k], scan)
+        port.update_from_scan(*to_port((poses[k], scan)))
         _assert_same_layers(jax_mapper, port, f"update {k}")
 
 
@@ -444,7 +449,7 @@ def test_recorded_laserscan_fixture(recorded_scan, bayesian):
     second.set_yaw(0.1)
     for pose in (PoseData(), second):
         jax_mapper.update_from_scan(pose, recorded_scan)
-        port.update_from_scan(pose, recorded_scan)
+        port.update_from_scan(*to_port((pose, recorded_scan)))
         _assert_same_layers(jax_mapper, port, "recorded scan")
     assert (port.occupancy == 100).sum() > 50 and (port.occupancy == 0).sum() > 2000
 
@@ -464,6 +469,59 @@ def test_recorded_livox_pointcloud_fixture():
                                min_height=-0.2),
         width=10.0, height=10.0, resolution=0.1)
     jax_mapper.update_from_scan(PoseData(), cloud)
-    port.update_from_scan(PoseData(), cloud)
+    port.update_from_scan(*to_port((PoseData(), cloud)))
     _assert_same_layers(jax_mapper, port, "livox cloud")
     assert (port.occupancy == 100).sum() > 0 and (port.occupancy == 0).sum() > 0
+
+
+# --- the line test without divisions ---------------------------------------------
+
+
+def test_quotient_bound_decides_as_the_division():
+    """RN(n / d) <= h exactly when n <= F, for n at F and a few ulps on
+    either side and for random n, over h and d with few and with many
+    mantissa bits; no midpoint m * d is ever a float."""
+    g = torch.Generator().manual_seed(0)
+    n_pairs = 200_000
+    mant = torch.randint(1, 1 << 24, (n_pairs,), generator=g).float()
+    few = torch.randint(1, 1 << 6, (n_pairs,), generator=g).float()
+    exps = torch.randint(-20, 12, (2, n_pairs), generator=g).float()
+    h = torch.cat([mant, few]) * 2.0 ** torch.cat([exps[0], exps[1]])
+    d = torch.cat([few, mant]) * 2.0 ** torch.cat([exps[1], exps[0]])
+    bound = kernels._quotient_bound(h, d)
+    inf = torch.full_like(h, math.inf)
+    a = (h.double() + torch.nextafter(h, inf).double()) * 0.5 * d.double()
+    assert not bool((a.float().double() == a).any())
+    for steps in range(-3, 4):
+        n = bound
+        for _ in range(abs(steps)):
+            n = torch.nextafter(n, inf if steps > 0 else -inf)
+        assert torch.equal(n / d <= h, n <= bound), steps
+    n = (torch.rand(h.shape, generator=g) * 4 - 2) * h * d
+    assert torch.equal(n / d <= h, n <= bound)
+
+
+def test_line_test_bounds_decide_as_the_divisions_on_every_cell():
+    """Every cell of a 49 x 49 window against the line to every endpoint
+    offset in [-20, 20]^2: the bounds give each of the three decisions
+    of the JAX package's divided test (t >= -0.5, t <= L, perp <=
+    halfwidth), endpoint cells (t = L) and cells on the diamond's edges
+    among them (both as bit-for-bit grids in the tests above)."""
+    v = torch.arange(-20, 21, dtype=torch.float32)
+    vx, vy = (t.reshape(-1, 1) for t in torch.meshgrid(v, v, indexing="ij"))
+    c = torch.arange(-24, 25, dtype=torch.float32)
+    di, dj = (t.reshape(1, -1) for t in torch.meshgrid(c, c, indexing="ij"))
+    L = kernels._sqrt(kernels._fma(vx, vx, vy * vy))
+    L_safe = torch.clamp(L, min=1e-6)
+    t = (di * vx + dj * vy) / L_safe
+    perp = torch.abs(di * vy - dj * vx) / L_safe
+    halfwidth = (torch.abs(vx) + torch.abs(vy)) / (2.0 * L_safe) + 1e-4
+    t_lo, t_hi, p_hi = kernels.line_test_bounds(vx, vy).unbind(-1)
+    n_t = di * vx + dj * vy
+    n_p = torch.abs(di * vy - dj * vx)
+    assert torch.equal(t >= -0.5, n_t >= t_lo)
+    assert torch.equal((t <= L) & (L > 0), n_t <= t_hi)
+    assert torch.equal(perp <= halfwidth, n_p <= p_hi)
+    assert int((t == L).sum()) > 100
+    # cells on a diamond's edge sit 1e-4 inside the halfwidth
+    assert int((torch.abs(perp - halfwidth) <= 1.5e-4).sum()) > 100

@@ -36,7 +36,6 @@ import numpy as np
 import pytest
 import torch
 
-from kompass_core_tpu.datatypes.path import InterpolationType, ReferencePath
 from kompass_core_tpu.ops import pallas_kernels as jpallas
 from kompass_core_tpu.ops import solver as jsolver
 from kompass_core_tpu.ops.window import (
@@ -44,6 +43,7 @@ from kompass_core_tpu.ops.window import (
     num_angular_slots,
     sample_velocity_window,
 )
+from kompass_core_tpu_torch.datatypes import InterpolationType, ReferencePath
 from kompass_core_tpu_torch.ops import solver as tsolver
 from kompass_core_tpu_torch.ops.fleet_solver import FleetSpec, make_fleet_tick
 from kompass_core_tpu_torch.parallel.fleet import (

@@ -37,6 +37,7 @@ from kompass_core_tpu_torch.ops import solver as tsolver
 
 from test_cost_evaluator_standalone import _heavy_samples
 from test_oracle_parity import _scenario_inputs
+from test_torch_host_modules import to_port
 from test_torch_solver import _jax_spec, _pack, assert_tick_parity
 
 torch.set_num_threads(2)
@@ -247,8 +248,8 @@ def _dwa_pair(robot, samples=4):
         omega_limits=AngularCtrlLimits(max_vel=2.0, max_acc=3.0, max_decel=3.0),
     )
     jdwa = JaxDWA(robot=robot, ctrl_limits=limits, config=JaxDWAConfig(**kw))
-    tdwa = DWA(robot=robot, ctrl_limits=limits, config=DWAConfig(**kw),
-               device="cpu")
+    tdwa = DWA(robot=to_port(robot), ctrl_limits=to_port(limits),
+               config=DWAConfig(**kw), device="cpu")
     for d in (jdwa, tdwa):
         d.set_path(np.array([[0.0, 0.0], [0.0, 3.0]]))
     return jdwa, tdwa
@@ -263,7 +264,8 @@ def _lockstep(robot, jdwa, tdwa, scan, ticks):
     robot.state.x, robot.state.y, robot.state.yaw = 0.0, 0.0, np.pi / 2
     for i in range(ticks):
         ok = jdwa.loop_step(current_state=robot.state, laser_scan=scan)
-        assert tdwa.loop_step(current_state=robot.state, laser_scan=scan) == ok
+        assert tdwa.loop_step(current_state=to_port(robot.state),
+                              laser_scan=to_port(scan)) == ok
         assert tdwa.has_result() == jdwa.has_result()
         np.testing.assert_allclose(_commands(tdwa), _commands(jdwa),
                                    atol=CMD_TOL, err_msg=f"tick {i}")
