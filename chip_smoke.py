@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the DWA control tick, of the device fleet
-tick and of the local occupancy mapper once on an NVIDIA GPU.
+tick and its k-tick loop and of the local occupancy mapper once on an
+NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -84,11 +85,34 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     single-rounded operations/s and its bytes at 3.35 TB/s) and its
     share of it.
 
-Launch counts: the counts are set to 0 before the mapping slice and
-again before the solver slice; the kernels line reports K1 and K3 from
-phases 4 and 5, K5 from phase 7 and K2 and K4 from phase 9. Its times
-are K1, K2 and K4 at the flagship shapes (one robot), K3 and K5 at 64
-robots.
+13. The TPU kernels' own forms against their plain versions on the card,
+    bit for bit: K6 (``_fused_kernel_vpu``'s broadcast form), K7 and K8
+    (the 7-feature forms of ``_fused_kernel_mxu_moving`` and
+    ``_fused_kernel_vpu_moving``) at the k-tick loop's shapes (64 robots
+    x 2025 x 30 vs 768 + 384 rows) and the moving sweep's edge cases;
+    K8 at zero velocity against K6, K7 against K2 within rel 2e-4 / atol
+    1e-4, and their segment fields against K2's and K6's.
+14. The k-tick loop end to end: the 64-robot fleet, k = 8, through
+    ``DeviceFleet.run_ticks_on_device`` (one CUDA graph per k) with
+    backends ``xla`` (K3), ``pallas`` (K7) and ``pallas_vpu`` (K8) and 8
+    tracked slots, and ``pallas_vpu`` without (K6), 3 closed-loop calls
+    each: every replay equals the eager loop on the card bit for bit and
+    launches its kernel k times; then 4 robots' loop on the card against
+    the CPU.
+15. Times: K6, K7 and K8 against their plain versions at the fleet
+    shapes, in turns, beside their bounds; the k-tick loop per tick,
+    replayed and eager (host clock with syncs), and the replay alone
+    (CUDA events).
+
+Launch counts: the counts are set to 0 before the mapping slice, again
+before the solver slice and again before the k-tick loop; the kernels
+line reports K1 and K3 from phases 4 and 5, K5 from phase 7, K2 and K4
+from phase 9 and K6, K7 and K8 from phase 14, counted around the
+``run_ticks_on_device`` calls alone (the warm-up's and each replay's
+launches: a replay calls no wrapper, so each replay counts the captured
+loop's launches once). Its times are
+K1, K2 and K4 at the flagship shapes (one robot), K3, K5, K6, K7 and K8
+at 64 robots.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -96,6 +120,7 @@ JSON object describing each kernel; the last line is
 non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import math
 import re
@@ -148,10 +173,30 @@ FLEET_KERNEL_INPUTS = 10
 LANE_SPACING = 10.0
 
 KERNEL_SOURCE = "kompass_core_tpu_torch/csrc/fused_min_dist.cu"
-KERNEL_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:89"
-MOVING_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:171"
+# K1 and K3 compute the JAX package's XLA sweeps (backend "xla"); the
+# others are the TPU kernels of ops/pallas_kernels.py
+KERNEL_REPLACES = "kompass_core_tpu/ops/solver.py:347"
+MOVING_REPLACES = "kompass_core_tpu/ops/solver.py:365"
 EXPANDED_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:56"
 SINGLE_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:387"
+BROADCAST_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:89"
+MOVING_EXPANDED_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:116"
+MOVING_BROADCAST_REPLACES = "kompass_core_tpu/ops/pallas_kernels.py:171"
+
+# the TPU kernels' own forms: (PERF.md name, wrapper, moving)
+TPU_FORMS = (("K6", "fused_min_dist_sq_broadcast", False),
+             ("K7", "fused_min_dist_sq_moving_expanded", True),
+             ("K8", "fused_min_dist_sq_moving_broadcast", True))
+TPU_FORM_INPUTS = 4  # distinct inputs per timed run (K7's plain version
+# takes about a second at the fleet shapes: its FMAs go through float64)
+# the k-tick loop: k ticks per call on the fleet slice's fleet; per
+# (backend, tracked slots) the kernel each tick launches once
+TICKS_K = 8
+TICKS_FORMS = (("xla", FLEET_TRACKED, "K3"), ("pallas", FLEET_TRACKED, "K7"),
+               ("pallas_vpu", FLEET_TRACKED, "K8"), ("pallas_vpu", 0, "K6"))
+TICKS_CALLS = 3  # graph replays per form in the main-path run
+TICKS_TIMED = 10  # calls per timer
+TICKS_CPU_ROBOTS = 4
 
 # the scenario-batched solver slice: bench.py's production serving mode
 # (config v1_batch64), 64 BASELINE scenarios per call
@@ -339,10 +384,9 @@ def sass_loops(text):
 def sass_report(kernels, lib):
     """Each kernel's SASS instruction count (cuobjdump -sass, kept beside
     the library as sass.txt), and for the sweeps their hottest loop (the
-    loop body densest in FMUL: the unrolled row loop, not the tile loop
-    around it; in K3 the fminf form) and its instructions per (point, row)
-    pair: a pair has 2 FMUL in the direct form and 3 in the expanded one
-    (template form 2)."""
+    loop densest in (point, row) pairs, each ending in one min: the
+    unrolled row loop, in the moving kernels its fminf form) and its
+    instructions per pair."""
     from collections import Counter
     from pathlib import Path
 
@@ -360,8 +404,13 @@ def sass_report(kernels, lib):
         line = f"sass: {name}: {len(ops)} instructions"
         loops = [Counter(loop) for loop in loops]
         if "min_dist_kernel" in name and loops:
-            hot = max(loops, key=lambda c: (c["FMUL"] / sum(c.values()), c["FMUL"]))
-            pairs = hot["FMUL"] / (3 if "ILi2E" in name else 2)
+            # a pair ends in one min: FMNMX (fminf) or FSEL (the NaN-keeping
+            # min); the loop densest in them is the innermost row loop
+            def pairs_of(c):
+                return c["FMNMX"] or c["FSEL"]
+
+            hot = max(loops, key=lambda c: (pairs_of(c) / sum(c.values()), pairs_of(c)))
+            pairs = max(pairs_of(hot), 1)
             mix = ", ".join(f"{k} {v}" for k, v in hot.most_common(8))
             line += (f"; hottest loop {sum(hot.values())} instructions for "
                      f"{pairs:g} pairs = {sum(hot.values()) / pairs:.2f} per pair "
@@ -747,10 +796,11 @@ def phase_moving_vs_plain(kernels, device):
 # --- the fleet slice ----------------------------------------------------------
 
 
-def fleet_scene():
-    """Per robot: its lane's x offset, its path (the S-curve, shifted to
-    the lane) and its posts. Corridor walls sit at the lane's x +- 5."""
-    lanes = LANE_SPACING * np.arange(FLEET_ROBOTS)
+def fleet_scene(robots=None):
+    """Per robot (FLEET_ROBOTS by default): its lane's x offset, its path
+    (the S-curve, shifted to the lane) and its posts. Corridor walls sit
+    at the lane's x +- 5."""
+    lanes = LANE_SPACING * np.arange(FLEET_ROBOTS if robots is None else robots)
     path = reference_path()
     paths = [path + (x, 0.0) for x in lanes]
     circles = np.stack([obstacle_circles() + (x, 0.0, 0.0) for x in lanes])
@@ -777,7 +827,7 @@ def cast_fleet_scans(states, lanes, circles):
     return np.where(best <= RANGE_MAX, best, np.inf).astype(np.float32), angles
 
 
-def make_fleet(device, tracked=FLEET_TRACKED):
+def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None):
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
@@ -785,10 +835,11 @@ def make_fleet(device, tracked=FLEET_TRACKED):
     )
     from kompass_core_tpu_torch.parallel import DeviceFleet
 
+    n = FLEET_ROBOTS if robots is None else robots
     robots = [Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
                     geometry_type=RobotGeometry.Type.CYLINDER,
                     geometry_params=np.array([0.25, 0.4]))
-              for _ in range(FLEET_ROBOTS)]
+              for _ in range(n)]
     limits = RobotCtrlLimits(
         vx_limits=LinearCtrlLimits(max_vel=VX_MAX, max_acc=1.5, max_decel=2.5),
         omega_limits=AngularCtrlLimits(max_vel=1.5, max_acc=3.0, max_decel=3.0),
@@ -800,12 +851,18 @@ def make_fleet(device, tracked=FLEET_TRACKED):
     )
     fleet = DeviceFleet(robots, limits, config, RAYS, path_capacity=4608,
                         tracked_obstacles=tracked, device=device)
-    lanes, paths, circles = fleet_scene()
+    if backend != "xla":
+        # the fleet solves with the JAX fleet's "xla"; its k-tick loop,
+        # built from fleet.spec on the loop's first call, runs the
+        # backend's kernels (its single tick keeps "xla")
+        fleet.spec = dataclasses.replace(fleet.spec, solver=dataclasses.replace(
+            fleet.spec.solver, backend=backend))
+    lanes, paths, circles = fleet_scene(n)
     fleet.set_paths(paths)
     solver = fleet.spec.solver
     shape = (fleet._n, solver.num_samples, solver.max_points,
              solver.scan_size, solver.seg_size)
-    assert shape == FLEET_SHAPE or tracked == 0, f"fleet shapes {shape}"
+    assert shape[1:] == FLEET_SHAPE[1:] or tracked == 0, f"fleet shapes {shape}"
     return fleet, lanes, circles
 
 
@@ -817,13 +874,14 @@ class FleetDrive:
 
     def __init__(self, lanes, circles, tracked):
         self.lanes, self.circles, self.tracked = lanes, circles, tracked
-        self.states = np.zeros((FLEET_ROBOTS, 4), np.float32)
+        n = len(lanes)
+        self.states = np.zeros((n, 4), np.float32)
         self.states[:, 0] = lanes
         self.states[:, 2] = math.pi / 2
-        self.vels = np.zeros((FLEET_ROBOTS, 3), np.float32)
+        self.vels = np.zeros((n, 3), np.float32)
         # a mover 2.5 m ahead and 2 m to the side of each robot, walking
         # across its path at 0.8 m/s
-        self.movers = np.stack([lanes + 2.0, np.full(FLEET_ROBOTS, 2.5)], 1)
+        self.movers = np.stack([lanes + 2.0, np.full(n, 2.5)], 1)
         self.mover_vel = np.array([-0.8, 0.0])
         self.min_clearance = math.inf
 
@@ -831,7 +889,8 @@ class FleetDrive:
         ranges, angles = cast_fleet_scans(self.states, self.lanes, self.circles)
         tracked = None
         if self.tracked:
-            tracked = np.full((FLEET_ROBOTS, self.tracked, 4), np.nan, np.float32)
+            tracked = np.full((len(self.lanes), self.tracked, 4), np.nan,
+                              np.float32)
             tracked[:, 0, 0:2] = self.movers
             tracked[:, 0, 2:4] = self.mover_vel
         return self.states, self.vels, ranges, angles, tracked
@@ -851,6 +910,14 @@ class FleetDrive:
 
     def goal_distance(self, paths_end):
         return np.hypot(*(self.states[:, 0:2] - paths_end).T)
+
+    def advance_ticks(self, out, k):
+        """Take the k-tick loop's final states and last commands, and move
+        the movers k control steps on."""
+        self.states = out["final_states"].astype(np.float32).copy()
+        self.vels = np.stack([out[key][:, -1] for key in ("vx", "vy", "omega")],
+                             axis=1).astype(np.float32)
+        self.movers += k * DT * self.mover_vel
 
 
 def sync_guarded(fn):
@@ -1491,11 +1558,6 @@ def phase_mapping_times(kernels, device, card):
 # --- the expanded sweeps and the scenario-batched solver slice ----------------
 
 
-def _sweep_counters(kernels):
-    return {"K1": kernels.fused_min_dist_sq, "K2": kernels.fused_min_dist_sq_expanded,
-            "K3": kernels.fused_min_dist_sq_moving, "K4": kernels.min_dist_sq_expanded}
-
-
 def _expanded_pair(kernels, px, py, obs, sx, sy, ap, plain=False):
     """(K2's two fields, K4 over the obstacle rows, K4 over the segment
     rows): the kernels, or with ``plain`` their plain versions."""
@@ -1652,7 +1714,7 @@ def phase_fleet_solver(kernels, device):
     64 BASELINE scenarios per call for each backend."""
     from kompass_core_tpu_torch.parallel import make_fleet_solver
 
-    counters = _sweep_counters(kernels)
+    counters = kernels.SWEEP_KERNELS
     expect = {"xla": {"K1": 1}, "pallas": {"K2": 1}, "pallas_v1": {"K4": 2}}
     ties = []
     for backend in SOLVER_BACKENDS:
@@ -1899,6 +1961,293 @@ def phase_solver_times(kernels, device, card):
     return results[1]
 
 
+# --- this slice: the TPU kernels' own forms (K6, K7, K8) and the k-tick loop ---
+
+
+def _form_call(kernels, wrapper, moving, case, ap, plain=False):
+    """One sweep of ``wrapper`` (or its plain version) on a _moving_case."""
+    px, py, obs, vel, dt, sx, sy = case
+    fn = getattr(kernels, wrapper + ("_reference" if plain else ""))
+    if moving:
+        return fn(px, py, obs, vel, dt, sx, sy, ap)
+    return fn(px, py, obs, sx, sy, ap)
+
+
+def phase_tpu_forms_vs_plain(kernels, device):
+    """K6, K7 and K8 against their plain versions on the same card
+    tensors, bit for bit, at the k-tick loop's shapes and edge cases; K8
+    at zero velocity against K6, K7 against K2 (within the expanded
+    tolerance: another summation order), and their segment fields
+    against K2's and K6's."""
+    import torch
+
+    gen = torch.Generator().manual_seed(8)
+    B, S, T, O, G = FLEET_SHAPE
+    cases = [(f"path shapes B={B}, {S}x{T} vs {O}+{G} rows",
+              _moving_case(gen, device, B, S, T, O, G), None)]
+    case = _moving_case(gen, device, 2, S, T, O, G)
+    case[2][:, O - 120:], case[3][:, O - 120:] = 1e8, 0.0
+    cases.append(("120 pad rows (1e8, zero velocity), B=2", case, T))
+    cases.append(("O=700, G=333 (ragged tiles)",
+                  _moving_case(gen, device, 1, S, T, 700, 333), T))
+    cases.append(("O=1100, G=1025 (rows past one tile), B=2",
+                  _moving_case(gen, device, 2, S, T, 1100, 1025), T))
+    cases.append(("S=1025 (samples past one block), B=2",
+                  _moving_case(gen, device, 2, 1025, T, O, G), 17))
+    cases.append(("T=1, B=3", _moving_case(gen, device, 3, S, 1, O, G), 1))
+    cases.append(("S*T=259 (ragged block), B=3",
+                  _moving_case(gen, device, 3, 37, 7, 512, G), 5))
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 3, 300, T, 1100, G)
+    cases.append(("NaN and +-inf points, rows and velocities (robots 0 and 2)",
+                  (*_non_finite(px, py, obs, vel, sx, sy)[:4], dt, sx, sy), T))
+    errs = {}
+    for key, wrapper, moving in TPU_FORMS:
+        errs[key] = 0.0
+        for name, case, active in cases:
+            robots = case[0].shape[0]
+            if active is None:
+                ap = torch.randint(2, T + 1, (robots,), generator=gen,
+                                   dtype=torch.int32).to(device)
+            else:
+                ap = torch.full((robots,), active, dtype=torch.int32, device=device)
+            got = _form_call(kernels, wrapper, moving, case, ap)
+            want = _form_call(kernels, wrapper, moving, case, ap, plain=True)
+            torch.cuda.synchronize()
+            if name.startswith("NaN"):
+                for g, w in zip(got, want):
+                    assert torch.equal(g.isnan(), w.isnan()), f"{key} {name}: NaN"
+                    assert torch.equal(g.nan_to_num(), w.nan_to_num()), f"{key} {name}"
+                assert bool(got[0][0].isnan().any()) and not bool(got[0][1].isnan().any())
+                assert bool(got[0][2].isnan().all()), f"{key} {name}: a NaN row dropped"
+            else:
+                errs[key] = max(errs[key], _check_equal(f"{key} {name}", got, want,
+                                                        active))
+            log(f"{key} ({wrapper}) == plain: {name}")
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, B, S, T, O, G)
+    ap = torch.randint(2, T + 1, (B,), generator=gen, dtype=torch.int32).to(device)
+    zero = torch.zeros_like(vel)
+    k6 = kernels.fused_min_dist_sq_broadcast(px, py, obs, sx, sy, ap)
+    k8z = kernels.fused_min_dist_sq_moving_broadcast(px, py, obs, zero, dt, sx, sy, ap)
+    k2 = kernels.fused_min_dist_sq_expanded(px, py, obs, sx, sy, ap)
+    k7z = kernels.fused_min_dist_sq_moving_expanded(px, py, obs, zero, dt, sx, sy, ap)
+    k7 = kernels.fused_min_dist_sq_moving_expanded(px, py, obs, vel, dt, sx, sy, ap)
+    k8 = kernels.fused_min_dist_sq_moving_broadcast(px, py, obs, vel, dt, sx, sy, ap)
+    torch.cuda.synchronize()
+    _check_equal("K8 at zero velocity vs K6", k8z, k6)
+    finite = torch.isfinite(k2[0])
+    torch.testing.assert_close(k7z[0][finite], k2[0][finite], rtol=2e-4, atol=1e-4)
+    k7_vs_k2 = float((k7z[0][finite] - k2[0][finite]).abs().max())
+    assert torch.equal(k7[1], k2[1]) and torch.equal(k8[1], k6[1]), "segment fields"
+    log(f"at the path shapes: K8 at zero velocity == K6; K7 at zero velocity vs "
+        f"K2 max abs {k7_vs_k2:.3g} m^2 (rel 2e-4 / atol 1e-4); K7's segment field "
+        f"== K2's, K8's == K6's")
+    return errs
+
+
+def _ticks_eager(fleet, k, device):
+    """The fleet's k-tick loop run eagerly on its device from its packed
+    inputs and a copy of its carry: (carry', outs [N, k, F], final)."""
+    import torch
+
+    from kompass_core_tpu_torch.ops.fleet_solver import FleetCarry
+
+    carry = FleetCarry(*(t.clone() for t in fleet._carry))
+    inputs = torch.tensor(fleet._inputs, device=device)
+    return fleet.ticks_fn(k)(fleet._paths, fleet._cfg, carry, fleet._angles, inputs)
+
+
+def phase_ticks(kernels, device):
+    """The k-tick loop at full width, per backend: the eager loop on the
+    card, then ``DeviceFleet.run_ticks_on_device`` (one captured CUDA
+    graph, replayed) bit for bit against it, TICKS_CALLS closed-loop
+    calls. Returns each form's kernel launches by the
+    ``run_ticks_on_device`` calls alone (not by the eager reference).
+
+    The wrappers count Python calls: the first call runs the loop once on
+    a side stream (the warm-up, k launches) and once under capture (k
+    calls, recorded and not run), and a replay calls no wrapper. So the
+    card ran the warm-up's k launches and k per replay, the first call's
+    replay included: the counted 2k plus k for each later call."""
+    import torch
+
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+
+    launches = {}
+    for backend, tracked, key in TICKS_FORMS:
+        fleet, lanes, circles = make_fleet(device, tracked, backend=backend)
+        drive = FleetDrive(lanes, circles, tracked)
+        ends = np.stack([p[-1] for p in fleet_scene()[1]])
+        start = drive.goal_distance(ends)
+        found = counted = 0
+        for call in range(TICKS_CALLS):
+            inputs = drive.inputs()
+            fleet._prepare_tick_inputs(*inputs)
+            carry, outs, final = _ticks_eager(fleet, TICKS_K, device)
+            before = kernels.launch_counts()
+            out = fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
+            made = {n: c - before[n] for n, c in kernels.launch_counts().items()
+                    if c != before[n]}
+            assert made == ({key: 2 * TICKS_K} if call == 0 else {}), (
+                f"{backend}/{tracked} call {call}: wrapper calls {made}")
+            counted += made.get(key, 0)
+            for i, name in enumerate(OUT_FIELDS):
+                want = outs[:FLEET_ROBOTS, :, i].cpu().numpy()
+                assert np.array_equal(out[name].astype(np.float32), want), (
+                    f"{backend}/{tracked} call {call}: {name} replay != eager")
+            assert np.array_equal(out["final_states"], final[:FLEET_ROBOTS].cpu().numpy())
+            assert all(torch.equal(a, b) for a, b in zip(fleet._carry, carry))
+            for name, col in out.items():
+                assert np.isfinite(col).all(), f"{backend}/{tracked}: {name}"
+            found += int(out["found"].sum())
+            drive.advance_ticks(out, TICKS_K)
+        assert list(fleet.tick_graphs) == [TICKS_K], "one graph per k"
+        # the capture's half of the counted calls stands for each replay
+        launches[key] = counted + (TICKS_CALLS - 1) * (counted // 2)
+        end = drive.goal_distance(ends)
+        ticks = TICKS_CALLS * TICKS_K
+        log(f"k-tick loop ({backend}, {tracked} tracked slots): {TICKS_CALLS} calls "
+            f"of k={TICKS_K} on {FLEET_ROBOTS} robots, graph replay == eager loop bit "
+            f"for bit; {key} {TICKS_K} per replay; found {found}/{FLEET_ROBOTS * ticks}"
+            f"; mean goal distance {start.mean():.3f} -> {end.mean():.3f} m")
+        assert found >= 0.9 * FLEET_ROBOTS * ticks, f"{backend}: the fleet lost its way"
+        assert end.mean() < start.mean() - 0.5, f"{backend}: no approach to the goals"
+        del fleet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ticks_cpu(device):
+    """A few robots' k-tick loop on the card against the same loop on the
+    CPU: per robot, ticks agree at the fleet phase's tolerance up to and
+    including its first tie (after a tie each device integrates its own
+    winner)."""
+    n = TICKS_CPU_ROBOTS
+    fleets = [make_fleet(dev, FLEET_TRACKED, robots=n) for dev in (device, "cpu")]
+    lanes, circles = fleets[0][1], fleets[0][2]
+    drive = FleetDrive(lanes, circles, FLEET_TRACKED)
+    compared, ties = 0, []
+    inputs = drive.inputs()
+    gpu, cpu = (f.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
+                for f, _, _ in fleets)
+    for r in range(n):
+        for i in range(TICKS_K):
+            for key in ("num_admissible", "active_points", "reached", "found"):
+                assert gpu[key][r, i] == cpu[key][r, i], f"robot {r} tick {i}: {key}"
+            assert math.isclose(gpu["cost"][r, i], cpu["cost"][r, i], rel_tol=COST_REL,
+                                abs_tol=1e-6), f"robot {r} tick {i}: cost"
+            compared += 1
+            cmd = [gpu[k][r, i] for k in ("vx", "vy", "omega")]
+            if cmd != [cpu[k][r, i] for k in ("vx", "vy", "omega")]:
+                assert abs(gpu["cost"][r, i] - cpu["cost"][r, i]) <= (
+                    TIE_REL * abs(cpu["cost"][r, i])), f"robot {r} tick {i}: not a tie"
+                ties.append((r, i))
+                break
+        else:
+            np.testing.assert_allclose(gpu["final_states"][r], cpu["final_states"][r],
+                                       rtol=1e-5, atol=1e-5)
+    log(f"k-tick loop, {n} robots x k={TICKS_K} (xla, {FLEET_TRACKED} tracked slots): "
+        f"card == CPU on {compared} robot-ticks; ties {ties}")
+
+
+def _median_ms(fn, repeats):
+    import torch
+
+    lat = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat), min(lat), max(lat)
+
+
+def phase_ticks_times(device, card):
+    """Per-tick time of the replayed k-tick graph (the whole call:
+    host input packing, one copy in, the replay, one copy out) and of k
+    eager ticks on the card (the same loop enqueued op by op), host clock
+    with syncs, median of TICKS_TIMED calls; and the replay alone by
+    CUDA events, back to back."""
+    import torch
+
+    for backend, tracked, key in TICKS_FORMS:
+        fleet, lanes, circles = make_fleet(device, tracked, backend=backend)
+        drive = FleetDrive(lanes, circles, tracked)
+        inputs = drive.inputs()
+        fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])  # capture
+        graph = _median_ms(lambda: fleet.run_ticks_on_device(
+            TICKS_K, *inputs[:4], tracked=inputs[4]), TICKS_TIMED)
+        fleet._prepare_tick_inputs(*inputs)
+        _ticks_eager(fleet, TICKS_K, device)
+        eager = _median_ms(lambda: _ticks_eager(fleet, TICKS_K, device), TICKS_TIMED)
+        replay = fleet.tick_graphs[TICKS_K].graph.replay
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TICKS_TIMED):
+            replay()
+        stop.record()
+        torch.cuda.synchronize()
+        device_ms = start.elapsed_time(stop) / TICKS_TIMED
+        log(f"k-tick loop ({backend}, {tracked} tracked slots, {key}), {FLEET_ROBOTS} "
+            f"robots, k={TICKS_K} ({card}): graph replay {graph[0] / TICKS_K:.4f} ms "
+            f"per tick (call median {graph[0]:.4f}, min {graph[1]:.4f}, max "
+            f"{graph[2]:.4f} ms; the replay alone {device_ms:.4f} ms by CUDA events, "
+            f"{device_ms / graph[0]:.1%} of the call); eager loop "
+            f"{eager[0] / TICKS_K:.4f} ms per tick (call median {eager[0]:.4f}, min "
+            f"{eager[1]:.4f}, max {eager[2]:.4f} ms)")
+        del fleet
+
+
+def form_bound(px, rows, active, segments, pair_ops, seg_ops, row_ops=0.0,
+               moving=False):
+    """The bound of a sweep of [B, S, T] points against ``rows`` obstacle
+    and ``segments`` segment rows per robot, active steps [B]: FP32
+    instructions per active (point, obstacle row) pair (``pair_ops``), per
+    (point, segment row) pair (``seg_ops``) and per (robot, active step,
+    obstacle row) (``row_ops``: the moving forms' prefix), an FMA one
+    instruction; bytes as ``sweep_bound``."""
+    B, S, T = px.shape
+    steps = float(active.clamp(max=T).sum())
+    ops = steps * S * (pair_ops * rows + seg_ops * segments) + row_ops * steps * rows
+    nbytes = 4.0 * (2 * B * S * T + B * (2 * rows * (2 if moving else 1) + 2 * segments)
+                    + 2 * B * S * T)
+    return bound(ops, nbytes)
+
+
+# (pair, segment pair, per-step row) FP32 instructions of each form:
+# K6 2 FMUL + 2 FADD + min per pair; K7 4 FFMA + min, its segment pair
+# K2's 6, its prefix 2 FFMA; K8 4 FMUL + 4 FADD + min, its segment pair
+# K6's 5, its prefix 2 FMUL + 2 FADD
+FORM_OPS = {"K6": (5, 5, 0), "K7": (5, 6, 2), "K8": (9, 5, 4)}
+
+
+def phase_tpu_forms_times(kernels, device, card):
+    """K6, K7 and K8 against their plain versions at the path shapes, in
+    turns, over TPU_FORM_INPUTS distinct inputs."""
+    import torch
+
+    B, S, T, O, G = FLEET_SHAPE
+    gen = torch.Generator().manual_seed(9)
+    results = {}
+    for key, wrapper, moving in TPU_FORMS:
+        ap = torch.full((B,), T, dtype=torch.int32, device=device)
+        cases = [_moving_case(gen, device, B, S, T, O, G) for _ in range(TPU_FORM_INPUTS)]
+        inputs = [((px, py, obs, vel, dt, sx, sy, ap) if moving else
+                   (px, py, obs, sx, sy, ap)) for px, py, obs, vel, dt, sx, sy in cases]
+        k_ms, p_ms, runs = _in_turns(getattr(kernels, wrapper),
+                                     getattr(kernels, wrapper + "_reference"), inputs,
+                                     warm=1)
+        b_ms, b_by = form_bound(cases[0][0], O, ap, G, *FORM_OPS[key], moving=moving)
+        log(f"{wrapper} ({key}) at B={B}, {S}x{T} vs {O}+{G} rows ({card}), CUDA "
+            f"events over {TPU_FORM_INPUTS} distinct inputs, in turns {runs}: kernel "
+            f"{k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms ({b_by}), "
+            f"{b_ms / k_ms:.1%} of it")
+        results[key] = (k_ms, p_ms, b_ms, b_by)
+        del cases, inputs
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1927,7 +2276,7 @@ def main() -> int:
     assert kernels.fused_min_dist_sq.launches == 0
     assert kernels.fused_min_dist_sq_moving.launches == 0
     k2_err, k4_err = phase_expanded_vs_plain(kernels, device)
-    for counter in _sweep_counters(kernels).values():
+    for counter in kernels.SWEEP_KERNELS.values():
         counter.launches = 0
     phase_fleet_solver(kernels, device)
     k2_launches = kernels.fused_min_dist_sq_expanded.launches
@@ -1935,11 +2284,21 @@ def main() -> int:
     assert kernels.fused_min_dist_sq_moving.launches == 0
     phase_evaluator(kernels, device)
     phase_box_dwa(kernels, device)
+    form_errs = phase_tpu_forms_vs_plain(kernels, device)
+    for counter in kernels.SWEEP_KERNELS.values():
+        counter.launches = 0
+    form_launches = phase_ticks(kernels, device)
+    log(f"k-tick loop main-path launches (run_ticks_on_device calls only): "
+        f"{form_launches}")
+    assert all(form_launches.get(key) for key in ("K3", "K6", "K7", "K8"))
+    phase_ticks_cpu(device)
     k1_times = phase_times(kernels, device, card)
     k3_times = phase_fleet_times(kernels, device, card)
     k5_times = phase_mapping_times(kernels, device, card)
     (k2_ms, k2_plain_ms, _, *k2_bound), (k4_ms, k4_plain_ms, _, *k4_bound) = (
         phase_solver_times(kernels, device, card))
+    form_times = phase_tpu_forms_times(kernels, device, card)
+    phase_ticks_times(device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -1966,6 +2325,14 @@ def main() -> int:
             k4_err, k4_ms, k4_plain_ms, *k4_bound),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
             *k5_times),
+        row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
+            form_launches["K6"], form_errs["K6"], *form_times["K6"]),
+        row("fused_min_dist_sq_moving_expanded", KERNEL_SOURCE,
+            MOVING_EXPANDED_REPLACES, form_launches["K7"], form_errs["K7"],
+            *form_times["K7"]),
+        row("fused_min_dist_sq_moving_broadcast", KERNEL_SOURCE,
+            MOVING_BROADCAST_REPLACES, form_launches["K8"], form_errs["K8"],
+            *form_times["K8"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

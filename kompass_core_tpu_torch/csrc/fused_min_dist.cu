@@ -1,71 +1,110 @@
 // Fused obstacle + tracked-segment min-distance sweeps for the DWA tick,
 // with a robot axis.
 //
-// Replaces four TPU kernels of kompass_core_tpu/ops/pallas_kernels.py:
-//   K1 ::_fused_kernel_vpu (static obstacles, through fused_min_dist_sq)
-//   K2 ::_fused_kernel_mxu (the same sweeps in the expanded form, solver
-//      backend "pallas")
-//   K3 ::_fused_kernel_vpu_moving and ::_fused_kernel_mxu_moving
-//      (constant-velocity obstacles, through fused_min_dist_sq_moving_pallas)
-//   K4 ::_min_dist_kernel (one expanded sweep, through
-//      min_point_dist_sq_pallas; solver backend "pallas_v1")
 // For every robot b and every point p of its [S, T] rollout, one pass
 // computes
 //   d2_obs[b, p] = min over obstacle rows o of |p - o(t)|^2
 //   d2_seg[b, p] = min over tracked-segment rows g of |p - g|^2
 // and writes +inf where the step index t >= active_points[b]. Statically
-// o(t) = o; in the moving sweep o(t) = o + v * tau with tau = f32(t) * dt[b],
-// the operation order of the JAX package's XLA form
-// (ops/solver.py::_min_obstacle_dist_sq_moving). The segment rows never
-// move. K4 is the expanded form with the segment sweep compiled out.
+// o(t) = o; in the moving sweeps o(t) = o + v * tau with tau = f32(t) *
+// dt[b]. The segment rows never move. What each kernel computes, and what
+// it replaces:
+//   K1 fused_min_dist_kernel<kDirect>: the JAX package's XLA form of the
+//      static sweep, (p - o)^2 (kompass_core_tpu/ops/solver.py:347
+//      _min_obstacle_dist_sq; solver backend "xla").
+//   K2 fused_min_dist_kernel<kExpanded>: the TPU kernel
+//      kompass_core_tpu/ops/pallas_kernels.py:56 _fused_kernel_mxu, both
+//      sweeps in the expanded form (backend "pallas").
+//   K4 fused_min_dist_kernel<kExpanded> with the segment sweep compiled
+//      out: pallas_kernels.py:387 _min_dist_kernel (backend "pallas_v1").
+//   K6 fused_min_dist_kernel<kBroadcast>: pallas_kernels.py:89
+//      _fused_kernel_vpu, both sweeps in the broadcast form (backend
+//      "pallas_vpu").
+//   K3 moving_min_dist_kernel<kDirect>: the XLA form of the moving sweep,
+//      (p - (o + v tau))^2 (solver.py:365 _min_obstacle_dist_sq_moving;
+//      backend "xla" with moving obstacles), its segment sweep direct.
+//   K7 moving_min_dist_kernel<kExpanded>: pallas_kernels.py:116
+//      _fused_kernel_mxu_moving, the 7-feature dot (backends "pallas" and
+//      "pallas_v1" with moving obstacles), its segment sweep K2's.
+//   K8 moving_min_dist_kernel<kBroadcast>: pallas_kernels.py:171
+//      _fused_kernel_vpu_moving, the 7-feature left fold (backend
+//      "pallas_vpu" with moving obstacles), its segment sweep K6's.
 //
-// What bounds them on Hopper: FP32 issue. Every operation is rounded on
-// its own (no FMA), so a (point, row) pair costs at least its 6 FP32
-// instructions (2 sub, 2 mul, add, min); the rows and points of a
-// 64-robot tick are a few MB, all in L2.
+// What bounds them on Hopper: FP32 issue. A (point, row) pair costs a
+// handful of FP32 instructions (6 in the direct form: 2 sub, 2 mul, add,
+// min; K7's is 4 FFMA and a min); the rows and points of a 64-robot tick
+// are a few MB, all in L2.
 //
-// K1, K2 and K4: one thread per point (fused_min_dist_kernel below),
-// 256-thread blocks over one robot's S*T points; rows are staged through
-// shared memory in tiles of 512 and every thread reads the same row at
-// the same time (a broadcast). The running min lives in a register; the
-// ragged last tile and block are masked. About 9 instructions per pair.
+// The static kernels (K1, K2, K4, K6): one thread per point
+// (fused_min_dist_kernel below), 256-thread blocks over one robot's S*T
+// points; rows are staged through shared memory in tiles of 512 and every
+// thread reads the same row at the same time (a broadcast). The running
+// min lives in a register; the ragged last tile and block are masked.
+// About 9 instructions per pair.
 //
-// K3 (moving_min_dist_kernel below) is laid out for its own work:
-//   * a block is one robot b, one step t and a run of samples, so the
-//     moved row o + v * tau is formed once per (robot, step, row) when
-//     its tile is staged, not once per pair; the inner loop is the static
-//     direct form, for the moved obstacle rows and the segment rows alike;
+// The moving kernels (K3, K7, K8: moving_min_dist_kernel below) are laid
+// out for their own work:
+//   * a block is one robot b, one step t and a run of samples, so what
+//     depends on the row and the step (K3's moved row o + v * tau, K7's
+//     and K8's prefix of the feature sum) is formed once per (robot, step,
+//     row) when its tile is staged, not once per pair;
 //   * each thread holds kPoints samples of that step in registers, so one
 //     shared-memory broadcast of a row feeds kPoints pairs;
 //   * the min is fminf unless the block's points, the staged tile or an
-//     earlier tile of the sweep hold a non-finite coordinate (flags
-//     reduced with __syncthreads_or, so the choice is block-uniform); only
-//     then can a distance, or the running min, be NaN, and the NaN-keeping
-//     min runs. A min is exact in any order and d >= +0, so both give the
-//     plain version's values bit for bit;
+//     earlier tile of the sweep hold a value that can make a distance NaN
+//     (flags reduced with __syncthreads_or, so the choice is
+//     block-uniform); only then does the NaN-keeping min run. K3 flags a
+//     non-finite coordinate; K7 and K8 flag any staged or per-point value
+//     above 1e18 in magnitude (NaN and inf included): below it no product
+//     or sum of the forms overflows, so no distance is NaN. A min is exact
+//     in any order, and the forms' epilogue (+ |p|^2 >= +0) erases the
+//     sign of a zero, so both mins give the plain version's values bit
+//     for bit;
 //   * a step at or past active_points[b] writes +inf and sweeps nothing;
 //   * the points are read in place with stride T (one read per point per
 //     launch; the [B, S, T] layout of the wrapper is kept).
 //
 // The forms:
-//   * direct (K1, K3): (px-ox)^2 + (py-oy)^2. The port's choice for its
-//     own sweeps: the expansion below cancels at ~10 m coordinates
-//     (|o|^2 * 2^-24 ~ 6e-6 m^2 of error against centimetre collision
-//     margins). The TPU needed the expansion to feed its matrix unit.
-//   * expanded (K2, K4): the TPU kernels' function, ported as it is:
-//     cross = ox*px + oy*py, d = |o|^2 - 2*cross, running min over the
-//     rows, then + |p|^2 and a clamp at 0. Its absolute error is a few
-//     ulps of |p|^2 + |o|^2, so it is meant for the JAX package's own
-//     coordinates, within about 10 m of the origin (bench.py's
-//     scenarios); it grows with the square of the distance from it. A
-//     pad row at 1e8 stays finite (|o|^2 = 2e16) and never wins.
-// The intrinsics below round each operation on its own, so nvcc cannot
-// contract an expression into FMAs. Every form is then bit-identical to
-// its plain PyTorch version, which evaluates the same operations one by
-// one: a min is exact in any order. The min propagates NaN like
-// torch.amin, and the expanded form's clamp keeps a NaN. A zero velocity
-// adds +0 to the row, so the moving sweep gives the static sweep's values
-// bit for bit.
+//   * direct (K1, K3): (px-ox)^2 + (py-oy)^2, the XLA form's function.
+//   * expanded (K2, K4, and K7's segment sweep): cross = ox*px + oy*py,
+//     d = |o|^2 - 2*cross, running min over the rows, then + |p|^2 and a
+//     clamp at 0, each operation rounded on its own.
+//   * broadcast (K6, and K8's segment sweep): d = (|o|^2 + (-2px)*ox) +
+//     (-2py)*oy, the TPU vector unit's broadcast products, each multiply
+//     and add rounded on its own (that unit has no FMA); then + |p|^2 and
+//     the clamp.
+//   * the 7-feature forms (K7, K8): f(o) = [|o|^2, |v|^2, 2 v.o, -2ox,
+//     -2oy, -2vx, -2vy] per row, g(p) = [1, tau^2, tau, px, py, tau*px,
+//     tau*py] per point, d = f(o).g(p), then + |p|^2 and the clamp. g1, g2
+//     depend on the step alone, so the prefix c = f0 + f1*tau^2 + f2*tau
+//     is formed per staged row and the pair loop adds the four point
+//     terms. Everything outside K7's dot is rounded as the TPU's vector
+//     unit rounds it, every multiply and add on its own: the features
+//     |o|^2, |v|^2 and 2 v.o, tau*px and tau*py, and the one |p|^2 per
+//     point that both fields add. K8 is the TPU kernel's left fold, every
+//     operation rounded on its own: c = (f0 + f1*tau^2) + f2*tau, d =
+//     (((c + f3*px) + f4*py) + f5*(tau*px)) + f6*(tau*py). K7's K = 8 dot
+//     has no rounding of its own (the TPU's matrix unit sums at its own
+//     precision), so the port chooses one: the feature-order chain of
+//     fused multiply-adds, c = fma(f2, tau, fma(f1, tau^2, f0)), d =
+//     fma(f6, tau*py, fma(f5, tau*px, fma(f4, py, fma(f3, px, c)))), 4 FFMA
+//     per pair. That chain is the order of XLA's CPU dot, so K7 equals the
+//     JAX package's interpret-mode kernel bit for bit when XLA compiles
+//     the rest without FMA (--xla_cpu_max_isa=SSE4_2), as K6 and K8 do.
+// The expanded forms cancel as the coordinates grow: their absolute error
+// is a few ulps of |p|^2 + |o|^2 (|p|^2 * 2^-24, about 6e-6 m^2 at 10 m
+// from the origin, a hundred times that at 100 m), against centimetre
+// collision margins. It is the function the JAX backends compute, ported
+// as it is; the XLA form (K1, K3) has no such term. A pad row at 1e8
+// stays finite (|o|^2 = 2e16, zero velocity) and never wins.
+// The intrinsics below round each operation on its own (__f*_rn) or fuse
+// exactly where the form says (__fmaf_rn), so nvcc contracts nothing else.
+// Every form is then bit-identical to its plain PyTorch version, which
+// evaluates the same operations one by one (K7's FMAs correctly rounded
+// through float64, ops/kernels.py::_fma_rn): a min is exact in any order.
+// The min propagates NaN like torch.amin, and the clamp keeps a NaN. A
+// zero velocity adds +0 to K3's row, so K3 gives K1's values bit for bit,
+// and K8's velocity terms add +-0, so K8 gives K6's.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -75,7 +114,7 @@ namespace {
 constexpr int kBlock = 256;  // threads (= points) per block
 constexpr int kTile = 512;   // rows staged in shared memory per tile
 
-enum Form : int { kDirect = 0, kExpanded = 2 };
+enum Form : int { kDirect = 0, kBroadcast = 1, kExpanded = 2 };
 
 __device__ __forceinline__ float dist_sq(float px, float py, float ox,
                                          float oy) {
@@ -90,6 +129,19 @@ __device__ __forceinline__ float norm_sq(float x, float y) {
 
 __device__ __forceinline__ float min_nan(float acc, float d) {
   return (d < acc || d != d) ? d : acc;
+}
+
+// One pair of the static expanded (K2) or broadcast (K6) form against a
+// staged row (ox, oy, |o|^2); xd = -2 px and yd = -2 py for the broadcast.
+template <int kForm>
+__device__ __forceinline__ float norm_form(float4 o, float px, float py,
+                                           float xd, float yd) {
+  if constexpr (kForm == kBroadcast) {
+    return __fadd_rn(__fadd_rn(o.z, __fmul_rn(xd, o.x)), __fmul_rn(yd, o.y));
+  } else {
+    const float cross = __fadd_rn(__fmul_rn(o.x, px), __fmul_rn(o.y, py));
+    return __fsub_rn(o.z, __fmul_rn(2.0f, cross));
+  }
 }
 
 // Running min of |p - row|^2 over `n` rows, row i at (xs[i*stride],
@@ -115,12 +167,15 @@ __device__ float sweep(float px, float py, const float* __restrict__ xs,
   return acc;
 }
 
-// Running min of |o|^2 - 2 (o . p) over `n` rows, laid out as in `sweep`;
-// each row is staged with its |o|^2. Same staging and barriers.
-__device__ float sweep_expanded(float px, float py,
-                                const float* __restrict__ xs,
-                                const float* __restrict__ ys, int stride,
-                                int n, float4* tile) {
+// Running min of the expanded or broadcast form (without |p|^2) over `n`
+// rows, laid out as in `sweep`; each row is staged with its |o|^2. Same
+// staging and barriers.
+template <int kForm>
+__device__ float sweep_norm(float px, float py, const float* __restrict__ xs,
+                            const float* __restrict__ ys, int stride, int n,
+                            float4* tile) {
+  const float xd = __fmul_rn(-2.0f, px);
+  const float yd = __fmul_rn(-2.0f, py);
   float acc = CUDART_INF_F;
   for (int base = 0; base < n; base += kTile) {
     const int rows = min(kTile, n - base);
@@ -134,15 +189,13 @@ __device__ float sweep_expanded(float px, float py,
     __syncthreads();
 #pragma unroll 8
     for (int j = 0; j < rows; ++j) {
-      const float4 o = tile[j];
-      const float cross = __fadd_rn(__fmul_rn(o.x, px), __fmul_rn(o.y, py));
-      acc = min_nan(acc, __fsub_rn(o.z, __fmul_rn(2.0f, cross)));
+      acc = min_nan(acc, norm_form<kForm>(tile[j], px, py, xd, yd));
     }
   }
   return acc;
 }
 
-// The expanded form's epilogue: + |p|^2, then max(., 0) keeping a NaN.
+// The expanded forms' epilogue: + |p|^2, then max(., 0) keeping a NaN.
 __device__ __forceinline__ float finish_expanded(float acc, float pnorm) {
   const float v = __fadd_rn(acc, pnorm);
   return v < 0.0f ? 0.0f : v;
@@ -158,8 +211,8 @@ __global__ void __launch_bounds__(kBlock) fused_min_dist_kernel(
     const float* __restrict__ seg_x, const float* __restrict__ seg_y,
     int n_seg, const int* __restrict__ active_points,
     float* __restrict__ out_obs, float* __restrict__ out_seg) {
-  // kTile float4 rows for the expanded sweep; the direct form reads it
-  // as kTile float2 rows, so K1 keeps its 4 KB
+  // kTile float4 rows for the expanded and broadcast sweeps; the direct
+  // form reads it as kTile float2 rows, so K1 keeps its 4 KB
   __shared__ float4 tile[kForm == kDirect ? kTile / 2 : kTile];
   float2* tile2 = reinterpret_cast<float2*>(tile);
   const int b = blockIdx.y;
@@ -171,20 +224,23 @@ __global__ void __launch_bounds__(kBlock) fused_min_dist_kernel(
   const float y = live ? py[point0 + p] : 0.0f;
   const int t = p % steps;
   float mo;
-  if constexpr (kForm == kExpanded) {
-    mo = sweep_expanded(x, y, obs + 2 * row0, obs + 2 * row0 + 1, 2, n_obs,
-                        tile);
-  } else {
+  if constexpr (kForm == kDirect) {
     mo = sweep(x, y, obs + 2 * row0, obs + 2 * row0 + 1, 2, n_obs, tile2);
+  } else {
+    mo = sweep_norm<kForm>(x, y, obs + 2 * row0, obs + 2 * row0 + 1, 2,
+                           n_obs, tile);
   }
   float ms = 0.0f;
   if constexpr (kSegments) {
     const long long seg0 = static_cast<long long>(b) * n_seg;
-    ms = kForm == kExpanded
-             ? sweep_expanded(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg, tile)
-             : sweep(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg, tile2);
+    if constexpr (kForm == kDirect) {
+      ms = sweep(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg, tile2);
+    } else {
+      ms = sweep_norm<kForm>(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg,
+                             tile);
+    }
   }
-  if constexpr (kForm == kExpanded) {
+  if constexpr (kForm != kDirect) {
     const float pnorm = norm_sq(x, y);
     mo = finish_expanded(mo, pnorm);
     ms = finish_expanded(ms, pnorm);
@@ -209,17 +265,22 @@ int launch(const float* px, const float* py, int batch, int n_points,
   return static_cast<int>(cudaGetLastError());
 }
 
-// --- K3: the moving sweep ----------------------------------------------------
+// --- K3, K7, K8: the moving sweeps ----------------------------------------------
 
 constexpr int kMovingBlock = 128;   // threads per block
 constexpr int kPoints = 8;          // samples of one step per thread
-constexpr int kMovingTile = 1024;   // rows per staged tile (8 KB of float2)
+constexpr int kMovingTile = 1024;   // rows per staged tile
+// K7 and K8: a value at most this large in magnitude keeps every product
+// (< 1e36) and sum of their forms finite, so no distance is NaN
+constexpr float kTame = 1e18f;
 
 __device__ __forceinline__ bool both_finite(float x, float y) {
   return isfinite(x) && isfinite(y);
 }
 
-// One staged tile against the thread's kPoints points. kKeepNan selects
+__device__ __forceinline__ bool tame(float v) { return fabsf(v) <= kTame; }
+
+// K3's staged tile against the thread's kPoints points. kKeepNan selects
 // the NaN-keeping min (a distance can be NaN only when a coordinate of
 // the point or the row is non-finite).
 template <bool kKeepNan>
@@ -238,7 +299,7 @@ __device__ __forceinline__ void sweep_tile(const float (&x)[kPoints],
   }
 }
 
-// Running mins over `n` rows, row i at (xs[i*stride], ys[i*stride]),
+// K3's running mins over `n` rows, row i at (xs[i*stride], ys[i*stride]),
 // moved to (x + vx * tau, y + vy * tau) with (vx, vy) = (vel[2i],
 // vel[2i+1]) when kMove (the __fmul_rn / __fadd_rn order of the plain
 // version). Every thread of the block must call it: it stages tiles and
@@ -278,8 +339,132 @@ __device__ void sweep_rows(const float (&x)[kPoints], const float (&y)[kPoints],
   }
 }
 
+// The points of one K7 / K8 block: px, py, tau*px, tau*py per sample.
+struct StepPoints {
+  float x[kPoints], y[kPoints], tx[kPoints], ty[kPoints];
+};
+
+// One pair of K7's (kExpanded) or K8's (kBroadcast) obstacle form:
+// the staged prefix c and (f3, f4, f5, f6) against point k.
+template <int kForm>
+__device__ __forceinline__ float feature_form(float c, float4 f,
+                                              const StepPoints& p, int k) {
+  if constexpr (kForm == kExpanded) {
+    return __fmaf_rn(f.w, p.ty[k], __fmaf_rn(f.z, p.tx[k],
+                     __fmaf_rn(f.y, p.y[k], __fmaf_rn(f.x, p.x[k], c))));
+  } else {
+    const float d = __fadd_rn(__fadd_rn(c, __fmul_rn(f.x, p.x[k])),
+                              __fmul_rn(f.y, p.y[k]));
+    return __fadd_rn(__fadd_rn(d, __fmul_rn(f.z, p.tx[k])),
+                     __fmul_rn(f.w, p.ty[k]));
+  }
+}
+
+template <int kForm, bool kKeepNan>
+__device__ __forceinline__ void feature_tile(const StepPoints& p,
+                                             float (&acc)[kPoints],
+                                             const float4* feat,
+                                             const float* prefix, int rows) {
+#pragma unroll 4
+  for (int j = 0; j < rows; ++j) {
+    const float4 f = feat[j];
+    const float c = prefix[j];
+#pragma unroll
+    for (int k = 0; k < kPoints; ++k) {
+      const float d = feature_form<kForm>(c, f, p, k);
+      acc[k] = kKeepNan ? min_nan(acc[k], d) : fminf(acc[k], d);
+    }
+  }
+}
+
+// K7's and K8's obstacle sweep: per staged row its features and the
+// step's prefix c (module comment), then the pair loop. `wild`: the
+// block's points are not all tame. Every thread must call it.
+template <int kForm>
+__device__ void feature_rows(const StepPoints& p, float (&acc)[kPoints],
+                             const float* __restrict__ obs,
+                             const float* __restrict__ vel, float tau,
+                             float tau2, int n, bool wild, float4* feat,
+                             float* prefix) {
+  for (int base = 0; base < n; base += kMovingTile) {
+    const int rows = min(kMovingTile, n - base);
+    __syncthreads();
+    bool wild_rows = false;
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      const long long r = 2LL * (base + i);
+      const float ox = obs[r], oy = obs[r + 1];
+      const float vx = vel[r], vy = vel[r + 1];
+      const float f0 = norm_sq(ox, oy);
+      const float f1 = norm_sq(vx, vy);
+      const float f2 =
+          __fmul_rn(2.0f, __fadd_rn(__fmul_rn(vx, ox), __fmul_rn(vy, oy)));
+      const float c =
+          kForm == kExpanded
+              ? __fmaf_rn(f2, tau, __fmaf_rn(f1, tau2, f0))
+              : __fadd_rn(__fadd_rn(f0, __fmul_rn(f1, tau2)), __fmul_rn(f2, tau));
+      const float4 f = make_float4(__fmul_rn(-2.0f, ox), __fmul_rn(-2.0f, oy),
+                                   __fmul_rn(-2.0f, vx), __fmul_rn(-2.0f, vy));
+      wild_rows |= !(tame(c) && tame(f.x) && tame(f.y) && tame(f.z) && tame(f.w));
+      feat[i] = f;
+      prefix[i] = c;
+    }
+    wild = __syncthreads_or(wild_rows) || wild;
+    if (wild) {
+      feature_tile<kForm, true>(p, acc, feat, prefix, rows);
+    } else {
+      feature_tile<kForm, false>(p, acc, feat, prefix, rows);
+    }
+  }
+}
+
+template <int kForm, bool kKeepNan>
+__device__ __forceinline__ void norm_tile(const StepPoints& p,
+                                          float (&acc)[kPoints],
+                                          const float4* tile, int rows) {
+#pragma unroll 4
+  for (int j = 0; j < rows; ++j) {
+    const float4 o = tile[j];
+#pragma unroll
+    for (int k = 0; k < kPoints; ++k) {
+      const float d = norm_form<kForm>(o, p.x[k], p.y[k],
+                                       __fmul_rn(-2.0f, p.x[k]),
+                                       __fmul_rn(-2.0f, p.y[k]));
+      acc[k] = kKeepNan ? min_nan(acc[k], d) : fminf(acc[k], d);
+    }
+  }
+}
+
+// K7's (K2's expanded form) and K8's (K6's broadcast form) segment sweep
+// over `n` rows (xs[i], ys[i]). Every thread must call it.
+template <int kForm>
+__device__ void norm_rows(const StepPoints& p, float (&acc)[kPoints],
+                          const float* __restrict__ xs,
+                          const float* __restrict__ ys, int n, bool wild,
+                          float4* tile) {
+  for (int base = 0; base < n; base += kMovingTile) {
+    const int rows = min(kMovingTile, n - base);
+    __syncthreads();
+    bool wild_rows = false;
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      const float x = xs[base + i];
+      const float y = ys[base + i];
+      const float o2 = norm_sq(x, y);
+      wild_rows |= !(tame(x) && tame(y) && tame(o2));
+      tile[i] = make_float4(x, y, o2, 0.0f);
+    }
+    wild = __syncthreads_or(wild_rows) || wild;
+    if (wild) {
+      norm_tile<kForm, true>(p, acc, tile, rows);
+    } else {
+      norm_tile<kForm, false>(p, acc, tile, rows);
+    }
+  }
+}
+
 // One block: step t = blockIdx.y of robot b = blockIdx.z, samples
 // blockIdx.x * kMovingBlock * kPoints + threadIdx.x + k * kMovingBlock.
+// kForm: kDirect (K3), kExpanded (K7) or kBroadcast (K8).
+template <int kForm>
 __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
     const float* __restrict__ px, const float* __restrict__ py, int samples,
     int steps, const float* __restrict__ obs, const float* __restrict__ obs_vel,
@@ -287,7 +472,10 @@ __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
     const float* __restrict__ seg_y, int n_seg,
     const int* __restrict__ active_points, float* __restrict__ out_obs,
     float* __restrict__ out_seg) {
-  __shared__ float2 tile[kMovingTile];
+  // K3: kMovingTile float2 rows (8 KB); K7, K8: kMovingTile float4 feature
+  // rows and their prefixes (20 KB)
+  __shared__ float4 tile[kForm == kDirect ? kMovingTile / 2 : kMovingTile];
+  __shared__ float prefix[kForm == kDirect ? 1 : kMovingTile];
   const int t = blockIdx.y;
   const int b = blockIdx.z;
   const int s0 = blockIdx.x * kMovingBlock * kPoints + threadIdx.x;
@@ -303,26 +491,55 @@ __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
     }
     return;
   }
-  float x[kPoints], y[kPoints], mo[kPoints], ms[kPoints];
-  bool non_finite = false;
-#pragma unroll
-  for (int k = 0; k < kPoints; ++k) {
-    const int s = s0 + k * kMovingBlock;
-    const long long p = point0 + static_cast<long long>(s) * steps;
-    x[k] = s < samples ? px[p] : 0.0f;
-    y[k] = s < samples ? py[p] : 0.0f;
-    non_finite |= !both_finite(x[k], y[k]);
-    mo[k] = CUDART_INF_F;
-    ms[k] = CUDART_INF_F;
-  }
-  const bool points_non_finite = __syncthreads_or(non_finite);
+  float mo[kPoints], ms[kPoints];
   const float tau = __fmul_rn(static_cast<float>(t), dt[b]);
   const long long row0 = static_cast<long long>(b) * n_obs;
-  sweep_rows<true>(x, y, mo, obs + 2 * row0, obs + 2 * row0 + 1, 2,
-                   obs_vel + 2 * row0, tau, n_obs, points_non_finite, tile);
   const long long seg0 = static_cast<long long>(b) * n_seg;
-  sweep_rows<false>(x, y, ms, seg_x + seg0, seg_y + seg0, 1, nullptr, 0.0f,
-                    n_seg, points_non_finite, tile);
+  if constexpr (kForm == kDirect) {
+    float x[kPoints], y[kPoints];
+    bool non_finite = false;
+#pragma unroll
+    for (int k = 0; k < kPoints; ++k) {
+      const int s = s0 + k * kMovingBlock;
+      const long long p = point0 + static_cast<long long>(s) * steps;
+      x[k] = s < samples ? px[p] : 0.0f;
+      y[k] = s < samples ? py[p] : 0.0f;
+      non_finite |= !both_finite(x[k], y[k]);
+      mo[k] = CUDART_INF_F;
+      ms[k] = CUDART_INF_F;
+    }
+    const bool points_non_finite = __syncthreads_or(non_finite);
+    float2* tile2 = reinterpret_cast<float2*>(tile);
+    sweep_rows<true>(x, y, mo, obs + 2 * row0, obs + 2 * row0 + 1, 2,
+                     obs_vel + 2 * row0, tau, n_obs, points_non_finite, tile2);
+    sweep_rows<false>(x, y, ms, seg_x + seg0, seg_y + seg0, 1, nullptr, 0.0f,
+                      n_seg, points_non_finite, tile2);
+  } else {
+    StepPoints p;
+    bool wild = false;
+#pragma unroll
+    for (int k = 0; k < kPoints; ++k) {
+      const int s = s0 + k * kMovingBlock;
+      const long long i = point0 + static_cast<long long>(s) * steps;
+      p.x[k] = s < samples ? px[i] : 0.0f;
+      p.y[k] = s < samples ? py[i] : 0.0f;
+      p.tx[k] = __fmul_rn(tau, p.x[k]);
+      p.ty[k] = __fmul_rn(tau, p.y[k]);
+      wild |= !(tame(p.x[k]) && tame(p.y[k]) && tame(p.tx[k]) && tame(p.ty[k]));
+      mo[k] = CUDART_INF_F;
+      ms[k] = CUDART_INF_F;
+    }
+    wild = __syncthreads_or(wild);
+    feature_rows<kForm>(p, mo, obs + 2 * row0, obs_vel + 2 * row0, tau,
+                        __fmul_rn(tau, tau), n_obs, wild, tile, prefix);
+    norm_rows<kForm>(p, ms, seg_x + seg0, seg_y + seg0, n_seg, wild, tile);
+#pragma unroll
+    for (int k = 0; k < kPoints; ++k) {
+      const float pnorm = norm_sq(p.x[k], p.y[k]);  // one per point, both fields
+      mo[k] = finish_expanded(mo[k], pnorm);
+      ms[k] = finish_expanded(ms[k], pnorm);
+    }
+  }
 #pragma unroll
   for (int k = 0; k < kPoints; ++k) {
     const int s = s0 + k * kMovingBlock;
@@ -331,6 +548,22 @@ __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
       out_seg[point0 + static_cast<long long>(s) * steps] = ms[k];
     }
   }
+}
+
+template <int kForm>
+int launch_moving(const float* px, const float* py, int batch, int n_points,
+                  int steps, const float* obs, const float* obs_vel,
+                  const float* dt, int n_obs, const float* seg_x,
+                  const float* seg_y, int n_seg, const int* active_points,
+                  float* out_obs, float* out_seg, void* stream) {
+  const int samples = n_points / steps;
+  const int per_block = kMovingBlock * kPoints;
+  const dim3 grid((samples + per_block - 1) / per_block, steps, batch);
+  moving_min_dist_kernel<kForm><<<grid, kMovingBlock, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      px, py, samples, steps, obs, obs_vel, dt, n_obs, seg_x, seg_y, n_seg,
+      active_points, out_obs, out_seg);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -352,23 +585,6 @@ extern "C" int kompass_fused_min_dist_sq(
                                out_seg, stream);
 }
 
-// K3, the moving sweep: as above, plus obs_vel [B, n_obs, 2] (pad rows
-// zero) and dt [B], the per-robot control step.
-extern "C" int kompass_fused_min_dist_sq_moving(
-    const float* px, const float* py, int batch, int n_points, int steps,
-    const float* obs, const float* obs_vel, const float* dt, int n_obs,
-    const float* seg_x, const float* seg_y, int n_seg,
-    const int* active_points, float* out_obs, float* out_seg, void* stream) {
-  const int samples = n_points / steps;
-  const int per_block = kMovingBlock * kPoints;
-  const dim3 grid((samples + per_block - 1) / per_block, steps, batch);
-  moving_min_dist_kernel<<<grid, kMovingBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      px, py, samples, steps, obs, obs_vel, dt, n_obs, seg_x, seg_y, n_seg,
-      active_points, out_obs, out_seg);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K2: both sweeps in the expanded form; arguments as for
 // kompass_fused_min_dist_sq.
 extern "C" int kompass_fused_min_dist_sq_expanded(
@@ -381,6 +597,18 @@ extern "C" int kompass_fused_min_dist_sq_expanded(
                                  out_seg, stream);
 }
 
+// K6: both sweeps in the broadcast form; arguments as for
+// kompass_fused_min_dist_sq.
+extern "C" int kompass_fused_min_dist_sq_broadcast(
+    const float* px, const float* py, int batch, int n_points, int steps,
+    const float* obs, int n_obs, const float* seg_x, const float* seg_y,
+    int n_seg, const int* active_points, float* out_obs, float* out_seg,
+    void* stream) {
+  return launch<kBroadcast, true>(px, py, batch, n_points, steps, obs, n_obs,
+                                  seg_x, seg_y, n_seg, active_points, out_obs,
+                                  out_seg, stream);
+}
+
 // K4: one expanded sweep of [B, S, T] points against rows [B, n_rows, 2]
 // into out [B, S, T].
 extern "C" int kompass_min_dist_sq_expanded(
@@ -390,4 +618,41 @@ extern "C" int kompass_min_dist_sq_expanded(
   return launch<kExpanded, false>(px, py, batch, n_points, steps, rows,
                                   n_rows, nullptr, nullptr, 0, active_points,
                                   out, nullptr, stream);
+}
+
+// K3, the moving sweep in the direct form: as kompass_fused_min_dist_sq,
+// plus obs_vel [B, n_obs, 2] (pad rows zero) and dt [B], the per-robot
+// control step.
+extern "C" int kompass_fused_min_dist_sq_moving(
+    const float* px, const float* py, int batch, int n_points, int steps,
+    const float* obs, const float* obs_vel, const float* dt, int n_obs,
+    const float* seg_x, const float* seg_y, int n_seg,
+    const int* active_points, float* out_obs, float* out_seg, void* stream) {
+  return launch_moving<kDirect>(px, py, batch, n_points, steps, obs, obs_vel,
+                                dt, n_obs, seg_x, seg_y, n_seg, active_points,
+                                out_obs, out_seg, stream);
+}
+
+// K7, the moving sweep's 7-feature dot; arguments as for
+// kompass_fused_min_dist_sq_moving.
+extern "C" int kompass_fused_min_dist_sq_moving_expanded(
+    const float* px, const float* py, int batch, int n_points, int steps,
+    const float* obs, const float* obs_vel, const float* dt, int n_obs,
+    const float* seg_x, const float* seg_y, int n_seg,
+    const int* active_points, float* out_obs, float* out_seg, void* stream) {
+  return launch_moving<kExpanded>(px, py, batch, n_points, steps, obs,
+                                  obs_vel, dt, n_obs, seg_x, seg_y, n_seg,
+                                  active_points, out_obs, out_seg, stream);
+}
+
+// K8, the moving sweep's 7-feature left fold; arguments as for
+// kompass_fused_min_dist_sq_moving.
+extern "C" int kompass_fused_min_dist_sq_moving_broadcast(
+    const float* px, const float* py, int batch, int n_points, int steps,
+    const float* obs, const float* obs_vel, const float* dt, int n_obs,
+    const float* seg_x, const float* seg_y, int n_seg,
+    const int* active_points, float* out_obs, float* out_seg, void* stream) {
+  return launch_moving<kBroadcast>(px, py, batch, n_points, steps, obs,
+                                   obs_vel, dt, n_obs, seg_x, seg_y, n_seg,
+                                   active_points, out_obs, out_seg, stream);
 }

@@ -21,11 +21,14 @@ for the whole fleet with the robot as its grid's second dimension.
 
 No host sync inside the tick: the data-dependent follower descent is a
 statically unrolled loop of masked updates, every index is a device
-tensor read through ``torch.gather``, and nothing calls ``.item()``.
+tensor read through ``torch.gather``, and nothing calls ``.item()`` or
+builds a tensor from host data. So a tick, and the k-tick loop
+(``make_fleet_ticks_on_device``), can be captured as a CUDA graph
+(``parallel/fleet_v2.py``).
 
-Not ported yet (ROADMAP items 5b-5g; ``DeviceFleet`` raises
-``NotImplementedError`` naming each): the k-tick loop, peers, the fused
-safety gate, the split mover sweep, BOX fleets and the mesh.
+Not ported yet (ROADMAP items 5c-5g; they raise ``NotImplementedError``
+naming each): peers, the fused safety gate, the split mover sweep, BOX
+fleets and the mesh.
 """
 
 import dataclasses
@@ -258,9 +261,13 @@ def _fleet_step(
     angles,  # [N, R]
     seg_capacity: int,
     tracked=None,  # [N, M, 4] (x, y, vx, vy) tracked moving objects, world
+    obs_world=None,  # [N, scan_size, 2] world obstacles (the k-tick loop)
 ):
     """Every robot's full control tick on the device: (carry', out [N, 10])
-    with the columns of ``OUT_FIELDS``."""
+    with the columns of ``OUT_FIELDS``. ``obs_world``: the scan already
+    converted to world obstacles (the k-tick loop converts it once, at
+    the tick-0 pose); as in the JAX package, every slot of that bucket
+    then counts as an obstacle point for the obstacle cost's gate."""
     (params12, limits9, sensor_pose, rot_in_place, goal_tol, ori_tol,
      losing_tol, interp_dist, base_h, curv_tol, vx_max, max_seg_size) = cfg
     x, y, yaw = states[:, 0], states[:, 1], states[:, 2]
@@ -311,9 +318,12 @@ def _fleet_step(
     max_forward = adaptive * vx_max
 
     # --- obstacles: scan -> world, tracked movers in the tail slots ---
-    obs, R = _scan_to_world_obs(
-        spec, ranges, angles, sensor_pose, x, y, yaw
-    )
+    if obs_world is None:
+        obs, R = _scan_to_world_obs(
+            spec, ranges, angles, sensor_pose, x, y, yaw
+        )
+    else:
+        obs, R = obs_world, obs_world.shape[1]
     obs_count = torch.full_like(goal_i, min(R, spec.scan_size))
     scan_len = obs.shape[1]
     obs_vel = None
@@ -323,9 +333,9 @@ def _fleet_step(
         # block that is zero for every scan row. Pad slots sit at
         # x >= 1e7 with zero velocity and are not counted
         m_rows = tracked.shape[1]
-        if R + m_rows > scan_len:
+        if ranges.shape[1] + m_rows > scan_len:
             raise ValueError(
-                f"scan bucket {scan_len} cannot hold {R} rays + "
+                f"scan bucket {scan_len} cannot hold {ranges.shape[1]} rays + "
                 f"{m_rows} tracked slots — size scan_size >= rays + M"
             )
         obs = torch.cat([obs[:, : scan_len - m_rows], tracked[:, :, 0:2]], 1)
@@ -431,6 +441,16 @@ def _check_tracked_spec(fleet_spec: FleetSpec) -> None:
         )
 
 
+def _check_fleet_spec(fleet_spec: FleetSpec) -> None:
+    """The fleet forms that are not ported raise naming their ROADMAP
+    item; tracked slots need the moving sweep."""
+    if fleet_spec.split_mover_sweep:
+        _not_ported("split_mover_sweep", "5e")
+    if fleet_spec.solver.dynamic_box or fleet_spec.solver.collision_box:
+        _not_ported("BOX fleets (dynamic_box)", "5f")
+    _check_tracked_spec(fleet_spec)
+
+
 def _split_tick_inputs(fleet_spec: FleetSpec, inputs):
     """The packed tick input ``[N, 7 + R (+ 4M)]`` -> (states [N, 4],
     vels [N, 3], ranges [N, R], tracked [N, M, 4] or None)."""
@@ -456,11 +476,7 @@ def make_fleet_tick(fleet_spec: FleetSpec, device):
     caller's read of the outputs is the tick's one sync. The JAX
     function's mesh, peer and safety arguments are not ported (ROADMAP
     items 5g, 5c, 5d)."""
-    if fleet_spec.split_mover_sweep:
-        _not_ported("split_mover_sweep", "5e")
-    if fleet_spec.solver.dynamic_box or fleet_spec.solver.collision_box:
-        _not_ported("BOX fleets (dynamic_box)", "5f")
-    _check_tracked_spec(fleet_spec)
+    _check_fleet_spec(fleet_spec)
     spec = fleet_spec.solver
     device = torch.device(device)
 
@@ -474,3 +490,73 @@ def make_fleet_tick(fleet_spec: FleetSpec, device):
         )
 
     return tick
+
+
+def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
+                               mesh=None, peer_cfg=None, safety: bool = False):
+    """K carry-chained control ticks of every robot on ``device``: the
+    JAX package's ``make_fleet_ticks_on_device`` without peers.
+
+    Returns ``(paths, cfg, carry, angles [N, R], inputs [N, 7 + R (+ 4M)])
+    -> (carry', outs [N, k, len(OUT_FIELDS)], final_states [N, 4])``.
+    The scan is converted to world obstacles once, at the tick-0 pose
+    (the static-world assumption of a single solve's rollout); tracked
+    movers advect between ticks, slot positions moved by v * (i * dt) at
+    tick i (pad slots at x >= 1e7 stay put), and within each tick by the
+    moving sweep; each tick applies its first command through the
+    kinematic update of the rollout and feeds the next tick. The speed
+    column of the state is sqrt(vx^2 + vy^2), correctly rounded
+    (``kernels._sqrt``).
+
+    Nothing in it waits for the device or builds a tensor from host
+    data, so the loop can be captured as one CUDA graph
+    (``DeviceFleet.run_ticks_on_device``); given host ``inputs`` it
+    copies them to the device first. The JAX function's mesh, peer and
+    safety forms are not ported (ROADMAP items 5g, 5c, 5d)."""
+    if mesh is not None:
+        _not_ported("make_fleet_ticks_on_device(mesh=...)", "5g")
+    if peer_cfg is not None:
+        _not_ported("the peer form of the k-tick loop (peer_cfg)", "5c")
+    if safety:
+        _not_ported("the fused safety gate of the k-tick loop", "5d")
+    _check_fleet_spec(fleet_spec)
+    if int(k) < 1:
+        raise ValueError(f"the k-tick loop needs k >= 1 ticks, got {k}")
+    k = int(k)
+    spec = fleet_spec.solver
+    device = torch.device(device)
+
+    def ticks(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
+              inputs):
+        inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
+        states, vels, ranges, tracked = _split_tick_inputs(fleet_spec, inputs)
+        obs_world, _ = _scan_to_world_obs(
+            spec, ranges, angles, cfg.sensor_pose, states[:, 0], states[:, 1],
+            states[:, 2],
+        )
+        dt = cfg.params12[:, 0]
+        outs = []
+        for i in range(k):
+            trk = None
+            if tracked is not None:
+                shift = tracked[:, :, 2:4] * (float(i) * dt)[:, None, None]
+                pos = torch.where(tracked[:, :, 0:1] < 1e7,
+                                  tracked[:, :, 0:2] + shift, tracked[:, :, 0:2])
+                trk = torch.cat([pos, tracked[:, :, 2:4]], dim=-1)
+            carry, out = _fleet_step(
+                spec, paths, cfg, carry, states, vels, ranges, angles,
+                spec.seg_size, trk, obs_world=obs_world,
+            )
+            vx, vy, om = out[:, 2], out[:, 3], out[:, 4]
+            cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])
+            states = torch.stack([
+                states[:, 0] + dt * (vx * cy - vy * sy),
+                states[:, 1] + dt * (vx * sy + vy * cy),
+                states[:, 2] + dt * om,
+                _sqrt(vx * vx + vy * vy),
+            ], dim=-1)
+            vels = out[:, 2:5]
+            outs.append(out)
+        return carry, torch.stack(outs, dim=1), states
+
+    return ticks

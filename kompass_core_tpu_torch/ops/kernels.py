@@ -4,29 +4,42 @@ their loader.
 The DWA tick's two sweeps, the obstacle min-distance field and the
 tracked-segment min-distance field, run in one pass over the rollout
 points, for one robot or a batch of robots (leading axis B). Which form
-runs follows the solver's ``SolverSpec.backend``, as in the JAX package:
+runs follows the solver's ``SolverSpec.backend``, as in the JAX package
+(``ops/solver.py::_sweeps``):
 
-- ``fused_min_dist_sq`` is the port of the TPU kernel
-  ``kompass_core_tpu/ops/pallas_kernels.py::_fused_kernel_vpu`` (K1,
-  backends ``"xla"`` and ``"pallas_vpu"``): static obstacle rows, in the
-  direct form (p - o)^2.
-- ``fused_min_dist_sq_expanded`` is the port of ``_fused_kernel_mxu``
-  (K2, backend ``"pallas"``): the same two sweeps in the TPU kernel's
-  expanded form |o|^2 - 2 o.p, + |p|^2, clamped at 0.
+- ``fused_min_dist_sq`` (K1, backend ``"xla"``): static obstacle rows in
+  the direct form (p - o)^2, the function of the JAX package's XLA sweep
+  ``kompass_core_tpu/ops/solver.py::_min_obstacle_dist_sq``.
+- ``fused_min_dist_sq_expanded`` is the port of the TPU kernel
+  ``kompass_core_tpu/ops/pallas_kernels.py::_fused_kernel_mxu`` (K2,
+  backend ``"pallas"``): the same two sweeps in the expanded form
+  |o|^2 - 2 o.p, + |p|^2, clamped at 0.
+- ``fused_min_dist_sq_broadcast`` is the port of ``_fused_kernel_vpu``
+  (K6, backend ``"pallas_vpu"``): the broadcast form (|o|^2 + (-2px) ox)
+  + (-2py) oy, + |p|^2, clamped at 0.
 - ``min_dist_sq_expanded`` is the port of ``_min_dist_kernel`` (K4,
   backend ``"pallas_v1"``): one expanded sweep, launched once for the
   obstacle rows and once for the segment rows.
-- ``fused_min_dist_sq_moving`` is the port of
-  ``_fused_kernel_vpu_moving`` / ``_fused_kernel_mxu_moving`` (K3, reached
-  through ``fused_min_dist_sq_moving_pallas``, every backend with moving
+- ``fused_min_dist_sq_moving`` (K3, backend ``"xla"`` with moving
   obstacles): every obstacle row moves at constant velocity, o + v * t *
-  dt at rollout step t. The segment rows stay static.
+  dt at rollout step t, in the direct form, the function of the XLA sweep
+  ``_min_obstacle_dist_sq_moving``. The segment rows stay static.
+- ``fused_min_dist_sq_moving_expanded`` is the port of
+  ``_fused_kernel_mxu_moving`` (K7, backends ``"pallas"`` and
+  ``"pallas_v1"`` with moving obstacles): the 7-feature dot f(o).g(p) as
+  a feature-order chain of fused multiply-adds, its segment sweep K2's.
+- ``fused_min_dist_sq_moving_broadcast`` is the port of
+  ``_fused_kernel_vpu_moving`` (K8, backend ``"pallas_vpu"`` with moving
+  obstacles): the same features as a left fold of separately rounded
+  products and sums, its segment sweep K6's.
 
-The expanded form cancels as the coordinates grow: its absolute error is
-a few float32 ulps of |p|^2 + |o|^2, about 1e-5 m^2 within 10 m of the
-origin, where the JAX package's scenarios lie (``bench.py``), and a
-hundred times that at 100 m. It is ported as the TPU kernels compute it;
-the port's own sweeps (K1, K3) use the direct form.
+``csrc/fused_min_dist.cu`` says what each form computes, operation by
+operation. The expanded forms cancel as the coordinates grow: their
+absolute error is a few float32 ulps of |p|^2 + |o|^2, about 1e-5 m^2
+within 10 m of the origin, where the JAX package's scenarios lie
+(``bench.py``), and a hundred times that at 100 m. They are ported as
+the TPU kernels compute them; the XLA sweeps (K1, K3) use the direct
+form.
 
 The occupancy mapper's per-cell pass is one kernel:
 
@@ -163,6 +176,17 @@ def _library() -> ctypes.CDLL:
             lib.kompass_fused_min_dist_sq_expanded.argtypes = [
                 p, p, i, i, i, p, i, p, p, i, p, p, p, p,
             ]
+            for name in ("kompass_fused_min_dist_sq_broadcast",):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = [
+                    p, p, i, i, i, p, i, p, p, i, p, p, p, p,
+                ]
+            for name in ("kompass_fused_min_dist_sq_moving_expanded",
+                         "kompass_fused_min_dist_sq_moving_broadcast"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = [
+                    p, p, i, i, i, p, p, p, i, p, p, i, p, p, p, p,
+                ]
             lib.kompass_min_dist_sq_expanded.restype = ctypes.c_int
             lib.kompass_min_dist_sq_expanded.argtypes = [
                 p, p, i, i, i, p, i, p, p, p,
@@ -231,24 +255,85 @@ def _check_sweep(name, px, py, obs_xy, seg_x, seg_y, active_points,
     return B, S, T, O, G, batched
 
 
-def _sweep_reference(px, py, xs, ys, vx=None, vy=None, tau=None,
-                     expanded=False):
-    """[B, S, T] points vs [B, R] rows -> [B, S, T] min of |p - o|^2, the
-    operations rounded one by one; rows move as o + v * tau[B, T] when
-    velocities are given. ``expanded``: the min of |o|^2 - 2 (o . p)
-    instead (the caller adds |p|^2). Evaluated in slabs of robots and rows
-    of S so the [.., T, R] broadcast stays bounded."""
+def _fma_rn(a, b, c):
+    """a * b + c rounded once to float32, as CUDA's ``__fmaf_rn`` and the
+    FMAs of XLA's CPU backend compute it (float32 tensors, broadcast).
+
+    The product is exact in float64 and TwoSum gives the error of the
+    float64 sum; where that sum falls on a float32 midpoint with the
+    exact value off it, the result rounds toward the exact value, so
+    there is no double rounding (``_fma`` keeps it)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    rd = r.double()
+    n = torch.nextafter(r, torch.where(s > rd, math.inf, -math.inf))
+    mid = (s == (rd + n.double()) * 0.5) & (s != rd) & (err != 0)
+    toward = torch.where(err > 0, torch.maximum(r, n), torch.minimum(r, n))
+    return torch.where(mid, toward, r)
+
+
+def _norm_pair(form, ox, oy, px, py):
+    """One (point, row) value of a static form: the direct distance, or
+    the expanded or broadcast form without |p|^2, each operation rounded
+    on its own (``csrc/fused_min_dist.cu``)."""
+    if form == "direct":
+        dx, dy = px - ox, py - oy
+        return dx * dx + dy * dy
+    onorm = ox * ox + oy * oy
+    if form == "expanded":
+        return onorm - 2.0 * (ox * px + oy * py)
+    return (onorm + (-2.0 * px) * ox) + (-2.0 * py) * oy  # broadcast
+
+
+def _feature_prefix(form, ox, oy, vx, vy, tau):
+    """K7's ("expanded") or K8's ("broadcast") per-(row, step) prefix
+    f0 + f1 tau^2 + f2 tau: rows [B, R], tau [B, T] -> [B, T, R]."""
+    ox, oy, vx, vy = (v[:, None, :] for v in (ox, oy, vx, vy))
+    tau = tau[:, :, None]
+    tau2 = tau * tau
+    f0 = ox * ox + oy * oy
+    f1 = vx * vx + vy * vy
+    f2 = 2.0 * (vx * ox + vy * oy)
+    if form == "expanded":
+        return _fma_rn(f2, tau, _fma_rn(f1, tau2, f0))
+    return (f0 + f1 * tau2) + f2 * tau
+
+
+def _feature_pair(form, c, f3, f4, f5, f6, px, py, tx, ty):
+    """One (point, row) value of K7's or K8's obstacle form: the prefix c
+    plus the four point terms (``csrc/fused_min_dist.cu``)."""
+    if form == "expanded":
+        return _fma_rn(f6, ty, _fma_rn(f5, tx, _fma_rn(f4, py, _fma_rn(f3, px, c))))
+    return (((c + f3 * px) + f4 * py) + f5 * tx) + f6 * ty
+
+
+def _sweep_reference(px, py, xs, ys, form="direct", vx=None, vy=None,
+                     tau=None):
+    """[B, S, T] points vs [B, R] rows -> [B, S, T] min over the rows of
+    the form's per-pair value, the operations rounded one by one. With
+    velocities, ``form`` "direct" moves the rows to o + v * tau[B, T]
+    (K3), "expanded" and "broadcast" are K7's and K8's feature forms.
+    Evaluated in slabs of robots and rows of S so the [.., T, R]
+    broadcast stays bounded (a quarter of it for K7's float64 FMAs)."""
     B, S, T = px.shape
     R = xs.shape[1]
+    features = vx is not None and form != "direct"
     if vx is None:
         ox, oy = xs[:, None, None, :], ys[:, None, None, :]  # [B, 1, 1, R]
-    else:
+    elif form == "direct":
         step = tau[:, :, None]  # [B, T, 1]
         ox = (xs[:, None, :] + vx[:, None, :] * step)[:, None]  # [B, 1, T, R]
         oy = (ys[:, None, :] + vy[:, None, :] * step)[:, None]
-    if expanded:
-        onorm = ox * ox + oy * oy
-    rows = max(1, _SLAB_ELEMS // (T * R))
+    else:
+        c = _feature_prefix(form, xs, ys, vx, vy, tau)[:, None]  # [B, 1, T, R]
+        f3, f4, f5, f6 = (-2.0 * v[:, None, None, :] for v in (xs, ys, vx, vy))
+        tx, ty = tau[:, None, :] * px, tau[:, None, :] * py  # [B, S, T]
+    slab = _SLAB_ELEMS // (4 if features and form == "expanded" else 1)
+    rows = max(1, slab // (T * R))
     robots = max(1, rows // S)
     rows = min(rows, S)
     out = px.new_empty(px.shape)
@@ -256,20 +341,21 @@ def _sweep_reference(px, py, xs, ys, vx=None, vy=None, tau=None,
         b = slice(b0, b0 + robots)
         for s0 in range(0, S, rows):
             s = slice(s0, s0 + rows)
-            if expanded:
-                cross = ox[b] * px[b, s, :, None] + oy[b] * py[b, s, :, None]
-                out[b, s] = torch.amin(onorm[b] - 2.0 * cross, dim=-1)
+            p_x, p_y = px[b, s, :, None], py[b, s, :, None]
+            if features:
+                d = _feature_pair(form, c[b], f3[b], f4[b], f5[b], f6[b], p_x,
+                                  p_y, tx[b, s, :, None], ty[b, s, :, None])
             else:
-                dx = px[b, s, :, None] - ox[b]
-                dy = py[b, s, :, None] - oy[b]
-                out[b, s] = torch.amin(dx * dx + dy * dy, dim=-1)
+                d = _norm_pair(form, ox[b], oy[b], p_x, p_y)
+            out[b, s] = torch.amin(d, dim=-1)
     return out
 
 
 def _reference(name, px, py, obs_xy, seg_x, seg_y, active_points,
-               obs_vel=None, dt=None, expanded=False):
+               obs_vel=None, dt=None, form="direct"):
     """The plain version of every sweep kernel; returns (d2_obs, d2_seg),
-    or d2_obs alone when there are no segment rows."""
+    or d2_obs alone when there are no segment rows. ``form``: "direct"
+    (K1, K3), "expanded" (K2, K4, K7) or "broadcast" (K6, K8)."""
     *_, T, _, _, batched = _check_sweep(
         name, px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt
     )
@@ -282,21 +368,19 @@ def _reference(name, px, py, obs_xy, seg_x, seg_y, active_points,
             obs_vel, dt = obs_vel.unsqueeze(0), dt.reshape(1)
     t = torch.arange(T, device=px.device)
     if obs_vel is None:
-        fields = [_sweep_reference(px, py, obs_xy[..., 0], obs_xy[..., 1],
-                                   expanded=expanded)]
+        fields = [_sweep_reference(px, py, obs_xy[..., 0], obs_xy[..., 1], form)]
     else:
         tau = t.to(torch.float32)[None, :] * dt[:, None]  # [B, T]
         fields = [_sweep_reference(
-            px, py, obs_xy[..., 0], obs_xy[..., 1],
+            px, py, obs_xy[..., 0], obs_xy[..., 1], form,
             obs_vel[..., 0], obs_vel[..., 1], tau,
         )]
     if seg_x is not None:
-        fields.append(_sweep_reference(px, py, seg_x, seg_y, expanded=expanded))
-    if expanded:
-        # + |p|^2, then max(., 0) keeping a NaN (the kernel's epilogue)
+        fields.append(_sweep_reference(px, py, seg_x, seg_y, form))
+    if form != "direct":
+        # + |p|^2, then max(., 0) keeping a NaN (the kernels' epilogue)
         pnorm = px * px + py * py
-        fields = [f + pnorm for f in fields]
-        fields = [torch.where(f < 0.0, 0.0, f) for f in fields]
+        fields = [torch.where(f + pnorm < 0.0, 0.0, f + pnorm) for f in fields]
     active = (t[None, :] < active_points[:, None])[:, None, :]  # [B, 1, T]
     fields = [torch.where(active, f, torch.inf) for f in fields]
     if not batched:
@@ -321,14 +405,42 @@ def fused_min_dist_sq_expanded_reference(px, py, obs_xy, seg_x, seg_y,
     cross = ox * px + oy * py, |o|^2 - 2 * cross, the min over the rows,
     + |p|^2, max(., 0). Shapes as for ``fused_min_dist_sq``."""
     return _reference("fused_min_dist_sq_expanded", px, py, obs_xy, seg_x,
-                      seg_y, active_points, expanded=True)
+                      seg_y, active_points, form="expanded")
+
+
+def fused_min_dist_sq_broadcast_reference(px, py, obs_xy, seg_x, seg_y,
+                                          active_points):
+    """Plain PyTorch version of K6, operation by operation: per row
+    (|o|^2 + (-2 px) * ox) + (-2 py) * oy, the min over the rows, + |p|^2,
+    max(., 0). Shapes as for ``fused_min_dist_sq``."""
+    return _reference("fused_min_dist_sq_broadcast", px, py, obs_xy, seg_x,
+                      seg_y, active_points, form="broadcast")
+
+
+def fused_min_dist_sq_moving_expanded_reference(px, py, obs_xy, obs_vel, dt,
+                                                seg_x, seg_y, active_points):
+    """Plain PyTorch version of K7: the feature-order FMA chain of the
+    7-feature dot (``_fma_rn``), every other operation rounded on its
+    own, K2's segment sweep. Arguments as for
+    ``fused_min_dist_sq_moving``."""
+    return _reference("fused_min_dist_sq_moving_expanded", px, py, obs_xy,
+                      seg_x, seg_y, active_points, obs_vel, dt, form="expanded")
+
+
+def fused_min_dist_sq_moving_broadcast_reference(px, py, obs_xy, obs_vel, dt,
+                                                 seg_x, seg_y, active_points):
+    """Plain PyTorch version of K8: the 7-feature left fold, every
+    operation rounded on its own, K6's segment sweep. Arguments as for
+    ``fused_min_dist_sq_moving``."""
+    return _reference("fused_min_dist_sq_moving_broadcast", px, py, obs_xy,
+                      seg_x, seg_y, active_points, obs_vel, dt, form="broadcast")
 
 
 def min_dist_sq_expanded_reference(px, py, rows, active_points):
     """Plain PyTorch version of K4: K2's obstacle sweep alone, over
     ``rows``. Shapes as for ``min_dist_sq_expanded``."""
     return _reference("min_dist_sq_expanded", px, py, rows, None, None,
-                      active_points, expanded=True)
+                      active_points, form="expanded")
 
 
 def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None):
@@ -394,6 +506,27 @@ def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points):
     return out
 
 
+def fused_min_dist_sq_broadcast(px, py, obs_xy, seg_x, seg_y, active_points):
+    """K6: both static sweeps in the TPU vector-unit kernel's broadcast
+    form, in one kernel launch.
+
+    Arguments and result as for ``fused_min_dist_sq``; each value is
+    max(min over the rows of ((|o|^2 + (-2 px) ox) + (-2 py) oy) + |p|^2,
+    0), every operation rounded on its own, which cancels as the
+    coordinates grow like K2. On CUDA it adds one to
+    ``fused_min_dist_sq_broadcast.launches``."""
+    if px.device.type == "cpu":
+        return fused_min_dist_sq_broadcast_reference(
+            px, py, obs_xy, seg_x, seg_y, active_points
+        )
+    dims = _check_sweep("fused_min_dist_sq_broadcast", px, py, obs_xy, seg_x,
+                        seg_y, active_points)
+    out = _launch("kompass_fused_min_dist_sq_broadcast", dims, px, py, obs_xy,
+                  seg_x, seg_y, active_points)
+    fused_min_dist_sq_broadcast.launches += 1
+    return out
+
+
 def min_dist_sq_expanded(px, py, rows, active_points):
     """K4: one expanded sweep (K2's obstacle sweep alone) in one kernel
     launch.
@@ -434,10 +567,73 @@ def fused_min_dist_sq_moving(px, py, obs_xy, obs_vel, dt, seg_x, seg_y,
     return out
 
 
-fused_min_dist_sq.launches = 0
-fused_min_dist_sq_expanded.launches = 0
-min_dist_sq_expanded.launches = 0
-fused_min_dist_sq_moving.launches = 0
+def fused_min_dist_sq_moving_expanded(px, py, obs_xy, obs_vel, dt, seg_x,
+                                      seg_y, active_points):
+    """K7: the moving obstacle sweep as the TPU matrix-unit kernel's
+    7-feature dot and K2's static segment sweep, in one kernel launch.
+
+    Arguments as for ``fused_min_dist_sq_moving``. The obstacle field is
+    max(min over the rows of f(o).g(p) + |p|^2, 0) with f(o) = [|o|^2,
+    |v|^2, 2 v.o, -2ox, -2oy, -2vx, -2vy], g(p) = [1, tau^2, tau, px, py,
+    tau px, tau py] and tau = t * dt, summed as a feature-order chain of
+    fused multiply-adds (``csrc/fused_min_dist.cu``); the segment field is
+    K2's. Pad rows sit at 1e8 with zero velocity. On CUDA it adds one to
+    ``fused_min_dist_sq_moving_expanded.launches``."""
+    if px.device.type == "cpu":
+        return fused_min_dist_sq_moving_expanded_reference(
+            px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points
+        )
+    dims = _check_sweep("fused_min_dist_sq_moving_expanded", px, py, obs_xy,
+                        seg_x, seg_y, active_points, obs_vel, dt)
+    out = _launch("kompass_fused_min_dist_sq_moving_expanded", dims, px, py,
+                  obs_xy, seg_x, seg_y, active_points, obs_vel, dt)
+    fused_min_dist_sq_moving_expanded.launches += 1
+    return out
+
+
+def fused_min_dist_sq_moving_broadcast(px, py, obs_xy, obs_vel, dt, seg_x,
+                                       seg_y, active_points):
+    """K8: the moving obstacle sweep as the TPU vector-unit kernel's
+    7-feature left fold and K6's static segment sweep, in one kernel
+    launch.
+
+    Arguments and features as for ``fused_min_dist_sq_moving_expanded``;
+    the obstacle value is (((c + f3 px) + f4 py) + f5 tau px) + f6 tau py
+    with c = (|o|^2 + |v|^2 tau^2) + 2 v.o tau, every operation rounded
+    on its own. A zero velocity gives ``fused_min_dist_sq_broadcast``'s
+    values bit for bit. On CUDA it adds one to
+    ``fused_min_dist_sq_moving_broadcast.launches``."""
+    if px.device.type == "cpu":
+        return fused_min_dist_sq_moving_broadcast_reference(
+            px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points
+        )
+    dims = _check_sweep("fused_min_dist_sq_moving_broadcast", px, py, obs_xy,
+                        seg_x, seg_y, active_points, obs_vel, dt)
+    out = _launch("kompass_fused_min_dist_sq_moving_broadcast", dims, px, py,
+                  obs_xy, seg_x, seg_y, active_points, obs_vel, dt)
+    fused_min_dist_sq_moving_broadcast.launches += 1
+    return out
+
+
+# the sweep kernels by their PERF.md names
+SWEEP_KERNELS = {
+    "K1": fused_min_dist_sq,
+    "K2": fused_min_dist_sq_expanded,
+    "K3": fused_min_dist_sq_moving,
+    "K4": min_dist_sq_expanded,
+    "K6": fused_min_dist_sq_broadcast,
+    "K7": fused_min_dist_sq_moving_expanded,
+    "K8": fused_min_dist_sq_moving_broadcast,
+}
+for _wrapper in SWEEP_KERNELS.values():
+    _wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count by its PERF.md name (K1-K8)."""
+    counts = {k: w.launches for k, w in SWEEP_KERNELS.items()}
+    counts["K5"] = scan_to_grid_cells.launches
+    return dict(sorted(counts.items()))
 
 
 # --- the mapper's per-cell pass (K5) ------------------------------------------

@@ -49,8 +49,11 @@ import torch
 from .kernels import (
     _SLAB_ELEMS,
     fused_min_dist_sq,
+    fused_min_dist_sq_broadcast,
     fused_min_dist_sq_expanded,
     fused_min_dist_sq_moving,
+    fused_min_dist_sq_moving_broadcast,
+    fused_min_dist_sq_moving_expanded,
     min_dist_sq_expanded,
 )
 from .window import MIN_VEL, VelocityWindow
@@ -58,9 +61,8 @@ from .window import MIN_VEL, VelocityWindow
 _INF = float("inf")
 _PAD = 1e8
 
-# the JAX package's SolverSpec.backend values: "xla" and "pallas_vpu"
-# compute the direct-form sweep (K1), "pallas" the expanded form (K2),
-# "pallas_v1" the expanded form as two single sweeps (K4)
+# the JAX package's SolverSpec.backend values, each with its own sweep
+# kernel (_sweeps)
 BACKENDS = ("xla", "pallas_vpu", "pallas", "pallas_v1")
 
 # Voxel-inflation margin as a multiple of the map resolution (calibrated in
@@ -519,26 +521,28 @@ def _jerk_cost(vel_traj, active_points, acc_limits):
 def _sweeps(spec, obs_xy, obs_vel, time_step, seg_x, seg_y, active_points):
     """The tick's two sweeps as a function of the rollout points, returning
     (d2_obs, d2_seg). The kernel follows the JAX package's dispatch
-    (``kompass_core_tpu/ops/solver.py:687-727``):
+    (``kompass_core_tpu/ops/solver.py:687-727``, and the truncate-mode
+    re-sweep at ``:806-818``):
 
-    - moving obstacles (``obs_vel`` given), any backend: K3, the moving
-      sweep (the JAX package routes every Pallas backend to its one fused
-      moving kernel, and its XLA form computes K3's function);
-    - ``"xla"`` and ``"pallas_vpu"``: K1, the direct form;
-    - ``"pallas"``: K2, the expanded form;
+    - ``"xla"``: K1, the direct form (p - o)^2; with moving obstacles
+      (``obs_vel`` given) K3, its moving form;
+    - ``"pallas"``: K2, the expanded form; with moving obstacles K7, the
+      7-feature dot of ``_fused_kernel_mxu_moving``;
+    - ``"pallas_vpu"``: K6, the broadcast form; with moving obstacles K8,
+      the 7-feature left fold of ``_fused_kernel_vpu_moving``;
     - ``"pallas_v1"``: K4, the expanded form as two single sweeps, the
-      obstacle rows and then the segment rows.
+      obstacle rows and then the segment rows; with moving obstacles K7
+      (the JAX package routes it to the fused moving kernel).
     """
     obs_xy, seg_x, seg_y = (t.contiguous() for t in (obs_xy, seg_x, seg_y))
     active_points = active_points.contiguous()
     if obs_vel is not None:
         obs_vel, time_step = obs_vel.contiguous(), time_step.contiguous()
-        return lambda px, py: fused_min_dist_sq_moving(
+        kernel = {"xla": fused_min_dist_sq_moving,
+                  "pallas_vpu": fused_min_dist_sq_moving_broadcast}.get(
+            spec.backend, fused_min_dist_sq_moving_expanded)
+        return lambda px, py: kernel(
             px, py, obs_xy, obs_vel, time_step, seg_x, seg_y, active_points
-        )
-    if spec.backend == "pallas":
-        return lambda px, py: fused_min_dist_sq_expanded(
-            px, py, obs_xy, seg_x, seg_y, active_points
         )
     if spec.backend == "pallas_v1":
         seg_xy = torch.stack([seg_x, seg_y], dim=-1)
@@ -546,9 +550,10 @@ def _sweeps(spec, obs_xy, obs_vel, time_step, seg_x, seg_y, active_points):
             min_dist_sq_expanded(px, py, obs_xy, active_points),
             min_dist_sq_expanded(px, py, seg_xy, active_points),
         )
-    return lambda px, py: fused_min_dist_sq(
-        px, py, obs_xy, seg_x, seg_y, active_points
-    )
+    kernel = {"pallas": fused_min_dist_sq_expanded,
+              "pallas_vpu": fused_min_dist_sq_broadcast}.get(
+        spec.backend, fused_min_dist_sq)
+    return lambda px, py: kernel(px, py, obs_xy, seg_x, seg_y, active_points)
 
 
 def _weighted_costs(params, px, py, vel_traj, d2_obs, d2_seg, obs_count,

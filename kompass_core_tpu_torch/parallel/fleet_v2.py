@@ -10,11 +10,19 @@ The robot count is padded by the JAX package's rule (a multiple of the
 dispatch chunk above it), so the two packages' snapshots have the same
 ``n`` and load into each other; only the JAX chunk loop is gone.
 
+``run_ticks_on_device`` runs k carry-chained ticks per call
+(``ops/fleet_solver.py::make_fleet_ticks_on_device``). On a CUDA device
+the k ticks are one CUDA graph, captured on the first call for each k and
+replayed after: the counterpart of the JAX package's single jitted
+dispatch, so the host enqueues one graph instead of k ticks' hundreds of
+kernels. On the CPU the same loop runs eagerly.
+
 Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
-``run_ticks_on_device``, peer avoidance and prediction, the safety gate,
-the split mover sweep, BOX robots and the mesh.
+peer avoidance and prediction, the safety gate, the split mover sweep,
+BOX robots and the mesh.
 """
 
+import dataclasses
 import logging
 import time
 from typing import Optional, Sequence
@@ -33,6 +41,7 @@ from ..ops.fleet_solver import (
     FleetSpec,
     _not_ported,
     make_fleet_tick,
+    make_fleet_ticks_on_device,
 )
 from ..ops.solver import COLLISION_MARGIN_FACTOR, SolverSpec
 from ..ops.window import compute_linear_sample_split, num_angular_slots
@@ -40,6 +49,23 @@ from ..ops.window import compute_linear_sample_split, num_angular_slots
 _PAD = 1e8
 
 logger = logging.getLogger("kompass_core_tpu_torch")
+
+
+@dataclasses.dataclass
+class TickGraph:
+    """One captured k-tick loop: the graph, the static tensors it reads
+    (``inputs``, ``carry``) and writes (``carry_out``, ``out``: the
+    per-tick outputs [N, k * F] then the final states [N, 4]), and the
+    tensors of the fleet it read at capture (``paths``, ``angles``; a
+    new tensor there means a new capture)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: torch.Tensor
+    carry: FleetCarry
+    carry_out: FleetCarry
+    out: torch.Tensor
+    paths: FleetPaths
+    angles: torch.Tensor
 
 
 class DeviceFleet:
@@ -136,6 +162,8 @@ class DeviceFleet:
             tracked_obstacles=self._tracked,
         )
         self._tick_fn = make_fleet_tick(self.spec, self._device)
+        self._ticks_fns = {}  # k -> the eager k-tick loop
+        self.tick_graphs = {}  # k -> TickGraph (CUDA devices)
         self._scan_rays = scan_rays
 
         # per-robot config arrays
@@ -487,9 +515,88 @@ class DeviceFleet:
         self._inputs[n:, 7 : 7 + R] = _PAD
         self._write_tracked(tracked)
 
+    def ticks_fn(self, k: int):
+        """The fleet's eager k-tick loop (``make_fleet_ticks_on_device``),
+        built once per k."""
+        if k not in self._ticks_fns:
+            self._ticks_fns[k] = make_fleet_ticks_on_device(self.spec, k,
+                                                            self._device)
+        return self._ticks_fns[k]
+
+    def _capture(self, k: int) -> TickGraph:
+        """Capture the k-tick loop on the fleet's tensors as one CUDA
+        graph, after one eager warm-up run on a side stream (what PyTorch's
+        graph capture requires). A capture that fails raises."""
+        fn = self.ticks_fn(k)
+        inputs = torch.tensor(self._inputs, device=self._device)
+        carry = FleetCarry(*(t.clone() for t in self._carry))
+        args = (self._paths, self._cfg, carry, self._angles, inputs)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(torch.cuda.current_stream(self._device))
+        with torch.cuda.stream(side):
+            fn(*args)
+        torch.cuda.current_stream(self._device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            carry_out, outs, final = fn(*args)
+            out = torch.cat([outs.flatten(1), final], dim=1)
+        return TickGraph(graph, inputs, carry, carry_out, out, self._paths,
+                         self._angles)
+
+    def _replay(self, k: int):
+        """(carry', the [N, k * F + 4] output matrix) of one replay of the
+        k-tick graph, captured anew when the fleet's path tables or angle
+        grid are new tensors."""
+        for key, old in list(self.tick_graphs.items()):
+            if old.paths is not self._paths or old.angles is not self._angles:
+                del self.tick_graphs[key]  # stale: free its memory first
+        g = self.tick_graphs.get(k)
+        if g is None:
+            g = self.tick_graphs[k] = self._capture(k)
+        g.inputs.copy_(torch.from_numpy(self._inputs))
+        for static, value in zip(g.carry, self._carry):
+            static.copy_(value)
+        g.graph.replay()
+        return FleetCarry(*(t.clone() for t in g.carry_out)), g.out
+
     def run_ticks_on_device(self, k: int, states, vels, ranges, angles,
                             tracked=None):
-        _not_ported("run_ticks_on_device (the k-tick loop)", "5b")
+        """K carry-chained control ticks in one call.
+
+        The scan is frozen to world-frame obstacles at the tick-0 pose
+        (static-world assumption over the k-tick span); tracked movers
+        advect at their velocities; the robot state is integrated on the
+        device through the same kinematic update the rollout uses,
+        assuming the commands execute faithfully. On a CUDA device the k
+        ticks run as one CUDA graph (captured on the first call for each
+        k, and again after ``set_paths``, ``load_state_dict`` or a new
+        angle grid); on the CPU eagerly.
+
+        Same inputs as ``tick``. Returns the usual output dict with a
+        trailing per-tick axis ([num_robots, k] per field) plus
+        ``final_states`` [num_robots, 4]."""
+        t0 = time.perf_counter()
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"run_ticks_on_device needs k >= 1, got {k}")
+        self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
+        if self._device.type == "cuda":
+            self._carry, out = self._replay(k)
+        else:
+            self._carry, outs, final = self.ticks_fn(k)(
+                self._paths, self._cfg, self._carry, self._angles,
+                torch.from_numpy(self._inputs.copy()),
+            )
+            out = torch.cat([outs.flatten(1), final], dim=1)
+        out_np = out[: self.num_robots].cpu().numpy()  # one copy out
+        F = len(OUT_FIELDS)
+        per_tick = out_np[:, : k * F].reshape(self.num_robots, k, F)
+        result = {f: per_tick[:, :, i] for i, f in enumerate(OUT_FIELDS)}
+        result["found"] = result["found"] > 0.5
+        result["reached"] = result["reached"] > 0.5
+        result["final_states"] = out_np[:, k * F:]
+        self.last_tick_seconds = time.perf_counter() - t0
+        return result
 
     def tick(self, states, vels, ranges, angles, tracked=None):
         """One fleet tick.

@@ -458,3 +458,154 @@ def test_fleet_solver_on_card_matches_cpu(cuda, backend, kernel, per_call):
             np.testing.assert_allclose(o[4:], c[4:], rtol=1e-5, atol=1e-5)
         else:
             assert abs(o[1] - c[1]) <= 1e-6 * abs(c[1])
+
+
+# --- K6, K7, K8 and the k-tick loop's CUDA graph ---------------------------------
+
+_TPU_FORMS = {
+    "K6": (kernels.fused_min_dist_sq_broadcast,
+           kernels.fused_min_dist_sq_broadcast_reference, False),
+    "K7": (kernels.fused_min_dist_sq_moving_expanded,
+           kernels.fused_min_dist_sq_moving_expanded_reference, True),
+    "K8": (kernels.fused_min_dist_sq_moving_broadcast,
+           kernels.fused_min_dist_sq_moving_broadcast_reference, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TPU_FORMS))
+@pytest.mark.parametrize(
+    "B,S,T,O,G,active",
+    [(1, 2025, 30, 512, 384, 30), (3, 37, 7, 700, 333, 5),
+     (2, 1025, 30, 1100, 1025, 17), (3, 1023, 1, 768, 384, 1),
+     (8, 2025, 30, 768, 384, 30)],
+)
+def test_tpu_form_kernels_bit_identical_to_plain(cuda, name, B, S, T, O, G, active):
+    """K6, K7 and K8 equal their plain versions: pad rows, ragged S,
+    rows past one tile, T = 1."""
+    kernel, plain, moving = _TPU_FORMS[name]
+    px, py, obs, vel, dt, sx, sy = _moving_case(S + O + G + B, B, S, T, O, G, cuda)
+    obs[:, -5:], vel[:, -5:] = 1e8, 0.0
+    ap = torch.full((B,), active, dtype=torch.int32, device=cuda)
+    args = (px, py, obs, vel, dt, sx, sy, ap) if moving else (px, py, obs, sx, sy, ap)
+    before = kernel.launches
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+        assert bool(torch.isinf(g[..., active:]).all())
+        assert bool((g[..., :active] >= 0).all())
+
+
+@pytest.mark.parametrize("name", sorted(_TPU_FORMS))
+def test_tpu_form_kernels_keep_nan_and_inf(cuda, name):
+    """NaN and +-inf in robot 0's points, rows, velocities and segment
+    rows; robot 1 finite (the fminf path); robot 2 one NaN row in its
+    second tile."""
+    kernel, plain, moving = _TPU_FORMS[name]
+    px, py, obs, vel, dt, sx, sy = _moving_case(11, 3, 300, 30, 1100, 384, cuda)
+    nan, inf = float("nan"), float("inf")
+    px[0, 3, 4], py[0, 7, 0], px[0, 11, 29] = nan, inf, -inf
+    obs[0, 5, 0], obs[0, 9, 1], obs[0, 1050] = nan, inf, -inf
+    vel[0, 17, 1] = inf
+    sx[0, 2], sy[0, 4] = nan, -inf
+    obs[2, 1060, 1] = nan
+    ap = torch.full((3,), 30, dtype=torch.int32, device=cuda)
+    args = (px, py, obs, vel, dt, sx, sy, ap) if moving else (px, py, obs, sx, sy, ap)
+    got, want = kernel(*args), plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    assert not bool(got[0][1].isnan().any()) and bool(got[0][2].isnan().all())
+
+
+def test_k8_at_zero_velocity_equals_k6_and_segments_are_k2_k6(cuda):
+    px, py, obs, vel, dt, sx, sy = _moving_case(12, 4, 2025, 30, 768, 384, cuda)
+    ap = torch.tensor([30, 17, 2, 30], dtype=torch.int32, device=cuda)
+    zero = torch.zeros_like(vel)
+    k6 = kernels.fused_min_dist_sq_broadcast(px, py, obs, sx, sy, ap)
+    k8 = kernels.fused_min_dist_sq_moving_broadcast(px, py, obs, zero, dt, sx, sy, ap)
+    assert torch.equal(k8[0], k6[0]) and torch.equal(k8[1], k6[1])
+    k2 = kernels.fused_min_dist_sq_expanded(px, py, obs, sx, sy, ap)
+    k7 = kernels.fused_min_dist_sq_moving_expanded(px, py, obs, vel, dt, sx, sy, ap)
+    assert torch.equal(k7[1], k2[1])
+    k7z = kernels.fused_min_dist_sq_moving_expanded(px, py, obs, zero, dt, sx, sy, ap)
+    torch.testing.assert_close(k7z[0], k2[0], rtol=2e-4, atol=1e-4)
+
+
+def _small_fleet(device, tracked):
+    from kompass_core_tpu_torch.control import DWAConfig
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
+        RobotGeometry, RobotType,
+    )
+
+    robots = [Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+                    geometry_type=RobotGeometry.Type.CYLINDER,
+                    geometry_params=np.array([0.2, 0.4])) for _ in range(4)]
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
+        omega_limits=AngularCtrlLimits(max_vel=2.0, max_acc=6.0, max_decel=6.0),
+    )
+    config = DWAConfig(max_linear_samples=12, max_angular_samples=12,
+                       prediction_horizon=20, control_horizon=2)
+    fleet = DeviceFleet(robots, limits, config, 128, path_capacity=1024,
+                        max_segments=16, tracked_obstacles=tracked, device=device)
+    fleet.set_paths([np.array([[0.0, 2.0 * i], [6.0, 2.0 * i]]) for i in range(4)])
+    rng = np.random.default_rng(3)
+    states = np.zeros((4, 4), np.float32)
+    states[:, 0] = 0.0137
+    states[:, 1] = 2.0 * np.arange(4)
+    vels = np.tile(np.float32([0.4, 0.0, 0.1]), (4, 1))
+    ranges = rng.uniform(0.8, 10.0, (4, 128)).astype(np.float32)
+    angles = np.linspace(-np.pi, np.pi, 128, endpoint=False)
+    trk = None
+    if tracked:
+        trk = np.full((4, tracked, 4), np.nan, np.float32)
+        trk[:, 0] = (2.0, 1.0, 0.0, -0.6)
+        trk[:, 0, 1] += states[:, 1]
+    return fleet, (states, vels, ranges, angles, trk)
+
+
+@pytest.mark.parametrize("tracked", [0, 2])
+def test_k_tick_graph_replay_equals_the_eager_loop(cuda, tracked):
+    """``run_ticks_on_device`` on the card replays one captured graph per
+    k: bit for bit the eager loop's outputs, carry and final states; a
+    second call replays without capturing; new paths capture anew; and
+    the card agrees with the CPU run of the same loop."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+
+    fleet, inputs = _small_fleet(cuda, tracked)
+    carry0 = [t.clone() for t in fleet._carry]
+    fleet._prepare_tick_inputs(*inputs)
+    dev_inputs = torch.tensor(fleet._inputs, device=cuda)
+    eager = fleet.ticks_fn(6)(fleet._paths, fleet._cfg,
+                              type(fleet._carry)(*carry0), fleet._angles,
+                              dev_inputs)
+    before = kernels.launch_counts()
+    out = fleet.run_ticks_on_device(6, *inputs[:4], tracked=inputs[4])
+    graph = fleet.tick_graphs[6]
+    assert kernels.launch_counts() != before  # the warm-up and the capture
+    for i, f in enumerate(OUT_FIELDS):
+        np.testing.assert_array_equal(out[f].astype(np.float32),
+                                      eager[1][:4, :, i].cpu().numpy(), err_msg=f)
+    np.testing.assert_array_equal(out["final_states"], eager[2][:4].cpu().numpy())
+    for a, b in zip(fleet._carry, eager[0]):
+        assert torch.equal(a, b)
+    before = kernels.launch_counts()
+    fleet.run_ticks_on_device(6, *inputs[:4], tracked=inputs[4])
+    # replayed, not captured again: no wrapper was called
+    assert fleet.tick_graphs[6] is graph and kernels.launch_counts() == before
+    fleet.set_paths([np.array([[0.0, 2.0 * i], [5.0, 2.0 * i]]) for i in range(4)])
+    fleet.run_ticks_on_device(6, *inputs[:4], tracked=inputs[4])
+    assert fleet.tick_graphs[6] is not graph
+    cpu, _ = _small_fleet("cpu", tracked)
+    card, _ = _small_fleet(cuda, tracked)
+    got = card.run_ticks_on_device(4, *inputs[:4], tracked=inputs[4])
+    want = cpu.run_ticks_on_device(4, *inputs[:4], tracked=inputs[4])
+    for key in ("found", "reached", "num_admissible", "active_points"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-4)
+    np.testing.assert_allclose(got["final_states"], want["final_states"],
+                               rtol=1e-5, atol=1e-6)

@@ -44,6 +44,7 @@ from kompass_core_tpu_torch.ops.fleet_solver import (
     OUT_FIELDS,
     fleet_spec_from_jax,
     make_fleet_tick,
+    make_fleet_ticks_on_device,
 )
 from kompass_core_tpu_torch.parallel import DeviceFleet
 
@@ -248,6 +249,8 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, item):
 
 
 def test_unported_box_robots_and_k_tick_loop_raise():
+    """BOX fleets raise naming item 5f; the k-tick loop runs, but its
+    peer, safety and mesh forms raise naming items 5c, 5d and 5g."""
     with pytest.raises(NotImplementedError, match="item 5f"):
         DeviceFleet(*to_port((_robots(geometry=RobotGeometry.Type.BOX,
                                       params=(0.5, 0.3, 0.4)), _limits(1.0))),
@@ -255,8 +258,12 @@ def test_unported_box_robots_and_k_tick_loop_raise():
     fleet = _port()
     fleet.set_paths(_lanes())
     states, vels = _start()
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        fleet.run_ticks_on_device(3, states, vels, _free_ranges(), ANGLES)
+    out = fleet.run_ticks_on_device(3, states, vels, _free_ranges(), ANGLES)
+    assert out["vx"].shape == (N_ROBOTS, 3)
+    for kw, item in ((dict(peer_cfg={"ring": 8}), "5c"), (dict(safety=True), "5d"),
+                     (dict(mesh=object()), "5g")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            make_fleet_ticks_on_device(fleet.spec, 3, "cpu", **kw)
 
 
 def test_tracked_spec_requires_the_moving_sweep():

@@ -446,6 +446,14 @@ def test_expanded_sweeps_match_tpu_kernels_interpret(seed, active):
         assert (got[:, :active] >= 0).all()
     # K4 over the obstacle rows is K2's obstacle field, value for value
     assert torch.equal(k4, k2_obs)
+    # the interpret forms as XLA's CPU backend contracts them, bit for bit
+    j2 = jax.jit(lambda *a: jax_fused(*a, mask, variant="mxu", interpret=True))
+    j4 = jax.jit(lambda *a: min_obstacle_dist_sq_mxu(*a, mask, interpret=True))
+    args = [torch.from_numpy(d[k]) for k in ("px", "py", "obs", "sx", "sy")]
+    for form, want in (("expanded", j2(j["px"], j["py"], j["obs"], j["sx"], j["sy"])),
+                       ("single", (j4(j["px"], j["py"], j["obs"]),))):
+        for twin, ref in zip(xla_cpu_fields(form, *args, active), want):
+            np.testing.assert_array_equal(twin.numpy(), np.asarray(ref))
 
 
 def test_expanded_sweeps_are_the_expansion_of_the_direct_form():
@@ -539,3 +547,319 @@ def test_expanded_wrappers_reject_what_the_kernels_do_not_take():
                                              t["sx"][:-1], t["sy"], ap)
     assert torch.equal(min_dist_sq_expanded_reference(t["px"], t["py"], t["obs"], ap),
                        min_dist_sq_expanded(t["px"], t["py"], t["obs"], ap))
+
+
+# --- the TPU kernels' own forms: K6 (broadcast), K7 and K8 (7 features) -------
+
+import fractions
+import os
+import subprocess
+import sys
+
+import jax
+
+from kompass_core_tpu_torch.ops.kernels import (
+    _fma,
+    _fma_rn,
+    fused_min_dist_sq_broadcast,
+    fused_min_dist_sq_broadcast_reference,
+    fused_min_dist_sq_moving_broadcast,
+    fused_min_dist_sq_moving_expanded,
+    fused_min_dist_sq_moving_expanded_reference,
+)
+
+# The JAX side runs under jax.jit, as the solver does: XLA's CPU backend
+# then fuses the kernels' multiply-adds into FMAs (probed operation by
+# operation; ``xla_cpu_fields`` below is what it computes). K7's chosen
+# order is that one, so its obstacle field is held bit for bit. K6 and K8
+# round every operation on its own, as the TPU's vector unit does and the
+# card kernels do, so their plain versions are held at the expanded
+# forms' tolerance (an ulp or two of |p|^2 + |o|^2), and their forms bit
+# for bit through ``xla_cpu_fields``, the same functions with XLA's
+# contractions.
+#
+# Compiled for a CPU without FMA instructions (NO_FMA), XLA rounds every
+# multiply and add of the kernels on its own, as the TPU's vector unit
+# does; only its dot, a library routine, still runs the feature-order FMA
+# chain that K7 chose. There the JAX kernels and the port's production
+# forms must agree bit for bit. XLA reads the flag when the backend
+# starts, so those JAX fields come from a fresh process
+# (``jax_without_fma``).
+
+NO_FMA = "--xla_cpu_max_isa=SSE4_2"
+
+
+def jax_without_fma(module, path):
+    """``module.jax_fields_without_fma()`` (a dict of arrays) computed in
+    a fresh process whose XLA emits no FMA, saved to and read from
+    ``path``."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} {NO_FMA}".strip(),
+               PYTHONPATH=os.pathsep.join(
+                   [tests, os.path.dirname(tests), os.environ.get("PYTHONPATH", "")]))
+    code = (f"import numpy, {module} as m; "
+            f"numpy.savez({str(path)!r}, **m.jax_fields_without_fma())")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=600, capture_output=True)
+    with np.load(path) as fields:
+        return dict(fields)
+
+
+def _fma_t(a, b, c):
+    return _fma_rn(*(torch.as_tensor(v, dtype=torch.float32) for v in (a, b, c)))
+
+
+def xla_cpu_fields(form, px, py, obs, sx, sy, active, vel=None, dt=None):
+    """One robot's (d2_obs, d2_seg) of the JAX sweep of ``form`` ("direct":
+    the XLA sweeps; "expanded": the mxu kernels; "single": the interpret
+    form of ``min_obstacle_dist_sq_mxu``, K4's, whose |p|^2 is a sum over
+    the point rows; "broadcast": the vpu kernels) as XLA's CPU backend
+    compiles it under ``jax.jit``: every
+    multiply feeding an add fused (``_fma_rn``), except |v|^2 and, in the
+    vpu kernel's left fold, f1 tau^2 (added to f0 * 1, which needs no
+    rounding of its own). With ``vel`` the obstacle rows move (K3's, K7's
+    and K8's functions). Float32 tensors [S, T], [O, 2], [G]; returns
+    [S, T] each, +inf at t >= active."""
+    T = px.shape[-1]
+    X, Y = px[..., None], py[..., None]
+
+    def static(ox, oy):
+        if form == "direct":
+            dx, dy = X - ox, Y - oy
+            return _fma_rn(dx, dx, dy * dy).amin(-1)
+        on = _fma_rn(ox, ox, oy * oy)
+        if form in ("expanded", "single"):
+            d = on - 2.0 * _fma_rn(oy, Y, ox * X)
+        else:
+            d = _fma_rn(-2.0 * Y, oy, _fma_rn(-2.0 * X, ox, on))
+        return d.amin(-1)
+
+    ox, oy = obs[:, 0], obs[:, 1]
+    if vel is None:
+        d2o = static(ox, oy)
+    else:
+        vx, vy = vel[:, 0], vel[:, 1]
+        tau = (torch.arange(T, dtype=torch.float32) * dt)[:, None]  # [T, 1]
+        if form == "direct":
+            dx = X - _fma_rn(vx, tau, ox)
+            dy = Y - _fma_rn(vy, tau, oy)
+            d2o = _fma_rn(dx, dx, dy * dy).amin(-1)
+        else:
+            f0 = _fma_rn(ox, ox, oy * oy)
+            f1 = vx * vx + vy * vy
+            f2 = 2.0 * _fma_rn(vx, ox, vy * oy)
+            if form == "expanded":
+                c = _fma_rn(f2, tau, _fma_rn(f1, tau * tau, f0))
+            else:
+                c = _fma_rn(f2, tau, f0 + f1 * (tau * tau))
+            d = _fma_rn(-2.0 * ox, X, c)
+            d = _fma_rn(-2.0 * oy, Y, d)
+            d = _fma_rn(-2.0 * vx, (tau[:, 0] * px)[..., None], d)
+            d2o = _fma_rn(-2.0 * vy, (tau[:, 0] * py)[..., None], d).amin(-1)
+    fields = [d2o, static(sx, sy)]
+    if form != "direct":
+        pn = (_fma_rn(py, py, px * px) if form == "single"
+              else _fma_rn(px, px, py * py))
+        fields = [torch.where(f + pn < 0.0, 0.0, f + pn) for f in fields]
+    mask = (torch.arange(T) < active)[None, :]
+    return tuple(torch.where(mask, f, torch.inf) for f in fields)
+
+
+def _jax_tpu_form(d, active, variant, vel=None, dt=0.1):
+    """The Pallas kernel of ``variant`` in interpret mode, under jax.jit."""
+    T = d["px"].shape[1]
+    mask = jnp.arange(T) < active
+    kw = {} if vel is None else dict(obs_vel=jnp.asarray(vel),
+                                     time_step=jnp.float32(dt))
+    fn = jax.jit(lambda px, py, obs, sx, sy: jax_fused(
+        px, py, obs, sx, sy, mask, variant=variant, interpret=True, **kw))
+    return tuple(np.asarray(a) for a in fn(
+        *(jnp.asarray(d[k]) for k in ("px", "py", "obs", "sx", "sy"))))
+
+
+def _tpu_form_port(name, d, active, vel=None, dt=0.1):
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    ap = torch.tensor(active, dtype=torch.int32)
+    if name == "K6":
+        return fused_min_dist_sq_broadcast(t["px"], t["py"], t["obs"], t["sx"],
+                                           t["sy"], ap)
+    fn = (fused_min_dist_sq_moving_expanded if name == "K7"
+          else fused_min_dist_sq_moving_broadcast)
+    return fn(t["px"], t["py"], t["obs"], torch.from_numpy(vel),
+              torch.tensor(dt, dtype=torch.float32), t["sx"], t["sy"], ap)
+
+
+TPU_FORMS = {"K6": ("vpu", "broadcast", False), "K7": ("mxu", "expanded", True),
+             "K8": ("vpu", "broadcast", True)}
+TPU_FORM_CASES = [(0, 12), (1, 9), (2, 2)]  # (seed, active steps)
+
+
+def _tpu_form_case(name, seed):
+    d = _inputs(seed, S=32, T=12, O=300, G=200, span=12.0, obs_span=12.0)
+    vel = _velocities(seed, 300, vmax=1.5) if TPU_FORMS[name][2] else None
+    return d, vel
+
+
+def jax_fields_without_fma():
+    """Each TPU-form case's (d2_obs, d2_seg) of its JAX kernel, for
+    ``jax_without_fma``."""
+    fields = {}
+    for name, (variant, _, _) in TPU_FORMS.items():
+        for seed, active in TPU_FORM_CASES:
+            d, vel = _tpu_form_case(name, seed)
+            for i, f in enumerate(_jax_tpu_form(d, active, variant, vel)):
+                fields[f"{name}/{seed}/{i}"] = f
+    return fields
+
+
+@pytest.fixture(scope="module")
+def tpu_forms_without_fma(tmp_path_factory):
+    return jax_without_fma("test_torch_kernels",
+                           tmp_path_factory.mktemp("no_fma") / "forms.npz")
+
+
+@pytest.mark.parametrize("name", sorted(TPU_FORMS))
+@pytest.mark.parametrize("seed,active", TPU_FORM_CASES)
+def test_tpu_form_plain_versions_match_interpret_kernels(
+        tpu_forms_without_fma, name, seed, active):
+    """K6, K7 and K8 against their Pallas kernels in interpret mode, at
+    the JAX package's coordinates (within 12 m of the origin, obstacles
+    at up to 1.5 m/s): every field at the expanded forms' tolerance;
+    every field of the XLA-contracted form (``xla_cpu_fields``) bit for
+    bit; and every field bit for bit against the kernel compiled without
+    FMA (``NO_FMA``), each of its operations rounded on its own."""
+    variant, form, moving = TPU_FORMS[name]
+    d, vel = _tpu_form_case(name, seed)
+    got = _tpu_form_port(name, d, active, vel)
+    ref = _jax_tpu_form(d, active, variant, vel)
+    twin = xla_cpu_fields(form, *(torch.from_numpy(d[k]) for k in
+                                  ("px", "py", "obs", "sx", "sy")), active,
+                          None if vel is None else torch.from_numpy(vel), 0.1)
+    for i, (g, r, w) in enumerate(zip(got, ref, twin)):
+        g = g.numpy()
+        np.testing.assert_array_equal(w.numpy(), r)
+        assert np.isinf(g[:, active:]).all() and np.isinf(r[:, active:]).all()
+        np.testing.assert_allclose(g[:, :active], r[:, :active],
+                                   rtol=EXPANDED_RTOL, atol=EXPANDED_ATOL)
+        assert (g[:, :active] >= 0).all()
+        np.testing.assert_array_equal(
+            g, tpu_forms_without_fma[f"{name}/{seed}/{i}"], err_msg=f"field {i}")
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_tpu_form_segment_fields_are_the_static_forms(seed):
+    """K7's segment field is K2's and K8's is K6's, bit for bit; with
+    zero velocity K8's obstacle field is K6's too (the velocity terms add
+    +-0), and K7's is within the expanded tolerance of K2's (another
+    summation order)."""
+    d = _inputs(seed, S=20, T=9, O=100, G=60, span=10.0, obs_span=10.0)
+    vel = _velocities(seed, 100, vmax=1.5)
+    k6 = _tpu_form_port("K6", d, 7)
+    (k2, k2_seg), _ = _expanded(d, 7)
+    k7 = _tpu_form_port("K7", d, 7, vel)
+    k8 = _tpu_form_port("K8", d, 7, vel)
+    assert torch.equal(k7[1], k2_seg) and torch.equal(k8[1], k6[1])
+    zero = np.zeros_like(vel)
+    k8z = _tpu_form_port("K8", d, 7, zero)
+    assert torch.equal(k8z[0], k6[0]) and torch.equal(k8z[1], k6[1])
+    k7z = _tpu_form_port("K7", d, 7, zero)
+    np.testing.assert_allclose(k7z[0].numpy(), k2.numpy(), rtol=EXPANDED_RTOL,
+                               atol=EXPANDED_ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(TPU_FORMS))
+def test_tpu_form_pad_rows_never_win_and_nan_propagates(name):
+    """Pad rows at 1e8 (zero velocity) change no value; all-pad rows stay
+    finite and huge; a NaN row makes the field NaN, like amin."""
+    moving = TPU_FORMS[name][2]
+    d = _inputs(25, S=8, T=6, O=40, G=16, span=10.0, obs_span=10.0)
+    vel = _velocities(25, 40, vmax=1.5)
+    d["obs"][24:], vel[24:] = 1e8, 0.0
+    padded = _tpu_form_port(name, d, 6, vel if moving else None)
+    short = dict(d, obs=d["obs"][:24].copy())
+    without = _tpu_form_port(name, short, 6, vel[:24].copy() if moving else None)
+    assert torch.equal(padded[0], without[0])
+    pads = dict(d, obs=np.full_like(d["obs"], 1e8))
+    all_pads = _tpu_form_port(name, pads, 6, np.zeros_like(vel) if moving else None)
+    assert np.isfinite(all_pads[0].numpy()).all() and (all_pads[0].numpy() > 1e15).all()
+    d["obs"][3, 1] = np.nan
+    nan_rows = _tpu_form_port(name, d, 6, vel if moving else None)
+    assert np.isnan(nan_rows[0].numpy()).all()
+    assert np.isfinite(nan_rows[1].numpy()).all()
+
+
+@pytest.mark.parametrize("name", sorted(TPU_FORMS))
+def test_tpu_form_batched_equals_per_robot_calls_and_slabs(name, monkeypatch):
+    """Three robots in one call give each robot's own call's values
+    exactly, and slabs of any size give one broadcast's values."""
+    moving = TPU_FORMS[name][2]
+    ds, vels, st, vel_b = _batch([41, 42, 43])
+    active, dts = [9, 4, 2], [0.1, 0.05, 0.2]
+    ap = torch.tensor(active, dtype=torch.int32)
+
+    def batch():
+        if name == "K6":
+            return fused_min_dist_sq_broadcast(st["px"], st["py"], st["obs"],
+                                               st["sx"], st["sy"], ap)
+        fn = (fused_min_dist_sq_moving_expanded if name == "K7"
+              else fused_min_dist_sq_moving_broadcast)
+        return fn(st["px"], st["py"], st["obs"], vel_b, torch.tensor(dts),
+                  st["sx"], st["sy"], ap)
+
+    got = batch()
+    for b, d in enumerate(ds):
+        want = _tpu_form_port(name, d, active[b], vels[b] if moving else None,
+                              dts[b])
+        assert torch.equal(got[0][b], want[0]) and torch.equal(got[1][b], want[1])
+    monkeypatch.setattr(kernels, "_SLAB_ELEMS", 4 * 9 * 40 * 5)
+    for a, b in zip(got, batch()):
+        assert torch.equal(a, b)
+
+
+def test_tpu_form_cpu_runs_count_no_launch_and_check_inputs():
+    before = kernels.launch_counts()
+    d = _inputs(26, S=4, T=3, O=8, G=8)
+    vel = _velocities(26, 8)
+    for name in TPU_FORMS:
+        _tpu_form_port(name, d, 3, vel)
+    assert kernels.launch_counts() == before
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    ap = torch.tensor(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="G"):
+        fused_min_dist_sq_broadcast_reference(t["px"], t["py"], t["obs"],
+                                              t["sx"][:-1], t["sy"], ap)
+    with pytest.raises(ValueError, match="obs_vel"):
+        fused_min_dist_sq_moving_expanded(t["px"], t["py"], t["obs"],
+                                          torch.from_numpy(vel[:-1].copy()),
+                                          torch.tensor(0.1), t["sx"], t["sy"], ap)
+    with pytest.raises(TypeError):
+        fused_min_dist_sq_moving_broadcast(t["px"], t["py"], t["obs"],
+                                           torch.from_numpy(vel).double(),
+                                           torch.tensor(0.1), t["sx"], t["sy"], ap)
+
+
+def test_fma_rn_is_correctly_rounded():
+    """``_fma_rn`` rounds a * b + c once: on random floats of mixed
+    magnitude against exact rationals, and where the float64 sum falls
+    on a float32 midpoint that the exact value misses (``_fma`` rounds
+    twice there: 1 + 2^-23 + 2^-24 (1 - 2^-40) rounds down, not to the
+    even 1 + 2^-22)."""
+    a, b, c = np.float32(1 + 2.0**-20), np.float32(2.0**-24 * (1 - 2.0**-20)), \
+        np.float32(1 + 2.0**-23)
+    assert float(_fma_t(a, b, c)) == 1 + 2.0**-23
+    assert float(_fma(*(torch.tensor(v) for v in (a, b, c)))) == 1 + 2.0**-22
+    rng = np.random.default_rng(7)
+    n = 2000
+    vals = [(rng.standard_normal(n) * 10.0 ** rng.integers(-8, 9, n)).astype(np.float32)
+            for _ in range(3)]
+    got = _fma_t(*vals).numpy()
+    for x, y, z, g in zip(*vals, got):
+        exact = fractions.Fraction(float(x)) * fractions.Fraction(float(y)) \
+            + fractions.Fraction(float(z))
+        lo = np.float32(float(exact))  # round to nearest through float64
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(-np.inf))]
+        best = min(cands, key=lambda v: (abs(fractions.Fraction(float(v)) - exact),
+                                         int(np.float32(v).view(np.int32)) & 1))
+        assert g == best, (x, y, z, g, best)

@@ -20,10 +20,12 @@ mode, whose float32 window must equal the JAX one bit for bit. A batch of
 robots through one ``dwa_solve`` gives each robot's own solve exactly.
 
 Per ``SolverSpec.backend`` the port runs the JAX backend's sweep kernel
-(K1, K2, K4, or K3 with movers), the JAX side its Pallas kernels in
-interpret mode, and the same tolerances hold for every backend: the
-expanded form's rounding (an ulp or two of |p|^2 + |o|^2 at these
-coordinates, within about 5 m of the origin) stays below them.
+(K1, K2, K4 and K6 static; K3, K7 and K8 with movers), the JAX side its
+Pallas kernels in interpret mode, and the same tolerances hold for every
+backend: the expanded forms' rounding (an ulp or two of |p|^2 + |o|^2 at
+these coordinates, within about 5 m of the origin) stays below them. The
+ring probe puts every point at the collision margin, where only the
+exact rounding of each form decides.
 """
 
 import dataclasses
@@ -50,10 +52,12 @@ from kompass_core_tpu_torch.parallel.fleet import (
     make_fleet_solver,
     make_sample_parallel_solver,
 )
+from kompass_core_tpu_torch.ops import kernels
 from kompass_core_tpu_torch.ops.kernels import fused_min_dist_sq_reference
 from kompass_core_tpu_torch.ops.window import VelocityWindow
 
 from test_oracle_parity import _scenario_inputs
+from test_torch_kernels import jax_without_fma, xla_cpu_fields
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -589,10 +593,10 @@ def _jax_solver(jspec):
 )
 def test_backend_packed_tick_parity(jax_pallas_interpret, backend, drop, moving):
     """The port's solve with each backend against the JAX solve with the
-    same backend, its Pallas kernels in interpret mode; with movers every
-    Pallas backend runs K3's function (the JAX 7-feature expansion on
-    one side, K3's direct form on the other). The solver's tolerance
-    holds for every backend."""
+    same backend, its Pallas kernels in interpret mode; with movers the
+    Pallas backends run the 7-feature forms on both sides (K7 for
+    "pallas" and "pallas_v1", K8 for "pallas_vpu"). The solver's
+    tolerance holds for every backend."""
     jspec = dataclasses.replace(_jax_spec(False, drop), backend=backend,
                                 moving_obstacles=moving)
     solve = _jax_solver(jspec)
@@ -610,31 +614,169 @@ def test_backend_packed_tick_parity(jax_pallas_interpret, backend, drop, moving)
 @pytest.mark.parametrize(
     "backend,drop,moving,expected",
     [("xla", True, False, {"K1": 1}),
-     ("pallas_vpu", False, False, {"K1": 1}),
+     ("pallas_vpu", False, False, {"K6": 1}),
      ("pallas", False, False, {"K2": 1}),
      ("pallas_v1", True, False, {"K4": 2}),
-     ("pallas", True, True, {"K3": 1}),
-     ("pallas_v1", False, True, {"K3": 2})],
+     ("pallas", True, True, {"K7": 1}),
+     ("pallas_v1", False, True, {"K7": 2}),
+     ("pallas_vpu", False, True, {"K8": 2}),
+     ("xla", False, True, {"K3": 2})],
 )
 def test_backend_runs_its_kernel(monkeypatch, backend, drop, moving, expected):
     """One solve calls exactly the kernels its backend names: K4 once
-    for the obstacles and once for the segment; with movers K3, again
-    for the truncate-mode re-sweep."""
+    for the obstacles and once for the segment; with movers K7 or K8 (or
+    K3 for "xla"), again for the truncate-mode re-sweep from the frozen
+    points, as the JAX package re-sweeps both fields there."""
     calls = {}
-    for name, key in (("fused_min_dist_sq", "K1"),
-                      ("fused_min_dist_sq_expanded", "K2"),
-                      ("fused_min_dist_sq_moving", "K3"),
-                      ("min_dist_sq_expanded", "K4")):
-        def counted(*args, _fn=getattr(tsolver, name), _key=key):
+    for key, fn in kernels.SWEEP_KERNELS.items():
+        def counted(*args, _fn=fn, _key=key):
             calls[_key] = calls.get(_key, 0) + 1
             return _fn(*args)
 
-        monkeypatch.setattr(tsolver, name, counted)
+        monkeypatch.setattr(tsolver, fn.__name__, counted)
     jspec = dataclasses.replace(_jax_spec(False, drop), backend=backend,
                                 moving_obstacles=moving)
     sc, vel = _moving_scenario(np.random.default_rng(7), False, 10)
     _port_solve_packed_only(jspec, _pack(jspec, sc, vel if moving else None))
     assert calls == expected
+
+
+# --- the ring probe: every point at the collision margin ----------------------
+
+RING_CENTRE = (10.0, 10.0)
+RING_RADIUS = np.float32(0.3)
+RING_VEL = (0.4, -0.3)
+RING_DT = np.float32(0.1)
+
+
+def _ring(moving, S=128, T=32):
+    """4096 points on a 0.3 m circle around one obstacle at (10, 10), the
+    circle centred at step t on the obstacle's position o + v * tau there
+    when ``moving``; 255 pad rows at 1e8; a segment of 128 rows."""
+    o = np.array(RING_CENTRE, np.float32)
+    v = np.array(RING_VEL if moving else (0.0, 0.0), np.float32)
+    tau = np.arange(T, dtype=np.float32) * RING_DT
+    centre = o[:, None] + v[:, None] * tau[None, :]  # [2, T], f32
+    th = 2 * np.pi * np.arange(S * T).reshape(S, T) / (S * T)
+    px = (centre[0] + RING_RADIUS * np.cos(th).astype(np.float32)).astype(np.float32)
+    py = (centre[1] + RING_RADIUS * np.sin(th).astype(np.float32)).astype(np.float32)
+    obs = np.full((256, 2), 1e8, np.float32)
+    obs[0] = o
+    vel = np.zeros((256, 2), np.float32)
+    vel[0] = v
+    s = np.linspace(0.0, 3.0, 128).astype(np.float32)
+    return px, py, obs, vel, 9.0 + s, 10.5 + 0.0 * s
+
+
+def _jax_ring(backend, moving, px, py, obs, vel, sx, sy):
+    """The JAX package's obstacle sweep for ``backend`` (dwa_solve's
+    dispatch, ``kompass_core_tpu/ops/solver.py:687-727``), under jax.jit."""
+    T = px.shape[1]
+
+    def run(px, py, obs, vel, sx, sy):
+        mask = jnp.ones(T, bool)
+        if moving and backend == "xla":
+            return jsolver._min_obstacle_dist_sq_moving(px, py, obs, vel, RING_DT, mask)
+        if moving:
+            variant = "vpu" if backend == "pallas_vpu" else "mxu"
+            return jpallas.fused_min_dist_sq(px, py, obs, sx, sy, mask,
+                                             variant=variant, obs_vel=vel,
+                                             time_step=RING_DT, interpret=True)[0]
+        if backend == "xla":
+            return jsolver._min_obstacle_dist_sq(px, py, obs, mask)
+        if backend == "pallas_v1":
+            return jpallas.min_obstacle_dist_sq_mxu(px, py, obs, mask, interpret=True)
+        variant = "mxu" if backend == "pallas" else "vpu"
+        return jpallas.fused_min_dist_sq(px, py, obs, sx, sy, mask,
+                                         variant=variant, interpret=True)[0]
+
+    return np.asarray(jax.jit(run)(px, py, obs, vel, sx, sy))
+
+
+# each kernel's form, for its XLA-contracted twin (xla_cpu_fields)
+_TWIN_FORMS = {"K1": "direct", "K3": "direct", "K2": "expanded",
+               "K4": "single", "K7": "expanded", "K6": "broadcast",
+               "K8": "broadcast"}
+
+
+def _port_ring(backend, moving, ring, twins=False, monkeypatch=None):
+    """The port's obstacle field for ``backend`` through ``_sweeps``; with
+    ``twins`` each kernel's CPU path is its form as XLA's CPU backend
+    contracts it (``xla_cpu_fields``)."""
+    px, py, obs, vel, sx, sy = (torch.from_numpy(a.copy()) for a in ring)
+    T = px.shape[1]
+    if twins:
+        for key, fn in kernels.SWEEP_KERNELS.items():
+            def twin(px, py, rows, *rest, _key=key):
+                v = (rest[0], float(rest[1])) if _key in ("K3", "K7", "K8") else (None, None)
+                seg = rest[-3:-1] if _key != "K4" else (rows[:, 0], rows[:, 1])
+                fields = xla_cpu_fields(_TWIN_FORMS[_key], px, py, rows, *seg,
+                                        int(rest[-1]), *v)
+                return fields[0] if _key == "K4" else fields
+
+            monkeypatch.setattr(tsolver, fn.__name__, twin)
+    spec = dataclasses.replace(tsolver.spec_from_jax(_jax_spec(False, True)),
+                               backend=backend, moving_obstacles=moving)
+    sweep = tsolver._sweeps(spec, obs, vel if moving else None,
+                            torch.tensor(RING_DT), sx, sy,
+                            torch.tensor(T, dtype=torch.int32))
+    return sweep(px, py)[0].numpy()
+
+
+@pytest.mark.parametrize("moving", [False, True])
+@pytest.mark.parametrize("backend", tsolver.BACKENDS)
+def test_ring_probe_collision_decisions_equal_jax(monkeypatch, backend, moving):
+    """The ring probe: 4096 points on the collision margin (d^2 < 0.3^2
+    decides on the last bits of each form). With each kernel's form as
+    XLA's CPU backend contracts it, the port's dispatch gives JAX's
+    decisions exactly, for every backend. The production forms, rounded
+    as the card and the TPU round them, stay within the expanded forms'
+    tolerance of JAX's d^2 (their decisions against JAX compiled without
+    FMA: ``test_ring_probe_production_decisions_equal_jax_without_fma``)."""
+    ring = _ring(moving)
+    r2 = RING_RADIUS * RING_RADIUS
+    want = _jax_ring(backend, moving, *ring) < r2
+    got = _port_ring(backend, moving, ring, twins=True, monkeypatch=monkeypatch) < r2
+    assert int((got != want).sum()) == 0
+    monkeypatch.undo()
+    production = _port_ring(backend, moving, ring)
+    np.testing.assert_allclose(production, _jax_ring(backend, moving, *ring),
+                               rtol=2e-4, atol=1e-4)
+
+
+def jax_fields_without_fma():
+    """The ring probe's JAX obstacle field per (backend, moving), for
+    ``test_torch_kernels.jax_without_fma``."""
+    return {f"{backend}/{moving}": _jax_ring(backend, moving, *_ring(moving))
+            for backend in tsolver.BACKENDS for moving in (False, True)}
+
+
+@pytest.fixture(scope="module")
+def ring_without_fma(tmp_path_factory):
+    return jax_without_fma("test_torch_solver",
+                           tmp_path_factory.mktemp("no_fma") / "ring.npz")
+
+
+@pytest.mark.parametrize("moving", [False, True])
+@pytest.mark.parametrize("backend", tsolver.BACKENDS)
+def test_ring_probe_production_decisions_equal_jax_without_fma(
+        ring_without_fma, backend, moving):
+    """The ring probe with the production forms (the card kernels' plain
+    versions) against JAX compiled without FMA, every operation of its
+    sweep rounded on its own as on the TPU's vector unit: the same d^2
+    bit for bit, so no collision decision differs, for every backend
+    (K7's dot included: XLA's CPU dot runs K7's chosen FMA chain). The
+    probe tells the forms apart: the XLA form in a Pallas backend's place
+    (fault 1) would flip a quarter of the decisions or more."""
+    ring = _ring(moving)
+    r2 = RING_RADIUS * RING_RADIUS
+    want = ring_without_fma[f"{backend}/{moving}"]
+    production = _port_ring(backend, moving, ring)
+    assert int(((production < r2) != (want < r2)).sum()) == 0
+    np.testing.assert_array_equal(production, want)
+    if backend != "xla":
+        direct = _port_ring("xla", moving, ring)
+        assert int(((direct < r2) != (want < r2)).sum()) >= 1024
 
 
 def _port_solve_packed_only(jspec, buf):
