@@ -19,7 +19,12 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
    does not load).
 3. Kernels vs plain versions on the card, bit-identical outputs
    (``torch.equal``): the static sweep (K1's port) at the flagship and
-   edge shapes; the batched static sweep against per-robot launches; the
+   edge shapes, and on its edge cases (NaN and +-inf points and rows,
+   pad rows, a point on a row, values above 1e18, three segment rows,
+   the evaluator's rows, rows past one tile, samples past one block,
+   T = 1, 64 robots with mixed active steps) at its own samples per
+   thread and at each one the kernel takes; the batched static sweep
+   against per-robot launches; the
    moving sweep (K3's port) at the flagship and fleet shapes, with pad
    rows, ragged tiles, rows past one tile, samples past one block, T = 1,
    a ragged block and NaN / +-inf points and rows (NaN where the plain
@@ -56,7 +61,8 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
    bit: K2's port (both sweeps) and K4's port (one sweep, launched over
    the obstacle rows and over the segment rows) at the flagship shapes,
    with pad rows, ragged tiles and a ragged block, and a batch of 64
-   robots against 64 one-robot launches.
+   robots against 64 one-robot launches; K2 on phase 3's edge cases at
+   each number of samples per thread.
 9. The scenario-batched solver slice end to end: ``make_fleet_solver`` on
    ``cuda`` with 64 BASELINE scenarios (``bench.py``'s production serving
    mode), backends ``xla``, ``pallas`` and ``pallas_v1``, 3 distinct
@@ -70,17 +76,21 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 11. A BOX robot's flagship DWA with a custom cost on ``cuda`` for 5
     closed-loop ticks in lockstep with the same controller on the CPU,
     then one ``debug_velocity_search`` on both.
-12. Times: the single-robot tick latency over 220 ticks; K1 and its plain
-    version at the flagship shapes over 100 distinct inputs, in turns; the
+12. Times: the single-robot tick latency over 220 ticks; K1 at its three
+    path shapes (the flagship in drop and truncate mode, 64 robots, the
+    cost evaluator) and K2 at its two (the flagship, 64 robots), each
+    against its plain version in turns (CUDA events, back to back, the
+    kernels line's times) and by the replay of a CUDA graph of its
+    launches (printed beside them), with its samples per thread; the
     tracked and the static 64-robot fleet tick over 100 ticks each (host
     clock and CUDA events); K3 and its plain version at the fleet shapes
     over 10 distinct inputs, in turns; ``update_from_scan`` over 100
     updates, Bayesian and plain, and its host parts; K5 and its plain
     version at one and at 64 robots over 10 distinct inputs, in turns;
     the 64-robot Bayesian fleet mapper per call; the 64-scenario fleet
-    solver per call and in solves/s for each backend; K2 and K4 against
-    their plain versions at the flagship and the 64-robot shapes, in
-    turns; the cost evaluator per call. Each kernel's time is printed
+    solver per call and in solves/s for each backend; K4 against its
+    plain version at the flagship and the 64-robot shapes, in turns; the
+    cost evaluator per call. Each kernel's time is printed
     beside its bound (the larger of its FP32 operations at 33.5 T
     single-rounded operations/s and its bytes at 3.35 TB/s) and its
     share of it.
@@ -112,7 +122,7 @@ from phase 9 and K6, K7 and K8 from phase 14, counted around the
 launches: a replay calls no wrapper, so each replay counts the captured
 loop's launches once). Its times are
 K1, K2 and K4 at the flagship shapes (one robot), K3, K5, K6, K7 and K8
-at 64 robots.
+at 64 robots, all by CUDA events in turns with the plain version.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -385,8 +395,8 @@ def sass_report(kernels, lib):
     """Each kernel's SASS instruction count (cuobjdump -sass, kept beside
     the library as sass.txt), and for the sweeps their hottest loop (the
     loop densest in (point, row) pairs, each ending in one min: the
-    unrolled row loop, in the moving kernels its fminf form) and its
-    instructions per pair."""
+    unrolled row loop; in the kernels with an fminf form, that form's
+    loop) and its instructions per pair."""
     from collections import Counter
     from pathlib import Path
 
@@ -431,44 +441,112 @@ def _sweep_case(gen, device, S, T, O, G, span=10.0):
 
 
 def phase_kernel_vs_plain(kernels, device):
-    """Kernel and plain version on the same card tensors must be equal."""
+    """K1 and its plain version on the same card tensors must be equal:
+    _static_cases at each number of samples per thread."""
+    return _static_vs_plain(kernels, "fused_min_dist_sq", device, 10)
+
+
+def _static_cases(gen, device):
+    """K1's and K2's edge cases, each a _moving_case (its velocities and
+    steps unused) and its active steps (None: random per robot). Robot 0
+    of the NaN case has NaN and +-inf points and rows, robot 1 none (the
+    fminf path), robot 2 one NaN obstacle row."""
     import torch
 
-    gen = torch.Generator().manual_seed(1)
-    cases = []
-    for active in (30, 17):
-        cases.append((f"flagship active={active}",
-                      _sweep_case(gen, device, 2025, 30, 512, 384), active))
-    px, py, obs, sx, sy = _sweep_case(gen, device, 64, 30, 512, 384)
-    obs[7] = torch.stack([px[3, 5], py[3, 5]])
-    sx[11], sy[11] = px[9, 2], py[9, 2]
-    cases.append(("point on an obstacle and on a segment row",
-                  (px, py, obs, sx, sy), 30))
-    px, py, obs, sx, sy = _sweep_case(gen, device, 2025, 30, 512, 384)
-    cases.append(("all obstacle rows at the 1e8 pad",
-                  (px, py, torch.full_like(obs, 1e8), sx, sy), 30))
-    cases.append(("O=4096", _sweep_case(gen, device, 2025, 30, 4096, 384), 30))
+    S, T, O, G = SLICE_SHAPE
+    cases = [(f"flagship active={a}", _moving_case(gen, device, 1, S, T, O, G), a)
+             for a in (T, 17)]
+    case = _moving_case(gen, device, 1, S, T, O, G)
+    case[2][:, O - 112:] = 1e8
+    case[5][:, G - 83:], case[6][:, G - 83:] = 1e8, 1e8
+    cases.append(("pad rows at 1e8 (112 obstacle, 83 segment)", case, T))
+    case = _moving_case(gen, device, 1, S, T, O, G)
+    case[2][:] = 1e8
+    cases.append(("all obstacle rows at the 1e8 pad", case, T))
+    cases.append(("O=4096", _moving_case(gen, device, 1, S, T, 4096, G), T))
     cases.append(("O=700, G=333 (ragged tiles)",
-                  _sweep_case(gen, device, 2025, 30, 700, 333), 30))
-    cases.append(("S*T=259 (ragged block)",
-                  _sweep_case(gen, device, 37, 7, 512, 384), 5))
-    max_err = 0.0
-    for name, (px, py, obs, sx, sy), active in cases:
-        ap = torch.tensor(active, dtype=torch.int32, device=device)
-        got = kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap)
-        want = kernels.fused_min_dist_sq_reference(px, py, obs, sx, sy, ap)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            both_inf = torch.isinf(g) & torch.isinf(w)
-            err = float(torch.where(both_inf, 0.0, (g - w).abs()).max())
-            max_err = max(max_err, err)
-            assert torch.equal(g, w), f"{name}: kernel != plain (max abs {err})"
-            assert bool((g[:, active:] == math.inf).all()), f"{name}: mask"
-            assert bool((g[:, :active] >= 0).all()), f"{name}: negative d2"
-        if name.startswith("point on"):
-            assert float(got[0][3, 5]) == 0.0 and float(got[1][9, 2]) == 0.0
-        log(f"kernel == plain: {name}")
-    return max_err
+                  _moving_case(gen, device, 1, S, T, 700, 333), T))
+    cases.append(("S*T=259 (ragged block)", _moving_case(gen, device, 1, 37, 7, O, G), 5))
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 2, 300, T, O, G)
+    obs[0, 7] = torch.stack([px[0, 3, 5], py[0, 3, 5]])
+    sx[1, 11], sy[1, 11] = px[1, 9, 2], py[1, 9, 2]
+    cases.append(("a point on an obstacle row and on a segment row (d2 = +0)",
+                  (px, py, obs, vel, dt, sx, sy), T))
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 3, 300, T, 1100, G)
+    cases.append(("NaN and +-inf points and rows, rows past one tile",
+                  (*_non_finite(px, py, obs, vel, sx, sy)[:4], dt, sx, sy), T))
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 2, 300, T, O, G)
+    px[0, 5, 3], py[0, 9, 9], obs[0, 4, 0], sy[0, 6] = 3e18, -2e19, 5e18, -7e18
+    obs[1, 400:] = 2e19
+    cases.append(("values above 1e18 (robot 0 scattered, robot 1 obstacle rows)",
+                  (px, py, obs, vel, dt, sx, sy), T))
+    cases.append(("O=1, G=3 (one obstacle row, three segment rows)",
+                  _moving_case(gen, device, 1, S, T, 1, 3), T))
+    cases.append(("O=1, G=1024 (the cost evaluator's rows)",
+                  _moving_case(gen, device, 1, 1000, 40, 1, 1024), 40))
+    cases.append(("O=1100, G=1025 (rows past one tile)",
+                  _moving_case(gen, device, 1, S, T, 1100, 1025), 17))
+    cases.append(("S=1025, T=7 (samples past one block)",
+                  _moving_case(gen, device, 2, 1025, 7, O, G), 5))
+    cases.append(("T=1, B=3", _moving_case(gen, device, 3, S, 1, O, G), 1))
+    cases.append((f"B={SOLVER_ROBOTS}, mixed active steps",
+                  _moving_case(gen, device, SOLVER_ROBOTS, S, T, O, G), None))
+    return cases
+
+
+def _check_nan_equal(name, got, want):
+    """Each output pair equal bit for bit, NaN where the other has NaN;
+    returns the max abs difference of the non-NaN values (0 where both
+    are inf)."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan()), f"{name}: NaN differs"
+        g, w = (torch.where(v.isnan(), 0.0, v) for v in (g, w))
+        both_inf = torch.isinf(g) & torch.isinf(w)
+        err = max(err, float(torch.where(both_inf, 0.0, (g - w).abs()).max()))
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), (
+            f"{name}: kernel != plain (max abs {err})")
+    return err
+
+
+def _static_vs_plain(kernels, wrapper, device, seed):
+    """K1 (``fused_min_dist_sq``) or K2 (``fused_min_dist_sq_expanded``)
+    against its plain version on every _static_cases case, at the
+    launch's own samples per thread and at each one forced: bit for bit,
+    NaN where the plain version has it. Returns the max abs error."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    kernel = getattr(kernels, wrapper)
+    plain = getattr(kernels, wrapper + "_reference")
+    err = 0.0
+    for name, (px, py, obs, _vel, _dt, sx, sy), active in _static_cases(gen, device):
+        B, S, T = px.shape
+        if active is None:
+            ap = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+            ap[0] = T
+            ap = ap.to(device)
+        else:
+            ap = torch.full((B,), active, dtype=torch.int32, device=device)
+        want = plain(px, py, obs, sx, sy, ap)
+        own = _points_note(kernels, B, S, T, device)
+        for points in (None, *kernels.STATIC_POINTS):
+            got = kernel(px, py, obs, sx, sy, ap, _points=points)
+            torch.cuda.synchronize()
+            err = max(err, _check_nan_equal(f"{wrapper} {name} {points}", got, want))
+        if name.startswith("NaN"):
+            assert bool(want[0][0].isnan().any()) and not bool(want[0][1].isnan().any())
+            assert bool(want[0][2].isnan().all()), f"{name}: a NaN row was dropped"
+        elif name.startswith("a point on") and wrapper == "fused_min_dist_sq":
+            # the direct form is exactly +0 there (the expanded form cancels)
+            assert float(want[0][0, 3, 5]) == 0.0 and float(want[1][1, 9, 2]) == 0.0
+        if not name.startswith(("NaN", "values")):
+            _check_equal(name, want, want, active)  # the mask and d2 >= 0
+        log(f"{wrapper} == plain at its own {own} and at each of "
+            f"{kernels.STATIC_POINTS} samples per thread: {name}")
+    return err
 
 
 def _cpu_check(spec, buf, out, cpu_ties, custom_costs=()):
@@ -651,19 +729,151 @@ def phase_times(kernels, device, card):
     log(f"tick latency over {len(lat)} ticks ({card}): median {p50:.4f} ms, "
         f"p99 {p99:.4f} ms, min {lat[0]:.4f} ms, max {lat[-1]:.4f} ms")
 
-    gen = torch.Generator().manual_seed(2)
-    ap = torch.tensor(30, dtype=torch.int32, device=device)
-    inputs = [(*_sweep_case(gen, device, 2025, 30, 512, 384), ap)
-              for _ in range(KERNEL_INPUTS)]
-    k_ms, p_ms, runs = _in_turns(kernels.fused_min_dist_sq,
-                                 kernels.fused_min_dist_sq_reference, inputs, warm=5)
-    b_ms, b_by = sweep_bound(inputs[0][0], 512, ap, segments=384)
-    log(f"fused_min_dist_sq at 2025x30 vs 512+384 rows ({card}), CUDA events "
-        f"over {KERNEL_INPUTS} distinct inputs, in turns {runs}: kernel "
-        f"{k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms ({b_by}), "
-        f"{b_ms / k_ms:.1%} of it")
-    return k_ms, p_ms, b_ms, b_by
 
+def _graph_ms(fn, inputs, replays=2):
+    """CUDA-event ms per call of ``fn`` over ``inputs`` (argument tuples),
+    the calls captured once into a CUDA graph and replayed ``replays``
+    times: the device's time, without the host's enqueue between calls
+    (a one-robot sweep takes less time on the card than its wrapper on
+    the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in inputs[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in inputs:
+            fn(*args)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (replays * len(inputs))
+
+
+# K1's three path shapes and K2's two, timed by phase_static_times:
+# (kernel, shape, B, S, T, O, G, active steps, distinct inputs). The
+# flagship tick's sweep (drop and truncate mode), the xla / pallas fleet
+# solver's 64 BASELINE scenarios, the cost evaluator's one pad row and
+# 1024 segment slots
+STATIC_TIMED = (
+    ("K1", "flagship", 1, 2025, 30, 512, 384, 30, KERNEL_INPUTS),
+    ("K1", "flagship, truncated", 1, 2025, 30, 512, 384, 17, KERNEL_INPUTS),
+    ("K1", f"{SOLVER_ROBOTS} robots", SOLVER_ROBOTS, 2025, 30, 512, 384, 30,
+     FLEET_KERNEL_INPUTS),
+    ("K1", "cost evaluator", 1, *EVAL_SHAPE[:2], 1, EVAL_SHAPE[2], EVAL_SHAPE[1], 4),
+    ("K2", "flagship", 1, 2025, 30, 512, 384, 30, KERNEL_INPUTS),
+    ("K2", f"{SOLVER_ROBOTS} robots", SOLVER_ROBOTS, 2025, 30, 512, 384, 30,
+     FLEET_KERNEL_INPUTS),
+)
+STATIC_WRAPPERS = {"K1": "fused_min_dist_sq", "K2": "fused_min_dist_sq_expanded"}
+# FP32 instructions per pair: K1 2 FADD + 2 FMUL + FADD + min; K2 2 FMUL
+# + FADD + FFMA + min (|o|^2 - 2 cross as one FFMA, exact below 1e18)
+STATIC_PAIR_OPS = {"K1": 6, "K2": 5}
+
+
+def _points_note(kernels, B, S, T, device):
+    """The samples per thread K1's and K2's launch takes for B robots'
+    [S, T] points on this card (a tree with ``sweep_points``), else "one
+    thread per point"."""
+    import torch
+
+    if not hasattr(kernels, "sweep_points"):
+        return "one thread per point"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return f"kPts = {kernels.sweep_points(B, S, T, sms)}"
+
+
+def phase_static_times(kernels, device, card):
+    """K1 at its path shapes and K2 at its own (STATIC_TIMED), each
+    against its plain version in turns by back-to-back CUDA events, and by
+    graph replay (printed beside them: at one robot the sweep takes less
+    time on the card than its wrapper on the host), beside its bound, with
+    the launch's samples per thread. Returns {"K1": (ms, plain ms, bound
+    ms, bound by) at the flagship, "K2": the same}, ms by the events."""
+    import torch
+
+    gen = torch.Generator().manual_seed(2)
+    results = {}
+    for key, shape, B, S, T, O, G, active, count in STATIC_TIMED:
+        wrapper = STATIC_WRAPPERS[key]
+        kernel = getattr(kernels, wrapper)
+        ap = torch.full((B,), active, dtype=torch.int32, device=device)
+        inputs = [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in
+                  (_moving_case(gen, device, B, S, T, O, G) for _ in range(count))]
+        k_ms, p_ms, runs = _in_turns(kernel, getattr(kernels, wrapper + "_reference"),
+                                     inputs, warm=min(5, count))
+        g_ms = _graph_ms(kernel, inputs)
+        b_ms, b_by = form_bound(inputs[0][0], O, ap, G, STATIC_PAIR_OPS[key],
+                                STATIC_PAIR_OPS[key])
+        log(f"{wrapper} ({key}) at the {shape} shape, B={B}, {S}x{T} vs {O}+{G} rows, "
+            f"{active} active steps, {_points_note(kernels, B, S, T, device)} "
+            f"({card}): CUDA events over {count} distinct inputs back to back, in "
+            f"turns {runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; graph replay "
+            f"{g_ms:.5f} ms per call; bound {b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} "
+            f"of the events' time, {b_ms / g_ms:.1%} of the replay's")
+        if shape == "flagship":
+            results[key] = (k_ms, p_ms, b_ms, b_by)
+        del inputs
+    return results
+
+
+def _enqueue_ms(fn, inputs):
+    """Host ms per call of ``fn`` over ``inputs`` without a sync between
+    calls: the wrapper's and the launch's own cost on the host, while the
+    card runs behind."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for args in inputs:
+        fn(*args)
+    ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_points_times(kernels, device, card):
+    """A probe, not a phase of the smoke run (``chip_ab.py --points``): K1
+    and K2 by graph replay at each samples per thread the kernel takes, at
+    each STATIC_TIMED shape (the alternative to sweep_points' choice), and
+    at the flagship each launch's host enqueue time beside K6's (a plain
+    one-thread-per-point launch) at the same shape."""
+    import torch
+
+    gen = torch.Generator().manual_seed(12)
+    for key, shape, B, S, T, O, G, active, count in STATIC_TIMED:
+        if shape.endswith("truncated"):
+            continue
+        kernel = getattr(kernels, STATIC_WRAPPERS[key])
+        ap = torch.full((B,), active, dtype=torch.int32, device=device)
+        inputs = [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in
+                  (_moving_case(gen, device, B, S, T, O, G) for _ in range(count))]
+        times = {k: _graph_ms(lambda *a, k=k: kernel(*a, _points=k), inputs)
+                 for k in kernels.STATIC_POINTS}
+        log(f"{STATIC_WRAPPERS[key]} ({key}) at the {shape} shape by samples per "
+            f"thread, graph replay ms per call ({card}): "
+            + ", ".join(f"kPts = {k} {t:.5f}" for k, t in times.items())
+            + f"; the launch takes {_points_note(kernels, B, S, T, device)}")
+        if B == 1 and shape == "flagship":
+            enqueue = {f"kPts = {k}": min(_enqueue_ms(
+                lambda *a, k=k: kernel(*a, _points=k), inputs) for _ in range(3))
+                for k in kernels.STATIC_POINTS}
+            enqueue["K6"] = min(_enqueue_ms(kernels.fused_min_dist_sq_broadcast, inputs)
+                                for _ in range(3))
+            log(f"{STATIC_WRAPPERS[key]} ({key}) at the {shape} shape, host enqueue ms "
+                f"per call, best of 3 runs of {count} ({card}): "
+                + ", ".join(f"{g} {t:.5f}" for g, t in enqueue.items()))
+        del inputs
 
 
 def _check_equal(name, got, want, active=None):
@@ -1624,6 +1834,8 @@ def phase_expanded_vs_plain(kernels, device):
     torch.cuda.synchronize()
     log(f"batched K2 and K4 == per-robot launches == plain: B={B}, {S}x{T} points, "
         f"{O} + {G} rows")
+    errs[0] = max(errs[0], _static_vs_plain(kernels, "fused_min_dist_sq_expanded",
+                                            device, 11))
     return errs
 
 
@@ -1880,8 +2092,9 @@ def phase_box_dwa(kernels, device):
 
 
 def phase_solver_times(kernels, device, card):
-    """The fleet solver per backend, K2 and K4 against their plain
-    versions, and the cost evaluator."""
+    """The fleet solver per backend, K4 against its plain version, and
+    the cost evaluator. Returns K4's (ms, plain ms, bound ms, bound by)
+    at one robot."""
     import torch
 
     from kompass_core_tpu_torch.ops.solver import get_cost_evaluator
@@ -1920,22 +2133,15 @@ def phase_solver_times(kernels, device, card):
         cases = [_moving_case(gen, device, robots, S, T, O, G)
                  for _ in range(FLEET_KERNEL_INPUTS)]
         ap = torch.full((robots,), T, dtype=torch.int32, device=device)
-        k2_inputs = [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in cases]
         k4_inputs = [(px, py, obs, ap) for px, py, obs, *_ in cases]
-        k2 = (*_in_turns(kernels.fused_min_dist_sq_expanded,
-                         kernels.fused_min_dist_sq_expanded_reference, k2_inputs),
-              *sweep_bound(cases[0][0], O, ap, segments=G))
-        k4 = (*_in_turns(kernels.min_dist_sq_expanded,
-                         kernels.min_dist_sq_expanded_reference, k4_inputs),
-              *sweep_bound(cases[0][0], O, ap, fields=1))
-        results[robots] = (k2, k4)
-        for name, rows, (k_ms, p_ms, runs, b_ms, b_by) in (
-                ("fused_min_dist_sq_expanded (K2)", f"{O}+{G}", k2),
-                ("min_dist_sq_expanded (K4)", f"{O}", k4)):
-            log(f"{name} at B={robots}, {S}x{T} vs {rows} rows ({card}), CUDA events "
-                f"over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
-                f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms "
-                f"({b_by}), {b_ms / k_ms:.1%} of it")
+        k_ms, p_ms, runs = _in_turns(kernels.min_dist_sq_expanded,
+                                     kernels.min_dist_sq_expanded_reference, k4_inputs)
+        b_ms, b_by = sweep_bound(cases[0][0], O, ap, fields=1)
+        results[robots] = (k_ms, p_ms, b_ms, b_by)
+        log(f"min_dist_sq_expanded (K4) at B={robots}, {S}x{T} vs {O} rows ({card}), "
+            f"CUDA events over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
+            f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms "
+            f"({b_by}), {b_ms / k_ms:.1%} of it")
 
     params, args = evaluator_inputs(device)
     dev_args = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
@@ -2292,11 +2498,11 @@ def main() -> int:
         f"{form_launches}")
     assert all(form_launches.get(key) for key in ("K3", "K6", "K7", "K8"))
     phase_ticks_cpu(device)
-    k1_times = phase_times(kernels, device, card)
+    phase_times(kernels, device, card)
+    static_times = phase_static_times(kernels, device, card)
     k3_times = phase_fleet_times(kernels, device, card)
     k5_times = phase_mapping_times(kernels, device, card)
-    (k2_ms, k2_plain_ms, _, *k2_bound), (k4_ms, k4_plain_ms, _, *k4_bound) = (
-        phase_solver_times(kernels, device, card))
+    k4_times = phase_solver_times(kernels, device, card)
     form_times = phase_tpu_forms_times(kernels, device, card)
     phase_ticks_times(device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
@@ -2316,13 +2522,13 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES, k1_launches,
-            k1_err, *k1_times),
+            k1_err, *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
-            k2_launches, k2_err, k2_ms, k2_plain_ms, *k2_bound),
+            k2_launches, k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
             k3_launches, k3_err, *k3_times),
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES, k4_launches,
-            k4_err, k4_ms, k4_plain_ms, *k4_bound),
+            k4_err, *k4_times),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
             *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,

@@ -9,10 +9,10 @@
 // o(t) = o; in the moving sweeps o(t) = o + v * tau with tau = f32(t) *
 // dt[b]. The segment rows never move. What each kernel computes, and what
 // it replaces:
-//   K1 fused_min_dist_kernel<kDirect>: the JAX package's XLA form of the
+//   K1 static_min_dist_kernel<kDirect>: the JAX package's XLA form of the
 //      static sweep, (p - o)^2 (kompass_core_tpu/ops/solver.py:347
 //      _min_obstacle_dist_sq; solver backend "xla").
-//   K2 fused_min_dist_kernel<kExpanded>: the TPU kernel
+//   K2 static_min_dist_kernel<kExpanded>: the TPU kernel
 //      kompass_core_tpu/ops/pallas_kernels.py:56 _fused_kernel_mxu, both
 //      sweeps in the expanded form (backend "pallas").
 //   K4 fused_min_dist_kernel<kExpanded> with the segment sweep compiled
@@ -33,14 +33,31 @@
 // What bounds them on Hopper: FP32 issue. A (point, row) pair costs a
 // handful of FP32 instructions (6 in the direct form: 2 sub, 2 mul, add,
 // min; K7's is 4 FFMA and a min); the rows and points of a 64-robot tick
-// are a few MB, all in L2.
+// are a few MB, all in L2. So each design cuts the instructions around
+// the pair's own arithmetic (the row's shared-memory read, the NaN-keeping
+// min's compares) and keeps enough warps in flight to hide their latency.
 //
-// The static kernels (K1, K2, K4, K6): one thread per point
-// (fused_min_dist_kernel below), 256-thread blocks over one robot's S*T
-// points; rows are staged through shared memory in tiles of 512 and every
-// thread reads the same row at the same time (a broadcast). The running
-// min lives in a register; the ragged last tile and block are masked.
-// About 9 instructions per pair.
+// K4 and K6: one thread per point (fused_min_dist_kernel below),
+// 256-thread blocks over one robot's S*T points; rows are staged through
+// shared memory in tiles of 512 and every thread reads the same row at the
+// same time (a broadcast). The running min lives in a register and is the
+// NaN-keeping min; the ragged last tile and block are masked. About 9
+// instructions per pair, every step swept and masked afterwards.
+//
+// K1 and K2 (static_min_dist_kernel below) take the moving kernels'
+// layout (next paragraph: kPts samples of one step per thread, fminf
+// behind a block-uniform flag, an inactive step swept by nobody), with
+// kPts chosen for the grid in Python (ops/kernels.py::sweep_points): 8
+// where the grid holds two warps per warp scheduler (64 robots, the cost
+// evaluator), else 2. One robot's 2025 x 30 points make 60 blocks of 4
+// warps at kPts = 8, against the H100's 528 warp schedulers, each thread
+// running 896 dependent mins; at kPts = 2 they make 240 blocks, and the
+// sweep stays latency-bound at about 40% of its bound. K1's flag is a
+// non-finite coordinate (K3's rule), K2's a value above 1e18 (K7's rule,
+// since the expanded form makes inf - inf from finite inputs); below
+// that bound 2 * cross is exact, so K2's unflagged pair takes |o|^2 -
+// 2 * cross as one FFMA, bit-identical to the separate multiply and
+// subtract the flagged pair keeps: 5 instructions per pair, K1's 6.
 //
 // The moving kernels (K3, K7, K8: moving_min_dist_kernel below) are laid
 // out for their own work:
@@ -109,6 +126,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kBlock = 256;  // threads (= points) per block
@@ -144,32 +163,10 @@ __device__ __forceinline__ float norm_form(float4 o, float px, float py,
   }
 }
 
-// Running min of |p - row|^2 over `n` rows, row i at (xs[i*stride],
-// ys[i*stride]). Every thread of the block must call it: it stages tiles
-// and synchronises.
-__device__ float sweep(float px, float py, const float* __restrict__ xs,
-                       const float* __restrict__ ys, int stride, int n,
-                       float2* tile) {
-  float acc = CUDART_INF_F;
-  for (int base = 0; base < n; base += kTile) {
-    const int rows = min(kTile, n - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-      const long long r = static_cast<long long>(base + i) * stride;
-      tile[i] = make_float2(xs[r], ys[r]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < rows; ++j) {
-      acc = min_nan(acc, dist_sq(px, py, tile[j].x, tile[j].y));
-    }
-  }
-  return acc;
-}
-
 // Running min of the expanded or broadcast form (without |p|^2) over `n`
-// rows, laid out as in `sweep`; each row is staged with its |o|^2. Same
-// staging and barriers.
+// rows, row i at (xs[i*stride], ys[i*stride]), staged with its |o|^2.
+// Every thread of the block must call it: it stages tiles and
+// synchronises.
 template <int kForm>
 __device__ float sweep_norm(float px, float py, const float* __restrict__ xs,
                             const float* __restrict__ ys, int stride, int n,
@@ -179,7 +176,7 @@ __device__ float sweep_norm(float px, float py, const float* __restrict__ xs,
   float acc = CUDART_INF_F;
   for (int base = 0; base < n; base += kTile) {
     const int rows = min(kTile, n - base);
-    __syncthreads();
+    __syncthreads();  // the previous tile is no longer read
     for (int i = threadIdx.x; i < rows; i += blockDim.x) {
       const long long r = static_cast<long long>(base + i) * stride;
       const float x = xs[r];
@@ -201,9 +198,9 @@ __device__ __forceinline__ float finish_expanded(float acc, float pnorm) {
   return v < 0.0f ? 0.0f : v;
 }
 
-// One block: kBlock points of robot blockIdx.y. kForm selects the sweep;
-// kSegments = false compiles the segment sweep out (K4: seg_x, seg_y and
-// out_seg are not read).
+// K4 and K6. One block: kBlock points of robot blockIdx.y. kForm selects
+// the sweep (kExpanded: K4, kBroadcast: K6); kSegments = false compiles
+// the segment sweep out (K4: seg_x, seg_y and out_seg are not read).
 template <int kForm, bool kSegments>
 __global__ void __launch_bounds__(kBlock) fused_min_dist_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
@@ -211,10 +208,8 @@ __global__ void __launch_bounds__(kBlock) fused_min_dist_kernel(
     const float* __restrict__ seg_x, const float* __restrict__ seg_y,
     int n_seg, const int* __restrict__ active_points,
     float* __restrict__ out_obs, float* __restrict__ out_seg) {
-  // kTile float4 rows for the expanded and broadcast sweeps; the direct
-  // form reads it as kTile float2 rows, so K1 keeps its 4 KB
-  __shared__ float4 tile[kForm == kDirect ? kTile / 2 : kTile];
-  float2* tile2 = reinterpret_cast<float2*>(tile);
+  static_assert(kForm != kDirect, "the direct form is K1's kernel");
+  __shared__ float4 tile[kTile];
   const int b = blockIdx.y;
   const long long point0 = static_cast<long long>(b) * n_points;
   const long long row0 = static_cast<long long>(b) * n_obs;
@@ -223,28 +218,16 @@ __global__ void __launch_bounds__(kBlock) fused_min_dist_kernel(
   const float x = live ? px[point0 + p] : 0.0f;
   const float y = live ? py[point0 + p] : 0.0f;
   const int t = p % steps;
-  float mo;
-  if constexpr (kForm == kDirect) {
-    mo = sweep(x, y, obs + 2 * row0, obs + 2 * row0 + 1, 2, n_obs, tile2);
-  } else {
-    mo = sweep_norm<kForm>(x, y, obs + 2 * row0, obs + 2 * row0 + 1, 2,
-                           n_obs, tile);
-  }
+  float mo = sweep_norm<kForm>(x, y, obs + 2 * row0, obs + 2 * row0 + 1, 2,
+                               n_obs, tile);
   float ms = 0.0f;
   if constexpr (kSegments) {
     const long long seg0 = static_cast<long long>(b) * n_seg;
-    if constexpr (kForm == kDirect) {
-      ms = sweep(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg, tile2);
-    } else {
-      ms = sweep_norm<kForm>(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg,
-                             tile);
-    }
+    ms = sweep_norm<kForm>(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg, tile);
   }
-  if constexpr (kForm != kDirect) {
-    const float pnorm = norm_sq(x, y);
-    mo = finish_expanded(mo, pnorm);
-    ms = finish_expanded(ms, pnorm);
-  }
+  const float pnorm = norm_sq(x, y);
+  mo = finish_expanded(mo, pnorm);
+  ms = finish_expanded(ms, pnorm);
   if (live) {
     const bool active = t < active_points[b];
     out_obs[point0 + p] = active ? mo : CUDART_INF_F;
@@ -566,23 +549,223 @@ int launch_moving(const float* px, const float* py, int batch, int n_points,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- K1, K2: the static sweeps, several samples of one step per thread ----------
+
+constexpr int kStaticBlock = 128;  // threads per block
+constexpr int kStaticTile = 1024;  // rows per staged tile
+
+// A staged row: K1's (x, y); K2's (x, y, |o|^2, unused).
+template <int kForm>
+using StaticRow = std::conditional_t<kForm == kDirect, float2, float4>;
+
+// Whether a value of a point or a staged row sets the block's flag: K1 a
+// non-finite coordinate; K2 a value above kTame in magnitude.
+template <int kForm>
+__device__ __forceinline__ bool flags(float x, float y, float o2) {
+  if constexpr (kForm == kDirect) {
+    return !both_finite(x, y);
+  } else {
+    return !(tame(x) && tame(y) && tame(o2));
+  }
+}
+
+// Stage row i of the tile; returns whether it sets the flag.
+template <int kForm>
+__device__ __forceinline__ bool stage_row(StaticRow<kForm>* tile, int i,
+                                          float x, float y) {
+  if constexpr (kForm == kDirect) {
+    tile[i] = make_float2(x, y);
+    return flags<kDirect>(x, y, 0.0f);
+  } else {
+    const float o2 = norm_sq(x, y);
+    tile[i] = make_float4(x, y, o2, 0.0f);
+    return flags<kExpanded>(x, y, o2);
+  }
+}
+
+// One pair. K2 with the flag clear: every value is at most kTame, so
+// 2 * cross (< 4e36) is exact and |o|^2 - 2 * cross rounds once either
+// way; the FFMA saves the multiply.
+template <int kForm, bool kKeepNan, typename Row>
+__device__ __forceinline__ float static_pair(Row o, float px, float py) {
+  if constexpr (kForm == kDirect) {
+    return dist_sq(px, py, o.x, o.y);
+  } else {
+    const float cross = __fadd_rn(__fmul_rn(o.x, px), __fmul_rn(o.y, py));
+    return kKeepNan ? __fsub_rn(o.z, __fmul_rn(2.0f, cross))
+                    : __fmaf_rn(-2.0f, cross, o.z);
+  }
+}
+
+template <int kForm, int kPts, bool kKeepNan>
+__device__ __forceinline__ void static_tile(const float (&x)[kPts],
+                                            const float (&y)[kPts],
+                                            float (&acc)[kPts],
+                                            const StaticRow<kForm>* tile,
+                                            int rows) {
+#pragma unroll 4
+  for (int j = 0; j < rows; ++j) {
+    const StaticRow<kForm> o = tile[j];
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+      const float d = static_pair<kForm, kKeepNan>(o, x[k], y[k]);
+      acc[k] = kKeepNan ? min_nan(acc[k], d) : fminf(acc[k], d);
+    }
+  }
+}
+
+// Running mins over `n` rows, row i at (xs[i*stride], ys[i*stride]),
+// starting from the points' flag; once a tile sets it, later tiles keep
+// the NaN-keeping min (fminf would drop a NaN already in the running
+// min). Every thread of the block must call it: it stages tiles and
+// synchronises.
+template <int kForm, int kPts>
+__device__ void static_rows(const float (&x)[kPts], const float (&y)[kPts],
+                            float (&acc)[kPts], const float* __restrict__ xs,
+                            const float* __restrict__ ys, int stride, int n,
+                            bool keep_nan, StaticRow<kForm>* tile) {
+  const int tiles = (n + kStaticTile - 1) / kStaticTile;
+  for (int i = 0; i < tiles; ++i) {
+    const int base = i * kStaticTile;
+    const int rows = min(kStaticTile, n - base);
+    __syncthreads();  // the previous tile is no longer read
+    bool flag = false;
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      const long long r = static_cast<long long>(base + i) * stride;
+      flag |= stage_row<kForm>(tile, i, xs[r], ys[r]);
+    }
+    // a barrier that also makes the tile's flag block-uniform
+    keep_nan = __syncthreads_or(flag) || keep_nan;
+    if (keep_nan) {
+      static_tile<kForm, kPts, true>(x, y, acc, tile, rows);
+    } else {
+      static_tile<kForm, kPts, false>(x, y, acc, tile, rows);
+    }
+  }
+}
+
+// One block: step t of robot b = blockIdx.y for samples run * kStaticBlock
+// * kPts + threadIdx.x + k * kStaticBlock, with blockIdx.x = t * runs +
+// run. kForm: kDirect (K1) or kExpanded (K2). The launch bound of 7
+// blocks per SM caps a thread at 72 registers, what ptxas gives K1 at kPts
+// = 8 unasked; left to itself it gives K2 64 registers and spills, which
+// measured slower on the H100.
+template <int kForm, int kPts>
+__global__ void __launch_bounds__(kStaticBlock, 7) static_min_dist_kernel(
+    const float* __restrict__ px, const float* __restrict__ py, int samples,
+    int steps, int runs, const float* __restrict__ obs, int n_obs,
+    const float* __restrict__ seg_x, const float* __restrict__ seg_y,
+    int n_seg, const int* __restrict__ active_points,
+    float* __restrict__ out_obs, float* __restrict__ out_seg) {
+  // the staged rows: K1 8 KB, K2 16 KB
+  __shared__ StaticRow<kForm> tile[kStaticTile];
+  const int run = blockIdx.x % runs;
+  const int t = blockIdx.x / runs;
+  const int b = blockIdx.y;
+  const int s0 = run * kStaticBlock * kPts + threadIdx.x;
+  const long long point0 = static_cast<long long>(b) * samples * steps + t;
+  if (t >= active_points[b]) {  // the whole block's step: no barrier skipped
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+      const int s = s0 + k * kStaticBlock;
+      if (s < samples) {
+        out_obs[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
+        out_seg[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
+      }
+    }
+    return;
+  }
+  float x[kPts], y[kPts], mo[kPts], ms[kPts];
+  bool flag = false;
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    const int s = s0 + k * kStaticBlock;
+    const long long p = point0 + static_cast<long long>(s) * steps;
+    x[k] = s < samples ? px[p] : 0.0f;
+    y[k] = s < samples ? py[p] : 0.0f;
+    flag |= flags<kForm>(x[k], y[k], 0.0f);
+    mo[k] = CUDART_INF_F;
+    ms[k] = CUDART_INF_F;
+  }
+  const bool points_flag = __syncthreads_or(flag);
+  const long long row0 = static_cast<long long>(b) * n_obs;
+  const long long seg0 = static_cast<long long>(b) * n_seg;
+  static_rows<kForm, kPts>(x, y, mo, obs + 2 * row0, obs + 2 * row0 + 1, 2,
+                           n_obs, points_flag, tile);
+  static_rows<kForm, kPts>(x, y, ms, seg_x + seg0, seg_y + seg0, 1, n_seg,
+                           points_flag, tile);
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    const int s = s0 + k * kStaticBlock;
+    if (s < samples) {
+      if constexpr (kForm == kExpanded) {
+        const float pnorm = norm_sq(x[k], y[k]);
+        mo[k] = finish_expanded(mo[k], pnorm);
+        ms[k] = finish_expanded(ms[k], pnorm);
+      }
+      out_obs[point0 + static_cast<long long>(s) * steps] = mo[k];
+      out_seg[point0 + static_cast<long long>(s) * steps] = ms[k];
+    }
+  }
+}
+
+template <int kForm, int kPts>
+int launch_static_points(const float* px, const float* py, int batch,
+                         int samples, int steps, const float* obs, int n_obs,
+                         const float* seg_x, const float* seg_y, int n_seg,
+                         const int* active_points, float* out_obs,
+                         float* out_seg, void* stream) {
+  const int per_block = kStaticBlock * kPts;
+  const int runs = (samples + per_block - 1) / per_block;
+  const dim3 grid(static_cast<unsigned>(runs) * steps, batch);
+  static_min_dist_kernel<kForm, kPts><<<grid, kStaticBlock, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      px, py, samples, steps, runs, obs, n_obs, seg_x, seg_y, n_seg,
+      active_points, out_obs, out_seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kForm>
+int launch_static(const float* px, const float* py, int batch, int n_points,
+                  int steps, const float* obs, int n_obs, const float* seg_x,
+                  const float* seg_y, int n_seg, const int* active_points,
+                  float* out_obs, float* out_seg, int points, void* stream) {
+  const int samples = n_points / steps;
+  switch (points) {
+    case 2:
+      return launch_static_points<kForm, 2>(px, py, batch, samples, steps, obs,
+                                            n_obs, seg_x, seg_y, n_seg,
+                                            active_points, out_obs, out_seg,
+                                            stream);
+    case 8:
+      return launch_static_points<kForm, 8>(px, py, batch, samples, steps, obs,
+                                            n_obs, seg_x, seg_y, n_seg,
+                                            active_points, out_obs, out_seg,
+                                            stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Shapes (all f32 contiguous unless noted, B = batch robots):
 //   px, py: [B, S, T] (n_points = S * T, steps = T);
 //   obs: [B, n_obs, 2]; seg_x, seg_y: [B, n_seg];
 //   active_points: [B] int32 on the device;
-//   out_obs, out_seg: [B, S, T].
+//   out_obs, out_seg: [B, S, T];
+//   points: samples per thread, 2 or 8 (ops/kernels.py::sweep_points).
 // Launches on `stream` and does not synchronise. Returns
-// cudaGetLastError() after the launch.
+// cudaErrorInvalidValue for another `points`, else cudaGetLastError()
+// after the launch.
 extern "C" int kompass_fused_min_dist_sq(
     const float* px, const float* py, int batch, int n_points, int steps,
     const float* obs, int n_obs, const float* seg_x, const float* seg_y,
     int n_seg, const int* active_points, float* out_obs, float* out_seg,
-    void* stream) {
-  return launch<kDirect, true>(px, py, batch, n_points, steps, obs, n_obs,
-                               seg_x, seg_y, n_seg, active_points, out_obs,
-                               out_seg, stream);
+    int points, void* stream) {
+  return launch_static<kDirect>(px, py, batch, n_points, steps, obs, n_obs,
+                                seg_x, seg_y, n_seg, active_points, out_obs,
+                                out_seg, points, stream);
 }
 
 // K2: both sweeps in the expanded form; arguments as for
@@ -591,11 +774,14 @@ extern "C" int kompass_fused_min_dist_sq_expanded(
     const float* px, const float* py, int batch, int n_points, int steps,
     const float* obs, int n_obs, const float* seg_x, const float* seg_y,
     int n_seg, const int* active_points, float* out_obs, float* out_seg,
-    void* stream) {
-  return launch<kExpanded, true>(px, py, batch, n_points, steps, obs, n_obs,
-                                 seg_x, seg_y, n_seg, active_points, out_obs,
-                                 out_seg, stream);
+    int points, void* stream) {
+  return launch_static<kExpanded>(px, py, batch, n_points, steps, obs, n_obs,
+                                  seg_x, seg_y, n_seg, active_points, out_obs,
+                                  out_seg, points, stream);
 }
+
+// K4 and K6 (below) keep the one-thread-per-point kernel; their shapes and
+// return as for kompass_fused_min_dist_sq, without points.
 
 // K6: both sweeps in the broadcast form; arguments as for
 // kompass_fused_min_dist_sq.

@@ -34,9 +34,10 @@ runs follows the solver's ``SolverSpec.backend``, as in the JAX package
   products and sums, its segment sweep K6's.
 
 ``csrc/fused_min_dist.cu`` says what each form computes, operation by
-operation. The expanded forms cancel as the coordinates grow: their
-absolute error is a few float32 ulps of |p|^2 + |o|^2, about 1e-5 m^2
-within 10 m of the origin, where the JAX package's scenarios lie
+operation, and how each kernel is laid out; K1's and K2's samples per
+thread are ``sweep_points``'. The expanded forms cancel as the coordinates
+grow: their absolute error is a few float32 ulps of |p|^2 + |o|^2, about
+1e-5 m^2 within 10 m of the origin, where the JAX package's scenarios lie
 (``bench.py``), and a hundred times that at 100 m. They are ported as
 the TPU kernels compute them; the XLA sweeps (K1, K3) use the direct
 form.
@@ -67,6 +68,7 @@ raises.
 """
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -164,17 +166,15 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.kompass_fused_min_dist_sq.restype = ctypes.c_int
-            lib.kompass_fused_min_dist_sq.argtypes = [
-                p, p, i, i, i, p, i, p, p, i, p, p, p, p,
-            ]
+            for name in ("kompass_fused_min_dist_sq",
+                         "kompass_fused_min_dist_sq_expanded"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = [
+                    p, p, i, i, i, p, i, p, p, i, p, p, p, i, p,
+                ]
             lib.kompass_fused_min_dist_sq_moving.restype = ctypes.c_int
             lib.kompass_fused_min_dist_sq_moving.argtypes = [
                 p, p, i, i, i, p, p, p, i, p, p, i, p, p, p, p,
-            ]
-            lib.kompass_fused_min_dist_sq_expanded.restype = ctypes.c_int
-            lib.kompass_fused_min_dist_sq_expanded.argtypes = [
-                p, p, i, i, i, p, i, p, p, i, p, p, p, p,
             ]
             for name in ("kompass_fused_min_dist_sq_broadcast",):
                 getattr(lib, name).restype = ctypes.c_int
@@ -443,10 +443,11 @@ def min_dist_sq_expanded_reference(px, py, rows, active_points):
                       active_points, form="expanded")
 
 
-def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None):
+def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None, points=()):
     """Launch ``fn`` of the library on the current stream of the inputs'
     card; returns the output fields (shaped like px; one without segment
-    rows), or raises on a refused launch."""
+    rows), or raises on a refused launch. ``points``: K1's and K2's
+    samples per thread, as a 1-tuple."""
     lib = _library()
     B, S, T, O, G, _ = dims
     outs = [torch.empty_like(px) for _ in range(1 if sx is None else 2)]
@@ -456,14 +457,63 @@ def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None):
         seg = () if sx is None else (sx.data_ptr(), sy.data_ptr(), G)
         err = getattr(lib, fn)(
             px.data_ptr(), py.data_ptr(), B, S * T, T, obs.data_ptr(), *mid,
-            O, *seg, ap.data_ptr(), *(o.data_ptr() for o in outs), stream,
+            O, *seg, ap.data_ptr(), *(o.data_ptr() for o in outs), *points,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"{fn}: kernel launch failed (cudaError {err})")
     return outs[0] if sx is None else tuple(outs)
 
 
-def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points):
+# K1's and K2's launch (csrc/fused_min_dist.cu, static_min_dist_kernel):
+# threads per block, the samples of one step a thread may hold, and the
+# warps per SM a launch should hold to hide the pair loop's latency: two
+# per warp scheduler
+STATIC_BLOCK = 128
+STATIC_POINTS = (8, 2)
+_TARGET_WARPS_PER_SM = 2 * 4
+# the grid's x dimension: (steps x runs of samples) blocks
+_MAX_GRID_X = 2**31 - 1
+
+
+def _runs(S, k):
+    """The blocks one step's S samples take at k samples per thread."""
+    return -(-S // (STATIC_BLOCK * k))
+
+
+def sweep_points(B, S, T, sms):
+    """kPts, the samples per thread of K1's and K2's launch for B robots'
+    [S, T] points on a card of ``sms`` SMs: 8 where the grid of B * T *
+    runs blocks of 4 warps holds two warps per warp scheduler (64 robots,
+    the cost evaluator's 5001 x 1000), else 2, which makes 4 times the
+    blocks (one robot's 2025 x 30: 240 blocks, measured faster than 8 on
+    the H100, PERF.md)."""
+    warps = B * T * _runs(S, 8) * (STATIC_BLOCK // 32)
+    return 8 if warps >= _TARGET_WARPS_PER_SM * sms else 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _static_points(name, dims, points, device):
+    """The launch's kPts: ``points`` if given (checked), else
+    ``sweep_points``' for the card of ``device``; raises where the grid
+    would pass the card's limit."""
+    B, S, T = dims[:3]
+    if points is None:
+        points = sweep_points(B, S, T, _sm_count(device))
+    if points not in STATIC_POINTS:
+        raise ValueError(f"{name}: {points} samples per thread; the kernel "
+                         f"takes {STATIC_POINTS}")
+    if _runs(S, points) * T > _MAX_GRID_X:
+        raise ValueError(f"{name}: {S} x {T} points need too many blocks")
+    return points
+
+
+def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points, *,
+                      _points=None):
     """Both static min-distance sweeps of the tick in one kernel launch.
 
     px, py: [S, T] rollout points ([B, S, T] for B robots); obs_xy:
@@ -472,20 +522,24 @@ def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points):
     one int32 ([B] int32) on the same device, read by the kernel there.
     Returns (d2_obs, d2_seg), each shaped like px, f32, +inf where t >=
     active_points. On CUDA it launches on the current stream without
-    synchronising and adds one to ``fused_min_dist_sq.launches``."""
+    synchronising and adds one to ``fused_min_dist_sq.launches``; its
+    samples per thread are ``sweep_points``', or ``_points`` where a test
+    forces them."""
     if px.device.type == "cpu":
         return fused_min_dist_sq_reference(
             px, py, obs_xy, seg_x, seg_y, active_points
         )
     dims = _check_sweep("fused_min_dist_sq", px, py, obs_xy, seg_x, seg_y,
                         active_points)
+    points = _static_points("fused_min_dist_sq", dims, _points, px.device)
     out = _launch("kompass_fused_min_dist_sq", dims, px, py, obs_xy, seg_x,
-                  seg_y, active_points)
+                  seg_y, active_points, points=(points,))
     fused_min_dist_sq.launches += 1
     return out
 
 
-def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points):
+def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points,
+                               *, _points=None):
     """K2: both static sweeps in the TPU kernel's expanded form, in one
     kernel launch.
 
@@ -500,8 +554,10 @@ def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points):
         )
     dims = _check_sweep("fused_min_dist_sq_expanded", px, py, obs_xy, seg_x,
                         seg_y, active_points)
+    points = _static_points("fused_min_dist_sq_expanded", dims, _points,
+                            px.device)
     out = _launch("kompass_fused_min_dist_sq_expanded", dims, px, py, obs_xy,
-                  seg_x, seg_y, active_points)
+                  seg_x, seg_y, active_points, points=(points,))
     fused_min_dist_sq_expanded.launches += 1
     return out
 

@@ -34,7 +34,8 @@ def _case(seed, S, T, O, G, device):
 @pytest.mark.parametrize(
     "S,T,O,G,active",
     [(2025, 30, 512, 384, 30), (2025, 30, 512, 384, 17), (37, 7, 700, 333, 5),
-     (1, 2, 1, 1, 2), (300, 30, 4096, 64, 30)],
+     (1, 2, 1, 1, 2), (300, 30, 4096, 64, 30), (1000, 40, 1, 1024, 40),
+     (2025, 30, 1, 3, 30)],
 )
 def test_kernel_bit_identical_to_plain(cuda, S, T, O, G, active):
     args = _case(S * 7 + O, S, T, O, G, cuda)
@@ -381,7 +382,8 @@ def test_local_mapper_bayesian_update_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize(
     "B,S,T,O,G,active",
     [(0, 2025, 30, 512, 384, 30), (0, 2025, 30, 512, 384, 17),
-     (0, 37, 7, 700, 333, 5), (0, 1, 2, 1, 1, 2), (8, 2025, 30, 512, 384, 30)],
+     (0, 37, 7, 700, 333, 5), (0, 1, 2, 1, 1, 2), (8, 2025, 30, 512, 384, 30),
+     (0, 1000, 40, 1, 1024, 40), (0, 2025, 30, 1, 3, 17)],
 )
 def test_expanded_kernels_bit_identical_to_plain(cuda, B, S, T, O, G, active):
     """K2 (both sweeps) and K4 (one sweep, over the obstacle rows and
@@ -458,6 +460,91 @@ def test_fleet_solver_on_card_matches_cpu(cuda, backend, kernel, per_call):
             np.testing.assert_allclose(o[4:], c[4:], rtol=1e-5, atol=1e-5)
         else:
             assert abs(o[1] - c[1]) <= 1e-6 * abs(c[1])
+
+
+# --- K1 and K2: several samples of one step per thread --------------------------
+
+_STATIC = {
+    "K1": (kernels.fused_min_dist_sq, kernels.fused_min_dist_sq_reference),
+    "K2": (kernels.fused_min_dist_sq_expanded,
+           kernels.fused_min_dist_sq_expanded_reference),
+}
+
+
+def _nan_equal(got, want):
+    """Each pair equal bit for bit, NaN where the other has NaN."""
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+        g, w = (torch.where(v.isnan(), 0.0, v) for v in (g, w))
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", sorted(_STATIC))
+@pytest.mark.parametrize("points", kernels.STATIC_POINTS)
+@pytest.mark.parametrize(
+    "B,S,T,O,G,active",
+    [(1, 2025, 30, 512, 384, 30), (1, 2025, 30, 512, 384, 17),
+     (64, 2025, 30, 512, 384, None),  # mixed active steps
+     (2, 1025, 7, 512, 384, 5),       # S past one block's samples
+     (1, 2025, 30, 1100, 1025, 30),   # rows past one tile
+     (1, 1000, 40, 1, 1024, 40),      # the cost evaluator's rows
+     (3, 2025, 1, 512, 384, 1)],      # T = 1
+)
+def test_static_kernels_at_every_points_per_thread(cuda, name, points, B, S, T, O,
+                                                   G, active):
+    """K1 and K2 equal their plain versions at every number of samples
+    per thread the launch can take, forced through the wrapper; pad rows
+    included."""
+    kernel, plain = _STATIC[name]
+    px, py, obs, _, _, sx, sy = _moving_case(S + O + B + points, B, S, T, O, G, cuda)
+    obs[:, -3:] = 1e8
+    if active is None:
+        ap = torch.randint(1, T + 1, (B,), generator=torch.Generator().manual_seed(B),
+                           dtype=torch.int32).to(cuda)
+    else:
+        ap = torch.full((B,), active, dtype=torch.int32, device=cuda)
+    want = plain(px, py, obs, sx, sy, ap)
+    before = kernel.launches
+    got = kernel(px, py, obs, sx, sy, ap, _points=points)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", sorted(_STATIC))
+def test_static_kernels_keep_nan_and_inf(cuda, name):
+    """NaN and +-inf in robot 0's points and rows, robot 1 finite (the
+    fminf path), robot 2 one NaN obstacle row in its second tile, robot 3
+    values above 1e18 (K2's flag): at the launch's own samples per thread
+    and at each the kernel takes."""
+    kernel, plain = _STATIC[name]
+    px, py, obs, _, _, sx, sy = _moving_case(13, 4, 300, 30, 1100, 384, cuda)
+    nan, inf = float("nan"), float("inf")
+    px[0, 3, 4], py[0, 7, 0], px[0, 11, 29] = nan, inf, -inf
+    obs[0, 5, 0], obs[0, 9, 1], obs[0, 1050] = nan, inf, -inf
+    sx[0, 2], sy[0, 4] = nan, -inf
+    obs[2, 1060, 1] = nan
+    obs[3, 6] = torch.tensor([1.7e19, 0.0])
+    px[3, 3, 3], py[3, 3, 3], sx[3, 0] = 1.06e19, 0.0, 5e18
+    ap = torch.tensor([30, 30, 30, 17], dtype=torch.int32, device=cuda)
+    want = plain(px, py, obs, sx, sy, ap)
+    for points in (None, *kernels.STATIC_POINTS):
+        _nan_equal(kernel(px, py, obs, sx, sy, ap, _points=points), want)
+    assert not bool(want[0][1].isnan().any()) and bool(want[0][2].isnan().all())
+
+
+def test_refused_static_launch_raises(cuda):
+    """Samples per thread the kernel is not built for are refused by the
+    C entry point and raised, not run another way."""
+    px, py, obs, sx, sy = _case(14, 64, 10, 256, 128, cuda)
+    ap = torch.tensor(10, dtype=torch.int32, device=cuda)
+    dims = kernels._check_sweep("K1", px, py, obs, sx, sy, ap)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kernels._launch("kompass_fused_min_dist_sq", dims, px, py, obs, sx, sy, ap,
+                        points=(4,))
+    with pytest.raises(ValueError, match="samples per thread"):
+        kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap, _points=4)
 
 
 # --- K6, K7, K8 and the k-tick loop's CUDA graph ---------------------------------

@@ -863,3 +863,224 @@ def test_fma_rn_is_correctly_rounded():
         best = min(cands, key=lambda v: (abs(fractions.Fraction(float(v)) - exact),
                                          int(np.float32(v).view(np.int32)) & 1))
         assert g == best, (x, y, z, g, best)
+
+
+# --- K1's and K2's launch on the card: several samples of one step per thread ---
+
+import math
+
+from kompass_core_tpu_torch.ops.kernels import (
+    STATIC_BLOCK,
+    STATIC_POINTS,
+    _MAX_BATCH,
+    _MAX_GRID_X,
+    _static_points,
+    sweep_points,
+)
+
+H100_SMS = 132
+
+
+def _min_nan(acc, d):
+    """The kernels' NaN-keeping min: (d < acc || d != d) ? d : acc."""
+    return torch.where((d < acc) | d.isnan(), d, acc)
+
+
+def _flags(form, *values):
+    """Whether values set a block's flag: K1 (direct) a non-finite one,
+    K2 (expanded) one above 1e18 in magnitude (NaN included)."""
+    if form == "direct":
+        return ~torch.stack([torch.isfinite(v) for v in values]).all(0)
+    return ~torch.stack([v.abs() <= 1e18 for v in values]).all(0)
+
+
+def _static_pair(form, ox, oy, o2, px, py, keep_nan):
+    """One (point, row) value as the kernel takes it: K2 with the flag
+    clear forms |o|^2 - 2 cross as one FMA."""
+    if form == "direct":
+        dx, dy = px - ox, py - oy
+        return dx * dx + dy * dy
+    cross = ox * px + oy * py
+    if keep_nan:
+        return o2 - 2.0 * cross
+    return _fma_rn(torch.full_like(cross, -2.0), cross, o2.expand_as(cross))
+
+
+def _static_field(form, px, py, xs, ys, per_block, tile):
+    """[B, S, T] points vs [B, n] rows: the running mins in the order of
+    K1's and K2's kernel. A block holds ``per_block`` samples of one step;
+    its flag starts as any flagged value of its points (samples past S
+    load 0). It sweeps the rows in tiles of ``tile``, each tile's mins by
+    fminf (from +inf: NaN ignored) while the flag is clear and by the
+    NaN-keeping min once a tile has set it."""
+    B, S, T = px.shape
+    n = xs.shape[1]
+    runs = -(-S // per_block)
+    pad = runs * per_block - S
+    bx, by = (torch.nn.functional.pad(v, (0, 0, 0, pad)) for v in (px, py))
+    flag = _flags(form, bx, by).view(B, runs, per_block, T).any(2)
+    flag = flag.repeat_interleave(per_block, 1)[:, :S]  # [B, S, T]
+    p_x, p_y = px[..., None], py[..., None]
+    acc = torch.full_like(px, math.inf)
+    for base in range(0, n, tile):
+        ox, oy = (v[:, base:base + tile] for v in (xs, ys))
+        o2 = ox * ox + oy * oy
+        staged = (ox, oy) if form == "direct" else (ox, oy, o2)
+        flag = flag | _flags(form, *staged).any(1)[:, None, None]
+        ox, oy, o2 = (v[:, None, None, :] for v in (ox, oy, o2))
+        keep = torch.amin(_static_pair(form, ox, oy, o2, p_x, p_y, True), -1)
+        fast = _static_pair(form, ox, oy, o2, p_x, p_y, False)
+        fast = torch.where(fast.isnan(), math.inf, fast).amin(-1)
+        acc = torch.where(flag, _min_nan(acc, keep), torch.fmin(acc, fast))
+    return acc
+
+
+def _static_sweep(form, px, py, obs, sx, sy, active, tile, per_block=4):
+    """Both fields of K1 ("direct") or K2 ("expanded") in the kernel's
+    order: the running mins, K2's epilogue (+ |p|^2, clamp at 0 keeping
+    a NaN), the mask."""
+    fields = [_static_field(form, px, py, xs, ys, per_block, tile)
+              for xs, ys in ((obs[..., 0], obs[..., 1]), (sx, sy))]
+    if form == "expanded":
+        pnorm = px * px + py * py
+        fields = [torch.where(f + pnorm < 0.0, 0.0, f + pnorm) for f in fields]
+    T = px.shape[-1]
+    live = (torch.arange(T)[None, :] < active[:, None])[:, None, :]
+    return tuple(torch.where(live, f, math.inf) for f in fields)
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, NaN where the other has NaN (any payload)."""
+    if not torch.equal(a.isnan(), b.isnan()):
+        return False
+    a, b = (torch.where(v.isnan(), 0.0, v) for v in (a, b))
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _static_case(seed, B=3, S=10, T=6, O=13, G=3):
+    """Robot 0: NaN and +-inf points and rows; robot 1: 1e8 pad rows, a
+    point exactly on an obstacle row and on a segment row; robot 2: values
+    above 1e18 in points and rows. Three segment rows."""
+    rng = np.random.default_rng(seed)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(-9.0, 9.0, shape).astype(np.float32))
+
+    px, py, obs, sx, sy = u(B, S, T), u(B, S, T), u(B, O, 2), u(B, G), u(B, G)
+    nan, inf = float("nan"), float("inf")
+    px[0, 2, 1], py[0, 7, 4], px[0, 9, 0] = nan, inf, -inf
+    obs[0, 3 % O, 0], obs[0, 8 % O] = -inf, torch.tensor([inf, nan])
+    sy[0, 1] = nan
+    obs[1, O - 4:] = 1e8
+    obs[1, 5 % O] = torch.stack([px[1, 4, 2], py[1, 4, 2]])
+    sx[1, 2], sy[1, 2] = px[1, 6, 3], py[1, 6, 3]
+    # |o|^2 near the float32 limit and 2 cross past it: the FMA pair
+    # would keep a finite value where the plain version has -inf
+    obs[2, 6 % O] = torch.tensor([1.7e19, 0.0])
+    px[2, 3, 0], py[2, 3, 0], sx[2, 0] = 1.06e19, 0.0, 5e18  # step 0: active
+    return px, py, obs, sx, sy
+
+
+STATIC_FORMS = {"direct": fused_min_dist_sq_reference,
+                "expanded": fused_min_dist_sq_expanded_reference}
+
+
+@pytest.mark.parametrize("form", sorted(STATIC_FORMS))
+@pytest.mark.parametrize("tile", [1, 2, 3, 1024])
+def test_static_order_of_operations_equals_the_plain_version(form, tile):
+    """The kernel's order (tiles of rows, fminf until the block's flag is
+    set and the NaN-keeping min after, K2's FMA pair, the epilogue and the
+    mask) gives the plain version's fields bit for bit at any tile size
+    (1024 is the kernel's): NaN and +-inf in points and rows, pad rows,
+    d2 = +0, values above 1e18, active steps below T; and at the
+    evaluator's one obstacle row."""
+    reference = STATIC_FORMS[form]
+    px, py, obs, sx, sy = _static_case(40 + tile)
+    ap = torch.tensor([6, 4, 1], dtype=torch.int32)
+    got = _static_sweep(form, px, py, obs, sx, sy, ap, tile)
+    want = reference(px, py, obs, sx, sy, ap)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+    assert bool(want[0][0].isnan().any()) and not bool(want[0][1].isnan().any())
+    if form == "direct":
+        assert float(want[0][1, 4, 2]) == 0.0 and float(want[1][1, 6, 3]) == 0.0
+    # one obstacle row (a 1e8 pad, as the evaluator has)
+    px, py, obs, sx, sy = _static_case(50 + tile, S=10, T=5, O=1, G=11)
+    obs[:] = 1e8
+    ap = torch.tensor([5, 3, 2], dtype=torch.int32)
+    got = _static_sweep(form, px, py, obs, sx, sy, ap, tile, per_block=2)
+    for g, w in zip(got, reference(px, py, obs, sx, sy, ap)):
+        assert _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("tile", [7, 64])
+def test_k2_fma_pair_equals_the_separate_operations_below_1e18(tile):
+    """Where no value passes 1e18, |o|^2 - 2 cross as one FMA equals the
+    multiply and the subtract bit for bit (2 cross is exact): 200k pairs
+    at the JAX package's coordinates and at a million metres, every
+    block's flag clear."""
+    rng = np.random.default_rng(60 + tile)
+    for span in (10.0, 1e6):
+        def u(*shape):
+            return torch.from_numpy(rng.uniform(-span, span, shape).astype(np.float32))
+
+        px, py, obs, sx, sy = u(2, 64, 8), u(2, 64, 8), u(2, 150, 2), u(2, 50), u(2, 50)
+        ap = torch.tensor([8, 5], dtype=torch.int32)
+        got = _static_sweep("expanded", px, py, obs, sx, sy, ap, tile, per_block=16)
+        want = fused_min_dist_sq_expanded_reference(px, py, obs, sx, sy, ap)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_sweep_points_at_the_path_shapes():
+    """8 samples per thread where the grid already fills the card (64
+    robots, the cost evaluator); at one robot's flagship tick, and at the
+    k-tick loop's 4-robot test fleet, 2."""
+    assert sweep_points(64, 2025, 30, H100_SMS) == 8
+    assert sweep_points(1, 5001, 1000, H100_SMS) == 8
+    assert sweep_points(1, 2025, 30, H100_SMS) == 2
+    assert sweep_points(4, 144, 20, H100_SMS) == 2
+    # one robot: 60 blocks of 4 warps at kPts = 8, short of two per scheduler
+    assert 60 * (STATIC_BLOCK // 32) < 2 * 4 * H100_SMS
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 64, 1024, _MAX_BATCH])
+@pytest.mark.parametrize("S,T", [(1, 1), (37, 7), (144, 20), (1025, 30),
+                                 (2025, 30), (5001, 1000), (1, 2**20)])
+def test_sweep_points_stay_inside_the_cards_limits(B, S, T):
+    """kPts is one the kernel is built for, 2 only where the grid at 8 is
+    short of two warps per scheduler; the grid (steps x runs, robots) fits
+    its dimensions."""
+    k = sweep_points(B, S, T, H100_SMS)
+    assert k in STATIC_POINTS
+    blocks = B * T * -(-S // (STATIC_BLOCK * 8))
+    assert (k == 2) == (blocks * (STATIC_BLOCK // 32) < 2 * 4 * H100_SMS)
+    assert -(-S // (STATIC_BLOCK * k)) * T <= _MAX_GRID_X and B <= _MAX_BATCH
+    assert _static_points("K1", (B, S, T), k, None) == k
+
+
+def test_sweep_points_follow_the_cards_sm_count():
+    """The same grid fills a card of fewer SMs and not one of more: 4
+    robots' 2025 x 30 points make 240 blocks of 4 warps, two warps per
+    scheduler of 114 SMs (an H100 PCIe) but not of 132."""
+    assert sweep_points(4, 2025, 30, 114) == 8
+    assert sweep_points(4, 2025, 30, H100_SMS) == 2
+
+
+def test_forced_points_are_checked_before_any_launch():
+    with pytest.raises(ValueError, match="samples per thread"):
+        _static_points("K1", (1, 2025, 30), 4, None)
+    with pytest.raises(ValueError, match="samples per thread"):
+        _static_points("K2", (1, 2025, 30), 3, None)
+    with pytest.raises(ValueError, match="blocks"):
+        _static_points("K1", (1, 1, 2**31), 2, None)
+    assert _static_points("K1", (1, 1, 2**30), 2, None) == 2
+    # on the CPU the wrappers run the plain version whatever the points
+    px, py, obs, sx, sy = _static_case(70)
+    ap = torch.tensor([6, 4, 1], dtype=torch.int32)
+    for wrapper, plain in ((fused_min_dist_sq, fused_min_dist_sq_reference),
+                           (fused_min_dist_sq_expanded,
+                            fused_min_dist_sq_expanded_reference)):
+        for g, w in zip(wrapper(px, py, obs, sx, sy, ap, _points=2),
+                        plain(px, py, obs, sx, sy, ap)):
+            assert _bits_equal(g, w)
