@@ -9,11 +9,13 @@ kernels and package: the 64-robot fleet tick with 8 tracked movers and
 without, K3 against its plain version, the mapper update (Bayesian and
 plain), K5 against its plain version, the 64-robot Bayesian fleet
 mapper, the 64-scenario fleet solver per backend, K4 and the cost
-evaluator, K1 at its three path shapes and K2 at its two
-(``phase_fleet_times``, ``phase_mapping_times``, ``phase_solver_times``
-and ``phase_static_times``). Every turn runs these phases from this
-script's own ``chip_smoke.py``, one ruler for both trees: they call only
-the package's entry points and the kernels' wrappers. Two versions are
+evaluator, K1 at its three path shapes and K2 at its two, and the
+64-robot k = 8 loop per tick, replayed and eager, per backend
+(``phase_fleet_times``, ``phase_mapping_times``,
+``phase_solver_times``, ``phase_static_times`` and
+``phase_ticks_times``). Every turn runs these phases from this script's
+own ``chip_smoke.py``, one ruler for both trees: they call only the
+package's entry points and the kernels' wrappers. Two versions are
 compared only inside one such call: the card, its power limit and its
 host's load differ between calls.
 
@@ -45,10 +47,11 @@ TURN = (
     "ruler.phase_mapping_times(kernels, device, card)\n"
     "ruler.phase_solver_times(kernels, device, card)\n"
     "ruler.phase_static_times(kernels, device, card)\n"
+    "ruler.phase_ticks_times(device, card)\n"
 )
 TIMING_WORDS = ("fleet tick", "fused_min_dist_sq_moving", "update_from_scan",
                 "scan_to_grid_cells", "fleet mapper", "fleet solver", "cost evaluator,",
-                "(K1)", "(K2)", "(K4)")
+                "(K1)", "(K2)", "(K4)", "k-tick loop")
 RULER = Path(__file__).resolve().with_name("chip_smoke.py")
 
 

@@ -113,14 +113,42 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     shapes, in turns, beside their bounds; the k-tick loop per tick,
     replayed and eager (host clock with syncs), and the replay alone
     (CUDA events).
+16. The emergency checker: ``EmergencyChecker`` on the card against the
+    CPU, bit for bit, on 512-ray scans (NaN and inf returns, beams at
+    the critical and at the slowdown distance) and 100k-point clouds,
+    with a centered sensor, a translated and rotated one and the
+    360-degree cone, both directions (a cloud factor that differs must
+    come from a point binned across a bin edge).
+17. Peers, prediction and safety at full width: 64 robots in head-on and
+    crossing pairs and driven at walls (``PeerDrive``), peers with 8
+    ring points, prediction, 8 tracked slots and the safety gate at
+    ``FleetSafetyConfig()``'s defaults, 30 closed-loop single ticks per
+    backend (``xla``: K3, ``pallas``: K7, ``pallas_vpu``: K8), each
+    sweep against 1344 + 384 rows: one launch per tick, no host sync, 4
+    robots on 2 ticks against the CPU, the wall robots slowed, the boxed
+    robot stopped with a zero command every tick, no two robots closer
+    than the sum of their radii; then peers without prediction or
+    tracked slots launch K1.
+18. The k = 8 loop with peers, prediction and safety per backend: replay
+    == eager bit for bit, 3 calls; the wall robots slowed and then
+    stopped inside the loop; no collision.
+19. K1, K3, K6, K7 and K8 against their plain versions at the peer width
+    (64 x 2025 x 30 vs 1344 + 384 rows, each robot's own peer block at
+    the pad), bit for bit.
+20. Times: those sweeps against their plain versions at the peer width,
+    in turns, beside their bounds; the peer fleet's tick (median and
+    p99 of 100) and its k = 8 graph per tick, beside the same run's
+    no-peer fleet.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
-before the solver slice and again before the k-tick loop; the kernels
-line reports K1 and K3 from phases 4 and 5, K5 from phase 7, K2 and K4
-from phase 9 and K6, K7 and K8 from phase 14, counted around the
+before the solver slice, again before the k-tick loop and again before
+the peer path (phases 17 and 18, read after them); the kernels line
+reports K1 and K3 from phases 4 and 5, K5 from phase 7, K2 and K4 from
+phase 9 and K6, K7 and K8 from phase 14, counted around the
 ``run_ticks_on_device`` calls alone (the warm-up's and each replay's
 launches: a replay calls no wrapper, so each replay counts the captured
-loop's launches once). Its times are
+loop's launches once), and adds the peer path's K1, K3, K7 and K8
+launches (phase 18 counted as phase 14 is). Its times are
 K1, K2 and K4 at the flagship shapes (one robot), K3, K5, K6, K7 and K8
 at 64 robots, all by CUDA events in turns with the plain version.
 
@@ -1159,7 +1187,7 @@ def _fleet_cpu_check(fleet, carry_before, out, tick, ties):
     import torch
 
     from kompass_core_tpu_torch.ops.fleet_solver import (
-        OUT_FIELDS, FleetCarry, FleetConfig, FleetPaths, make_fleet_tick,
+        FleetCarry, FleetConfig, FleetPaths, make_fleet_tick,
     )
 
     idx = torch.tensor(FLEET_CPU_ROBOTS)
@@ -1169,8 +1197,17 @@ def _fleet_cpu_check(fleet, carry_before, out, tick, ties):
             fleet._angles.cpu()[idx],
             torch.from_numpy(fleet._inputs[list(FLEET_CPU_ROBOTS)].copy())]
     _, cpu = make_fleet_tick(fleet.spec, "cpu")(*rows)
+    _compare_cpu_rows(out, cpu, FLEET_CPU_ROBOTS, tick, ties)
+
+
+def _compare_cpu_rows(out, cpu, robots, tick, ties, exact=()):
+    """The card's output rows of ``robots`` against the CPU's [len(robots),
+    F] rows: equal counts and flags (and ``exact`` columns), the cost
+    within COST_REL, the command equal or a tie (recorded in ``ties``)."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+
     cpu = {k: cpu[:, i].numpy() for i, k in enumerate(OUT_FIELDS)}
-    for j, r in enumerate(FLEET_CPU_ROBOTS):
+    for j, r in enumerate(robots):
         for key in ("num_admissible", "active_points", "reached"):
             assert float(out[key][r]) == cpu[key][j], (
                 f"tick {tick} robot {r}: {key} {out[key][r]} vs CPU {cpu[key][j]}")
@@ -1184,6 +1221,10 @@ def _fleet_cpu_check(fleet, carry_before, out, tick, ties):
             assert abs(out["cost"][r] - cpu["cost"][j]) <= TIE_REL * abs(cpu["cost"][j]), (
                 f"tick {tick} robot {r}: command {cmd} vs CPU {cmd_cpu} is not a tie")
             ties.append((tick, r))
+            continue
+        for key in exact:
+            assert float(out[key][r]) == cpu[key][j], (
+                f"tick {tick} robot {r}: {key} {out[key][r]} vs CPU {cpu[key][j]}")
 
 
 def phase_fleet(kernels, device):
@@ -2259,7 +2300,10 @@ def _ticks_eager(fleet, k, device):
 
     carry = FleetCarry(*(t.clone() for t in fleet._carry))
     inputs = torch.tensor(fleet._inputs, device=device)
-    return fleet.ticks_fn(k)(fleet._paths, fleet._cfg, carry, fleet._angles, inputs)
+    # chip_ab.py's turns also time trees whose fleet has no safety gate
+    safety = getattr(fleet, "_safety", None)
+    return fleet.ticks_fn(k)(fleet._paths, fleet._cfg, carry, fleet._angles, inputs,
+                             *(() if safety is None else (safety,)))
 
 
 def phase_ticks(kernels, device):
@@ -2454,6 +2498,550 @@ def phase_tpu_forms_times(kernels, device, card):
     return results
 
 
+# --- this slice: the emergency stop and fleet peer avoidance (5c, 5d) --------
+
+# EmergencyChecker cases per zone configuration, each checked both ways
+CHECKER_SCANS = 8
+CHECKER_CLOUDS = 2
+# the peer fleet: the fleet slice's 64 robots with peers (the center and 8
+# ring points of every robot), prediction, 8 tracked slots and the safety
+# gate at FleetSafetyConfig()'s reference defaults (160 deg, 0.3, 0.6 m)
+PEER_RING = 8
+PEER_ROWS = FLEET_SHAPE[3] + FLEET_ROBOTS * (PEER_RING + 1)  # 768 + 576 = 1344
+PEER_SHAPE = (FLEET_ROBOTS, 2025, 30, PEER_ROWS, 384)
+PEER_FORMS = (("xla", "K3"), ("pallas", "K7"), ("pallas_vpu", "K8"))
+PEER_TICKS = 30
+PEER_STATIC_TICKS = 3  # peers without prediction: the static sweep, K1
+PEER_CPU_TICKS = (0, 29)
+PEER_CPU_ROBOTS = (0, 22, 43, 63)
+PEER_RADIUS = 0.25
+GROUP_SPACING = 25.0
+WALL_GAP = 1.0  # the wall robots' start, center to wall, in the tick phase
+TICKS_WALL_GAP = 0.75  # ... and in the k-tick phase, at TICKS_WALL_SPEED
+TICKS_WALL_SPEED = 0.6
+# the sweeps at the peer width: (name, wrapper, moving, PERF.md name)
+PEER_SWEEPS = (("K1", "fused_min_dist_sq", False), ("K3", "fused_min_dist_sq_moving", True),
+               ("K6", "fused_min_dist_sq_broadcast", False),
+               ("K7", "fused_min_dist_sq_moving_expanded", True),
+               ("K8", "fused_min_dist_sq_moving_broadcast", True))
+PEER_SWEEP_INPUTS = 2  # distinct inputs per timed run (K7's plain: ~3 s each)
+
+
+def phase_emergency(device):
+    """``EmergencyChecker`` on the card against the CPU, bit for bit:
+    512-ray scans with NaN and inf returns, beams exactly at the critical
+    and at the slowdown distance, clouds of 100k points; a centered
+    sensor, a translated and rotated one, and the 360-degree cone (which
+    the reference wraps to empty cones); both directions each. A cloud
+    point within an ulp of a bin edge may bin differently on the card
+    (atan2), so a cloud factor that differs must come from different
+    binned ranges: the CPU's check of the card's ranges gives the card's
+    factor."""
+    import torch
+
+    from kompass_core_tpu_torch.datatypes import LaserScanData, PointCloudData
+    from kompass_core_tpu_torch.ops.critical_zone import critical_zone_check
+    from kompass_core_tpu_torch.ops.mapping import pointcloud_to_scan, pad_cloud_to_bucket
+    from kompass_core_tpu_torch.utils.emergency_stop import EmergencyChecker
+
+    robot = make_robot()
+    radius = float(robot.geometry_params[0])
+    zones = (("centered", 160.0, {}),
+             ("translated and rotated sensor", 160.0,
+              dict(sensor_position_robot=[0.12, -0.05, 0.3],
+                   sensor_rotation_robot=[0.0, 0.0, math.sin(0.2), math.cos(0.2)])),
+             ("360-degree cone", 360.0, {}))
+    rng = np.random.default_rng(21)
+    angles = np.linspace(-np.pi, np.pi, RAYS, endpoint=False)
+    factors, explained = [], 0
+    for name, cone, kw in zones:
+        checkers = [EmergencyChecker(robot, 0.3, 0.6, cone, device=d, **kw)
+                    for d in (device, "cpu")]
+        for case in range(CHECKER_SCANS):
+            ranges = rng.uniform(0.4, 3.0, RAYS)
+            ranges[rng.random(RAYS) < 0.05] = np.nan
+            ranges[rng.integers(RAYS)] = np.inf
+            if case % 4 == 1:  # beams at the critical distance
+                ranges[::7] = np.float32(radius + 0.3)
+            elif case % 4 == 2:  # ... and at the slowdown distance
+                ranges = np.where(np.isfinite(ranges), np.maximum(ranges, 0.9), ranges)
+                ranges[::5] = np.float32(radius + 0.6)
+            elif case % 4 == 3:  # clear
+                ranges = np.where(np.isfinite(ranges), ranges + 1.0, ranges)
+            scan = LaserScanData(ranges=ranges, angles=angles, range_max=RANGE_MAX)
+            for forward in (True, False):
+                got, want = (c.run(scan=scan, forward=forward) for c in checkers)
+                assert got == want, f"{name} scan {case} forward={forward}: {got} vs {want}"
+                factors.append(got)
+        for case in range(CHECKER_CLOUDS):
+            pts = cloud_points(31 + case)
+            pts[:50, 0:2] *= 0.08  # a few points inside the critical band
+            cloud = PointCloudData(points=pts)
+            for forward in (True, False):
+                got, want = (c.run(scan=cloud, forward=forward) for c in checkers)
+                if got != want:
+                    spec = checkers[0]._spec
+                    args = (spec.cos_angles.__len__(), np.float32(10.0),
+                            np.float32(-0.4), np.float32(0.4))
+                    padded = pad_cloud_to_bucket(pts)
+                    card = pointcloud_to_scan(torch.from_numpy(padded).to(device), *args)
+                    host = pointcloud_to_scan(torch.from_numpy(padded), *args)
+                    assert not torch.equal(card.cpu(), host), f"{name} cloud {case}"
+                    assert float(critical_zone_check(spec, card.cpu(), forward)) == got
+                    explained += 1
+                factors.append(got)
+    assert 0.0 in factors and 1.0 in factors and any(0.0 < f < 1.0 for f in factors)
+    log(f"emergency checker: card == CPU on {len(factors)} checks "
+        f"({len(zones)} zones x ({CHECKER_SCANS} scans of {RAYS} rays + "
+        f"{CHECKER_CLOUDS} clouds of {CLOUD_POINTS} points) x 2 directions; "
+        f"{factors.count(0.0)} stops, {factors.count(1.0)} clear, "
+        f"{sum(0.0 < f < 1.0 for f in factors)} in the band; cloud factors "
+        f"explained by a bin edge: {explained})")
+
+
+def _cast_walls(states, walls):
+    """[N, RAYS] ranges from each robot's pose against its one wall
+    segment walls [N, 4] (x1, y1, x2, y2); no hit within range gives +inf."""
+    angles = np.linspace(-np.pi, np.pi, RAYS, endpoint=False)
+    th = states[:, 2:3] + angles
+    dx, dy = np.cos(th), np.sin(th)
+    ex, ey = (walls[:, 2] - walls[:, 0])[:, None], (walls[:, 3] - walls[:, 1])[:, None]
+    ax = (walls[:, 0] - states[:, 0])[:, None]
+    ay = (walls[:, 1] - states[:, 1])[:, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        denom = dx * ey - dy * ex
+        t = (ax * ey - ay * ex) / denom
+        u = (ax * dy - ay * dx) / denom
+    hit = (denom != 0.0) & (t > 0.0) & (u >= 0.0) & (u <= 1.0) & (t <= RANGE_MAX)
+    return np.where(hit, t, np.inf).astype(np.float32), angles
+
+
+class PeerDrive:
+    """The peer fleet's closed loop: 16 groups of 4 robots, 25 m apart. In
+    each group a head-on pair on one line (from (0, 0) to +x and from
+    (5, 0) to -x); in even groups a crossing pair (paths crossing at
+    right angles at (11, 0)), in odd groups two robots driving +y at a
+    wall across their paths (y = 0, 13 m wide), starting ``wall_gap``
+    before it at ``wall_speed``. The last robot (a wall robot) is boxed
+    in: every return 0.5 m, inside the critical band all around. Every
+    robot starts 3 cm off its path and gets one live mover (slot 0 of
+    8, walking 6 m to its side)."""
+
+    def __init__(self, n, wall_gap=WALL_GAP, wall_speed=0.0, tracked=FLEET_TRACKED):
+        self.tracked = tracked
+        g = np.arange(n) // 4
+        role = np.arange(n) % 4 + 4 * (g % 2 == 1) * (np.arange(n) % 4 >= 2)
+        origin = np.stack([GROUP_SPACING * (g % 4), GROUP_SPACING * (g // 4)], 1)
+        # per role: path start, path end, yaw; the robot starts 3 cm off
+        # its path (roles 4 and 5: the wall robots)
+        path_start = np.array([[0.0, 0.0], [5.0, 0.03], [8.5, -2.5], [8.5, 2.5],
+                               [0, 0], [0, 0], [14.0, -wall_gap], [17.0, -wall_gap]])
+        goal = np.array([[5.0, 0.0], [0.0, 0.03], [13.5, 2.5], [13.5, -2.5],
+                         [0, 0], [0, 0], [14.0, 4.0], [17.0, 4.0]])
+        off = np.array([[0.0, 0.031], [0.0, 0.031], [0.022, -0.022], [0.022, 0.022],
+                        [0, 0], [0, 0], [0.031, 0.0], [0.031, 0.0]])
+        self.states = np.zeros((n, 4), np.float32)
+        self.states[:, 0:2] = origin + path_start[role] + off[role]
+        d = goal[role] - path_start[role]
+        self.states[:, 2] = np.arctan2(d[:, 1], d[:, 0])
+        self.vels = np.zeros((n, 3), np.float32)
+        self.wall = role >= 6
+        self.states[self.wall, 3] = self.vels[self.wall, 0] = wall_speed
+        self.paths = [np.stack([origin[i] + path_start[role[i]], origin[i] + goal[role[i]]])
+                      for i in range(n)]
+        self.walls = np.concatenate([origin + (8.0, 0.0), origin + (21.0, 0.0)], 1)
+        self.walls[g % 2 == 0] = (0.0, 1e4, 1.0, 1e4)  # out of range
+        self.boxed = n - 1
+        self.movers = self.states[:, 0:2] + (-6.0, 0.0)
+        self.mover_vel = np.array([0.0, 0.5])
+        self.min_pair = self._min_pair(self.states)
+
+    @staticmethod
+    def _min_pair(states):
+        d = np.hypot(states[:, None, 0] - states[None, :, 0],
+                     states[:, None, 1] - states[None, :, 1])
+        return float(d[~np.eye(len(states), dtype=bool)].min())
+
+    def inputs(self):
+        ranges, angles = _cast_walls(self.states, self.walls)
+        ranges[self.boxed] = 0.5
+        tracked = None
+        if self.tracked:
+            tracked = np.full((len(self.states), self.tracked, 4), np.nan, np.float32)
+            tracked[:, 0, 0:2] = self.movers
+            tracked[:, 0, 2:4] = self.mover_vel
+        return self.states, self.vels, ranges, angles, tracked
+
+    def _step(self, s, vx, vy, om):
+        c, sn = np.cos(s[:, 2]), np.sin(s[:, 2])
+        s[:, 0] += DT * (vx * c - vy * sn)
+        s[:, 1] += DT * (vx * sn + vy * c)
+        s[:, 2] += DT * om
+        s[:, 3] = np.hypot(vx, vy)
+
+    def advance(self, out):
+        """Integrate the (not-found and safety gated) commands one step."""
+        cmd = [out[k].astype(np.float32) for k in ("vx", "vy", "omega")]
+        self._step(self.states, *cmd)
+        self.vels = np.stack(cmd, 1)
+        self.movers += DT * self.mover_vel
+        self.min_pair = min(self.min_pair, self._min_pair(self.states))
+
+    def advance_ticks(self, out, k):
+        """The k-tick loop's trajectories, integrated from its commands
+        (for the closest approach), then its final states."""
+        s = self.states.astype(np.float64).copy()
+        for t in range(k):
+            self._step(s, *(out[key][:, t] for key in ("vx", "vy", "omega")))
+            self.min_pair = min(self.min_pair, self._min_pair(s))
+        self.states = out["final_states"].astype(np.float32).copy()
+        self.vels = np.stack([out[key][:, -1] for key in ("vx", "vy", "omega")],
+                             1).astype(np.float32)
+        self.movers += k * DT * self.mover_vel
+
+
+def make_peer_fleet(device, backend="xla", predict=True, robots=None,
+                    wall_gap=WALL_GAP, wall_speed=0.0, tracked=FLEET_TRACKED):
+    """A DeviceFleet of PeerDrive's scene with peers (and prediction),
+    ``tracked`` slots and the safety gate; ``backend`` for its tick and
+    its k-tick loop. Returns (fleet, drive)."""
+    from kompass_core_tpu_torch.control import DWAConfig
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
+        RobotGeometry, RobotType,
+    )
+    from kompass_core_tpu_torch.ops.fleet_solver import make_fleet_tick
+    from kompass_core_tpu_torch.parallel import DeviceFleet
+    from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
+
+    n = FLEET_ROBOTS if robots is None else robots
+    robot_list = [Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+                        geometry_type=RobotGeometry.Type.CYLINDER,
+                        geometry_params=np.array([PEER_RADIUS, 0.4])) for _ in range(n)]
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=VX_MAX, max_acc=1.5, max_decel=2.5),
+        omega_limits=AngularCtrlLimits(max_vel=1.5, max_acc=3.0, max_decel=3.0),
+    )
+    config = DWAConfig(max_linear_samples=SAMPLES, max_angular_samples=SAMPLES,
+                       prediction_horizon=HORIZON, control_horizon=CONTROL_HORIZON,
+                       control_time_step=DT)
+    fleet = DeviceFleet(robot_list, limits, config, RAYS, tracked_obstacles=tracked,
+                        peer_avoidance=True, peer_ring_points=PEER_RING,
+                        peer_prediction=predict, safety_config=FleetSafetyConfig(),
+                        device=device)
+    if backend != "xla":
+        fleet.spec = dataclasses.replace(fleet.spec, solver=dataclasses.replace(
+            fleet.spec.solver, backend=backend))
+        fleet._tick_fn = make_fleet_tick(fleet.spec, device, peer_cfg=fleet._peer_cfg,
+                                         safety=True)
+    drive = PeerDrive(n, wall_gap, wall_speed, tracked)
+    fleet.set_paths(drive.paths)
+    solver = fleet.spec.solver
+    assert (fleet._n, solver.num_samples, solver.max_points, solver.seg_size) == (
+        n, *PEER_SHAPE[1:3], PEER_SHAPE[4])
+    assert solver.scan_size == FLEET_SHAPE[3] or not tracked
+    return fleet, drive
+
+
+def _peer_cpu_check(fleet, carry_before, out, tick, ties):
+    """The sampled robots' rows against the port's step on the CPU, fed
+    the same inputs, path, config, carry and safety rows and the peer
+    rows the whole fleet's states give (every operation after the peer
+    set is row-local)."""
+    import torch
+
+    from kompass_core_tpu_torch.ops.fleet_solver import (
+        FleetCarry, FleetConfig, FleetPaths, FleetSafety, _fleet_step, _peer_model,
+        _split_tick_inputs,
+    )
+
+    spec = fleet.spec.solver
+    idx = torch.tensor(PEER_CPU_ROBOTS)
+    inputs = torch.from_numpy(fleet._inputs.copy())
+    states, vels, ranges, tracked = _split_tick_inputs(fleet.spec, inputs)
+    rows, vel, count = _peer_model(spec, fleet._peer_cfg, "cpu")(inputs[:, 0:7])
+    _, cpu = _fleet_step(
+        spec, FleetPaths(*(t.cpu()[idx] for t in fleet._paths)),
+        FleetConfig(*(t.cpu()[idx] for t in fleet._cfg)),
+        FleetCarry(*(t[idx] for t in carry_before)), states[idx], vels[idx],
+        ranges[idx], fleet._angles.cpu()[idx], spec.seg_size, tracked[idx],
+        peers=(rows[idx], None if vel is None else vel[idx], count),
+        safety=FleetSafety(*(t.cpu()[idx] for t in fleet._safety)),
+    )
+    _compare_cpu_rows(out, cpu, PEER_CPU_ROBOTS, tick, ties, exact=("safety_factor",))
+
+
+def _assert_finite(out, where):
+    """Every output column finite, but the cost of a robot that found no
+    admissible sample (+inf: the boxed robot may find none)."""
+    for name, col in out.items():
+        ok = np.isfinite(col)
+        if name == "cost":
+            ok |= ~out["found"]
+        assert ok.all(), f"{where}: {name}"
+
+
+def _launches_made(kernels, before):
+    return {n: c - before[n] for n, c in kernels.launch_counts().items() if c != before[n]}
+
+
+def phase_peers(kernels, device):
+    """Peers, prediction and safety at full width: the 64-robot peer
+    fleet for PEER_TICKS closed-loop single ticks per backend (xla: K3,
+    pallas: K7, pallas_vpu: K8). Every tick launches its kernel once and
+    no host sync; at PEER_CPU_TICKS the rows of PEER_CPU_ROBOTS agree
+    with the CPU; wall robots are slowed (factor < 1), the boxed robot
+    is stopped (factor 0, zero command) on every tick, and no two robots
+    come closer than the sum of their radii. Then a peer fleet without
+    prediction and tracked slots launches the static sweep K1 once per
+    tick. Returns the launches per kernel."""
+    import torch
+
+    launches = {}
+    for backend, key in PEER_FORMS:
+        fleet, drive = make_peer_fleet(device, backend)
+        fleet._tick_fn = sync_guarded(fleet._tick_fn)
+        ties, wall_min, found = [], 1.0, 0
+        for tick in range(PEER_TICKS):
+            before = kernels.launch_counts()
+            carry = [t.cpu() for t in fleet._carry]
+            out = fleet.tick(*drive.inputs()[:4], tracked=drive.inputs()[4])
+            made = _launches_made(kernels, before)
+            assert made == {key: 1}, f"{backend} tick {tick}: launches {made}"
+            _assert_finite(out, f"{backend} tick {tick}")
+            if tick in PEER_CPU_TICKS:
+                _peer_cpu_check(fleet, carry, out, tick, ties)
+            b = drive.boxed
+            assert out["safety_factor"][b] == 0.0, f"tick {tick}: boxed robot not stopped"
+            assert out["vx"][b] == out["vy"][b] == out["omega"][b] == 0.0
+            wall_min = min(wall_min, float(out["safety_factor"][drive.wall][:-1].min()))
+            found += int(out["found"].sum())
+            drive.advance(out)
+        launches[key] = PEER_TICKS
+        torch.cuda.synchronize()
+        log(f"peers + prediction + safety ({backend}, {key}): {FLEET_ROBOTS} robots x "
+            f"{PEER_TICKS} ticks, {PEER_ROWS} + {PEER_SHAPE[4]} rows per sweep; "
+            f"sync-checked ticks {fleet._tick_fn.calls}; found {found}/"
+            f"{FLEET_ROBOTS * PEER_TICKS}; closest pair {drive.min_pair:.3f} m "
+            f"(radii sum {2 * PEER_RADIUS}); wall robots' min safety factor "
+            f"{wall_min:.4f}; boxed robot stopped every tick; CPU-checked rows "
+            f"{len(PEER_CPU_TICKS) * len(PEER_CPU_ROBOTS)}, ties {ties}")
+        assert fleet._tick_fn.calls == PEER_TICKS
+        assert drive.min_pair > 2 * PEER_RADIUS, f"{backend}: robots collided"
+        assert wall_min < 1.0, f"{backend}: no wall robot was slowed"
+        del fleet
+    fleet, drive = make_peer_fleet(device, "xla", predict=False, tracked=0)
+    for tick in range(PEER_STATIC_TICKS):
+        before = kernels.launch_counts()
+        out = fleet.tick(*drive.inputs()[:4], tracked=drive.inputs()[4])
+        assert _launches_made(kernels, before) == {"K1": 1}, "peers without prediction"
+        drive.advance(out)
+    launches["K1"] = PEER_STATIC_TICKS
+    log(f"peers without prediction or tracked slots: {PEER_STATIC_TICKS} ticks, one "
+        f"static sweep (K1) each; closest pair {drive.min_pair:.3f} m")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_peer_ticks(kernels, device):
+    """The k = 8 loop with peers, prediction and safety per backend:
+    TICKS_CALLS closed-loop calls of ``run_ticks_on_device`` (one graph
+    per k), each replay equal to the eager loop bit for bit; the wall
+    robots start TICKS_WALL_GAP from their wall at TICKS_WALL_SPEED and
+    are slowed (factor below 1) and then stopped (command below 0.05 m/s)
+    inside the loop; no two robots come closer than the sum of their
+    radii. Returns the launches per kernel, counted as ``phase_ticks``
+    counts them."""
+    import torch
+
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+
+    launches = {}
+    for backend, key in PEER_FORMS:
+        fleet, drive = make_peer_fleet(device, backend, wall_gap=TICKS_WALL_GAP,
+                                       wall_speed=TICKS_WALL_SPEED)
+        counted, slowed, factors = 0, False, []
+        for call in range(TICKS_CALLS):
+            inputs = drive.inputs()
+            fleet._prepare_tick_inputs(*inputs)
+            carry, outs, final = _ticks_eager(fleet, TICKS_K, device)
+            before = kernels.launch_counts()
+            out = fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
+            made = _launches_made(kernels, before)
+            assert made == ({key: 2 * TICKS_K} if call == 0 else {}), (
+                f"{backend} call {call}: wrapper calls {made}")
+            counted += made.get(key, 0)
+            for i, name in enumerate(OUT_FIELDS):
+                want = outs[:, :, i].cpu().numpy()
+                assert np.array_equal(out[name].astype(np.float32), want), (
+                    f"{backend} call {call}: {name} replay != eager")
+            assert np.array_equal(out["final_states"], final.cpu().numpy())
+            assert all(torch.equal(a, b) for a, b in zip(fleet._carry, carry))
+            _assert_finite(out, f"{backend} call {call}")
+            wall = out["safety_factor"][drive.wall]
+            slowed |= bool((wall < 1.0).any())
+            factors.append(wall)
+            drive.advance_ticks(out, TICKS_K)
+        assert list(fleet.tick_graphs) == [TICKS_K], "one graph per k"
+        launches[key] = counted + (TICKS_CALLS - 1) * (counted // 2)
+        last_vx = np.abs(out["vx"][drive.wall, -1])
+        log(f"k-tick loop with peers + prediction + safety ({backend}, {key}): "
+            f"{TICKS_CALLS} calls of k={TICKS_K}, graph replay == eager loop bit for "
+            f"bit; closest pair {drive.min_pair:.3f} m; the first wall robot's safety factor "
+            f"per tick {np.concatenate([f[0] for f in factors]).round(4).tolist()}; "
+            f"their last |vx| max {last_vx.max():.4f} m/s")
+        assert slowed, f"{backend}: no wall robot slowed inside the loop"
+        assert last_vx.max() < 0.05, f"{backend}: a wall robot did not stop"
+        assert drive.min_pair > 2 * PEER_RADIUS, f"{backend}: robots collided"
+        del fleet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _peer_width_case(gen, device, moving):
+    """A sweep's inputs at the peer width: 64 robots x 2025 x 30 points
+    against the scan bucket (768 rows) and 576 peer rows, each robot's
+    own 9 at the 1e8 pad with zero velocity, + 384 segment rows."""
+    B, S, T, O, G = PEER_SHAPE
+    px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, B, S, T, O, G)
+    block = PEER_RING + 1
+    for b in range(B):
+        own = slice(FLEET_SHAPE[3] + b * block, FLEET_SHAPE[3] + (b + 1) * block)
+        obs[b, own], vel[b, own] = 1e8, 0.0
+    return (px, py, obs, vel, dt, sx, sy) if moving else (px, py, obs, sx, sy)
+
+
+def _sweep_args(case, ap, moving):
+    if moving:
+        px, py, obs, vel, dt, sx, sy = case
+        return px, py, obs, vel, dt, sx, sy, ap
+    px, py, obs, sx, sy = case
+    return px, py, obs, sx, sy, ap
+
+
+def _plain_sweep(kernels, key, wrapper):
+    """The plain version of a sweep wrapper, with the wrapper's arguments."""
+    if key != "K3":
+        return getattr(kernels, wrapper + "_reference")
+
+    def plain(px, py, obs, vel, dt, sx, sy, ap):
+        return kernels.fused_min_dist_sq_reference(px, py, obs, sx, sy, ap, vel, dt)
+
+    return plain
+
+
+def phase_peer_sweeps_vs_plain(kernels, device):
+    """K1, K3, K6, K7 and K8 against their plain versions at the peer
+    width, bit for bit, with mixed active steps. Returns each one's max
+    abs difference."""
+    import torch
+
+    gen = torch.Generator().manual_seed(13)
+    B, S, T, O, G = PEER_SHAPE
+    errs = {}
+    for key, wrapper, moving in PEER_SWEEPS:
+        case = _peer_width_case(gen, device, moving)
+        ap = torch.randint(2, T + 1, (B,), generator=gen, dtype=torch.int32).to(device)
+        args = _sweep_args(case, ap, moving)
+        got = getattr(kernels, wrapper)(*args)
+        want = _plain_sweep(kernels, key, wrapper)(*args)
+        torch.cuda.synchronize()
+        errs[key] = _check_equal(f"{key} at the peer width", got, want)
+        log(f"{key} ({wrapper}) == plain at the peer width: B={B}, {S}x{T} vs {O}+{G} rows")
+        del case, args, got, want
+    return errs
+
+
+def phase_peer_sweep_times(kernels, device, card):
+    """Each sweep against its plain version at the peer width, in turns,
+    over PEER_SWEEP_INPUTS distinct inputs, beside its bound."""
+    import torch
+
+    gen = torch.Generator().manual_seed(14)
+    B, S, T, O, G = PEER_SHAPE
+    ap = torch.full((B,), T, dtype=torch.int32, device=device)
+    results = {}
+    for key, wrapper, moving in PEER_SWEEPS:
+        cases = [_peer_width_case(gen, device, moving) for _ in range(PEER_SWEEP_INPUTS)]
+        inputs = [_sweep_args(c, ap, moving) for c in cases]
+        k_ms, p_ms, runs = _in_turns(getattr(kernels, wrapper),
+                                     _plain_sweep(kernels, key, wrapper), inputs, warm=1)
+        if key in ("K1", "K3"):
+            b_ms, b_by = sweep_bound(cases[0][0], O, ap, segments=G, moving=moving)
+        else:
+            b_ms, b_by = form_bound(cases[0][0], O, ap, G, *FORM_OPS[key], moving=moving)
+        log(f"{wrapper} ({key}) at the peer width B={B}, {S}x{T} vs {O}+{G} rows "
+            f"({card}), CUDA events over {PEER_SWEEP_INPUTS} distinct inputs, in turns "
+            f"{runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms "
+            f"({b_by}), {b_ms / k_ms:.1%} of it")
+        results[key] = (k_ms, p_ms, b_ms, b_by)
+        del cases, inputs
+    return results
+
+
+def _time_peer_fleet(device, card):
+    """The peer fleet's tick (xla, prediction, safety, 8 tracked slots):
+    host clock over FLEET_TIMED_TICKS closed-loop ticks after 10 warm-up
+    ticks; returns (median, p99) ms."""
+    import torch
+
+    fleet, drive = make_peer_fleet(device)
+    lat = []
+    for i in range(TIMED_WARMUP + FLEET_TIMED_TICKS):
+        inputs = drive.inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fleet.tick(*inputs[:4], tracked=inputs[4])  # ends in the output copy
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        if i >= TIMED_WARMUP:
+            lat.append(dt_ms)
+        drive.advance(out)
+    lat.sort()
+    p99 = lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
+    log(f"fleet tick with peers + prediction + safety, {FLEET_ROBOTS} robots, "
+        f"{FLEET_TRACKED} tracked slots ({card}): host clock over {len(lat)} ticks "
+        f"median {statistics.median(lat):.4f} ms, p99 {p99:.4f} ms, min {lat[0]:.4f}, "
+        f"max {lat[-1]:.4f}")
+    return statistics.median(lat), p99
+
+
+def phase_peer_times(device, card):
+    """The fleet tick and the k = 8 graph per tick with peers, prediction
+    and safety, beside the same run's no-peer fleet (8 tracked slots)."""
+    import torch
+
+    plain = _time_fleet(device, FLEET_TRACKED, card)
+    peers = _time_peer_fleet(device, card)
+    rows = {}
+    for name in ("no peers", "peers + prediction + safety"):
+        if name == "no peers":
+            fleet, lanes, circles = make_fleet(device, FLEET_TRACKED)
+            drive = FleetDrive(lanes, circles, FLEET_TRACKED)
+        else:
+            fleet, drive = make_peer_fleet(device)
+        inputs = drive.inputs()
+        fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])  # capture
+        call = _median_ms(lambda: fleet.run_ticks_on_device(
+            TICKS_K, *inputs[:4], tracked=inputs[4]), TICKS_TIMED)
+        replay = fleet.tick_graphs[TICKS_K].graph.replay
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TICKS_TIMED):
+            replay()
+        stop.record()
+        torch.cuda.synchronize()
+        rows[name] = (call[0] / TICKS_K, start.elapsed_time(stop) / TICKS_TIMED / TICKS_K)
+        del fleet
+    log(f"peers + prediction + safety vs no peers ({card}), xla, {FLEET_ROBOTS} robots: "
+        f"fleet tick median {peers[0]:.4f} / p99 {peers[1]:.4f} ms against "
+        f"{plain[0]:.4f} / {plain[1]:.4f} ms; k={TICKS_K} graph per tick (call, "
+        f"replay alone) {rows['peers + prediction + safety'][0]:.4f}, "
+        f"{rows['peers + prediction + safety'][1]:.4f} ms against "
+        f"{rows['no peers'][0]:.4f}, {rows['no peers'][1]:.4f} ms")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2498,6 +3086,24 @@ def main() -> int:
         f"{form_launches}")
     assert all(form_launches.get(key) for key in ("K3", "K6", "K7", "K8"))
     phase_ticks_cpu(device)
+    phase_emergency(device)
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    peer_launches = phase_peers(kernels, device)
+    peer_ticks = phase_peer_ticks(kernels, device)
+    counted = {k: c for k, c in kernels.launch_counts().items() if c}
+    # the wrappers also ran the k-tick phase's eager reference loops, k per
+    # call, and its capture, which launches nothing; its replays launch
+    # without a wrapper (phase_peer_ticks counts them)
+    assert counted == {k: peer_launches.get(k, 0)
+                       + (2 + TICKS_CALLS) * TICKS_K * (k in peer_ticks)
+                       for k in set(peer_launches) | set(peer_ticks)}, counted
+    for key, n in peer_ticks.items():
+        peer_launches[key] = peer_launches.get(key, 0) + n
+    log(f"peer path main-path launches: {peer_launches} (wrapper calls, the eager "
+        f"reference loops included: {counted})")
+    assert all(peer_launches.get(key) for key in ("K1", "K3", "K7", "K8"))
+    peer_errs = phase_peer_sweeps_vs_plain(kernels, device)
     phase_times(kernels, device, card)
     static_times = phase_static_times(kernels, device, card)
     k3_times = phase_fleet_times(kernels, device, card)
@@ -2505,6 +3111,8 @@ def main() -> int:
     k4_times = phase_solver_times(kernels, device, card)
     form_times = phase_tpu_forms_times(kernels, device, card)
     phase_ticks_times(device, card)
+    phase_peer_sweep_times(kernels, device, card)
+    phase_peer_times(device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -2521,24 +3129,26 @@ def main() -> int:
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [
-        row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES, k1_launches,
-            k1_err, *static_times["K1"]),
+        row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
+            k1_launches + peer_launches["K1"], max(k1_err, peer_errs["K1"]),
+            *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches, k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
-            k3_launches, k3_err, *k3_times),
+            k3_launches + peer_launches["K3"], max(k3_err, peer_errs["K3"]), *k3_times),
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES, k4_launches,
             k4_err, *k4_times),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
             *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
-            form_launches["K6"], form_errs["K6"], *form_times["K6"]),
+            form_launches["K6"], max(form_errs["K6"], peer_errs["K6"]),
+            *form_times["K6"]),
         row("fused_min_dist_sq_moving_expanded", KERNEL_SOURCE,
-            MOVING_EXPANDED_REPLACES, form_launches["K7"], form_errs["K7"],
-            *form_times["K7"]),
+            MOVING_EXPANDED_REPLACES, form_launches["K7"] + peer_launches["K7"],
+            max(form_errs["K7"], peer_errs["K7"]), *form_times["K7"]),
         row("fused_min_dist_sq_moving_broadcast", KERNEL_SOURCE,
-            MOVING_BROADCAST_REPLACES, form_launches["K8"], form_errs["K8"],
-            *form_times["K8"]),
+            MOVING_BROADCAST_REPLACES, form_launches["K8"] + peer_launches["K8"],
+            max(form_errs["K8"], peer_errs["K8"]), *form_times["K8"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

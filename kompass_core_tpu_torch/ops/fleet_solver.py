@@ -12,6 +12,8 @@ axis:
     tracked-segment windowing     (dwa.cpp:208-233)
     dynamic window + rollout + costs + argmin   (ops/solver.dwa_solve)
     rotate-in-place shortcut      (corrected sign, see PARITY.md #7)
+    peer avoidance                (every other robot as an obstacle disc)
+    critical-zone safety gate     (critical_zone_check.cpp:87-119)
 
 with a small per-robot carry (closest index, segment index, goal
 distance, reached flag). The JAX package ``vmap``s a one-robot step and
@@ -26,15 +28,18 @@ builds a tensor from host data. So a tick, and the k-tick loop
 (``make_fleet_ticks_on_device``), can be captured as a CUDA graph
 (``parallel/fleet_v2.py``).
 
-Not ported yet (ROADMAP items 5c-5g; they raise ``NotImplementedError``
-naming each): peers, the fused safety gate, the split mover sweep, BOX
-fleets and the mesh.
+Peers ride the robot's sweep as extra obstacle rows after the scan
+bucket (``_peer_model``); the safety gate is plain tensor code after the
+solve (``FleetSafety``). Not ported yet (ROADMAP items 5e-5g; they raise
+``NotImplementedError`` naming each): the split mover sweep, BOX fleets
+and the mesh.
 """
 
 import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .kernels import _sqrt
@@ -119,6 +124,108 @@ class FleetConfig(NamedTuple):
     curvature_tol: torch.Tensor  # [N]
     vx_max: torch.Tensor  # [N]
     max_segment_size: torch.Tensor  # [N] i32 (lookahead floor, points)
+
+
+class FleetSafety(NamedTuple):
+    """Per-robot critical-zone data of the safety-gated fleet tick.
+
+    The reference stack runs its ``CriticalZoneChecker`` as a separate
+    per-tick call beside the controller; here the masked-min factor gates
+    every command inside the tick, including every tick of the k-tick
+    loop, which would otherwise run its k commands with no safety check.
+    The beam trig and cone masks come from the same ``CriticalZoneSpec``
+    the standalone checker uses; ``half_cone`` drives the world-point
+    cone test of the k-tick loop, where the robot has moved off the
+    tick-0 scan pose."""
+
+    cos_a: torch.Tensor  # [N, R] f32, sensor-frame beam trig (host f64 cos)
+    sin_a: torch.Tensor  # [N, R]
+    fwd_mask: torch.Tensor  # [N, R] bool, forward critical cone
+    bwd_mask: torch.Tensor  # [N, R] bool
+    sensor_c: torch.Tensor  # [N] f32, cos / sin of the sensor yaw (host f64)
+    sensor_s: torch.Tensor  # [N]
+    radius: torch.Tensor  # [N] f32, robot surface radius
+    crit: torch.Tensor  # [N] f32, critical (stop) distance
+    slow: torch.Tensor  # [N] f32, slowdown distance
+    half_cone: torch.Tensor  # [N] f32, wrapped half-cone angle (rad)
+
+
+def build_fleet_safety(zone_specs, n_rows: int, scan_rays: int,
+                       device) -> FleetSafety:
+    """Stack per-robot ``CriticalZoneSpec``s into padded fleet tensors on
+    ``device``. Rows past ``len(zone_specs)`` (fleet pads) get all-False
+    masks: their factor is identically 1.0."""
+    R = scan_rays
+    cos_a = np.zeros((n_rows, R), np.float32)
+    sin_a = np.zeros((n_rows, R), np.float32)
+    fwd = np.zeros((n_rows, R), bool)
+    bwd = np.zeros((n_rows, R), bool)
+    sc = np.ones(n_rows, np.float32)
+    ss = np.zeros(n_rows, np.float32)
+    rad = np.zeros(n_rows, np.float32)
+    crit = np.zeros(n_rows, np.float32)
+    slow = np.ones(n_rows, np.float32)
+    half = np.zeros(n_rows, np.float32)
+    for i, z in enumerate(zone_specs):
+        if len(z.cos_angles) != R:
+            raise ValueError(
+                f"zone spec {i} has {len(z.cos_angles)} beams; fleet scan "
+                f"grid has {R} — build the zone with the fleet's angle grid"
+            )
+        cos_a[i] = z.cos_angles
+        sin_a[i] = z.sin_angles
+        fwd[i] = z.forward_mask
+        bwd[i] = z.backward_mask
+        sc[i] = np.cos(z.sensor_yaw)
+        ss[i] = np.sin(z.sensor_yaw)
+        rad[i] = z.robot_radius
+        crit[i] = z.critical_distance
+        slow[i] = z.slowdown_distance
+        half[i] = z.half_cone
+    return FleetSafety(*(torch.tensor(a, device=device) for a in
+                         (cos_a, sin_a, fwd, bwd, sc, ss, rad, crit, slow, half)))
+
+
+def _band_factor(safety: FleetSafety, dist):
+    """clip((dist - crit) / (slow - crit), 0, 1) per robot row [N, R]: the
+    band is a device tensor, so the card divides as the CPU does."""
+    denom = safety.slow - safety.crit
+    return torch.clamp((dist - safety.crit[:, None]) / denom[:, None], 0.0, 1.0)
+
+
+def _safety_factor_scan(safety: FleetSafety, ranges, sensor_xy, forward):
+    """Beam-mask slowdown factor [N] of scans [N, R] (sensor offset
+    sensor_xy [N, 2], forward [N] bool): the JAX fleet's operations in its
+    order, each rounded on its own, the root correctly."""
+    x = ranges * safety.cos_a
+    y = ranges * safety.sin_a
+    c, s = safety.sensor_c[:, None], safety.sensor_s[:, None]
+    bx = (c * x - s * y) + sensor_xy[:, 0:1]
+    by = (s * x + c * y) + sensor_xy[:, 1:2]
+    dist = _sqrt(bx * bx + by * by) - safety.radius[:, None]
+    factor = _band_factor(safety, dist)
+    mask = torch.where(forward[:, None], safety.fwd_mask, safety.bwd_mask)
+    factor = torch.where(mask & torch.isfinite(ranges), factor, 1.0)
+    return torch.amin(factor, dim=-1)
+
+
+def _safety_factor_world(safety: FleetSafety, obs_world, x, y, yaw, forward):
+    """World-point slowdown factor [N] for the k-tick loop: the robot has
+    moved off the tick-0 scan pose, so the cone test runs on each frozen
+    world obstacle point's bearing [N, O] in the CURRENT body frame (pad
+    points at 1e8 are trivially clear). Equals the beam form at the
+    tick-0 pose for a centered sensor; with a translated sensor the beam
+    preset evaluates the cone on translated UNIT beam directions
+    (reference preset quirk) while this form uses the true bearings."""
+    dx = obs_world[..., 0] - x[:, None]
+    dy = obs_world[..., 1] - y[:, None]
+    bearing = torch.abs(torch.remainder(
+        torch.atan2(dy, dx) - yaw[:, None] + math.pi, 2.0 * math.pi) - math.pi)
+    half = safety.half_cone[:, None]
+    in_cone = torch.where(forward[:, None], bearing <= half,
+                          bearing >= math.pi - half)
+    factor = _band_factor(safety, _sqrt(dx * dx + dy * dy) - safety.radius[:, None])
+    return torch.amin(torch.where(in_cone, factor, 1.0), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -262,12 +369,29 @@ def _fleet_step(
     seg_capacity: int,
     tracked=None,  # [N, M, 4] (x, y, vx, vy) tracked moving objects, world
     obs_world=None,  # [N, scan_size, 2] world obstacles (the k-tick loop)
+    peers=None,  # (rows [N, P, 2], velocities [N, P, 2] or None, count)
+    safety: FleetSafety = None,  # the fused critical-zone gate
 ):
     """Every robot's full control tick on the device: (carry', out [N, 10])
     with the columns of ``OUT_FIELDS``. ``obs_world``: the scan already
     converted to world obstacles (the k-tick loop converts it once, at
     the tick-0 pose); as in the JAX package, every slot of that bucket
-    then counts as an obstacle point for the obstacle cost's gate."""
+    then counts as an obstacle point for the obstacle cost's gate.
+
+    ``peers`` (fleet mutual avoidance, ``_peer_model``): every other robot
+    as a disc of points, appended after the scan bucket in the same
+    sweep (collision pruning and the obstacle cost both see them);
+    ``count`` real peer points join the obstacle cost's gate. With
+    velocities (peer prediction) the points move within the rollout.
+
+    ``safety``: the emergency-stop gate (``FleetSafety``). The slowdown
+    factor scales the linear command and a factor of 0 zeroes the whole
+    twist; the cone follows the sign of the commanded vx (0 checks the
+    forward cone). The single tick checks the scan by its beam masks,
+    the k-tick loop the frozen world points against the current pose.
+    Peers and tracked movers stay out of it: avoidance owns their
+    spacing, and a stop against them would freeze the robot in their
+    path."""
     (params12, limits9, sensor_pose, rot_in_place, goal_tol, ori_tol,
      losing_tol, interp_dist, base_h, curv_tol, vx_max, max_seg_size) = cfg
     x, y, yaw = states[:, 0], states[:, 1], states[:, 2]
@@ -326,12 +450,11 @@ def _fleet_step(
         obs, R = obs_world, obs_world.shape[1]
     obs_count = torch.full_like(goal_i, min(R, spec.scan_size))
     scan_len = obs.shape[1]
-    obs_vel = None
+    m_rows = 0
     if tracked is not None:
         # positions ride the scan bucket's guaranteed-pad TAIL slots (the
-        # fleet sizes scan_size >= rays + M); velocities ride a per-row
-        # block that is zero for every scan row. Pad slots sit at
-        # x >= 1e7 with zero velocity and are not counted
+        # fleet sizes scan_size >= rays + M); pad slots sit at x >= 1e7
+        # with zero velocity and are not counted
         m_rows = tracked.shape[1]
         if ranges.shape[1] + m_rows > scan_len:
             raise ValueError(
@@ -340,11 +463,23 @@ def _fleet_step(
             )
         obs = torch.cat([obs[:, : scan_len - m_rows], tracked[:, :, 0:2]], 1)
         obs_count = obs_count + (tracked[:, :, 0] < 1e7).sum(-1).to(torch.int32)
-        if spec.moving_obstacles:
-            obs_vel = torch.cat(
-                [obs.new_zeros(obs.shape[0], scan_len - m_rows, 2),
-                 tracked[:, :, 2:4]], 1,
-            )
+    peer_vel = None
+    if peers is not None:
+        peer_rows, peer_vel, peer_count = peers
+        obs = torch.cat([obs, peer_rows], 1)
+        obs_count = obs_count + peer_count
+    obs_vel = None
+    if spec.moving_obstacles and (tracked is not None or peer_vel is not None):
+        # per-row velocities in the rows' order: zero for the scan, the
+        # tracked slots' own, then the peers' (zero on a robot's own
+        # block, and without prediction)
+        vel_parts = [obs.new_zeros(obs.shape[0], scan_len - m_rows, 2)]
+        if tracked is not None:
+            vel_parts.append(tracked[:, :, 2:4])
+        if peers is not None:
+            vel_parts.append(torch.zeros_like(peer_rows) if peer_vel is None
+                             else peer_vel)
+        obs_vel = torch.cat(vel_parts, 1)
 
     # --- tracked segment window (dwa.cpp:208-233) ---
     # path rows are seg_capacity wider than the path capacity (host pads),
@@ -390,6 +525,23 @@ def _fleet_step(
     cmd_vy = torch.where(go, cmd_vy, 0.0)
     cmd_w = torch.where(go, cmd_w, 0.0)
 
+    # --- fused critical-zone gate (critical_zone_check.cpp:87-119) ---
+    if safety is None:
+        safety_factor = torch.ones_like(cmd_vx)  # shape-stable output
+    else:
+        forward = cmd_vx >= 0.0
+        if obs_world is None:
+            # single tick: the scan is current, the beam form
+            safety_factor = _safety_factor_scan(safety, ranges,
+                                                sensor_pose[:, 0:2], forward)
+        else:
+            # k-tick loop: the frozen world points against the current pose
+            safety_factor = _safety_factor_world(safety, obs_world, x, y, yaw,
+                                                 forward)
+        cmd_vx = cmd_vx * safety_factor
+        cmd_vy = cmd_vy * safety_factor
+        cmd_w = torch.where(safety_factor <= 0.0, 0.0, cmd_w)
+
     new_carry = FleetCarry(cidx, new_seg, pos, new_goal_dist, now_reached)
     out = torch.stack(
         [
@@ -403,8 +555,7 @@ def _fleet_step(
             heading_error,
             active_points.to(torch.float32),
             res.num_admissible.to(torch.float32),
-            # 1.0: no safety gate (shape-stable output)
-            torch.ones_like(cmd_vx),
+            safety_factor,
         ],
         dim=-1,
     )
@@ -451,9 +602,33 @@ def _check_fleet_spec(fleet_spec: FleetSpec) -> None:
     _check_tracked_spec(fleet_spec)
 
 
-def _split_tick_inputs(fleet_spec: FleetSpec, inputs):
+def _check_peer_cfg(fleet_spec: FleetSpec, peer_cfg) -> None:
+    """peer_cfg['predict'] without the moving sweep would silently fall
+    back to frozen live-position peers (prediction off, no error).
+    DeviceFleet couples the flags; direct composers get this guard."""
+    if (
+        peer_cfg is not None
+        and peer_cfg.get("predict")
+        and not fleet_spec.solver.moving_obstacles
+    ):
+        raise ValueError(
+            "peer_cfg['predict']=True requires "
+            "solver.moving_obstacles=True — without the moving sweep "
+            "the peer discs would be swept at frozen positions and "
+            "prediction silently dropped"
+        )
+
+
+def _split_tick_inputs(fleet_spec: FleetSpec, inputs, safety: bool = False,
+                       safety_arg=None):
     """The packed tick input ``[N, 7 + R (+ 4M)]`` -> (states [N, 4],
-    vels [N, 3], ranges [N, R], tracked [N, M, 4] or None)."""
+    vels [N, 3], ranges [N, R], tracked [N, M, 4] or None). A program
+    built with ``safety`` refuses to run without its ``FleetSafety``: a
+    silent factor of 1 would be unsafe."""
+    if safety and safety_arg is None:
+        raise ValueError(
+            "tick program built with safety=True requires a FleetSafety arg"
+        )
     width = inputs.shape[1]
     M = fleet_spec.tracked_obstacles
     states = inputs[:, 0:4]
@@ -465,28 +640,124 @@ def _split_tick_inputs(fleet_spec: FleetSpec, inputs):
     return states, vels, ranges, tracked
 
 
-def make_fleet_tick(fleet_spec: FleetSpec, device):
+def _gather_peer_state(mesh, sv):
+    """The peer-state layout of both peer programs: the [N, 7]
+    state + velocity block -> ([N, 4] states, [N, 3] vels, N). Off the
+    mesh it is a split (views); the mesh form, one all-gather per tick,
+    is not ported (ROADMAP item 5g)."""
+    if mesh is not None:
+        _not_ported("the peer state's all-gather on a mesh", "5g")
+    return sv[:, 0:4], sv[:, 4:7], sv.shape[0]
+
+
+def _peer_points_builder(peer_cfg, n_rows: int, device):
+    """The peer-avoidance point set of ``n_rows`` fleet rows on
+    ``device``: (fn(states [N, 4]) -> [N * block, 2] world points,
+    fn(states, vels [N, 3]) -> [N * block, 2] world velocities, block,
+    count). Each robot is its center plus ``ring`` points on its
+    circumscribed circle; rows past ``n_real`` (pads) sit at the 1e8 pad
+    with zero velocity. ``count``: the real peer points one robot sees."""
+    ring = int(peer_cfg["ring"])
+    n_real = int(peer_cfg["n_real"])
+    radii = torch.tensor(np.asarray(peer_cfg["radii"], np.float32)[:n_rows],
+                         device=device)
+    ang = np.linspace(0.0, 2.0 * np.pi, ring, endpoint=False)
+    ring_dirs = torch.tensor(np.stack([np.cos(ang), np.sin(ang)], axis=1),
+                             dtype=torch.float32, device=device)
+    valid = (torch.arange(n_rows, device=device) < n_real)[:, None, None]
+
+    def build(states):
+        centers = states[:, None, 0:2]
+        pts = torch.cat(
+            [centers, centers + radii[:, None, None] * ring_dirs[None]], dim=1
+        )
+        return torch.where(valid, pts, _PAD).reshape(-1, 2)
+
+    def build_vel(states, vels):
+        """Every point of robot j's disc carries j's commanded velocity
+        rotated into the world frame (a pad must not march)."""
+        cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])
+        vw = torch.stack([vels[:, 0] * cy - vels[:, 1] * sy,
+                          vels[:, 0] * sy + vels[:, 1] * cy], dim=1)
+        per_pt = vw[:, None, :].expand(n_rows, 1 + ring, 2)
+        return torch.where(valid, per_pt, 0.0).reshape(-1, 2)
+
+    block = 1 + ring
+    return build, build_vel, block, max(n_real - 1, 0) * block
+
+
+def _peer_model(spec: SolverSpec, peer_cfg, device):
+    """fn(sv [N, 7] state + velocity block) -> ``_fleet_step``'s
+    ``peers``: the fleet's peer points as every robot's own rows
+    [N, N * block, 2], its own block masked to the pad, with their
+    velocities when the fleet predicts peers. The constant
+    tensors (copied from the host) are built here for N = len(radii), the
+    fleet's rows, so a tick neither waits for a copy nor breaks a graph
+    capture; another N builds its own on its first call."""
+    predict = bool(peer_cfg.get("predict") and spec.moving_obstacles)
+    built = {}
+
+    def constants(n):
+        build, build_vel, block, count = _peer_points_builder(peer_cfg, n, device)
+        slot = torch.arange(n * block, device=device) // block
+        own = slot[None, :, None] == torch.arange(n, device=device)[:, None, None]
+        built[n] = build, build_vel, count, own
+
+    constants(len(peer_cfg["radii"]))
+
+    def peers(sv):
+        s_g, v_g, n = _gather_peer_state(None, sv)
+        if n not in built:
+            constants(n)
+        build, build_vel, count, own = built[n]
+        # every robot's rows [N, N * block, 2]: the fleet's points, its
+        # own block at the pad (and with zero velocity)
+        rows = torch.where(own, _PAD, build(s_g))
+        vel = torch.where(own, 0.0, build_vel(s_g, v_g)) if predict else None
+        return rows, vel, count
+
+    return peers
+
+
+def make_fleet_tick(fleet_spec: FleetSpec, device, mesh=None, peer_cfg=None,
+                    safety: bool = False):
     """The fleet tick on ``device``:
-    (paths, cfg, carry, angles [N, R], inputs [N, 7 + R (+ 4M)]) ->
+    (paths, cfg, carry, angles [N, R], inputs [N, 7 + R (+ 4M)]
+    [, safety: FleetSafety, when built with safety=True]) ->
     (carry', outputs [N, len(OUT_FIELDS)]), every tensor on ``device``.
 
     ``inputs`` is state | vel | ranges (| tracked): one host-to-device
     copy per tick when given as a host array, none when it already lies
     on the device. Nothing in the tick waits for the device, so the
-    caller's read of the outputs is the tick's one sync. The JAX
-    function's mesh, peer and safety arguments are not ported (ROADMAP
-    items 5g, 5c, 5d)."""
+    caller's read of the outputs is the tick's one sync.
+
+    ``peer_cfg``: fleet mutual avoidance, a dict with ``radii`` (host [N]
+    f32, the circumscribed radius per fleet row, pads included),
+    ``n_real`` (the real robot count), ``ring`` (circumference points per
+    peer) and ``predict`` (peers move at their commanded velocities
+    within the rollout). Each robot sees every other robot as a center
+    point and ``ring`` points on its circle, from this tick's states: the
+    sweep grows by N * (ring + 1) rows per robot. ``safety``: the
+    emergency-stop gate (``FleetSafety``). The mesh form is not ported
+    (ROADMAP item 5g)."""
+    if mesh is not None:
+        _not_ported("make_fleet_tick(mesh=...)", "5g")
     _check_fleet_spec(fleet_spec)
+    _check_peer_cfg(fleet_spec, peer_cfg)
     spec = fleet_spec.solver
     device = torch.device(device)
+    peers = None if peer_cfg is None else _peer_model(spec, peer_cfg, device)
 
     def tick(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
-             inputs):
+             inputs, safety_arg=None):
         inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
-        states, vels, ranges, tracked = _split_tick_inputs(fleet_spec, inputs)
+        states, vels, ranges, tracked = _split_tick_inputs(
+            fleet_spec, inputs, safety, safety_arg)
         return _fleet_step(
             spec, paths, cfg, carry, states, vels, ranges, angles,
             spec.seg_size, tracked,
+            peers=None if peers is None else peers(inputs[:, 0:7]),
+            safety=safety_arg if safety else None,
         )
 
     return tick
@@ -494,42 +765,48 @@ def make_fleet_tick(fleet_spec: FleetSpec, device):
 
 def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
                                mesh=None, peer_cfg=None, safety: bool = False):
-    """K carry-chained control ticks of every robot on ``device``: the
-    JAX package's ``make_fleet_ticks_on_device`` without peers.
+    """K carry-chained control ticks of every robot on ``device``.
 
-    Returns ``(paths, cfg, carry, angles [N, R], inputs [N, 7 + R (+ 4M)])
-    -> (carry', outs [N, k, len(OUT_FIELDS)], final_states [N, 4])``.
-    The scan is converted to world obstacles once, at the tick-0 pose
-    (the static-world assumption of a single solve's rollout); tracked
-    movers advect between ticks, slot positions moved by v * (i * dt) at
-    tick i (pad slots at x >= 1e7 stay put), and within each tick by the
-    moving sweep; each tick applies its first command through the
-    kinematic update of the rollout and feeds the next tick. The speed
-    column of the state is sqrt(vx^2 + vy^2), correctly rounded
-    (``kernels._sqrt``).
+    Returns ``(paths, cfg, carry, angles [N, R], inputs [N, 7 + R (+ 4M)]
+    [, safety]) -> (carry', outs [N, k, len(OUT_FIELDS)], final_states
+    [N, 4])``. The scan is converted to world obstacles once, at the
+    tick-0 pose (the static-world assumption of a single solve's
+    rollout); tracked movers advect between ticks, slot positions moved
+    by v * (i * dt) at tick i (pad slots at x >= 1e7 stay put), and
+    within each tick by the moving sweep; each tick applies its first
+    command through the kinematic update of the rollout and feeds the
+    next tick. The speed column of the state is sqrt(vx^2 + vy^2),
+    correctly rounded (``kernels._sqrt``).
+
+    The loop is fleet-synchronous: every tick solves the whole fleet at
+    once. With ``peer_cfg`` (see ``make_fleet_tick``) each tick re-derives
+    the peer discs from the fleet's current states (and, with
+    prediction, the previous tick's commands), so only the scan world is
+    frozen. With ``safety`` every tick is gated by the world form of the
+    emergency stop against the current pose: a robot integrating toward
+    an obstacle slows and stops inside the loop.
 
     Nothing in it waits for the device or builds a tensor from host
-    data, so the loop can be captured as one CUDA graph
-    (``DeviceFleet.run_ticks_on_device``); given host ``inputs`` it
-    copies them to the device first. The JAX function's mesh, peer and
-    safety forms are not ported (ROADMAP items 5g, 5c, 5d)."""
+    data after its first call, so the loop can be captured as one CUDA
+    graph (``DeviceFleet.run_ticks_on_device``); given host ``inputs`` it
+    copies them to the device first. The mesh form is not ported (ROADMAP
+    item 5g)."""
     if mesh is not None:
         _not_ported("make_fleet_ticks_on_device(mesh=...)", "5g")
-    if peer_cfg is not None:
-        _not_ported("the peer form of the k-tick loop (peer_cfg)", "5c")
-    if safety:
-        _not_ported("the fused safety gate of the k-tick loop", "5d")
     _check_fleet_spec(fleet_spec)
+    _check_peer_cfg(fleet_spec, peer_cfg)
     if int(k) < 1:
         raise ValueError(f"the k-tick loop needs k >= 1 ticks, got {k}")
     k = int(k)
     spec = fleet_spec.solver
     device = torch.device(device)
+    peers = None if peer_cfg is None else _peer_model(spec, peer_cfg, device)
 
     def ticks(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
-              inputs):
+              inputs, safety_arg=None):
         inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
-        states, vels, ranges, tracked = _split_tick_inputs(fleet_spec, inputs)
+        states, vels, ranges, tracked = _split_tick_inputs(
+            fleet_spec, inputs, safety, safety_arg)
         obs_world, _ = _scan_to_world_obs(
             spec, ranges, angles, cfg.sensor_pose, states[:, 0], states[:, 1],
             states[:, 2],
@@ -546,6 +823,9 @@ def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
             carry, out = _fleet_step(
                 spec, paths, cfg, carry, states, vels, ranges, angles,
                 spec.seg_size, trk, obs_world=obs_world,
+                peers=(None if peers is None
+                       else peers(torch.cat([states, vels], dim=1))),
+                safety=safety_arg if safety else None,
             )
             vx, vy, om = out[:, 2], out[:, 3], out[:, 4]
             cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])

@@ -17,13 +17,18 @@ replayed after: the counterpart of the JAX package's single jitted
 dispatch, so the host enqueues one graph instead of k ticks' hundreds of
 kernels. On the CPU the same loop runs eagerly.
 
+With ``peer_avoidance`` every robot sees the others as obstacle discs in
+its sweep, re-derived from the fleet's states every tick (inside the
+k-tick loop too); with ``safety_config`` every command passes the
+critical-zone emergency stop on the device.
+
 Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
-peer avoidance and prediction, the safety gate, the split mover sweep,
-BOX robots and the mesh.
+the split mover sweep, BOX robots and the mesh.
 """
 
 import dataclasses
 import logging
+import math
 import time
 from typing import Optional, Sequence
 
@@ -33,13 +38,16 @@ import torch
 from ..datatypes.path import ReferencePath
 from ..models import RobotCtrlLimits, RobotGeometry, RobotType
 from ..control.dwa import DWAConfig, _round_up, segment_capacity
+from ..ops.critical_zone import build_critical_zone
 from ..ops.fleet_solver import (
     OUT_FIELDS,
     FleetCarry,
     FleetConfig,
     FleetPaths,
+    FleetSafety,
     FleetSpec,
     _not_ported,
+    build_fleet_safety,
     make_fleet_tick,
     make_fleet_ticks_on_device,
 )
@@ -51,13 +59,27 @@ _PAD = 1e8
 logger = logging.getLogger("kompass_core_tpu_torch")
 
 
+@dataclasses.dataclass(frozen=True)
+class FleetSafetyConfig:
+    """Critical-zone emergency-stop parameters of the safety-gated fleet
+    tick (the fleet form of ``EmergencyChecker``'s constructor; reference
+    ``CriticalZoneChecker`` preset, ``critical_zone_check.cpp:13-85``).
+    Defaults match the reference's benchmark configuration
+    (``benchmark_runner.cpp:267-311``)."""
+
+    critical_angle_deg: float = 160.0
+    critical_distance: float = 0.3
+    slowdown_distance: float = 0.6
+
+
 @dataclasses.dataclass
 class TickGraph:
     """One captured k-tick loop: the graph, the static tensors it reads
     (``inputs``, ``carry``) and writes (``carry_out``, ``out``: the
     per-tick outputs [N, k * F] then the final states [N, 4]), and the
-    tensors of the fleet it read at capture (``paths``, ``angles``; a
-    new tensor there means a new capture)."""
+    tensors of the fleet it read at capture (``paths``, ``angles`` and
+    the ``safety`` tables, rebuilt with the angle grid; a new tensor there
+    means a new capture)."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: torch.Tensor
@@ -66,6 +88,7 @@ class TickGraph:
     out: torch.Tensor
     paths: FleetPaths
     angles: torch.Tensor
+    safety: Optional[FleetSafety]
 
 
 class DeviceFleet:
@@ -84,19 +107,16 @@ class DeviceFleet:
         dispatch_chunk: int = 64,
         sensor_max_range: float = 10.0,
         peer_avoidance: bool = False,
-        safety_config=None,
+        peer_ring_points: int = 8,
+        safety_config=None,  # FleetSafetyConfig, or one per robot
         tracked_obstacles: int = 0,  # M moving-object slots per robot
-        peer_prediction: bool = False,
+        peer_prediction: bool = False,  # peers advect within the rollout
         split_mover_sweep: bool = False,
         *,
         device,
     ):
         if mesh is not None:
             _not_ported("DeviceFleet(mesh=...)", "5g")
-        if peer_avoidance or peer_prediction:
-            _not_ported("peer_avoidance and peer_prediction", "5c")
-        if safety_config is not None:
-            _not_ported("safety_config (the fused safety gate)", "5d")
         if split_mover_sweep:
             _not_ported("split_mover_sweep", "5e")
         if any(r.geometry_type == RobotGeometry.Type.BOX for r in robots):
@@ -152,7 +172,9 @@ class DeviceFleet:
             seg_size=seg_size,
             drop_samples=bool(config.drop_samples),
             device_window=True,
-            moving_obstacles=tracked_obstacles > 0,
+            # tracked movers and predicted peers ride the sweep at their
+            # constant-velocity positions (the moving sweep)
+            moving_obstacles=tracked_obstacles > 0 or peer_prediction,
         )
         self._tracked = int(tracked_obstacles)
         self.spec = FleetSpec(
@@ -161,7 +183,47 @@ class DeviceFleet:
             max_segments=max_segments,
             tracked_obstacles=self._tracked,
         )
-        self._tick_fn = make_fleet_tick(self.spec, self._device)
+        # fleet mutual avoidance: every robot sees the others as live
+        # obstacle discs (center + circumference ring) in the same sweep
+        # the scan rides; the sweep grows by N * (ring + 1) rows per robot
+        self._peer_cfg = None
+        if peer_prediction and not peer_avoidance:
+            raise ValueError(
+                "peer_prediction requires peer_avoidance=True (it "
+                "advects the peer discs the avoidance path creates)"
+            )
+        if peer_avoidance:
+            self._peer_cfg = {
+                "radii": radius,  # [padded N], pads masked by n_real
+                "n_real": self.num_robots,
+                "ring": int(peer_ring_points),
+                "predict": bool(peer_prediction),
+            }
+        # the emergency stop on the device: every command, each tick of
+        # run_ticks_on_device included, passes the critical-zone gate
+        self._safety_cfgs = None
+        self._safety = None
+        if safety_config is not None:
+            if isinstance(safety_config, FleetSafetyConfig):
+                self._safety_cfgs = [safety_config] * self.num_robots
+            else:
+                self._safety_cfgs = list(safety_config)
+                if len(self._safety_cfgs) != self.num_robots:
+                    raise ValueError(
+                        "safety_config must be one FleetSafetyConfig or "
+                        "one per robot"
+                    )
+            # the zone presets depend on the angle grid: built in
+            # set_scan_angles
+            self._safety_geoms = [
+                (r.geometry_type.value,
+                 np.asarray(r.geometry_params, np.float64))
+                for r in robots
+            ]
+        self._tick_fn = make_fleet_tick(
+            self.spec, self._device, peer_cfg=self._peer_cfg,
+            safety=self._safety_cfgs is not None,
+        )
         self._ticks_fns = {}  # k -> the eager k-tick loop
         self.tick_graphs = {}  # k -> TickGraph (CUDA devices)
         self._scan_rays = scan_rays
@@ -206,6 +268,7 @@ class DeviceFleet:
         if sensor_poses is not None:
             sp = np.asarray(sensor_poses, np.float32)
             sensor[: len(sp)] = sp
+        self._sensor_host = sensor.copy()  # the zone presets' sensor poses
 
         def full(value, dtype=torch.float32):
             return torch.full((N,), value, dtype=dtype, device=self._device)
@@ -248,7 +311,9 @@ class DeviceFleet:
 
     def set_scan_angles(self, angles: np.ndarray):
         """Upload the (usually static) scan angle grid once: [R] for every
-        robot, or [num_robots, R]."""
+        robot, or [num_robots, R]. With a ``safety_config``, also (re)build
+        the per-robot critical-zone presets: the cone masks are per beam,
+        so they live and die with the angle grid."""
         ang = np.asarray(angles, np.float32)
         self._angles_src = ang.copy()
         if ang.ndim == 1:
@@ -258,6 +323,25 @@ class DeviceFleet:
             a2[: len(ang)] = ang
             ang = a2
         self._angles = self._put(ang)
+        if self._safety_cfgs is not None:
+            specs = []
+            for i, (shape, dims) in enumerate(self._safety_geoms):
+                c = self._safety_cfgs[i]
+                sx, sy, syaw = (float(v) for v in self._sensor_host[i])
+                specs.append(build_critical_zone(
+                    robot_shape_type=shape,
+                    robot_dimensions=dims,
+                    sensor_position_body=(sx, sy, 0.0),
+                    sensor_rotation_body=(
+                        0.0, 0.0, math.sin(syaw / 2.0), math.cos(syaw / 2.0)
+                    ),
+                    critical_angle_deg=c.critical_angle_deg,
+                    critical_distance=c.critical_distance,
+                    slowdown_distance=c.slowdown_distance,
+                    angles=np.asarray(ang[i], np.float64),
+                ))
+            self._safety = build_fleet_safety(specs, self._n, self._scan_rays,
+                                              self._device)
 
     # ------------------------------------------------------------------
 
@@ -497,7 +581,8 @@ class DeviceFleet:
 
     def _prepare_tick_inputs(self, states, vels, ranges, angles, tracked):
         """Per-tick host assembly: (re)upload the angle grid when it
-        actually changes, and fill the packed input matrix in place."""
+        actually changes, and fill the packed input matrix in place.
+        Returns the tick programs' trailing safety argument, if any."""
         if self._paths is None or self._carry is None:
             raise RuntimeError(
                 "call set_paths() before ticking — the fleet has no "
@@ -514,13 +599,16 @@ class DeviceFleet:
         self._inputs[:n, 7 : 7 + R] = np.asarray(ranges, np.float32)
         self._inputs[n:, 7 : 7 + R] = _PAD
         self._write_tracked(tracked)
+        return (self._safety,) if self._safety is not None else ()
 
     def ticks_fn(self, k: int):
         """The fleet's eager k-tick loop (``make_fleet_ticks_on_device``),
         built once per k."""
         if k not in self._ticks_fns:
-            self._ticks_fns[k] = make_fleet_ticks_on_device(self.spec, k,
-                                                            self._device)
+            self._ticks_fns[k] = make_fleet_ticks_on_device(
+                self.spec, k, self._device, peer_cfg=self._peer_cfg,
+                safety=self._safety_cfgs is not None,
+            )
         return self._ticks_fns[k]
 
     def _capture(self, k: int) -> TickGraph:
@@ -530,7 +618,8 @@ class DeviceFleet:
         fn = self.ticks_fn(k)
         inputs = torch.tensor(self._inputs, device=self._device)
         carry = FleetCarry(*(t.clone() for t in self._carry))
-        args = (self._paths, self._cfg, carry, self._angles, inputs)
+        safety = (self._safety,) if self._safety is not None else ()
+        args = (self._paths, self._cfg, carry, self._angles, inputs, *safety)
         side = torch.cuda.Stream(self._device)
         side.wait_stream(torch.cuda.current_stream(self._device))
         with torch.cuda.stream(side):
@@ -541,14 +630,15 @@ class DeviceFleet:
             carry_out, outs, final = fn(*args)
             out = torch.cat([outs.flatten(1), final], dim=1)
         return TickGraph(graph, inputs, carry, carry_out, out, self._paths,
-                         self._angles)
+                         self._angles, self._safety)
 
     def _replay(self, k: int):
         """(carry', the [N, k * F + 4] output matrix) of one replay of the
         k-tick graph, captured anew when the fleet's path tables or angle
-        grid are new tensors."""
+        grid (and with it the safety tables) are new tensors."""
         for key, old in list(self.tick_graphs.items()):
-            if old.paths is not self._paths or old.angles is not self._angles:
+            if (old.paths is not self._paths or old.angles is not self._angles
+                    or old.safety is not self._safety):
                 del self.tick_graphs[key]  # stale: free its memory first
         g = self.tick_graphs.get(k)
         if g is None:
@@ -567,7 +657,11 @@ class DeviceFleet:
         (static-world assumption over the k-tick span); tracked movers
         advect at their velocities; the robot state is integrated on the
         device through the same kinematic update the rollout uses,
-        assuming the commands execute faithfully. On a CUDA device the k
+        assuming the commands execute faithfully. With ``peer_avoidance``
+        the loop is fleet-synchronous: each tick re-derives the peers'
+        discs from the fleet's current states, so only the scan world is
+        frozen; with a ``safety_config`` every tick is gated against the
+        frozen world points from the current pose. On a CUDA device the k
         ticks run as one CUDA graph (captured on the first call for each
         k, and again after ``set_paths``, ``load_state_dict`` or a new
         angle grid); on the CPU eagerly.
@@ -579,13 +673,13 @@ class DeviceFleet:
         k = int(k)
         if k < 1:
             raise ValueError(f"run_ticks_on_device needs k >= 1, got {k}")
-        self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
+        safety = self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
         if self._device.type == "cuda":
             self._carry, out = self._replay(k)
         else:
             self._carry, outs, final = self.ticks_fn(k)(
                 self._paths, self._cfg, self._carry, self._angles,
-                torch.from_numpy(self._inputs.copy()),
+                torch.from_numpy(self._inputs.copy()), *safety,
             )
             out = torch.cat([outs.flatten(1), final], dim=1)
         out_np = out[: self.num_robots].cpu().numpy()  # one copy out
@@ -609,10 +703,10 @@ class DeviceFleet:
         at its constant-velocity predicted position.
         Returns a dict of numpy arrays per robot (``OUT_FIELDS``)."""
         t0 = time.perf_counter()
-        self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
+        safety = self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
         inputs = torch.tensor(self._inputs, device=self._device)  # one copy in
         self._carry, out_mat = self._tick_fn(
-            self._paths, self._cfg, self._carry, self._angles, inputs
+            self._paths, self._cfg, self._carry, self._angles, inputs, *safety
         )
         out_np = out_mat[: self.num_robots].cpu().numpy()  # one copy out
         out = {k: out_np[:, i] for i, k in enumerate(OUT_FIELDS)}

@@ -621,7 +621,7 @@ def test_k8_at_zero_velocity_equals_k6_and_segments_are_k2_k6(cuda):
     torch.testing.assert_close(k7z[0], k2[0], rtol=2e-4, atol=1e-4)
 
 
-def _small_fleet(device, tracked):
+def _small_fleet(device, tracked, **kw):
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
@@ -638,7 +638,7 @@ def _small_fleet(device, tracked):
     config = DWAConfig(max_linear_samples=12, max_angular_samples=12,
                        prediction_horizon=20, control_horizon=2)
     fleet = DeviceFleet(robots, limits, config, 128, path_capacity=1024,
-                        max_segments=16, tracked_obstacles=tracked, device=device)
+                        max_segments=16, tracked_obstacles=tracked, device=device, **kw)
     fleet.set_paths([np.array([[0.0, 2.0 * i], [6.0, 2.0 * i]]) for i in range(4)])
     rng = np.random.default_rng(3)
     states = np.zeros((4, 4), np.float32)
@@ -694,5 +694,109 @@ def test_k_tick_graph_replay_equals_the_eager_loop(cuda, tracked):
     for key in ("found", "reached", "num_admissible", "active_points"):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-4)
+    np.testing.assert_allclose(got["final_states"], want["final_states"],
+                               rtol=1e-5, atol=1e-6)
+
+
+# --- the emergency stop, the safety gate and peers (items 5c, 5d) -------------
+
+
+def test_critical_zone_checker_on_card_matches_cpu(cuda):
+    """The checker on the card equals the CPU bit for bit: 360-ray scans
+    with NaN and inf returns, beams at the critical and at the slowdown
+    distance, a centered and a translated, rotated sensor and the
+    360-degree cone, both directions."""
+    import math
+
+    from kompass_core_tpu_torch.ops import critical_zone as cz
+
+    rng = np.random.default_rng(4)
+    angles = np.linspace(0, 2 * np.pi, 360, endpoint=False)
+    for cone, pos, yaw in ((160.0, (0.0, 0.0), 0.0), (120.0, (0.1, -0.05), 0.7),
+                           (360.0, (0.0, 0.0), 0.0)):
+        spec = cz.build_critical_zone("CYLINDER", [0.3, 0.4], [*pos, 0.0],
+                                      [0.0, 0.0, math.sin(yaw / 2), math.cos(yaw / 2)],
+                                      cone, 0.3, 0.6, angles)
+        checks = [cz.get_critical_zone_checker(spec, d) for d in (cuda, "cpu")]
+        for case in range(6):
+            ranges = rng.uniform(0.35, 2.0, 360).astype(np.float32)
+            ranges[rng.random(360) < 0.05] = np.nan
+            ranges[7] = np.inf
+            if case % 3 == 1:
+                ranges[::9] = np.float32(0.6)  # radius + critical distance
+            elif case % 3 == 2:
+                ranges = np.maximum(ranges, 0.9)  # radius + slowdown distance
+                ranges[::9] = np.float32(0.9)
+            for forward in (True, False):
+                got, want = (check(ranges, forward) for check in checks)
+                assert got.device.type == "cuda"
+                assert torch.equal(got.cpu(), want), (cone, case, forward)
+
+
+def _peer_inputs(inputs):
+    """_small_fleet's inputs with one return 0.55 m ahead of each robot
+    (inside the slowdown band of the default zone)."""
+    states, vels, ranges, angles, trk = inputs
+    ranges = ranges.copy()
+    ranges[:, 64] = 0.55  # angle 0 of the [-pi, pi) grid
+    return states, vels, ranges, angles, trk
+
+
+@pytest.mark.parametrize("predict,kernel", [(False, "K1"), (True, "K3")])
+def test_peer_safety_fleet_tick_on_card_matches_cpu(cuda, predict, kernel):
+    """Four robots with peers (with and without prediction) and the safety
+    gate: the tick on the card and on the CPU gives the same found,
+    num_admissible and safety factor, the command (or a tie) and the cost
+    within rel 1e-4; one sweep launch, static without prediction."""
+    from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
+
+    kw = dict(peer_avoidance=True, peer_prediction=predict,
+              safety_config=FleetSafetyConfig())
+    (gpu_fleet, inputs), (cpu_fleet, _) = (_small_fleet(d, 0, **kw) for d in (cuda, "cpu"))
+    inputs = _peer_inputs(inputs)
+    before = kernels.launch_counts()
+    gpu, cpu = (f.tick(*inputs[:4]) for f in (gpu_fleet, cpu_fleet))
+    made = {k: c - before[k] for k, c in kernels.launch_counts().items() if c != before[k]}
+    assert made == {kernel: 1}
+    for key in ("found", "reached", "num_admissible", "active_points", "safety_factor"):
+        np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=key)
+    assert (gpu["safety_factor"] < 1.0).all()
+    np.testing.assert_allclose(gpu["cost"], cpu["cost"], rtol=1e-4)
+    cmd_g = np.stack([gpu[k] for k in ("vx", "vy", "omega")], 1)
+    cmd_c = np.stack([cpu[k] for k in ("vx", "vy", "omega")], 1)
+    for r in np.flatnonzero((cmd_g != cmd_c).any(1)):
+        assert abs(gpu["cost"][r] - cpu["cost"][r]) <= 1e-6 * abs(cpu["cost"][r]), r
+
+
+def test_k_tick_graph_replay_with_peers_and_safety(cuda):
+    """The peer, prediction and safety k-tick loop on the card: the
+    replayed graph equals the eager loop bit for bit, and the card agrees
+    with the CPU run of the same loop."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+    from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
+
+    kw = dict(peer_avoidance=True, peer_prediction=True,
+              safety_config=FleetSafetyConfig())
+    fleet, inputs = _small_fleet(cuda, 2, **kw)
+    inputs = _peer_inputs(inputs)
+    carry0 = [t.clone() for t in fleet._carry]
+    fleet._prepare_tick_inputs(*inputs)
+    eager = fleet.ticks_fn(6)(fleet._paths, fleet._cfg, type(fleet._carry)(*carry0),
+                              fleet._angles, torch.tensor(fleet._inputs, device=cuda),
+                              fleet._safety)
+    out = fleet.run_ticks_on_device(6, *inputs[:4], tracked=inputs[4])
+    for i, f in enumerate(OUT_FIELDS):
+        np.testing.assert_array_equal(out[f].astype(np.float32),
+                                      eager[1][:4, :, i].cpu().numpy(), err_msg=f)
+    np.testing.assert_array_equal(out["final_states"], eager[2][:4].cpu().numpy())
+    assert (out["safety_factor"] < 1.0).any()
+    cpu, _ = _small_fleet("cpu", 2, **kw)
+    card, _ = _small_fleet(cuda, 2, **kw)
+    got = card.run_ticks_on_device(4, *inputs[:4], tracked=inputs[4])
+    want = cpu.run_ticks_on_device(4, *inputs[:4], tracked=inputs[4])
+    for key in ("found", "reached", "num_admissible", "active_points"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-4)
+    np.testing.assert_allclose(got["safety_factor"], want["safety_factor"], atol=1e-6)
     np.testing.assert_allclose(got["final_states"], want["final_states"],
                                rtol=1e-5, atol=1e-6)

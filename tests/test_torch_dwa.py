@@ -264,15 +264,19 @@ def test_device_is_required_and_explicit():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(NotImplementedError, match="item 5g"):
         DeviceFleet([to_port(_robot())], to_port(_limits()),
                     _config(4, 0.0, cls=DWAConfig), scan_rays=16,
-                    peer_avoidance=True, device="cpu")
+                    peer_avoidance=True, mesh=object(), device="cpu")
     box = to_port(_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)))
     with pytest.raises(NotImplementedError, match="item 5f"):
         DeviceFleet([box], to_port(_limits()), _config(4, 0.0, cls=DWAConfig),
                     scan_rays=16, device="cpu")
-    # what no longer raises: BOX robots, custom costs, the debug search
+    # what no longer raises: peers, BOX robots, custom costs, the debug
+    # search
+    DeviceFleet([to_port(_robot())], to_port(_limits()),
+                _config(4, 0.0, cls=DWAConfig), scan_rays=16,
+                peer_avoidance=True, device="cpu")
     dwa = DWA(robot=box, ctrl_limits=to_port(_limits()), device="cpu")
     dwa.add_custom_cost(1.0, lambda vel, px, py, ap: px[..., -1] * 0.0)
     with pytest.raises(ValueError, match="No debugging samples"):

@@ -47,6 +47,7 @@ from kompass_core_tpu_torch.ops.fleet_solver import (
     make_fleet_ticks_on_device,
 )
 from kompass_core_tpu_torch.parallel import DeviceFleet
+from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
 
 from test_torch_host_modules import to_port
 
@@ -241,16 +242,26 @@ def test_device_is_required_and_explicit():
     "kw,item",
     [(dict(mesh=object()), "5g"), (dict(peer_avoidance=True), "5c"),
      (dict(peer_avoidance=True, peer_prediction=True), "5c"),
-     (dict(safety_config=object()), "5d"), (dict(split_mover_sweep=True), "5e")],
+     (dict(safety_config=FleetSafetyConfig()), "5d"),
+     (dict(split_mover_sweep=True), "5e")],
 )
 def test_unported_options_raise_naming_their_roadmap_item(kw, item):
+    """The mesh (5g) and the split sweep (5e) raise naming their item;
+    peers (5c) and the safety gate (5d) are ported: the fleet builds and
+    ticks (``test_torch_peers.py``, ``test_torch_safety.py``)."""
+    if item in ("5c", "5d"):
+        fleet = _port(**kw)
+        fleet.set_paths(_lanes())
+        out = fleet.tick(*_start(), _free_ranges(), ANGLES)
+        assert out["found"].all()
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         _port(tracked=2 if "split_mover_sweep" in kw else 0, **kw)
 
 
 def test_unported_box_robots_and_k_tick_loop_raise():
-    """BOX fleets raise naming item 5f; the k-tick loop runs, but its
-    peer, safety and mesh forms raise naming items 5c, 5d and 5g."""
+    """BOX fleets raise naming item 5f; the k-tick loop runs with its peer
+    and safety forms, and its mesh form raises naming item 5g."""
     with pytest.raises(NotImplementedError, match="item 5f"):
         DeviceFleet(*to_port((_robots(geometry=RobotGeometry.Type.BOX,
                                       params=(0.5, 0.3, 0.4)), _limits(1.0))),
@@ -260,10 +271,11 @@ def test_unported_box_robots_and_k_tick_loop_raise():
     states, vels = _start()
     out = fleet.run_ticks_on_device(3, states, vels, _free_ranges(), ANGLES)
     assert out["vx"].shape == (N_ROBOTS, 3)
-    for kw, item in ((dict(peer_cfg={"ring": 8}), "5c"), (dict(safety=True), "5d"),
-                     (dict(mesh=object()), "5g")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            make_fleet_ticks_on_device(fleet.spec, 3, "cpu", **kw)
+    for kw in (dict(peer_cfg={"ring": 8, "n_real": 3, "radii": [0.2] * 3}),
+               dict(safety=True)):
+        make_fleet_ticks_on_device(fleet.spec, 3, "cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 5g"):
+        make_fleet_ticks_on_device(fleet.spec, 3, "cpu", mesh=object())
 
 
 def test_tracked_spec_requires_the_moving_sweep():
