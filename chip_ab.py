@@ -8,12 +8,13 @@ process started in its tree's root that builds and imports that tree's
 kernels and package: the 64-robot fleet tick with 8 tracked movers and
 without, K3 against its plain version, the mapper update (Bayesian and
 plain), K5 against its plain version, the 64-robot Bayesian fleet
-mapper, the 64-scenario fleet solver per backend, K4 and the cost
-evaluator, K1 at its three path shapes and K2 at its two, and the
-64-robot k = 8 loop per tick, replayed and eager, per backend
+mapper, the 64-scenario fleet solver per backend and the cost
+evaluator, the static sweeps at their path shapes (K1 at three, K2, K4
+and K6 at two each), the 64-robot k = 8 loop per tick, replayed and
+eager, per backend, and K6, K7 and K8 at the k-tick loop's shape
 (``phase_fleet_times``, ``phase_mapping_times``,
-``phase_solver_times``, ``phase_static_times`` and
-``phase_ticks_times``). Every turn runs these phases from this script's
+``phase_solver_times``, ``phase_static_times``, ``phase_ticks_times``
+and ``phase_tpu_forms_times``). Every turn runs these phases from this script's
 own ``chip_smoke.py``, one ruler for both trees: they call only the
 package's entry points and the kernels' wrappers. Two versions are
 compared only inside one such call: the card, its power limit and its
@@ -25,8 +26,9 @@ Prints every timing line, tagged with its tree and turn; exits non-zero
 if a turn fails, or when there is no CUDA device.
 
 ``--points`` instead runs ``chip_smoke.phase_points_times`` once in this
-checkout: K1 and K2 at each samples per thread their kernel takes, at
-each of their path shapes, and their host enqueue time per launch.
+checkout: the static sweeps (K1, K2, K4, K6) at each samples per thread
+their kernel takes, at each of their path shapes, and their host enqueue
+time per launch.
 """
 
 import subprocess
@@ -48,10 +50,11 @@ TURN = (
     "ruler.phase_solver_times(kernels, device, card)\n"
     "ruler.phase_static_times(kernels, device, card)\n"
     "ruler.phase_ticks_times(device, card)\n"
+    "ruler.phase_tpu_forms_times(kernels, device, card)\n"
 )
 TIMING_WORDS = ("fleet tick", "fused_min_dist_sq_moving", "update_from_scan",
                 "scan_to_grid_cells", "fleet mapper", "fleet solver", "cost evaluator,",
-                "(K1)", "(K2)", "(K4)", "k-tick loop")
+                "(K1)", "(K2)", "(K4)", "(K6)", "(K7)", "(K8)", "k-tick loop")
 RULER = Path(__file__).resolve().with_name("chip_smoke.py")
 
 

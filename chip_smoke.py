@@ -23,7 +23,7 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
    pad rows, a point on a row, values above 1e18, three segment rows,
    the evaluator's rows, rows past one tile, samples past one block,
    T = 1, 64 robots with mixed active steps) at its own samples per
-   thread and at each one the kernel takes; the batched static sweep
+   thread and at each one the static kernel takes; the batched static sweep
    against per-robot launches; the
    moving sweep (K3's port) at the flagship and fleet shapes, with pad
    rows, ragged tiles, rows past one tile, samples past one block, T = 1,
@@ -61,8 +61,8 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
    bit: K2's port (both sweeps) and K4's port (one sweep, launched over
    the obstacle rows and over the segment rows) at the flagship shapes,
    with pad rows, ragged tiles and a ragged block, and a batch of 64
-   robots against 64 one-robot launches; K2 on phase 3's edge cases at
-   each number of samples per thread.
+   robots against 64 one-robot launches; K2 and K4 on phase 3's edge
+   cases at each number of samples per thread.
 9. The scenario-batched solver slice end to end: ``make_fleet_solver`` on
    ``cuda`` with 64 BASELINE scenarios (``bench.py``'s production serving
    mode), backends ``xla``, ``pallas`` and ``pallas_v1``, 3 distinct
@@ -78,7 +78,8 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     then one ``debug_velocity_search`` on both.
 12. Times: the single-robot tick latency over 220 ticks; K1 at its three
     path shapes (the flagship in drop and truncate mode, 64 robots, the
-    cost evaluator) and K2 at its two (the flagship, 64 robots), each
+    cost evaluator), K2 and K4 at theirs (the flagship, 64 robots) and K6
+    at the flagship and the k-tick loop's 64 robots (768 + 384 rows), each
     against its plain version in turns (CUDA events, back to back, the
     kernels line's times) and by the replay of a CUDA graph of its
     launches (printed beside them), with its samples per thread; the
@@ -88,9 +89,8 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     updates, Bayesian and plain, and its host parts; K5 and its plain
     version at one and at 64 robots over 10 distinct inputs, in turns;
     the 64-robot Bayesian fleet mapper per call; the 64-scenario fleet
-    solver per call and in solves/s for each backend; K4 against its
-    plain version at the flagship and the 64-robot shapes, in turns; the
-    cost evaluator per call. Each kernel's time is printed
+    solver per call and in solves/s for each backend; the cost evaluator
+    per call. Each kernel's time is printed
     beside its bound (the larger of its FP32 operations at 33.5 T
     single-rounded operations/s and its bytes at 3.35 TB/s) and its
     share of it.
@@ -101,7 +101,8 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     ``_fused_kernel_vpu_moving``) at the k-tick loop's shapes (64 robots
     x 2025 x 30 vs 768 + 384 rows) and the moving sweep's edge cases;
     K8 at zero velocity against K6, K7 against K2 within rel 2e-4 / atol
-    1e-4, and their segment fields against K2's and K6's.
+    1e-4, and their segment fields against K2's and K6's; K6 on phase 3's
+    edge cases at each number of samples per thread.
 14. The k-tick loop end to end: the 64-robot fleet, k = 8, through
     ``DeviceFleet.run_ticks_on_device`` (one CUDA graph per k) with
     backends ``xla`` (K3), ``pallas`` (K7) and ``pallas_vpu`` (K8) and 8
@@ -150,7 +151,9 @@ launches: a replay calls no wrapper, so each replay counts the captured
 loop's launches once), and adds the peer path's K1, K3, K7 and K8
 launches (phase 18 counted as phase 14 is). Its times are
 K1, K2 and K4 at the flagship shapes (one robot), K3, K5, K6, K7 and K8
-at 64 robots, all by CUDA events in turns with the plain version.
+at 64 robots, all by CUDA events in turns with the plain version. K1,
+K2, K4 and K6 are one static kernel (``static_min_dist_kernel``); its
+samples per thread come from ``ops/kernels.py::sweep_points``.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -435,9 +438,14 @@ def sass_report(kernels, lib):
     out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                          text=True, check=True, timeout=120).stdout
     (lib.parent / "sass.txt").write_text(out)
-    for func in re.split(r"\n\s*Function : ", out)[1:]:
-        name, body = func.split("\n", 1)
-        name = name.strip()
+    funcs = [func.split("\n", 1) for func in re.split(r"\n\s*Function : ", out)[1:]]
+    names = [name.strip() for name, _ in funcs]
+    filt = cuobjdump.with_name("cu++filt")
+    if filt.exists():  # the template arguments, readable
+        names = subprocess.run([str(filt)], input="\n".join(names), capture_output=True,
+                               text=True, check=True, timeout=60).stdout.splitlines()
+    for name, (_, body) in zip(names, funcs):
+        name = name[:name.rfind("(")] if name.endswith(")") else name  # no parameters
         ops, loops = sass_loops(body)
         line = f"sass: {name}: {len(ops)} instructions"
         loops = [Counter(loop) for loop in loops]
@@ -475,10 +483,13 @@ def phase_kernel_vs_plain(kernels, device):
 
 
 def _static_cases(gen, device):
-    """K1's and K2's edge cases, each a _moving_case (its velocities and
-    steps unused) and its active steps (None: random per robot). Robot 0
-    of the NaN case has NaN and +-inf points and rows, robot 1 none (the
-    fminf path), robot 2 one NaN obstacle row."""
+    """The static kernel's edge cases (K1, K2, K4, K6), each a
+    _moving_case (its velocities and steps unused) and its active steps
+    (None: random per robot). Robot 0 of the NaN case has NaN and +-inf
+    points and rows, robot 1 none (the fminf path), robot 2 one NaN
+    obstacle row. In the case of values above 1e18, robot 0's point
+    (1.2e19, 1.2e19) against its row (1.5e19, -1.5e19) is NaN in the
+    broadcast form alone (inf - inf from finite values)."""
     import torch
 
     S, T, O, G = SLICE_SHAPE
@@ -505,6 +516,8 @@ def _static_cases(gen, device):
                   (*_non_finite(px, py, obs, vel, sx, sy)[:4], dt, sx, sy), T))
     px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, 2, 300, T, O, G)
     px[0, 5, 3], py[0, 9, 9], obs[0, 4, 0], sy[0, 6] = 3e18, -2e19, 5e18, -7e18
+    px[0, 7, 2], py[0, 7, 2] = 1.2e19, 1.2e19
+    obs[0, 9] = torch.tensor([1.5e19, -1.5e19])
     obs[1, 400:] = 2e19
     cases.append(("values above 1e18 (robot 0 scattered, robot 1 obstacle rows)",
                   (px, py, obs, vel, dt, sx, sy), T))
@@ -539,16 +552,32 @@ def _check_nan_equal(name, got, want):
     return err
 
 
+def _static_fields(kernels, wrapper, plain=False):
+    """A static sweep's wrapper (or its plain version) with the fused
+    sweeps' arguments (px, py, obs, sx, sy, ap), returning its fields as a
+    tuple: K4 (``min_dist_sq_expanded``) its one field over ``obs``."""
+    fn = getattr(kernels, wrapper + ("_reference" if plain else ""))
+    if wrapper != "min_dist_sq_expanded":
+        return fn
+
+    def one_field(px, py, obs, sx, sy, ap, **kw):
+        return (fn(px, py, obs, ap, **kw),)
+
+    return one_field
+
+
 def _static_vs_plain(kernels, wrapper, device, seed):
-    """K1 (``fused_min_dist_sq``) or K2 (``fused_min_dist_sq_expanded``)
-    against its plain version on every _static_cases case, at the
-    launch's own samples per thread and at each one forced: bit for bit,
-    NaN where the plain version has it. Returns the max abs error."""
+    """A static sweep (K1 ``fused_min_dist_sq``, K2
+    ``fused_min_dist_sq_expanded``, K4 ``min_dist_sq_expanded``, K6
+    ``fused_min_dist_sq_broadcast``) against its plain version on every
+    _static_cases case, at the launch's own samples per thread and at each
+    one forced: bit for bit, NaN where the plain version has it. Returns
+    the max abs error."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    kernel = getattr(kernels, wrapper)
-    plain = getattr(kernels, wrapper + "_reference")
+    kernel = _static_fields(kernels, wrapper)
+    plain = _static_fields(kernels, wrapper, plain=True)
     err = 0.0
     for name, (px, py, obs, _vel, _dt, sx, sy), active in _static_cases(gen, device):
         B, S, T = px.shape
@@ -559,7 +588,7 @@ def _static_vs_plain(kernels, wrapper, device, seed):
         else:
             ap = torch.full((B,), active, dtype=torch.int32, device=device)
         want = plain(px, py, obs, sx, sy, ap)
-        own = _points_note(kernels, B, S, T, device)
+        own = _points_note(kernels, wrapper, B, S, T, device)
         for points in (None, *kernels.STATIC_POINTS):
             got = kernel(px, py, obs, sx, sy, ap, _points=points)
             torch.cuda.synchronize()
@@ -570,6 +599,9 @@ def _static_vs_plain(kernels, wrapper, device, seed):
         elif name.startswith("a point on") and wrapper == "fused_min_dist_sq":
             # the direct form is exactly +0 there (the expanded form cancels)
             assert float(want[0][0, 3, 5]) == 0.0 and float(want[1][1, 9, 2]) == 0.0
+        elif name.startswith("values"):
+            assert bool(want[0][0, 7, 2].isnan()) == (
+                wrapper == "fused_min_dist_sq_broadcast"), f"{name}: the broadcast NaN"
         if not name.startswith(("NaN", "values")):
             _check_equal(name, want, want, active)  # the mask and d2 >= 0
         log(f"{wrapper} == plain at its own {own} and at each of "
@@ -680,19 +712,19 @@ def bound(ops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def sweep_bound(px, rows, active, segments=0, moving=False, fields=2):
-    """The bound of a min-distance sweep of [B, S, T] points (``px``)
-    against ``rows`` obstacle rows and ``segments`` segment rows per robot,
-    active steps [B] (``active``): 6 FP32 operations per active (point,
-    row) pair (2 sub, 2 mul, add, min), and in the moving sweep 4 per
-    (robot, active step, obstacle row) to move the row; bytes: points,
-    rows (and velocities), ``fields`` outputs per point, once each."""
+def sweep_bound(px, rows, active, segments=0, moving=False):
+    """The bound of a direct-form sweep (K1, K3) of [B, S, T] points
+    (``px``) against ``rows`` obstacle rows and ``segments`` segment rows
+    per robot, active steps [B] (``active``): 6 FP32 operations per active
+    (point, row) pair (2 sub, 2 mul, add, min), and in the moving sweep 4
+    per (robot, active step, obstacle row) to move the row; bytes: points,
+    rows (and velocities), two outputs per point, once each."""
     B, S, T = (1, *px.shape) if px.dim() == 2 else px.shape
     steps = float(active.clamp(max=T).sum()) if active.dim() else float(min(int(active), T))
     pairs = steps * S * (rows + segments)
     ops = 6.0 * pairs + (4.0 * steps * rows if moving else 0.0)
     nbytes = 4.0 * (2 * B * S * T + B * (2 * rows * (2 if moving else 1) + 2 * segments)
-                    + fields * B * S * T)
+                    + 2 * B * S * T)
     return bound(ops, nbytes)
 
 
@@ -788,11 +820,13 @@ def _graph_ms(fn, inputs, replays=2):
     return start.elapsed_time(stop) / (replays * len(inputs))
 
 
-# K1's three path shapes and K2's two, timed by phase_static_times:
-# (kernel, shape, B, S, T, O, G, active steps, distinct inputs). The
-# flagship tick's sweep (drop and truncate mode), the xla / pallas fleet
-# solver's 64 BASELINE scenarios, the cost evaluator's one pad row and
-# 1024 segment slots
+# The static kernel's path shapes, timed by phase_static_times: (kernel,
+# shape, B, S, T, O, G, active steps, distinct inputs). K1: the flagship
+# tick's sweep (drop and truncate mode), the xla fleet solver's 64
+# BASELINE scenarios, the cost evaluator's one pad row and 1024 segment
+# slots; K2 (pallas) and K4 (pallas_v1, one launch per row set: G = 0)
+# at the flagship and the fleet solver's 64 scenarios; K6 (pallas_vpu)
+# at the flagship and the k-tick loop's 64 robots (768 + 384 rows)
 STATIC_TIMED = (
     ("K1", "flagship", 1, 2025, 30, 512, 384, 30, KERNEL_INPUTS),
     ("K1", "flagship, truncated", 1, 2025, 30, 512, 384, 17, KERNEL_INPUTS),
@@ -802,32 +836,55 @@ STATIC_TIMED = (
     ("K2", "flagship", 1, 2025, 30, 512, 384, 30, KERNEL_INPUTS),
     ("K2", f"{SOLVER_ROBOTS} robots", SOLVER_ROBOTS, 2025, 30, 512, 384, 30,
      FLEET_KERNEL_INPUTS),
+    ("K4", "flagship", 1, 2025, 30, 512, 0, 30, KERNEL_INPUTS),
+    ("K4", f"{SOLVER_ROBOTS} robots", SOLVER_ROBOTS, 2025, 30, 512, 0, 30,
+     FLEET_KERNEL_INPUTS),
+    ("K6", "flagship", 1, 2025, 30, 512, 384, 30, KERNEL_INPUTS),
+    ("K6", f"{FLEET_ROBOTS} robots, k-tick loop", *FLEET_SHAPE, 30,
+     FLEET_KERNEL_INPUTS),
 )
-STATIC_WRAPPERS = {"K1": "fused_min_dist_sq", "K2": "fused_min_dist_sq_expanded"}
-# FP32 instructions per pair: K1 2 FADD + 2 FMUL + FADD + min; K2 2 FMUL
-# + FADD + FFMA + min (|o|^2 - 2 cross as one FFMA, exact below 1e18)
-STATIC_PAIR_OPS = {"K1": 6, "K2": 5}
+STATIC_WRAPPERS = {"K1": "fused_min_dist_sq", "K2": "fused_min_dist_sq_expanded",
+                   "K4": "min_dist_sq_expanded", "K6": "fused_min_dist_sq_broadcast"}
+# FP32 instructions per pair: K1 2 FADD + 2 FMUL + FADD + min; K2 and K4
+# 2 FMUL + FADD + FFMA + min (|o|^2 - 2 cross as one FFMA, exact below
+# 1e18); K6 2 FMUL + 2 FADD + min
+STATIC_PAIR_OPS = {"K1": 6, "K2": 5, "K4": 5, "K6": 5}
 
 
-def _points_note(kernels, B, S, T, device):
-    """The samples per thread K1's and K2's launch takes for B robots'
-    [S, T] points on this card (a tree with ``sweep_points``), else "one
-    thread per point"."""
+def _static_inputs(gen, device, key, B, S, T, O, G, active, count):
+    """``count`` distinct inputs of a STATIC_TIMED row, as its wrapper
+    takes them (K4: px, py, rows, ap)."""
     import torch
 
-    if not hasattr(kernels, "sweep_points"):
+    ap = torch.full((B,), active, dtype=torch.int32, device=device)
+    cases = (_moving_case(gen, device, B, S, T, O, G) for _ in range(count))
+    if key == "K4":
+        return [(px, py, obs, ap) for px, py, obs, *_ in cases]
+    return [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in cases]
+
+
+def _points_note(kernels, wrapper, B, S, T, device):
+    """The samples per thread the static kernel's launch of ``wrapper``
+    takes for B robots' [S, T] points on this card (a tree where the
+    wrapper takes ``_points``), else "one thread per point"."""
+    import inspect
+
+    import torch
+
+    if "_points" not in inspect.signature(getattr(kernels, wrapper)).parameters:
         return "one thread per point"
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return f"kPts = {kernels.sweep_points(B, S, T, sms)}"
 
 
 def phase_static_times(kernels, device, card):
-    """K1 at its path shapes and K2 at its own (STATIC_TIMED), each
-    against its plain version in turns by back-to-back CUDA events, and by
-    graph replay (printed beside them: at one robot the sweep takes less
-    time on the card than its wrapper on the host), beside its bound, with
-    the launch's samples per thread. Returns {"K1": (ms, plain ms, bound
-    ms, bound by) at the flagship, "K2": the same}, ms by the events."""
+    """The static sweeps at their path shapes (STATIC_TIMED), each against
+    its plain version in turns by back-to-back CUDA events, and by graph
+    replay (printed beside them: at one robot the sweep takes less time on
+    the card than its wrapper on the host), beside its bound, with the
+    launch's samples per thread. Returns {"K1": (ms, plain ms, bound ms,
+    bound by) at the flagship, "K2", "K4", "K6": the same}, ms by the
+    events."""
     import torch
 
     gen = torch.Generator().manual_seed(2)
@@ -835,16 +892,14 @@ def phase_static_times(kernels, device, card):
     for key, shape, B, S, T, O, G, active, count in STATIC_TIMED:
         wrapper = STATIC_WRAPPERS[key]
         kernel = getattr(kernels, wrapper)
-        ap = torch.full((B,), active, dtype=torch.int32, device=device)
-        inputs = [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in
-                  (_moving_case(gen, device, B, S, T, O, G) for _ in range(count))]
+        inputs = _static_inputs(gen, device, key, B, S, T, O, G, active, count)
         k_ms, p_ms, runs = _in_turns(kernel, getattr(kernels, wrapper + "_reference"),
                                      inputs, warm=min(5, count))
         g_ms = _graph_ms(kernel, inputs)
-        b_ms, b_by = form_bound(inputs[0][0], O, ap, G, STATIC_PAIR_OPS[key],
-                                STATIC_PAIR_OPS[key])
+        b_ms, b_by = form_bound(inputs[0][0], O, inputs[0][-1], G, STATIC_PAIR_OPS[key],
+                                STATIC_PAIR_OPS[key], fields=1 if key == "K4" else 2)
         log(f"{wrapper} ({key}) at the {shape} shape, B={B}, {S}x{T} vs {O}+{G} rows, "
-            f"{active} active steps, {_points_note(kernels, B, S, T, device)} "
+            f"{active} active steps, {_points_note(kernels, wrapper, B, S, T, device)} "
             f"({card}): CUDA events over {count} distinct inputs back to back, in "
             f"turns {runs}: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; graph replay "
             f"{g_ms:.5f} ms per call; bound {b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} "
@@ -871,34 +926,31 @@ def _enqueue_ms(fn, inputs):
 
 
 def phase_points_times(kernels, device, card):
-    """A probe, not a phase of the smoke run (``chip_ab.py --points``): K1
-    and K2 by graph replay at each samples per thread the kernel takes, at
-    each STATIC_TIMED shape (the alternative to sweep_points' choice), and
-    at the flagship each launch's host enqueue time beside K6's (a plain
-    one-thread-per-point launch) at the same shape."""
+    """A probe, not a phase of the smoke run (``chip_ab.py --points``):
+    each static sweep by graph replay at each samples per thread the
+    kernel takes, at each STATIC_TIMED shape (the alternative to
+    sweep_points' choice), and at the flagship each launch's host enqueue
+    time."""
     import torch
 
     gen = torch.Generator().manual_seed(12)
     for key, shape, B, S, T, O, G, active, count in STATIC_TIMED:
         if shape.endswith("truncated"):
             continue
-        kernel = getattr(kernels, STATIC_WRAPPERS[key])
-        ap = torch.full((B,), active, dtype=torch.int32, device=device)
-        inputs = [(px, py, obs, sx, sy, ap) for px, py, obs, _v, _d, sx, sy in
-                  (_moving_case(gen, device, B, S, T, O, G) for _ in range(count))]
+        wrapper = STATIC_WRAPPERS[key]
+        kernel = getattr(kernels, wrapper)
+        inputs = _static_inputs(gen, device, key, B, S, T, O, G, active, count)
         times = {k: _graph_ms(lambda *a, k=k: kernel(*a, _points=k), inputs)
                  for k in kernels.STATIC_POINTS}
-        log(f"{STATIC_WRAPPERS[key]} ({key}) at the {shape} shape by samples per "
+        log(f"{wrapper} ({key}) at the {shape} shape by samples per "
             f"thread, graph replay ms per call ({card}): "
             + ", ".join(f"kPts = {k} {t:.5f}" for k, t in times.items())
-            + f"; the launch takes {_points_note(kernels, B, S, T, device)}")
+            + f"; the launch takes {_points_note(kernels, wrapper, B, S, T, device)}")
         if B == 1 and shape == "flagship":
             enqueue = {f"kPts = {k}": min(_enqueue_ms(
                 lambda *a, k=k: kernel(*a, _points=k), inputs) for _ in range(3))
                 for k in kernels.STATIC_POINTS}
-            enqueue["K6"] = min(_enqueue_ms(kernels.fused_min_dist_sq_broadcast, inputs)
-                                for _ in range(3))
-            log(f"{STATIC_WRAPPERS[key]} ({key}) at the {shape} shape, host enqueue ms "
+            log(f"{wrapper} ({key}) at the {shape} shape, host enqueue ms "
                 f"per call, best of 3 runs of {count} ({card}): "
                 + ", ".join(f"{g} {t:.5f}" for g, t in enqueue.items()))
         del inputs
@@ -1825,7 +1877,8 @@ def _expanded_pair(kernels, px, py, obs, sx, sy, ap, plain=False):
 
 def phase_expanded_vs_plain(kernels, device):
     """K2 and K4 against their plain versions on the same card tensors,
-    bit for bit; K4 over either row set gives K2's field."""
+    bit for bit; K4 over either row set gives K2's field; both on the
+    static kernel's edge cases at each samples per thread."""
     import torch
 
     S, T, O, G = SLICE_SHAPE
@@ -1877,6 +1930,7 @@ def phase_expanded_vs_plain(kernels, device):
         f"{O} + {G} rows")
     errs[0] = max(errs[0], _static_vs_plain(kernels, "fused_min_dist_sq_expanded",
                                             device, 11))
+    errs[1] = max(errs[1], _static_vs_plain(kernels, "min_dist_sq_expanded", device, 15))
     return errs
 
 
@@ -2133,9 +2187,8 @@ def phase_box_dwa(kernels, device):
 
 
 def phase_solver_times(kernels, device, card):
-    """The fleet solver per backend, K4 against its plain version, and
-    the cost evaluator. Returns K4's (ms, plain ms, bound ms, bound by)
-    at one robot."""
+    """The fleet solver per backend and the cost evaluator (K4's own
+    times are phase_static_times')."""
     import torch
 
     from kompass_core_tpu_torch.ops.solver import get_cost_evaluator
@@ -2167,23 +2220,6 @@ def phase_solver_times(kernels, device, card):
             f"calls {chained:.4f} ms per call, {SOLVER_ROBOTS * 1e3 / chained:.1f} "
             f"solves/s; one call with sync median {p50:.4f} ms, p99 {p99:.4f} ms")
 
-    results = {}
-    S, T, O, G = SLICE_SHAPE
-    gen = torch.Generator().manual_seed(7)
-    for robots in (1, SOLVER_ROBOTS):
-        cases = [_moving_case(gen, device, robots, S, T, O, G)
-                 for _ in range(FLEET_KERNEL_INPUTS)]
-        ap = torch.full((robots,), T, dtype=torch.int32, device=device)
-        k4_inputs = [(px, py, obs, ap) for px, py, obs, *_ in cases]
-        k_ms, p_ms, runs = _in_turns(kernels.min_dist_sq_expanded,
-                                     kernels.min_dist_sq_expanded_reference, k4_inputs)
-        b_ms, b_by = sweep_bound(cases[0][0], O, ap, fields=1)
-        results[robots] = (k_ms, p_ms, b_ms, b_by)
-        log(f"min_dist_sq_expanded (K4) at B={robots}, {S}x{T} vs {O} rows ({card}), "
-            f"CUDA events over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
-            f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; bound {b_ms:.5f} ms "
-            f"({b_by}), {b_ms / k_ms:.1%} of it")
-
     params, args = evaluator_inputs(device)
     dev_args = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
     ev = get_cost_evaluator(device, with_obstacles=False)
@@ -2205,7 +2241,6 @@ def phase_solver_times(kernels, device, card):
     log(f"cost evaluator, {S} trajectories x {T} points, {G} segment slots ({card}): "
         f"{start.elapsed_time(stop) / EVAL_TIMED:.4f} ms per call by CUDA events, "
         f"{host:.4f} ms by the host clock, over {EVAL_TIMED} distinct inputs")
-    return results[1]
 
 
 # --- this slice: the TPU kernels' own forms (K6, K7, K8) and the k-tick loop ---
@@ -2225,7 +2260,8 @@ def phase_tpu_forms_vs_plain(kernels, device):
     tensors, bit for bit, at the k-tick loop's shapes and edge cases; K8
     at zero velocity against K6, K7 against K2 (within the expanded
     tolerance: another summation order), and their segment fields
-    against K2's and K6's."""
+    against K2's and K6's; K6 also on the static kernel's edge cases at
+    each samples per thread."""
     import torch
 
     gen = torch.Generator().manual_seed(8)
@@ -2288,6 +2324,8 @@ def phase_tpu_forms_vs_plain(kernels, device):
     log(f"at the path shapes: K8 at zero velocity == K6; K7 at zero velocity vs "
         f"K2 max abs {k7_vs_k2:.3g} m^2 (rel 2e-4 / atol 1e-4); K7's segment field "
         f"== K2's, K8's == K6's")
+    errs["K6"] = max(errs["K6"], _static_vs_plain(kernels, "fused_min_dist_sq_broadcast",
+                                                  device, 16))
     return errs
 
 
@@ -2450,18 +2488,19 @@ def phase_ticks_times(device, card):
 
 
 def form_bound(px, rows, active, segments, pair_ops, seg_ops, row_ops=0.0,
-               moving=False):
+               moving=False, fields=2):
     """The bound of a sweep of [B, S, T] points against ``rows`` obstacle
     and ``segments`` segment rows per robot, active steps [B]: FP32
     instructions per active (point, obstacle row) pair (``pair_ops``), per
     (point, segment row) pair (``seg_ops``) and per (robot, active step,
     obstacle row) (``row_ops``: the moving forms' prefix), an FMA one
-    instruction; bytes as ``sweep_bound``."""
+    instruction; bytes as ``sweep_bound``, with ``fields`` outputs per
+    point (K4 one)."""
     B, S, T = px.shape
     steps = float(active.clamp(max=T).sum())
     ops = steps * S * (pair_ops * rows + seg_ops * segments) + row_ops * steps * rows
     nbytes = 4.0 * (2 * B * S * T + B * (2 * rows * (2 if moving else 1) + 2 * segments)
-                    + 2 * B * S * T)
+                    + fields * B * S * T)
     return bound(ops, nbytes)
 
 
@@ -3108,7 +3147,7 @@ def main() -> int:
     static_times = phase_static_times(kernels, device, card)
     k3_times = phase_fleet_times(kernels, device, card)
     k5_times = phase_mapping_times(kernels, device, card)
-    k4_times = phase_solver_times(kernels, device, card)
+    phase_solver_times(kernels, device, card)
     form_times = phase_tpu_forms_times(kernels, device, card)
     phase_ticks_times(device, card)
     phase_peer_sweep_times(kernels, device, card)
@@ -3137,7 +3176,7 @@ def main() -> int:
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
             k3_launches + peer_launches["K3"], max(k3_err, peer_errs["K3"]), *k3_times),
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES, k4_launches,
-            k4_err, *k4_times),
+            k4_err, *static_times["K4"]),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
             *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,

@@ -15,9 +15,10 @@
 //   K2 static_min_dist_kernel<kExpanded>: the TPU kernel
 //      kompass_core_tpu/ops/pallas_kernels.py:56 _fused_kernel_mxu, both
 //      sweeps in the expanded form (backend "pallas").
-//   K4 fused_min_dist_kernel<kExpanded> with the segment sweep compiled
-//      out: pallas_kernels.py:387 _min_dist_kernel (backend "pallas_v1").
-//   K6 fused_min_dist_kernel<kBroadcast>: pallas_kernels.py:89
+//   K4 static_min_dist_kernel<kExpanded> with the segment sweep compiled
+//      out (kSegments = false): pallas_kernels.py:387 _min_dist_kernel
+//      (backend "pallas_v1").
+//   K6 static_min_dist_kernel<kBroadcast>: pallas_kernels.py:89
 //      _fused_kernel_vpu, both sweeps in the broadcast form (backend
 //      "pallas_vpu").
 //   K3 moving_min_dist_kernel<kDirect>: the XLA form of the moving sweep,
@@ -37,27 +38,25 @@
 // the pair's own arithmetic (the row's shared-memory read, the NaN-keeping
 // min's compares) and keeps enough warps in flight to hide their latency.
 //
-// K4 and K6: one thread per point (fused_min_dist_kernel below),
-// 256-thread blocks over one robot's S*T points; rows are staged through
-// shared memory in tiles of 512 and every thread reads the same row at the
-// same time (a broadcast). The running min lives in a register and is the
-// NaN-keeping min; the ragged last tile and block are masked. About 9
-// instructions per pair, every step swept and masked afterwards.
-//
-// K1 and K2 (static_min_dist_kernel below) take the moving kernels'
-// layout (next paragraph: kPts samples of one step per thread, fminf
-// behind a block-uniform flag, an inactive step swept by nobody), with
-// kPts chosen for the grid in Python (ops/kernels.py::sweep_points): 8
-// where the grid holds two warps per warp scheduler (64 robots, the cost
-// evaluator), else 2. One robot's 2025 x 30 points make 60 blocks of 4
-// warps at kPts = 8, against the H100's 528 warp schedulers, each thread
-// running 896 dependent mins; at kPts = 2 they make 240 blocks, and the
-// sweep stays latency-bound at about 40% of its bound. K1's flag is a
-// non-finite coordinate (K3's rule), K2's a value above 1e18 (K7's rule,
-// since the expanded form makes inf - inf from finite inputs); below
-// that bound 2 * cross is exact, so K2's unflagged pair takes |o|^2 -
-// 2 * cross as one FFMA, bit-identical to the separate multiply and
-// subtract the flagged pair keeps: 5 instructions per pair, K1's 6.
+// The static sweeps K1, K2, K4 and K6 are one kernel
+// (static_min_dist_kernel below) in the moving kernels' layout (next
+// paragraph: kPts samples of one step per thread, fminf behind a
+// block-uniform flag, an inactive step swept by nobody), with kPts chosen
+// for the grid in Python (ops/kernels.py::sweep_points): 8 where the grid
+// holds two warps per warp scheduler (64 robots, the cost evaluator),
+// else 2. One robot's 2025 x 30 points make 60 blocks of 4 warps at kPts
+// = 8, against the H100's 528 warp schedulers, each thread running 896
+// dependent mins; at kPts = 2 they make 240 blocks, and the sweep stays
+// latency-bound at about 40% of its bound. K1's flag is a non-finite
+// coordinate (K3's rule); K2's, K4's and K6's a value above 1e18 (K7's
+// rule, since the expanded forms make inf - inf from finite inputs).
+// Below that bound 2 * cross is exact, so the unflagged expanded pair
+// (K2, K4) takes |o|^2 - 2 * cross as one FFMA, bit-identical to the
+// separate multiply and subtract the flagged pair keeps: 5 instructions
+// per pair, K1's 6. K6's broadcast pair is 2 FMUL, 2 FADD and the min
+// (rounded as the TPU's vector unit rounds it: no FMA to save); each
+// thread holds -2px and -2py of its samples and reads its points again
+// for |p|^2 after the sweeps.
 //
 // The moving kernels (K3, K7, K8: moving_min_dist_kernel below) are laid
 // out for their own work:
@@ -130,9 +129,6 @@
 
 namespace {
 
-constexpr int kBlock = 256;  // threads (= points) per block
-constexpr int kTile = 512;   // rows staged in shared memory per tile
-
 enum Form : int { kDirect = 0, kBroadcast = 1, kExpanded = 2 };
 
 __device__ __forceinline__ float dist_sq(float px, float py, float ox,
@@ -150,102 +146,30 @@ __device__ __forceinline__ float min_nan(float acc, float d) {
   return (d < acc || d != d) ? d : acc;
 }
 
-// One pair of the static expanded (K2) or broadcast (K6) form against a
-// staged row (ox, oy, |o|^2); xd = -2 px and yd = -2 py for the broadcast.
+// A point coordinate as the expanded and broadcast forms' pair takes it:
+// x, or -2x in the broadcast form.
 template <int kForm>
-__device__ __forceinline__ float norm_form(float4 o, float px, float py,
-                                           float xd, float yd) {
-  if constexpr (kForm == kBroadcast) {
-    return __fadd_rn(__fadd_rn(o.z, __fmul_rn(xd, o.x)), __fmul_rn(yd, o.y));
-  } else {
-    const float cross = __fadd_rn(__fmul_rn(o.x, px), __fmul_rn(o.y, py));
-    return __fsub_rn(o.z, __fmul_rn(2.0f, cross));
-  }
+__device__ __forceinline__ float operand(float x) {
+  return kForm == kBroadcast ? __fmul_rn(-2.0f, x) : x;
 }
 
-// Running min of the expanded or broadcast form (without |p|^2) over `n`
-// rows, row i at (xs[i*stride], ys[i*stride]), staged with its |o|^2.
-// Every thread of the block must call it: it stages tiles and
-// synchronises.
+// One pair of the expanded (K2, K4) or broadcast (K6) form, without
+// |p|^2, against a staged row (ox, oy, |o|^2); (a, b) is the point's
+// operand<kForm> pair.
 template <int kForm>
-__device__ float sweep_norm(float px, float py, const float* __restrict__ xs,
-                            const float* __restrict__ ys, int stride, int n,
-                            float4* tile) {
-  const float xd = __fmul_rn(-2.0f, px);
-  const float yd = __fmul_rn(-2.0f, py);
-  float acc = CUDART_INF_F;
-  for (int base = 0; base < n; base += kTile) {
-    const int rows = min(kTile, n - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-      const long long r = static_cast<long long>(base + i) * stride;
-      const float x = xs[r];
-      const float y = ys[r];
-      tile[i] = make_float4(x, y, norm_sq(x, y), 0.0f);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < rows; ++j) {
-      acc = min_nan(acc, norm_form<kForm>(tile[j], px, py, xd, yd));
-    }
+__device__ __forceinline__ float norm_form(float4 o, float a, float b) {
+  if constexpr (kForm == kBroadcast) {
+    return __fadd_rn(__fadd_rn(o.z, __fmul_rn(a, o.x)), __fmul_rn(b, o.y));
+  } else {
+    const float cross = __fadd_rn(__fmul_rn(o.x, a), __fmul_rn(o.y, b));
+    return __fsub_rn(o.z, __fmul_rn(2.0f, cross));
   }
-  return acc;
 }
 
 // The expanded forms' epilogue: + |p|^2, then max(., 0) keeping a NaN.
 __device__ __forceinline__ float finish_expanded(float acc, float pnorm) {
   const float v = __fadd_rn(acc, pnorm);
   return v < 0.0f ? 0.0f : v;
-}
-
-// K4 and K6. One block: kBlock points of robot blockIdx.y. kForm selects
-// the sweep (kExpanded: K4, kBroadcast: K6); kSegments = false compiles
-// the segment sweep out (K4: seg_x, seg_y and out_seg are not read).
-template <int kForm, bool kSegments>
-__global__ void __launch_bounds__(kBlock) fused_min_dist_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    int n_points, int steps, const float* __restrict__ obs, int n_obs,
-    const float* __restrict__ seg_x, const float* __restrict__ seg_y,
-    int n_seg, const int* __restrict__ active_points,
-    float* __restrict__ out_obs, float* __restrict__ out_seg) {
-  static_assert(kForm != kDirect, "the direct form is K1's kernel");
-  __shared__ float4 tile[kTile];
-  const int b = blockIdx.y;
-  const long long point0 = static_cast<long long>(b) * n_points;
-  const long long row0 = static_cast<long long>(b) * n_obs;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = p < n_points;
-  const float x = live ? px[point0 + p] : 0.0f;
-  const float y = live ? py[point0 + p] : 0.0f;
-  const int t = p % steps;
-  float mo = sweep_norm<kForm>(x, y, obs + 2 * row0, obs + 2 * row0 + 1, 2,
-                               n_obs, tile);
-  float ms = 0.0f;
-  if constexpr (kSegments) {
-    const long long seg0 = static_cast<long long>(b) * n_seg;
-    ms = sweep_norm<kForm>(x, y, seg_x + seg0, seg_y + seg0, 1, n_seg, tile);
-  }
-  const float pnorm = norm_sq(x, y);
-  mo = finish_expanded(mo, pnorm);
-  ms = finish_expanded(ms, pnorm);
-  if (live) {
-    const bool active = t < active_points[b];
-    out_obs[point0 + p] = active ? mo : CUDART_INF_F;
-    if (kSegments) out_seg[point0 + p] = active ? ms : CUDART_INF_F;
-  }
-}
-
-template <int kForm, bool kSegments>
-int launch(const float* px, const float* py, int batch, int n_points,
-           int steps, const float* obs, int n_obs, const float* seg_x,
-           const float* seg_y, int n_seg, const int* active_points,
-           float* out_obs, float* out_seg, void* stream) {
-  const dim3 grid((n_points + kBlock - 1) / kBlock, batch);
-  fused_min_dist_kernel<kForm, kSegments>
-      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-          px, py, n_points, steps, obs, n_obs, seg_x, seg_y, n_seg,
-          active_points, out_obs, out_seg);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // --- K3, K7, K8: the moving sweeps ----------------------------------------------
@@ -409,9 +333,8 @@ __device__ __forceinline__ void norm_tile(const StepPoints& p,
     const float4 o = tile[j];
 #pragma unroll
     for (int k = 0; k < kPoints; ++k) {
-      const float d = norm_form<kForm>(o, p.x[k], p.y[k],
-                                       __fmul_rn(-2.0f, p.x[k]),
-                                       __fmul_rn(-2.0f, p.y[k]));
+      const float d = norm_form<kForm>(o, operand<kForm>(p.x[k]),
+                                       operand<kForm>(p.y[k]));
       acc[k] = kKeepNan ? min_nan(acc[k], d) : fminf(acc[k], d);
     }
   }
@@ -549,17 +472,17 @@ int launch_moving(const float* px, const float* py, int batch, int n_points,
   return static_cast<int>(cudaGetLastError());
 }
 
-// --- K1, K2: the static sweeps, several samples of one step per thread ----------
+// --- K1, K2, K4, K6: the static sweeps, several samples of one step per thread ---
 
 constexpr int kStaticBlock = 128;  // threads per block
 constexpr int kStaticTile = 1024;  // rows per staged tile
 
-// A staged row: K1's (x, y); K2's (x, y, |o|^2, unused).
+// A staged row: K1's (x, y); K2's, K4's and K6's (x, y, |o|^2, unused).
 template <int kForm>
 using StaticRow = std::conditional_t<kForm == kDirect, float2, float4>;
 
 // Whether a value of a point or a staged row sets the block's flag: K1 a
-// non-finite coordinate; K2 a value above kTame in magnitude.
+// non-finite coordinate; K2, K4 and K6 a value above kTame in magnitude.
 template <int kForm>
 __device__ __forceinline__ bool flags(float x, float y, float o2) {
   if constexpr (kForm == kDirect) {
@@ -579,27 +502,30 @@ __device__ __forceinline__ bool stage_row(StaticRow<kForm>* tile, int i,
   } else {
     const float o2 = norm_sq(x, y);
     tile[i] = make_float4(x, y, o2, 0.0f);
-    return flags<kExpanded>(x, y, o2);
+    return flags<kForm>(x, y, o2);
   }
 }
 
-// One pair. K2 with the flag clear: every value is at most kTame, so
-// 2 * cross (< 4e36) is exact and |o|^2 - 2 * cross rounds once either
-// way; the FFMA saves the multiply.
+// One pair; (a, b) is the point's operand<kForm> pair. The expanded form
+// with the flag clear: every value is at most kTame, so 2 * cross (<
+// 4e36) is exact and |o|^2 - 2 * cross rounds once either way; the FFMA
+// saves the multiply. With the flag clear the broadcast pair stays below
+// 4e36 + 1e18 too, so no pair is NaN and fminf is the NaN-keeping min.
 template <int kForm, bool kKeepNan, typename Row>
-__device__ __forceinline__ float static_pair(Row o, float px, float py) {
+__device__ __forceinline__ float static_pair(Row o, float a, float b) {
   if constexpr (kForm == kDirect) {
-    return dist_sq(px, py, o.x, o.y);
+    return dist_sq(a, b, o.x, o.y);
+  } else if constexpr (kForm == kExpanded && !kKeepNan) {
+    const float cross = __fadd_rn(__fmul_rn(o.x, a), __fmul_rn(o.y, b));
+    return __fmaf_rn(-2.0f, cross, o.z);
   } else {
-    const float cross = __fadd_rn(__fmul_rn(o.x, px), __fmul_rn(o.y, py));
-    return kKeepNan ? __fsub_rn(o.z, __fmul_rn(2.0f, cross))
-                    : __fmaf_rn(-2.0f, cross, o.z);
+    return norm_form<kForm>(o, a, b);
   }
 }
 
 template <int kForm, int kPts, bool kKeepNan>
-__device__ __forceinline__ void static_tile(const float (&x)[kPts],
-                                            const float (&y)[kPts],
+__device__ __forceinline__ void static_tile(const float (&a)[kPts],
+                                            const float (&b)[kPts],
                                             float (&acc)[kPts],
                                             const StaticRow<kForm>* tile,
                                             int rows) {
@@ -608,7 +534,7 @@ __device__ __forceinline__ void static_tile(const float (&x)[kPts],
     const StaticRow<kForm> o = tile[j];
 #pragma unroll
     for (int k = 0; k < kPts; ++k) {
-      const float d = static_pair<kForm, kKeepNan>(o, x[k], y[k]);
+      const float d = static_pair<kForm, kKeepNan>(o, a[k], b[k]);
       acc[k] = kKeepNan ? min_nan(acc[k], d) : fminf(acc[k], d);
     }
   }
@@ -620,7 +546,7 @@ __device__ __forceinline__ void static_tile(const float (&x)[kPts],
 // min). Every thread of the block must call it: it stages tiles and
 // synchronises.
 template <int kForm, int kPts>
-__device__ void static_rows(const float (&x)[kPts], const float (&y)[kPts],
+__device__ void static_rows(const float (&a)[kPts], const float (&b)[kPts],
                             float (&acc)[kPts], const float* __restrict__ xs,
                             const float* __restrict__ ys, int stride, int n,
                             bool keep_nan, StaticRow<kForm>* tile) {
@@ -637,27 +563,29 @@ __device__ void static_rows(const float (&x)[kPts], const float (&y)[kPts],
     // a barrier that also makes the tile's flag block-uniform
     keep_nan = __syncthreads_or(flag) || keep_nan;
     if (keep_nan) {
-      static_tile<kForm, kPts, true>(x, y, acc, tile, rows);
+      static_tile<kForm, kPts, true>(a, b, acc, tile, rows);
     } else {
-      static_tile<kForm, kPts, false>(x, y, acc, tile, rows);
+      static_tile<kForm, kPts, false>(a, b, acc, tile, rows);
     }
   }
 }
 
 // One block: step t of robot b = blockIdx.y for samples run * kStaticBlock
 // * kPts + threadIdx.x + k * kStaticBlock, with blockIdx.x = t * runs +
-// run. kForm: kDirect (K1) or kExpanded (K2). The launch bound of 7
-// blocks per SM caps a thread at 72 registers, what ptxas gives K1 at kPts
-// = 8 unasked; left to itself it gives K2 64 registers and spills, which
+// run. kForm: kDirect (K1), kExpanded (K2; K4 with kSegments = false,
+// which compiles the segment sweep and its stores out: seg_x, seg_y and
+// out_seg are not read) or kBroadcast (K6). The launch bound of 7 blocks
+// per SM caps a thread at 72 registers, what ptxas gives K1 at kPts = 8
+// unasked; left to itself it gives K2 64 registers and spills, which
 // measured slower on the H100.
-template <int kForm, int kPts>
+template <int kForm, int kPts, bool kSegments>
 __global__ void __launch_bounds__(kStaticBlock, 7) static_min_dist_kernel(
     const float* __restrict__ px, const float* __restrict__ py, int samples,
     int steps, int runs, const float* __restrict__ obs, int n_obs,
     const float* __restrict__ seg_x, const float* __restrict__ seg_y,
     int n_seg, const int* __restrict__ active_points,
     float* __restrict__ out_obs, float* __restrict__ out_seg) {
-  // the staged rows: K1 8 KB, K2 16 KB
+  // the staged rows: K1 8 KB, the others 16 KB
   __shared__ StaticRow<kForm> tile[kStaticTile];
   const int run = blockIdx.x % runs;
   const int t = blockIdx.x / runs;
@@ -670,11 +598,17 @@ __global__ void __launch_bounds__(kStaticBlock, 7) static_min_dist_kernel(
       const int s = s0 + k * kStaticBlock;
       if (s < samples) {
         out_obs[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
-        out_seg[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
+        if constexpr (kSegments) {
+          out_seg[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
+        }
       }
     }
     return;
   }
+  // the samples' operand<kForm> pairs: (px, py), or K6's (-2px, -2py),
+  // loaded into the arrays first and then turned into operands. With the
+  // coordinates in locals instead, ptxas spills in K1 at kPts = 8 and K1
+  // runs 4-8% slower on an H100 (chip_ab.py).
   float x[kPts], y[kPts], mo[kPts], ms[kPts];
   bool flag = false;
 #pragma unroll
@@ -684,6 +618,8 @@ __global__ void __launch_bounds__(kStaticBlock, 7) static_min_dist_kernel(
     x[k] = s < samples ? px[p] : 0.0f;
     y[k] = s < samples ? py[p] : 0.0f;
     flag |= flags<kForm>(x[k], y[k], 0.0f);
+    x[k] = operand<kForm>(x[k]);
+    y[k] = operand<kForm>(y[k]);
     mo[k] = CUDART_INF_F;
     ms[k] = CUDART_INF_F;
   }
@@ -692,8 +628,10 @@ __global__ void __launch_bounds__(kStaticBlock, 7) static_min_dist_kernel(
   const long long seg0 = static_cast<long long>(b) * n_seg;
   static_rows<kForm, kPts>(x, y, mo, obs + 2 * row0, obs + 2 * row0 + 1, 2,
                            n_obs, points_flag, tile);
-  static_rows<kForm, kPts>(x, y, ms, seg_x + seg0, seg_y + seg0, 1, n_seg,
-                           points_flag, tile);
+  if constexpr (kSegments) {
+    static_rows<kForm, kPts>(x, y, ms, seg_x + seg0, seg_y + seg0, 1, n_seg,
+                             points_flag, tile);
+  }
 #pragma unroll
   for (int k = 0; k < kPts; ++k) {
     const int s = s0 + k * kStaticBlock;
@@ -702,14 +640,21 @@ __global__ void __launch_bounds__(kStaticBlock, 7) static_min_dist_kernel(
         const float pnorm = norm_sq(x[k], y[k]);
         mo[k] = finish_expanded(mo[k], pnorm);
         ms[k] = finish_expanded(ms[k], pnorm);
+      } else if constexpr (kForm == kBroadcast) {
+        const long long p = point0 + static_cast<long long>(s) * steps;
+        const float pnorm = norm_sq(px[p], py[p]);
+        mo[k] = finish_expanded(mo[k], pnorm);
+        ms[k] = finish_expanded(ms[k], pnorm);
       }
       out_obs[point0 + static_cast<long long>(s) * steps] = mo[k];
-      out_seg[point0 + static_cast<long long>(s) * steps] = ms[k];
+      if constexpr (kSegments) {
+        out_seg[point0 + static_cast<long long>(s) * steps] = ms[k];
+      }
     }
   }
 }
 
-template <int kForm, int kPts>
+template <int kForm, int kPts, bool kSegments>
 int launch_static_points(const float* px, const float* py, int batch,
                          int samples, int steps, const float* obs, int n_obs,
                          const float* seg_x, const float* seg_y, int n_seg,
@@ -718,14 +663,14 @@ int launch_static_points(const float* px, const float* py, int batch,
   const int per_block = kStaticBlock * kPts;
   const int runs = (samples + per_block - 1) / per_block;
   const dim3 grid(static_cast<unsigned>(runs) * steps, batch);
-  static_min_dist_kernel<kForm, kPts><<<grid, kStaticBlock, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      px, py, samples, steps, runs, obs, n_obs, seg_x, seg_y, n_seg,
-      active_points, out_obs, out_seg);
+  static_min_dist_kernel<kForm, kPts, kSegments>
+      <<<grid, kStaticBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          px, py, samples, steps, runs, obs, n_obs, seg_x, seg_y, n_seg,
+          active_points, out_obs, out_seg);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kForm>
+template <int kForm, bool kSegments = true>
 int launch_static(const float* px, const float* py, int batch, int n_points,
                   int steps, const float* obs, int n_obs, const float* seg_x,
                   const float* seg_y, int n_seg, const int* active_points,
@@ -733,15 +678,13 @@ int launch_static(const float* px, const float* py, int batch, int n_points,
   const int samples = n_points / steps;
   switch (points) {
     case 2:
-      return launch_static_points<kForm, 2>(px, py, batch, samples, steps, obs,
-                                            n_obs, seg_x, seg_y, n_seg,
-                                            active_points, out_obs, out_seg,
-                                            stream);
+      return launch_static_points<kForm, 2, kSegments>(
+          px, py, batch, samples, steps, obs, n_obs, seg_x, seg_y, n_seg,
+          active_points, out_obs, out_seg, stream);
     case 8:
-      return launch_static_points<kForm, 8>(px, py, batch, samples, steps, obs,
-                                            n_obs, seg_x, seg_y, n_seg,
-                                            active_points, out_obs, out_seg,
-                                            stream);
+      return launch_static_points<kForm, 8, kSegments>(
+          px, py, batch, samples, steps, obs, n_obs, seg_x, seg_y, n_seg,
+          active_points, out_obs, out_seg, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -780,35 +723,33 @@ extern "C" int kompass_fused_min_dist_sq_expanded(
                                   out_seg, points, stream);
 }
 
-// K4 and K6 (below) keep the one-thread-per-point kernel; their shapes and
-// return as for kompass_fused_min_dist_sq, without points.
-
 // K6: both sweeps in the broadcast form; arguments as for
 // kompass_fused_min_dist_sq.
 extern "C" int kompass_fused_min_dist_sq_broadcast(
     const float* px, const float* py, int batch, int n_points, int steps,
     const float* obs, int n_obs, const float* seg_x, const float* seg_y,
     int n_seg, const int* active_points, float* out_obs, float* out_seg,
-    void* stream) {
-  return launch<kBroadcast, true>(px, py, batch, n_points, steps, obs, n_obs,
-                                  seg_x, seg_y, n_seg, active_points, out_obs,
-                                  out_seg, stream);
+    int points, void* stream) {
+  return launch_static<kBroadcast>(px, py, batch, n_points, steps, obs, n_obs,
+                                   seg_x, seg_y, n_seg, active_points, out_obs,
+                                   out_seg, points, stream);
 }
 
 // K4: one expanded sweep of [B, S, T] points against rows [B, n_rows, 2]
-// into out [B, S, T].
+// into out [B, S, T]; the rest as for kompass_fused_min_dist_sq.
 extern "C" int kompass_min_dist_sq_expanded(
     const float* px, const float* py, int batch, int n_points, int steps,
     const float* rows, int n_rows, const int* active_points, float* out,
-    void* stream) {
-  return launch<kExpanded, false>(px, py, batch, n_points, steps, rows,
-                                  n_rows, nullptr, nullptr, 0, active_points,
-                                  out, nullptr, stream);
+    int points, void* stream) {
+  return launch_static<kExpanded, false>(px, py, batch, n_points, steps, rows,
+                                         n_rows, nullptr, nullptr, 0,
+                                         active_points, out, nullptr, points,
+                                         stream);
 }
 
 // K3, the moving sweep in the direct form: as kompass_fused_min_dist_sq,
-// plus obs_vel [B, n_obs, 2] (pad rows zero) and dt [B], the per-robot
-// control step.
+// without points, plus obs_vel [B, n_obs, 2] (pad rows zero) and dt [B],
+// the per-robot control step.
 extern "C" int kompass_fused_min_dist_sq_moving(
     const float* px, const float* py, int batch, int n_points, int steps,
     const float* obs, const float* obs_vel, const float* dt, int n_obs,

@@ -34,11 +34,12 @@ runs follows the solver's ``SolverSpec.backend``, as in the JAX package
   products and sums, its segment sweep K6's.
 
 ``csrc/fused_min_dist.cu`` says what each form computes, operation by
-operation, and how each kernel is laid out; K1's and K2's samples per
-thread are ``sweep_points``'. The expanded forms cancel as the coordinates
-grow: their absolute error is a few float32 ulps of |p|^2 + |o|^2, about
-1e-5 m^2 within 10 m of the origin, where the JAX package's scenarios lie
-(``bench.py``), and a hundred times that at 100 m. They are ported as
+operation, and how each kernel is laid out: K1, K2, K4 and K6 are one
+static kernel, whose samples per thread are ``sweep_points``'. The
+expanded forms cancel as the coordinates grow: their absolute error is a
+few float32 ulps of |p|^2 + |o|^2, about 1e-5 m^2 within 10 m of the
+origin, where the JAX package's scenarios lie (``bench.py``), and a
+hundred times that at 100 m. They are ported as
 the TPU kernels compute them; the XLA sweeps (K1, K3) use the direct
 form.
 
@@ -167,21 +168,14 @@ def _library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_library()))
             p, i = ctypes.c_void_p, ctypes.c_int
             for name in ("kompass_fused_min_dist_sq",
-                         "kompass_fused_min_dist_sq_expanded"):
+                         "kompass_fused_min_dist_sq_expanded",
+                         "kompass_fused_min_dist_sq_broadcast"):
                 getattr(lib, name).restype = ctypes.c_int
                 getattr(lib, name).argtypes = [
                     p, p, i, i, i, p, i, p, p, i, p, p, p, i, p,
                 ]
-            lib.kompass_fused_min_dist_sq_moving.restype = ctypes.c_int
-            lib.kompass_fused_min_dist_sq_moving.argtypes = [
-                p, p, i, i, i, p, p, p, i, p, p, i, p, p, p, p,
-            ]
-            for name in ("kompass_fused_min_dist_sq_broadcast",):
-                getattr(lib, name).restype = ctypes.c_int
-                getattr(lib, name).argtypes = [
-                    p, p, i, i, i, p, i, p, p, i, p, p, p, p,
-                ]
-            for name in ("kompass_fused_min_dist_sq_moving_expanded",
+            for name in ("kompass_fused_min_dist_sq_moving",
+                         "kompass_fused_min_dist_sq_moving_expanded",
                          "kompass_fused_min_dist_sq_moving_broadcast"):
                 getattr(lib, name).restype = ctypes.c_int
                 getattr(lib, name).argtypes = [
@@ -189,7 +183,7 @@ def _library() -> ctypes.CDLL:
                 ]
             lib.kompass_min_dist_sq_expanded.restype = ctypes.c_int
             lib.kompass_min_dist_sq_expanded.argtypes = [
-                p, p, i, i, i, p, i, p, p, p,
+                p, p, i, i, i, p, i, p, p, i, p,
             ]
             lib.kompass_scan_to_grid_cells.restype = ctypes.c_int
             lib.kompass_scan_to_grid_cells.argtypes = [
@@ -446,8 +440,8 @@ def min_dist_sq_expanded_reference(px, py, rows, active_points):
 def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None, points=()):
     """Launch ``fn`` of the library on the current stream of the inputs'
     card; returns the output fields (shaped like px; one without segment
-    rows), or raises on a refused launch. ``points``: K1's and K2's
-    samples per thread, as a 1-tuple."""
+    rows), or raises on a refused launch. ``points``: the static
+    kernel's samples per thread, as a 1-tuple."""
     lib = _library()
     B, S, T, O, G, _ = dims
     outs = [torch.empty_like(px) for _ in range(1 if sx is None else 2)]
@@ -465,10 +459,10 @@ def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None, points=()):
     return outs[0] if sx is None else tuple(outs)
 
 
-# K1's and K2's launch (csrc/fused_min_dist.cu, static_min_dist_kernel):
-# threads per block, the samples of one step a thread may hold, and the
-# warps per SM a launch should hold to hide the pair loop's latency: two
-# per warp scheduler
+# the static kernel's launch (K1, K2, K4 and K6: csrc/fused_min_dist.cu,
+# static_min_dist_kernel): threads per block, the samples of one step a
+# thread may hold, and the warps per SM a launch should hold to hide the
+# pair loop's latency: two per warp scheduler
 STATIC_BLOCK = 128
 STATIC_POINTS = (8, 2)
 _TARGET_WARPS_PER_SM = 2 * 4
@@ -482,12 +476,12 @@ def _runs(S, k):
 
 
 def sweep_points(B, S, T, sms):
-    """kPts, the samples per thread of K1's and K2's launch for B robots'
-    [S, T] points on a card of ``sms`` SMs: 8 where the grid of B * T *
-    runs blocks of 4 warps holds two warps per warp scheduler (64 robots,
-    the cost evaluator's 5001 x 1000), else 2, which makes 4 times the
-    blocks (one robot's 2025 x 30: 240 blocks, measured faster than 8 on
-    the H100, PERF.md)."""
+    """kPts, the samples per thread of the static kernel's launch (K1, K2,
+    K4, K6) for B robots' [S, T] points on a card of ``sms`` SMs: 8 where
+    the grid of B * T * runs blocks of 4 warps holds two warps per warp
+    scheduler (64 robots, the cost evaluator's 5001 x 1000), else 2, which
+    makes 4 times the blocks (one robot's 2025 x 30: 240 blocks, measured
+    faster than 8 on the H100, PERF.md)."""
     warps = B * T * _runs(S, 8) * (STATIC_BLOCK // 32)
     return 8 if warps >= _TARGET_WARPS_PER_SM * sms else 2
 
@@ -497,19 +491,34 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _forced_points(name, points):
+    """Check samples per thread a caller forces (``_points``, None for the
+    launch's own) on every device, before any launch or plain version."""
+    if points is not None and points not in STATIC_POINTS:
+        raise ValueError(f"{name}: {points} samples per thread; the kernel "
+                         f"takes {STATIC_POINTS}")
+
+
 def _static_points(name, dims, points, device):
     """The launch's kPts: ``points`` if given (checked), else
     ``sweep_points``' for the card of ``device``; raises where the grid
     would pass the card's limit."""
     B, S, T = dims[:3]
+    _forced_points(name, points)
     if points is None:
         points = sweep_points(B, S, T, _sm_count(device))
-    if points not in STATIC_POINTS:
-        raise ValueError(f"{name}: {points} samples per thread; the kernel "
-                         f"takes {STATIC_POINTS}")
     if _runs(S, points) * T > _MAX_GRID_X:
         raise ValueError(f"{name}: {S} x {T} points need too many blocks")
     return points
+
+
+def _static_launch(name, px, py, rows, seg_x, seg_y, active_points, points):
+    """Check a static sweep's inputs, choose its kPts and launch the
+    static kernel's entry point ``kompass_<name>``; returns its fields."""
+    dims = _check_sweep(name, px, py, rows, seg_x, seg_y, active_points)
+    points = _static_points(name, dims, points, px.device)
+    return _launch(f"kompass_{name}", dims, px, py, rows, seg_x, seg_y,
+                   active_points, points=(points,))
 
 
 def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points, *,
@@ -524,16 +533,14 @@ def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points, *,
     active_points. On CUDA it launches on the current stream without
     synchronising and adds one to ``fused_min_dist_sq.launches``; its
     samples per thread are ``sweep_points``', or ``_points`` where a test
-    forces them."""
+    forces them (checked on every device)."""
+    _forced_points("fused_min_dist_sq", _points)
     if px.device.type == "cpu":
         return fused_min_dist_sq_reference(
             px, py, obs_xy, seg_x, seg_y, active_points
         )
-    dims = _check_sweep("fused_min_dist_sq", px, py, obs_xy, seg_x, seg_y,
-                        active_points)
-    points = _static_points("fused_min_dist_sq", dims, _points, px.device)
-    out = _launch("kompass_fused_min_dist_sq", dims, px, py, obs_xy, seg_x,
-                  seg_y, active_points, points=(points,))
+    out = _static_launch("fused_min_dist_sq", px, py, obs_xy, seg_x, seg_y,
+                         active_points, _points)
     fused_min_dist_sq.launches += 1
     return out
 
@@ -548,21 +555,19 @@ def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points,
     as the coordinates grow (see the module's docstring): meant for
     points and rows within about 10 m of the origin. On CUDA it adds one
     to ``fused_min_dist_sq_expanded.launches``."""
+    _forced_points("fused_min_dist_sq_expanded", _points)
     if px.device.type == "cpu":
         return fused_min_dist_sq_expanded_reference(
             px, py, obs_xy, seg_x, seg_y, active_points
         )
-    dims = _check_sweep("fused_min_dist_sq_expanded", px, py, obs_xy, seg_x,
-                        seg_y, active_points)
-    points = _static_points("fused_min_dist_sq_expanded", dims, _points,
-                            px.device)
-    out = _launch("kompass_fused_min_dist_sq_expanded", dims, px, py, obs_xy,
-                  seg_x, seg_y, active_points, points=(points,))
+    out = _static_launch("fused_min_dist_sq_expanded", px, py, obs_xy, seg_x,
+                         seg_y, active_points, _points)
     fused_min_dist_sq_expanded.launches += 1
     return out
 
 
-def fused_min_dist_sq_broadcast(px, py, obs_xy, seg_x, seg_y, active_points):
+def fused_min_dist_sq_broadcast(px, py, obs_xy, seg_x, seg_y, active_points,
+                                *, _points=None):
     """K6: both static sweeps in the TPU vector-unit kernel's broadcast
     form, in one kernel launch.
 
@@ -571,31 +576,30 @@ def fused_min_dist_sq_broadcast(px, py, obs_xy, seg_x, seg_y, active_points):
     0), every operation rounded on its own, which cancels as the
     coordinates grow like K2. On CUDA it adds one to
     ``fused_min_dist_sq_broadcast.launches``."""
+    _forced_points("fused_min_dist_sq_broadcast", _points)
     if px.device.type == "cpu":
         return fused_min_dist_sq_broadcast_reference(
             px, py, obs_xy, seg_x, seg_y, active_points
         )
-    dims = _check_sweep("fused_min_dist_sq_broadcast", px, py, obs_xy, seg_x,
-                        seg_y, active_points)
-    out = _launch("kompass_fused_min_dist_sq_broadcast", dims, px, py, obs_xy,
-                  seg_x, seg_y, active_points)
+    out = _static_launch("fused_min_dist_sq_broadcast", px, py, obs_xy, seg_x,
+                         seg_y, active_points, _points)
     fused_min_dist_sq_broadcast.launches += 1
     return out
 
 
-def min_dist_sq_expanded(px, py, rows, active_points):
+def min_dist_sq_expanded(px, py, rows, active_points, *, _points=None):
     """K4: one expanded sweep (K2's obstacle sweep alone) in one kernel
     launch.
 
     px, py: [S, T] ([B, S, T]); rows: [R, 2] ([B, R, 2]), pads at 1e8;
-    active_points as for ``fused_min_dist_sq``. Returns d2 shaped like
-    px. On CUDA it adds one to ``min_dist_sq_expanded.launches``."""
+    active_points and ``_points`` as for ``fused_min_dist_sq``. Returns
+    d2 shaped like px. On CUDA it adds one to
+    ``min_dist_sq_expanded.launches``."""
+    _forced_points("min_dist_sq_expanded", _points)
     if px.device.type == "cpu":
         return min_dist_sq_expanded_reference(px, py, rows, active_points)
-    dims = _check_sweep("min_dist_sq_expanded", px, py, rows, None, None,
-                        active_points)
-    out = _launch("kompass_min_dist_sq_expanded", dims, px, py, rows, None,
-                  None, active_points)
+    out = _static_launch("min_dist_sq_expanded", px, py, rows, None, None,
+                         active_points, _points)
     min_dist_sq_expanded.launches += 1
     return out
 

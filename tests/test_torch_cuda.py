@@ -462,12 +462,31 @@ def test_fleet_solver_on_card_matches_cpu(cuda, backend, kernel, per_call):
             assert abs(o[1] - c[1]) <= 1e-6 * abs(c[1])
 
 
-# --- K1 and K2: several samples of one step per thread --------------------------
+# --- the static kernel (K1, K2, K4, K6): several samples of one step per thread ---
 
+
+def _one_field(fn):
+    """K4 (or its plain version) with the fused sweeps' arguments: its one
+    field over the obstacle rows, as a 1-tuple."""
+    def call(px, py, obs, sx, sy, ap, **kw):
+        return (fn(px, py, obs, ap, **kw),)
+    return call
+
+
+# (wrapper with the fused sweeps' arguments, its plain version, its launch
+# counter)
 _STATIC = {
-    "K1": (kernels.fused_min_dist_sq, kernels.fused_min_dist_sq_reference),
+    "K1": (kernels.fused_min_dist_sq, kernels.fused_min_dist_sq_reference,
+           kernels.fused_min_dist_sq),
     "K2": (kernels.fused_min_dist_sq_expanded,
-           kernels.fused_min_dist_sq_expanded_reference),
+           kernels.fused_min_dist_sq_expanded_reference,
+           kernels.fused_min_dist_sq_expanded),
+    "K4": (_one_field(kernels.min_dist_sq_expanded),
+           _one_field(kernels.min_dist_sq_expanded_reference),
+           kernels.min_dist_sq_expanded),
+    "K6": (kernels.fused_min_dist_sq_broadcast,
+           kernels.fused_min_dist_sq_broadcast_reference,
+           kernels.fused_min_dist_sq_broadcast),
 }
 
 
@@ -492,10 +511,10 @@ def _nan_equal(got, want):
 )
 def test_static_kernels_at_every_points_per_thread(cuda, name, points, B, S, T, O,
                                                    G, active):
-    """K1 and K2 equal their plain versions at every number of samples
-    per thread the launch can take, forced through the wrapper; pad rows
-    included."""
-    kernel, plain = _STATIC[name]
+    """K1, K2, K4 and K6 equal their plain versions at every number of
+    samples per thread the launch can take, forced through the wrapper;
+    pad rows included."""
+    kernel, plain, counter = _STATIC[name]
     px, py, obs, _, _, sx, sy = _moving_case(S + O + B + points, B, S, T, O, G, cuda)
     obs[:, -3:] = 1e8
     if active is None:
@@ -504,10 +523,10 @@ def test_static_kernels_at_every_points_per_thread(cuda, name, points, B, S, T, 
     else:
         ap = torch.full((B,), active, dtype=torch.int32, device=cuda)
     want = plain(px, py, obs, sx, sy, ap)
-    before = kernel.launches
+    before = counter.launches
     got = kernel(px, py, obs, sx, sy, ap, _points=points)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert counter.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -516,9 +535,10 @@ def test_static_kernels_at_every_points_per_thread(cuda, name, points, B, S, T, 
 def test_static_kernels_keep_nan_and_inf(cuda, name):
     """NaN and +-inf in robot 0's points and rows, robot 1 finite (the
     fminf path), robot 2 one NaN obstacle row in its second tile, robot 3
-    values above 1e18 (K2's flag): at the launch's own samples per thread
-    and at each the kernel takes."""
-    kernel, plain = _STATIC[name]
+    values above 1e18 (the flag of K2, K4 and K6) and a point against a
+    row that makes the broadcast pair inf - inf: at the launch's own
+    samples per thread and at each the kernel takes."""
+    kernel, plain, _ = _STATIC[name]
     px, py, obs, _, _, sx, sy = _moving_case(13, 4, 300, 30, 1100, 384, cuda)
     nan, inf = float("nan"), float("inf")
     px[0, 3, 4], py[0, 7, 0], px[0, 11, 29] = nan, inf, -inf
@@ -527,24 +547,32 @@ def test_static_kernels_keep_nan_and_inf(cuda, name):
     obs[2, 1060, 1] = nan
     obs[3, 6] = torch.tensor([1.7e19, 0.0])
     px[3, 3, 3], py[3, 3, 3], sx[3, 0] = 1.06e19, 0.0, 5e18
+    obs[3, 9] = torch.tensor([1.5e19, -1.5e19])
+    px[3, 7, 2], py[3, 7, 2] = 1.2e19, 1.2e19
     ap = torch.tensor([30, 30, 30, 17], dtype=torch.int32, device=cuda)
     want = plain(px, py, obs, sx, sy, ap)
     for points in (None, *kernels.STATIC_POINTS):
         _nan_equal(kernel(px, py, obs, sx, sy, ap, _points=points), want)
     assert not bool(want[0][1].isnan().any()) and bool(want[0][2].isnan().all())
+    assert bool(want[0][3, 7, 2].isnan()) == (name == "K6")
 
 
-def test_refused_static_launch_raises(cuda):
+@pytest.mark.parametrize("name", sorted(_STATIC))
+def test_refused_static_launch_raises(cuda, name):
     """Samples per thread the kernel is not built for are refused by the
     C entry point and raised, not run another way."""
+    kernel, _, counter = _STATIC[name]
     px, py, obs, sx, sy = _case(14, 64, 10, 256, 128, cuda)
     ap = torch.tensor(10, dtype=torch.int32, device=cuda)
-    dims = kernels._check_sweep("K1", px, py, obs, sx, sy, ap)
+    seg = (None, None) if name == "K4" else (sx, sy)
+    dims = kernels._check_sweep(name, px, py, obs, *seg, ap)
     with pytest.raises(RuntimeError, match="cudaError"):
-        kernels._launch("kompass_fused_min_dist_sq", dims, px, py, obs, sx, sy, ap,
+        kernels._launch(f"kompass_{counter.__name__}", dims, px, py, obs, *seg, ap,
                         points=(4,))
+    before = counter.launches
     with pytest.raises(ValueError, match="samples per thread"):
-        kernels.fused_min_dist_sq(px, py, obs, sx, sy, ap, _points=4)
+        kernel(px, py, obs, sx, sy, ap, _points=4)
+    assert counter.launches == before
 
 
 # --- K6, K7, K8 and the k-tick loop's CUDA graph ---------------------------------

@@ -865,7 +865,7 @@ def test_fma_rn_is_correctly_rounded():
         assert g == best, (x, y, z, g, best)
 
 
-# --- K1's and K2's launch on the card: several samples of one step per thread ---
+# --- the static kernel (K1, K2, K4, K6): several samples of one step per thread ---
 
 import math
 
@@ -879,6 +879,9 @@ from kompass_core_tpu_torch.ops.kernels import (
 )
 
 H100_SMS = 132
+# the largest float32 at most 1e18: the static kernel's flag (kTame) is a
+# value above it
+TAME = np.float32(1e18)
 
 
 def _min_nan(acc, d):
@@ -888,18 +891,23 @@ def _min_nan(acc, d):
 
 def _flags(form, *values):
     """Whether values set a block's flag: K1 (direct) a non-finite one,
-    K2 (expanded) one above 1e18 in magnitude (NaN included)."""
+    K2 and K4 (expanded) and K6 (broadcast) one above 1e18 in magnitude
+    (NaN included)."""
     if form == "direct":
         return ~torch.stack([torch.isfinite(v) for v in values]).all(0)
     return ~torch.stack([v.abs() <= 1e18 for v in values]).all(0)
 
 
 def _static_pair(form, ox, oy, o2, px, py, keep_nan):
-    """One (point, row) value as the kernel takes it: K2 with the flag
-    clear forms |o|^2 - 2 cross as one FMA."""
+    """One (point, row) value as the kernel takes it: the expanded pair
+    with the flag clear forms |o|^2 - 2 cross as one FMA; the broadcast
+    pair takes the point as (-2px, -2py) and rounds every operation on
+    its own either way."""
     if form == "direct":
         dx, dy = px - ox, py - oy
         return dx * dx + dy * dy
+    if form == "broadcast":
+        return (o2 + (-2.0 * px) * ox) + (-2.0 * py) * oy
     cross = ox * px + oy * py
     if keep_nan:
         return o2 - 2.0 * cross
@@ -908,7 +916,7 @@ def _static_pair(form, ox, oy, o2, px, py, keep_nan):
 
 def _static_field(form, px, py, xs, ys, per_block, tile):
     """[B, S, T] points vs [B, n] rows: the running mins in the order of
-    K1's and K2's kernel. A block holds ``per_block`` samples of one step;
+    the static kernel. A block holds ``per_block`` samples of one step;
     its flag starts as any flagged value of its points (samples past S
     load 0). It sweeps the rows in tiles of ``tile``, each tile's mins by
     fminf (from +inf: NaN ignored) while the flag is clear and by the
@@ -936,12 +944,15 @@ def _static_field(form, px, py, xs, ys, per_block, tile):
 
 
 def _static_sweep(form, px, py, obs, sx, sy, active, tile, per_block=4):
-    """Both fields of K1 ("direct") or K2 ("expanded") in the kernel's
-    order: the running mins, K2's epilogue (+ |p|^2, clamp at 0 keeping
-    a NaN), the mask."""
+    """The fields of K1 ("direct"), K2 ("expanded") or K6 ("broadcast"),
+    or with ``sx`` None K4's one field ("expanded" over ``obs``), in the
+    kernel's order: the running mins, the epilogue of the expanded and
+    broadcast forms (+ |p|^2, clamp at 0 keeping a NaN), the mask.
+    Returns a tuple of the fields."""
+    rows = [(obs[..., 0], obs[..., 1])] + ([] if sx is None else [(sx, sy)])
     fields = [_static_field(form, px, py, xs, ys, per_block, tile)
-              for xs, ys in ((obs[..., 0], obs[..., 1]), (sx, sy))]
-    if form == "expanded":
+              for xs, ys in rows]
+    if form != "direct":
         pnorm = px * px + py * py
         fields = [torch.where(f + pnorm < 0.0, 0.0, f + pnorm) for f in fields]
     T = px.shape[-1]
@@ -978,22 +989,27 @@ def _static_case(seed, B=3, S=10, T=6, O=13, G=3):
     # would keep a finite value where the plain version has -inf
     obs[2, 6 % O] = torch.tensor([1.7e19, 0.0])
     px[2, 3, 0], py[2, 3, 0], sx[2, 0] = 1.06e19, 0.0, 5e18  # step 0: active
+    # NaN from finite values in the broadcast form alone: |o|^2 = inf plus
+    # (-2px) ox = -inf (the expanded cross cancels to 0 there)
+    obs[2, 9 % O] = torch.tensor([1.5e19, -1.5e19])
+    px[2, 7, 0], py[2, 7, 0] = 1.2e19, 1.2e19
     return px, py, obs, sx, sy
 
 
 STATIC_FORMS = {"direct": fused_min_dist_sq_reference,
-                "expanded": fused_min_dist_sq_expanded_reference}
+                "expanded": fused_min_dist_sq_expanded_reference,
+                "broadcast": fused_min_dist_sq_broadcast_reference}
 
 
 @pytest.mark.parametrize("form", sorted(STATIC_FORMS))
 @pytest.mark.parametrize("tile", [1, 2, 3, 1024])
 def test_static_order_of_operations_equals_the_plain_version(form, tile):
     """The kernel's order (tiles of rows, fminf until the block's flag is
-    set and the NaN-keeping min after, K2's FMA pair, the epilogue and the
-    mask) gives the plain version's fields bit for bit at any tile size
-    (1024 is the kernel's): NaN and +-inf in points and rows, pad rows,
-    d2 = +0, values above 1e18, active steps below T; and at the
-    evaluator's one obstacle row."""
+    set and the NaN-keeping min after, the expanded FMA pair, the
+    epilogue and the mask) gives the plain version's fields bit for bit
+    at any tile size (1024 is the kernel's): NaN and +-inf in points and
+    rows, NaN from finite values, pad rows, d2 = +0, values above 1e18,
+    active steps below T; and at the evaluator's one obstacle row."""
     reference = STATIC_FORMS[form]
     px, py, obs, sx, sy = _static_case(40 + tile)
     ap = torch.tensor([6, 4, 1], dtype=torch.int32)
@@ -1004,6 +1020,9 @@ def test_static_order_of_operations_equals_the_plain_version(form, tile):
     assert bool(want[0][0].isnan().any()) and not bool(want[0][1].isnan().any())
     if form == "direct":
         assert float(want[0][1, 4, 2]) == 0.0 and float(want[1][1, 6, 3]) == 0.0
+    else:
+        assert float(want[0][2, 3, 0]) == 0.0  # -inf, clamped
+    assert bool(want[0][2, 7, 0].isnan()) == (form == "broadcast")
     # one obstacle row (a 1e8 pad, as the evaluator has)
     px, py, obs, sx, sy = _static_case(50 + tile, S=10, T=5, O=1, G=11)
     obs[:] = 1e8
@@ -1011,6 +1030,62 @@ def test_static_order_of_operations_equals_the_plain_version(form, tile):
     got = _static_sweep(form, px, py, obs, sx, sy, ap, tile, per_block=2)
     for g, w in zip(got, reference(px, py, obs, sx, sy, ap)):
         assert _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("tile", [1, 2, 3, 1024])
+def test_k4_static_order_of_operations_equals_the_plain_version(tile):
+    """K4 is the static kernel's expanded form with the segment sweep
+    compiled out: one field over the given rows, in the kernel's order,
+    equals ``min_dist_sq_expanded_reference`` bit for bit at any tile
+    size, over the obstacle rows and over the segment rows (the two
+    launches of a ``pallas_v1`` solve), on the edge cases of the fused
+    sweeps; and it is K2's field over the same rows."""
+    px, py, obs, sx, sy = _static_case(80 + tile)
+    ap = torch.tensor([6, 4, 1], dtype=torch.int32)
+    seg = torch.stack([sx, sy], dim=-1).contiguous()
+    k2 = fused_min_dist_sq_expanded_reference(px, py, obs, sx, sy, ap)
+    for rows, k2_field in ((obs, k2[0]), (seg, k2[1])):
+        (got,) = _static_sweep("expanded", px, py, rows, None, None, ap, tile)
+        want = min_dist_sq_expanded_reference(px, py, rows, ap)
+        assert _bits_equal(got, want) and _bits_equal(want, k2_field)
+    assert bool(k2[0][0].isnan().any()) and not bool(k2[0][1].isnan().any())
+    assert float(k2[0][2, 3, 0]) == 0.0
+    # one row, a 1e8 pad; and 40 rows
+    for O, per_block in ((1, 2), (40, 4)):
+        px, py, obs, _, _ = _static_case(90 + tile, S=10, T=5, O=O, G=3)
+        obs[:, :1] = 1e8
+        ap = torch.tensor([5, 3, 1], dtype=torch.int32)
+        (got,) = _static_sweep("expanded", px, py, obs, None, None, ap, tile,
+                               per_block)
+        assert _bits_equal(got, min_dist_sq_expanded_reference(px, py, obs, ap))
+
+
+def test_broadcast_pair_below_1e18_is_never_nan():
+    """The static kernel's flag for K6: where every point coordinate and
+    every staged value (ox, oy, |o|^2) is at most 1e18 in magnitude, the
+    broadcast pair (|o|^2 + (-2px) ox) + (-2py) oy stays below 4e36 +
+    1e18 and its epilogue + |p|^2 below 6e36, so neither is NaN or
+    infinite and fminf is the NaN-keeping min there. Every combination
+    of the edge magnitudes, and random log-uniform ones."""
+    edges = np.array([0.0, 1e-45, 1.0, 1e9, 3e17, TAME], np.float32)
+    edges = np.concatenate([edges, -edges[1:]])
+    grid = np.stack(np.meshgrid(*[edges] * 5, indexing="ij"), -1).reshape(-1, 5)
+    rng = np.random.default_rng(5)
+    mag = 10.0 ** rng.uniform(-40, 18, (200_000, 5))
+    rand = (np.sign(rng.uniform(-1, 1, mag.shape)) * mag).astype(np.float32)
+    vals = torch.from_numpy(np.concatenate([grid, np.minimum(np.abs(rand), TAME)
+                                            * np.sign(rand)]))
+    px, py, ox, oy, o2 = vals.unbind(-1)
+    assert bool((vals.abs() <= 1e18).all())
+    assert not bool(_flags("broadcast", px, py, ox, oy, o2).any())
+    pair = _static_pair("broadcast", ox, oy, o2, px, py, keep_nan=False)
+    assert bool(torch.isfinite(pair).all())
+    assert bool(pair.abs().max() <= 4.0001e36)
+    assert bool(torch.isfinite(pair + (px * px + py * py)).all())
+    # one step further, it can be NaN: |o|^2 = inf against -2px ox = -inf
+    big = torch.tensor([2e19], dtype=torch.float32)
+    over = _static_pair("broadcast", big, big * 0, big * big, big / 2, big * 0, True)
+    assert bool(over.isnan().all()) and bool(_flags("broadcast", big).all())
 
 
 @pytest.mark.parametrize("tile", [7, 64])
@@ -1042,6 +1117,52 @@ def test_sweep_points_at_the_path_shapes():
     assert sweep_points(4, 144, 20, H100_SMS) == 2
     # one robot: 60 blocks of 4 warps at kPts = 8, short of two per scheduler
     assert 60 * (STATIC_BLOCK // 32) < 2 * 4 * H100_SMS
+
+
+# (wrapper, its C entry point, the obstacle rows of its path, segment rows)
+_STATIC_WRAPPERS = {
+    "K1": (fused_min_dist_sq, "kompass_fused_min_dist_sq", 512, 384),
+    "K2": (fused_min_dist_sq_expanded, "kompass_fused_min_dist_sq_expanded", 512, 384),
+    "K4": (min_dist_sq_expanded, "kompass_min_dist_sq_expanded", 512, 0),
+    "K6": (fused_min_dist_sq_broadcast, "kompass_fused_min_dist_sq_broadcast",
+           768, 384),
+}
+
+
+def _static_call(name, px, py, obs, sx, sy, ap, **kw):
+    """A static wrapper's fields as a tuple (K4: one field, over ``obs``)."""
+    wrapper = _STATIC_WRAPPERS[name][0]
+    if name == "K4":
+        return (wrapper(px, py, obs, ap, **kw),)
+    return wrapper(px, py, obs, sx, sy, ap, **kw)
+
+
+@pytest.mark.parametrize("name", ["K4", "K6"])
+def test_k4_and_k6_launch_the_static_kernel_at_sweep_points(name, monkeypatch):
+    """On a card of 132 SMs, K4 and K6 launch their static entry point
+    with kPts = 2 at one robot's 2025 x 30 points and 8 at 64 robots
+    (their path shapes: K4 against 512 rows, K6 against 768 + 384), the
+    same as ``sweep_points``; a forced kPts reaches the launch as given.
+    The launch itself is replaced: the inputs are checked as on a card."""
+    wrapper, entry, O, G = _STATIC_WRAPPERS[name]
+    launched = []
+
+    def launch(fn, dims, *args, points=()):
+        launched.append((fn, dims, points))
+        return ()
+
+    monkeypatch.setattr(kernels, "_sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(kernels, "_launch", launch)
+    for B, want in ((1, 2), (64, 8)):
+        assert sweep_points(B, 2025, 30, H100_SMS) == want
+        px, py = torch.zeros(B, 2025, 30), torch.zeros(B, 2025, 30)
+        obs = torch.zeros(B, O, 2)
+        seg = (None, None) if name == "K4" else (torch.zeros(B, G), torch.zeros(B, G))
+        ap = torch.full((B,), 30, dtype=torch.int32)
+        for forced in (None, *STATIC_POINTS):
+            kernels._static_launch(wrapper.__name__, px, py, obs, *seg, ap, forced)
+            assert launched[-1] == (entry, (B, 2025, 30, O, G, True),
+                                    (want if forced is None else forced,))
 
 
 @pytest.mark.parametrize("B", [1, 2, 4, 64, 1024, _MAX_BATCH])
@@ -1083,4 +1204,21 @@ def test_forced_points_are_checked_before_any_launch():
                             fused_min_dist_sq_expanded_reference)):
         for g, w in zip(wrapper(px, py, obs, sx, sy, ap, _points=2),
                         plain(px, py, obs, sx, sy, ap)):
+            assert _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("name", sorted(_STATIC_WRAPPERS))
+def test_forced_points_outside_the_kernel_raise_in_every_static_wrapper(name):
+    """A kPts the static kernel is not built for raises in each wrapper,
+    on the CPU too (no plain version runs); one it is built for gives the
+    plain version's fields there."""
+    px, py, obs, sx, sy = _static_case(71)
+    ap = torch.tensor([6, 4, 1], dtype=torch.int32)
+    for points in (0, 1, 3, 4, 16):
+        with pytest.raises(ValueError, match="samples per thread"):
+            _static_call(name, px, py, obs, sx, sy, ap, _points=points)
+    want = _static_call(name, px, py, obs, sx, sy, ap)
+    for points in STATIC_POINTS:
+        got = _static_call(name, px, py, obs, sx, sy, ap, _points=points)
+        for g, w in zip(got, want):
             assert _bits_equal(g, w)
