@@ -140,6 +140,30 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     in turns, beside their bounds; the peer fleet's tick (median and
     p99 of 100) and its k = 8 graph per tick, beside the same run's
     no-peer fleet.
+21. K9 (``box_min_dist_sq``, the oriented-box field of BOX robots,
+    ``csrc/box_min_dist.cu``) and K3s (``min_dist_sq_moving``, K3's
+    obstacle sweep alone, for the split movers) against their plain
+    versions, bit for bit: K9 static and moving at 64 x 2025 x 30 vs
+    768 rows (per-robot extents with (0, 0) circles, pad rows, a point
+    inside a footprint, NaN, inf and values above 1e18, mixed active
+    steps), at one robot (2025 x 30 vs 512) and on ragged tiles, at each
+    number of samples per thread; K3s at 8 rows and past one tile, and
+    against K3's obstacle field.
+22. The split tracked fleet (``split_mover_sweep``): 64 robots, 30
+    closed-loop ticks, K1 and K3s once per tick, no host sync, equal to
+    the tail-slot fleet on the card bit for bit every tick, 4 robots on 2
+    ticks against the CPU; its k = 8 graph (replay == eager).
+23. The mixed circle + BOX fleet (every fourth robot a BOX) with peers,
+    prediction, tracked slots and the safety gate: 30 ticks, K3 and K9
+    once per tick, 4 robots on 2 ticks against the CPU, no contact; its
+    k = 8 graph. Phase 11's BOX DWA launches K9 once per tick.
+24. The controller registry: every ``ControlClasses`` entry built and
+    stepped 5 times (DWA on the card, the host controllers and the
+    vision followers on the host).
+25. Times: the split against the tail-slot fleet and the BOX against
+    the circle peer fleet (tick median and k = 8 graph per tick, in
+    turns), K9 against its plain version at 64 x 2025 x 30 vs 768 static
+    rows and 1344 moving rows, K3s at 8 rows, beside their bounds.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -149,7 +173,10 @@ phase 9 and K6, K7 and K8 from phase 14, counted around the
 ``run_ticks_on_device`` calls alone (the warm-up's and each replay's
 launches: a replay calls no wrapper, so each replay counts the captured
 loop's launches once), and adds the peer path's K1, K3, K7 and K8
-launches (phase 18 counted as phase 14 is). Its times are
+launches (phase 18 counted as phase 14 is); the counts are set to 0
+again before phases 22 and 23, whose launches (around their own fleets'
+calls, not the comparisons') give K3s and add to K1, K3 and K9 (with
+phase 11's K9 launches). Its times are
 K1, K2 and K4 at the flagship shapes (one robot), K3, K5, K6, K7 and K8
 at 64 robots, all by CUDA events in turns with the plain version. K1,
 K2, K4 and K6 are one static kernel (``static_min_dist_kernel``); its
@@ -451,9 +478,12 @@ def sass_report(kernels, lib):
         loops = [Counter(loop) for loop in loops]
         if "min_dist_kernel" in name and loops:
             # a pair ends in one min: FMNMX (fminf) or FSEL (the NaN-keeping
-            # min); the loop densest in them is the innermost row loop
+            # min); the loop densest in them is the innermost row loop. K9's
+            # fminf pair also clamps twice with FMNMX: three per pair
+            per = 3 if "box_min_dist_kernel" in name else 1
+
             def pairs_of(c):
-                return c["FMNMX"] or c["FSEL"]
+                return (c["FMNMX"] or c["FSEL"]) / per
 
             hot = max(loops, key=lambda c: (pairs_of(c) / sum(c.values()), pairs_of(c)))
             pairs = max(pairs_of(hot), 1)
@@ -1117,7 +1147,8 @@ def cast_fleet_scans(states, lanes, circles):
     return np.where(best <= RANGE_MAX, best, np.inf).astype(np.float32), angles
 
 
-def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None):
+def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None,
+               split=False):
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
@@ -1140,7 +1171,8 @@ def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None):
         control_time_step=DT,
     )
     fleet = DeviceFleet(robots, limits, config, RAYS, path_capacity=4608,
-                        tracked_obstacles=tracked, device=device)
+                        tracked_obstacles=tracked, split_mover_sweep=split,
+                        device=device)
     if backend != "xla":
         # the fleet solves with the JAX fleet's "xla"; its k-tick loop,
         # built from fleet.spec on the loop's first call, runs the
@@ -1152,7 +1184,7 @@ def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None):
     solver = fleet.spec.solver
     shape = (fleet._n, solver.num_samples, solver.max_points,
              solver.scan_size, solver.seg_size)
-    assert shape[1:] == FLEET_SHAPE[1:] or tracked == 0, f"fleet shapes {shape}"
+    assert shape[1:] == FLEET_SHAPE[1:] or tracked == 0 or split, f"fleet shapes {shape}"
     return fleet, lanes, circles
 
 
@@ -2152,14 +2184,16 @@ def phase_box_dwa(kernels, device):
         dwa.add_custom_cost(BOX_COST_WEIGHT, turn_rate_cost)
     custom = ((BOX_COST_WEIGHT, turn_rate_cost),)
     circles = obstacle_circles()
-    ties = []
+    ties, k9 = [], 0
     for i in range(BOX_TICKS):
         scan = cast_scan(robot.state, circles)
-        before = kernels.fused_min_dist_sq.launches
+        before = kernels.launch_counts()
         ok = [dwa.loop_step(current_state=robot.state, laser_scan=scan)
               for dwa in dwas]
         assert ok == [True, True], f"box tick {i}: {ok}"
-        assert kernels.fused_min_dist_sq.launches == before + 1, f"box tick {i}"
+        made = _launches_made(kernels, before)
+        assert made == {"K1": 1, "K9": 1}, f"box tick {i}: launches {made}"
+        k9 += made["K9"]
         spec, buf, out = dwas[0].last_solver_io
         assert spec.collision_box == (BOX_PARAMS[0] / 2, BOX_PARAMS[1] / 2)
         gpu, cpu = dwas
@@ -2181,9 +2215,10 @@ def phase_box_dwa(kernels, device):
     np.testing.assert_allclose(gx, cx, atol=1e-4)
     np.testing.assert_allclose(gy, cy, atol=1e-4)
     log(f"BOX DWA ({BOX_PARAMS[0]} x {BOX_PARAMS[1]} m) with a custom cost: "
-        f"{BOX_TICKS} ticks on cuda in lockstep with the CPU, one K1 launch each, "
-        f"ties {ties}; debug_velocity_search: {int(ga.sum())} of {ga.size} "
-        f"samples admissible on both devices")
+        f"{BOX_TICKS} ticks on cuda in lockstep with the CPU, one K1 and one K9 "
+        f"launch each, ties {ties}; debug_velocity_search: {int(ga.sum())} of "
+        f"{ga.size} samples admissible on both devices")
+    return k9
 
 
 def phase_solver_times(kernels, device, card):
@@ -2344,12 +2379,11 @@ def _ticks_eager(fleet, k, device):
                              *(() if safety is None else (safety,)))
 
 
-def phase_ticks(kernels, device):
-    """The k-tick loop at full width, per backend: the eager loop on the
-    card, then ``DeviceFleet.run_ticks_on_device`` (one captured CUDA
-    graph, replayed) bit for bit against it, TICKS_CALLS closed-loop
-    calls. Returns each form's kernel launches by the
-    ``run_ticks_on_device`` calls alone (not by the eager reference).
+def _replay_calls(kernels, fleet, drive, device, keys, label, each=None):
+    """TICKS_CALLS closed-loop calls of ``run_ticks_on_device`` (one graph
+    per k), each replay equal to the eager loop bit for bit and launching
+    the kernels of ``keys`` k times; ``each(out)`` sees every call's
+    outputs. Returns the launches per kernel and the last call's outputs.
 
     The wrappers count Python calls: the first call runs the loop once on
     a side stream (the warm-up, k launches) and once under capture (k
@@ -2360,44 +2394,64 @@ def phase_ticks(kernels, device):
 
     from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
 
+    counted = {}
+    for call in range(TICKS_CALLS):
+        inputs = drive.inputs()
+        fleet._prepare_tick_inputs(*inputs)
+        carry, outs, final = _ticks_eager(fleet, TICKS_K, device)
+        before = kernels.launch_counts()
+        out = fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
+        made = _launches_made(kernels, before)
+        assert made == ({k: 2 * TICKS_K for k in keys} if call == 0 else {}), (
+            f"{label} call {call}: wrapper calls {made}")
+        for k, n in made.items():
+            counted[k] = counted.get(k, 0) + n
+        for i, name in enumerate(OUT_FIELDS):
+            want = outs[:FLEET_ROBOTS, :, i].cpu().numpy()
+            assert np.array_equal(out[name].astype(np.float32), want), (
+                f"{label} call {call}: {name} replay != eager")
+        assert np.array_equal(out["final_states"], final[:FLEET_ROBOTS].cpu().numpy())
+        assert all(torch.equal(a, b) for a, b in zip(fleet._carry, carry))
+        _assert_finite(out, f"{label} call {call}")
+        if each is not None:
+            each(out)
+        drive.advance_ticks(out, TICKS_K)
+    assert list(fleet.tick_graphs) == [TICKS_K], "one graph per k"
+    return {k: n + (TICKS_CALLS - 1) * (n // 2) for k, n in counted.items()}, out
+
+
+def phase_ticks(kernels, device):
+    """The k-tick loop at full width, per backend: the eager loop on the
+    card, then ``DeviceFleet.run_ticks_on_device`` (one captured CUDA
+    graph, replayed) bit for bit against it, TICKS_CALLS closed-loop
+    calls (``_replay_calls``). Returns each form's kernel launches by the
+    ``run_ticks_on_device`` calls alone (not by the eager reference)."""
+    import torch
+
     launches = {}
     for backend, tracked, key in TICKS_FORMS:
         fleet, lanes, circles = make_fleet(device, tracked, backend=backend)
         drive = FleetDrive(lanes, circles, tracked)
         ends = np.stack([p[-1] for p in fleet_scene()[1]])
         start = drive.goal_distance(ends)
-        found = counted = 0
-        for call in range(TICKS_CALLS):
-            inputs = drive.inputs()
-            fleet._prepare_tick_inputs(*inputs)
-            carry, outs, final = _ticks_eager(fleet, TICKS_K, device)
-            before = kernels.launch_counts()
-            out = fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
-            made = {n: c - before[n] for n, c in kernels.launch_counts().items()
-                    if c != before[n]}
-            assert made == ({key: 2 * TICKS_K} if call == 0 else {}), (
-                f"{backend}/{tracked} call {call}: wrapper calls {made}")
-            counted += made.get(key, 0)
-            for i, name in enumerate(OUT_FIELDS):
-                want = outs[:FLEET_ROBOTS, :, i].cpu().numpy()
-                assert np.array_equal(out[name].astype(np.float32), want), (
-                    f"{backend}/{tracked} call {call}: {name} replay != eager")
-            assert np.array_equal(out["final_states"], final[:FLEET_ROBOTS].cpu().numpy())
-            assert all(torch.equal(a, b) for a, b in zip(fleet._carry, carry))
+        found = []
+
+        def each(out):
             for name, col in out.items():
                 assert np.isfinite(col).all(), f"{backend}/{tracked}: {name}"
-            found += int(out["found"].sum())
-            drive.advance_ticks(out, TICKS_K)
-        assert list(fleet.tick_graphs) == [TICKS_K], "one graph per k"
-        # the capture's half of the counted calls stands for each replay
-        launches[key] = counted + (TICKS_CALLS - 1) * (counted // 2)
+            found.append(int(out["found"].sum()))
+
+        made, _ = _replay_calls(kernels, fleet, drive, device, (key,),
+                                f"{backend}/{tracked}", each)
+        launches.update(made)
         end = drive.goal_distance(ends)
         ticks = TICKS_CALLS * TICKS_K
         log(f"k-tick loop ({backend}, {tracked} tracked slots): {TICKS_CALLS} calls "
             f"of k={TICKS_K} on {FLEET_ROBOTS} robots, graph replay == eager loop bit "
-            f"for bit; {key} {TICKS_K} per replay; found {found}/{FLEET_ROBOTS * ticks}"
-            f"; mean goal distance {start.mean():.3f} -> {end.mean():.3f} m")
-        assert found >= 0.9 * FLEET_ROBOTS * ticks, f"{backend}: the fleet lost its way"
+            f"for bit; {key} {TICKS_K} per replay; found {sum(found)}/"
+            f"{FLEET_ROBOTS * ticks}; mean goal distance {start.mean():.3f} -> "
+            f"{end.mean():.3f} m")
+        assert sum(found) >= 0.9 * FLEET_ROBOTS * ticks, f"{backend}: the fleet lost its way"
         assert end.mean() < start.mean() - 0.5, f"{backend}: no approach to the goals"
         del fleet
     torch.cuda.empty_cache()
@@ -2740,10 +2794,13 @@ class PeerDrive:
 
 
 def make_peer_fleet(device, backend="xla", predict=True, robots=None,
-                    wall_gap=WALL_GAP, wall_speed=0.0, tracked=FLEET_TRACKED):
+                    wall_gap=WALL_GAP, wall_speed=0.0, tracked=FLEET_TRACKED,
+                    box_every=0):
     """A DeviceFleet of PeerDrive's scene with peers (and prediction),
     ``tracked`` slots and the safety gate; ``backend`` for its tick and
-    its k-tick loop. Returns (fleet, drive)."""
+    its k-tick loop; with ``box_every``, every such robot a BOX
+    (FLEET_BOX_PARAMS), which makes the fleet a BOX fleet. Returns
+    (fleet, drive)."""
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
@@ -2754,9 +2811,15 @@ def make_peer_fleet(device, backend="xla", predict=True, robots=None,
     from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
 
     n = FLEET_ROBOTS if robots is None else robots
-    robot_list = [Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
-                        geometry_type=RobotGeometry.Type.CYLINDER,
-                        geometry_params=np.array([PEER_RADIUS, 0.4])) for _ in range(n)]
+    robot_list = [
+        Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+              geometry_type=RobotGeometry.Type.BOX,
+              geometry_params=np.array(FLEET_BOX_PARAMS))
+        if box_every and i % box_every == 0 else
+        Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+              geometry_type=RobotGeometry.Type.CYLINDER,
+              geometry_params=np.array([PEER_RADIUS, 0.4]))
+        for i in range(n)]
     limits = RobotCtrlLimits(
         vx_limits=LinearCtrlLimits(max_vel=VX_MAX, max_acc=1.5, max_decel=2.5),
         omega_limits=AngularCtrlLimits(max_vel=1.5, max_acc=3.0, max_decel=3.0),
@@ -2885,51 +2948,31 @@ def phase_peers(kernels, device):
 def phase_peer_ticks(kernels, device):
     """The k = 8 loop with peers, prediction and safety per backend:
     TICKS_CALLS closed-loop calls of ``run_ticks_on_device`` (one graph
-    per k), each replay equal to the eager loop bit for bit; the wall
-    robots start TICKS_WALL_GAP from their wall at TICKS_WALL_SPEED and
-    are slowed (factor below 1) and then stopped (command below 0.05 m/s)
-    inside the loop; no two robots come closer than the sum of their
-    radii. Returns the launches per kernel, counted as ``phase_ticks``
-    counts them."""
+    per k), each replay equal to the eager loop bit for bit
+    (``_replay_calls``); the wall robots start TICKS_WALL_GAP from their
+    wall at TICKS_WALL_SPEED and are slowed (factor below 1) and then
+    stopped (command below 0.05 m/s) inside the loop; no two robots come
+    closer than the sum of their radii. Returns the launches per kernel,
+    counted as ``phase_ticks`` counts them."""
     import torch
-
-    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
 
     launches = {}
     for backend, key in PEER_FORMS:
         fleet, drive = make_peer_fleet(device, backend, wall_gap=TICKS_WALL_GAP,
                                        wall_speed=TICKS_WALL_SPEED)
-        counted, slowed, factors = 0, False, []
-        for call in range(TICKS_CALLS):
-            inputs = drive.inputs()
-            fleet._prepare_tick_inputs(*inputs)
-            carry, outs, final = _ticks_eager(fleet, TICKS_K, device)
-            before = kernels.launch_counts()
-            out = fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
-            made = _launches_made(kernels, before)
-            assert made == ({key: 2 * TICKS_K} if call == 0 else {}), (
-                f"{backend} call {call}: wrapper calls {made}")
-            counted += made.get(key, 0)
-            for i, name in enumerate(OUT_FIELDS):
-                want = outs[:, :, i].cpu().numpy()
-                assert np.array_equal(out[name].astype(np.float32), want), (
-                    f"{backend} call {call}: {name} replay != eager")
-            assert np.array_equal(out["final_states"], final.cpu().numpy())
-            assert all(torch.equal(a, b) for a, b in zip(fleet._carry, carry))
-            _assert_finite(out, f"{backend} call {call}")
-            wall = out["safety_factor"][drive.wall]
-            slowed |= bool((wall < 1.0).any())
-            factors.append(wall)
-            drive.advance_ticks(out, TICKS_K)
-        assert list(fleet.tick_graphs) == [TICKS_K], "one graph per k"
-        launches[key] = counted + (TICKS_CALLS - 1) * (counted // 2)
+        factors = []
+        made, out = _replay_calls(kernels, fleet, drive, device, (key,), backend,
+                                  lambda out: factors.append(
+                                      out["safety_factor"][drive.wall]))
+        launches.update(made)
         last_vx = np.abs(out["vx"][drive.wall, -1])
         log(f"k-tick loop with peers + prediction + safety ({backend}, {key}): "
             f"{TICKS_CALLS} calls of k={TICKS_K}, graph replay == eager loop bit for "
             f"bit; closest pair {drive.min_pair:.3f} m; the first wall robot's safety factor "
             f"per tick {np.concatenate([f[0] for f in factors]).round(4).tolist()}; "
             f"their last |vx| max {last_vx.max():.4f} m/s")
-        assert slowed, f"{backend}: no wall robot slowed inside the loop"
+        assert any(bool((f < 1.0).any()) for f in factors), (
+            f"{backend}: no wall robot slowed inside the loop")
         assert last_vx.max() < 0.05, f"{backend}: a wall robot did not stop"
         assert drive.min_pair > 2 * PEER_RADIUS, f"{backend}: robots collided"
         del fleet
@@ -3081,6 +3124,409 @@ def phase_peer_times(device, card):
     torch.cuda.empty_cache()
 
 
+# --- this slice: the split mover sweep (5e), BOX fleets (5f), K3s and K9 ------
+
+# the split tracked fleet: the fleet slice's 64 robots and movers with the
+# scan bucket at the rays (512 slots) and the 8 tracked slots in their own
+# sweep (K3s), beside the tail-slot fleet (768 slots, K3)
+SPLIT_TICKS = 30
+SPLIT_CPU_TICKS = (0, 29)
+SPLIT_ROWS = 512
+# the mixed fleet: PeerDrive's 64 robots with peers, prediction, 8 tracked
+# slots and the safety gate, every fourth robot a BOX of 0.5 x 0.3 m
+# (half extents 0.25 x 0.15), the others circles of PEER_RADIUS
+FLEET_BOX_PARAMS = (0.5, 0.3, 0.4)
+BOX_EVERY = 4
+BOX_FLEET_TICKS = 30
+BOX_CPU_TICKS = (0, 29)
+K9_SOURCE = "kompass_core_tpu_torch/csrc/box_min_dist.cu"
+K9_REPLACES = "kompass_core_tpu/ops/solver.py:402"
+K3S_REPLACES = "kompass_core_tpu/ops/solver.py:737"
+# K9's pair: 2 FADD (dx, dy), 4 FMUL and 2 FADD (the rotation), 2 FADD and
+# 2 FMNMX (the clamps), 2 FMUL and an FADD (the square) and the min
+K9_PAIR_OPS = 16
+K9_INPUTS = 2  # distinct inputs per timed run (the plain field takes ~0.1 s each)
+
+
+def _box_case(gen, device, B, S, T, O, span=10.0, vmax=1.5):
+    """K9's arguments but active_points: points, headings (torch's cos and
+    sin of random yaws), rows, velocities, dt, half extents (every fourth
+    robot a (0, 0) circle)."""
+    import torch
+
+    px, py, obs, vel, dt, _, _ = _moving_case(gen, device, B, S, T, O, 1, span, vmax)
+    yaw = ((torch.rand(B, S, T, generator=gen) * 2 - 1) * math.pi).to(device)
+    half = (torch.rand(B, 2, generator=gen) * 0.5).to(device)
+    half[::4] = 0.0
+    return px, py, torch.cos(yaw), torch.sin(yaw), obs, vel, dt, half
+
+
+def _mixed_active(gen, B, T, device):
+    import torch
+
+    ap = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+    ap[0] = T
+    return ap.to(device)
+
+
+def phase_box_sweeps_vs_plain(kernels, device):
+    """K9 (``box_min_dist_sq``) and K3s (``min_dist_sq_moving``) against
+    their plain versions on the card, bit for bit, NaN where the plain
+    version has it. K9 static and moving at the fleet shape (64 x 2025 x
+    30 vs 768 rows, mixed active steps, per-robot extents with (0, 0)
+    circles, 256 pad rows at 1e8, a point inside a footprint, NaN and inf
+    rows and points, values above 1e18), at one robot (2025 x 30 vs 512)
+    and on ragged tiles, at its own samples per thread and at each one;
+    K3s at the split fleet's 8 rows (pads, an empty slot's NaN row) and
+    past one tile of rows, and against K3's obstacle field. Returns the
+    max abs errors (K3s, K9)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(21)
+    B, S, T, O, G = FLEET_SHAPE
+    cases = []
+    case = list(_box_case(gen, device, B, S, T, O))
+    px, py, c, sn, obs, vel, dt, half = case
+    obs[:, O - 256:], vel[:, O - 256:] = 1e8, 0.0
+    obs[1, 7] = torch.stack([px[1, 3, 5], py[1, 3, 5]])
+    vel[1, 7] = 0.0
+    obs[2, 11, 1] = float("nan")
+    obs[3, 13, 0] = float("inf")
+    px[4, 8, 2] = float("nan")
+    c[5, 9, 4] = float("nan")
+    px[6, 10, 6], obs[6, 20] = 3e18, torch.tensor([2e19, -2e19])
+    ap = _mixed_active(gen, B, T, device)
+    ap[:8] = T  # the special robots' steps are all active
+    cases.append(("fleet shape", case, ap))
+    cases.append(("one robot", list(_box_case(gen, device, 1, S, T, 512)),
+                  torch.full((1,), T, dtype=torch.int32, device=device)))
+    cases.append(("S=37, T=7, O=1100 (ragged block, rows past one tile)",
+                  list(_box_case(gen, device, 3, 37, 7, 1100)),
+                  torch.tensor([7, 3, 1], dtype=torch.int32, device=device)))
+    k9_err = 0.0
+    for name, (px, py, c, sn, obs, vel, dt, half), ap in cases:
+        for moving in (False, True):
+            args = (px, py, c, sn, obs, vel if moving else None, dt, half, ap)
+            want = (kernels.box_min_dist_sq_reference(*args),)
+            for points in (None, *kernels.STATIC_POINTS):
+                got = (kernels.box_min_dist_sq(*args, _points=points),)
+                torch.cuda.synchronize()
+                k9_err = max(k9_err, _check_nan_equal(
+                    f"K9 {name} moving={moving} {points}", got, want))
+            d2 = want[0]
+            active = torch.arange(d2.shape[-1], device=device) < ap[:, None, None]
+            assert bool(torch.isinf(d2[~active.expand_as(d2)]).all()), f"K9 {name}: mask"
+            if name == "fleet shape":
+                assert float(d2[1, 3, 5]) == 0.0, "K9: a row inside the footprint"
+                assert bool(d2[2][active[2].expand_as(d2[2])].isnan().all())
+                assert bool(d2[4, 8, 2].isnan()) and bool(d2[5, 9, 4].isnan())
+                assert not bool(d2[0].isnan().any())
+            log(f"box_min_dist_sq (K9) == plain, moving={moving}, at its own and "
+                f"each of {kernels.STATIC_POINTS} samples per thread: {name}")
+    k3s_err = 0.0
+    for name, rows in (("the split fleet's 8 rows", 8), ("O=1100", 1100)):
+        px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, B, S, T, rows, G)
+        obs[:, rows - 3:], vel[:, rows - 3:] = 1e8, 0.0
+        obs[7, 0, 0] = float("nan")
+        ap = _mixed_active(gen, B, T, device)
+        got = kernels.min_dist_sq_moving(px, py, obs, vel, dt, ap)
+        want = kernels.min_dist_sq_moving_reference(px, py, obs, vel, dt, ap)
+        full = kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)[0]
+        torch.cuda.synchronize()
+        k3s_err = max(k3s_err, _check_nan_equal(f"K3s {name}", (got, got), (want, full)))
+        log(f"min_dist_sq_moving (K3s) == plain == K3's obstacle field: {name}")
+    return k3s_err, k9_err
+
+
+def phase_split_fleet(kernels, device):
+    """The split tracked fleet: 64 robots, the fleet slice's movers in
+    their own sweep, SPLIT_TICKS closed-loop ticks on the card. Every tick
+    launches K1 (512 + 384 rows) and K3s (8 rows) once and makes no host
+    sync; its outputs equal the tail-slot fleet's on the card bit for bit
+    (the same inputs and carry: a min over the same rows); at
+    SPLIT_CPU_TICKS 4 robots' rows agree with the CPU. Then the k = 8
+    graph, replay == eager, TICKS_CALLS calls. Returns the main path's
+    launches (the split fleet's; the tail-slot fleet is the comparison)."""
+    import torch
+
+    split, lanes, circles = make_fleet(device, split=True)
+    tail, _, _ = make_fleet(device)
+    assert split.spec.solver.scan_size == SPLIT_ROWS and not split.spec.solver.moving_obstacles
+    drive = FleetDrive(lanes, circles, FLEET_TRACKED)
+    split._tick_fn = sync_guarded(split._tick_fn)
+    launches, ties, found = {}, [], 0
+    for tick in range(SPLIT_TICKS):
+        inputs = drive.inputs()
+        carry = [t.cpu() for t in split._carry]
+        before = kernels.launch_counts()
+        out = split.tick(*inputs)
+        made = _launches_made(kernels, before)
+        assert made == {"K1": 1, "K3s": 1}, f"split tick {tick}: launches {made}"
+        for k, n in made.items():
+            launches[k] = launches.get(k, 0) + n
+        ref = tail.tick(*inputs)
+        for key in out:
+            assert np.array_equal(out[key], ref[key]), f"split tick {tick}: {key} != tail"
+        if tick in SPLIT_CPU_TICKS:
+            _fleet_cpu_check(split, carry, out, tick, ties)
+        found += int(out["found"].sum())
+        drive.advance(out)
+    assert split._tick_fn.calls == SPLIT_TICKS
+    assert found >= 0.9 * FLEET_ROBOTS * SPLIT_TICKS, "the split fleet lost its way"
+    log(f"split mover sweep: {FLEET_ROBOTS} robots x {SPLIT_TICKS} ticks, scan bucket "
+        f"{SPLIT_ROWS} + {FLEET_TRACKED} mover rows; == the tail-slot fleet bit for bit "
+        f"every tick; found {found}/{FLEET_ROBOTS * SPLIT_TICKS}; min robot-mover "
+        f"distance {drive.min_clearance:.3f} m; CPU ties {ties}")
+    del tail
+    drive = FleetDrive(lanes, circles, FLEET_TRACKED)
+    graph, _ = _replay_calls(kernels, split, drive, device, ("K1", "K3s"), "split k-tick")
+    for k, n in graph.items():
+        launches[k] += n
+    log(f"split k-tick loop: {TICKS_CALLS} calls of k={TICKS_K}, replay == eager bit "
+        f"for bit; K1 and K3s {TICKS_K} per replay")
+    del split
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_box_fleet(kernels, device):
+    """The mixed circle + BOX fleet (every fourth of PeerDrive's 64 robots
+    a BOX) with peers, prediction, 8 tracked slots and the safety gate:
+    BOX_FLEET_TICKS closed-loop ticks on the card, K3 and K9 once each per
+    tick, no host sync, 4 robots' rows on BOX_CPU_TICKS against the CPU,
+    the boxed robot stopped, no two robots closer than a box's half width
+    plus a circle's radius; then its k = 8 graph (replay == eager).
+    Returns the main path's launches."""
+    import torch
+
+    fleet, drive = make_peer_fleet(device, box_every=BOX_EVERY)
+    solver = fleet.spec.solver
+    assert solver.dynamic_box and not fleet.spec.split_mover_sweep
+    box2 = fleet._cfg.collision_box2.cpu().numpy()
+    assert np.array_equal(box2[::BOX_EVERY], np.tile(np.float32(FLEET_BOX_PARAMS[:2]) / 2,
+                                                     (FLEET_ROBOTS // BOX_EVERY, 1)))
+    fleet._tick_fn = sync_guarded(fleet._tick_fn)
+    launches, ties, found = {}, [], 0
+    for tick in range(BOX_FLEET_TICKS):
+        inputs = drive.inputs()
+        carry = [t.cpu() for t in fleet._carry]
+        before = kernels.launch_counts()
+        out = fleet.tick(*inputs[:4], tracked=inputs[4])
+        made = _launches_made(kernels, before)
+        assert made == {"K3": 1, "K9": 1}, f"box fleet tick {tick}: launches {made}"
+        for k, n in made.items():
+            launches[k] = launches.get(k, 0) + n
+        _assert_finite(out, f"box fleet tick {tick}")
+        if tick in BOX_CPU_TICKS:
+            _peer_cpu_check(fleet, carry, out, tick, ties)
+        b = drive.boxed
+        assert out["safety_factor"][b] == 0.0 and out["vx"][b] == 0.0
+        found += int(out["found"].sum())
+        drive.advance(out)
+    clear = FLEET_BOX_PARAMS[1] / 2 + PEER_RADIUS
+    log(f"mixed circle + BOX fleet: {FLEET_ROBOTS} robots ({FLEET_ROBOTS // BOX_EVERY} "
+        f"BOX {FLEET_BOX_PARAMS[0]} x {FLEET_BOX_PARAMS[1]} m), peers + prediction + "
+        f"safety, {BOX_FLEET_TICKS} ticks; found {found}/{FLEET_ROBOTS * BOX_FLEET_TICKS}"
+        f"; closest pair {drive.min_pair:.3f} m (no contact above {clear}); boxed "
+        f"robot stopped; CPU-checked rows {len(BOX_CPU_TICKS) * len(PEER_CPU_ROBOTS)}, "
+        f"ties {ties}")
+    assert drive.min_pair > clear, "BOX fleet robots collided"
+    assert found >= 0.8 * FLEET_ROBOTS * BOX_FLEET_TICKS, "the BOX fleet lost its way"
+    del fleet
+    fleet, drive = make_peer_fleet(device, box_every=BOX_EVERY, wall_gap=TICKS_WALL_GAP,
+                                   wall_speed=TICKS_WALL_SPEED)
+    graph, out = _replay_calls(kernels, fleet, drive, device, ("K3", "K9"),
+                               "box k-tick")
+    for k, n in graph.items():
+        launches[k] += n
+    assert drive.min_pair > clear, "BOX fleet robots collided inside the loop"
+    log(f"mixed BOX fleet k-tick loop: {TICKS_CALLS} calls of k={TICKS_K}, replay == "
+        f"eager bit for bit; closest pair {drive.min_pair:.3f} m; the wall robots' last "
+        f"|vx| max {np.abs(out['vx'][drive.wall, -1]).max():.4f} m/s")
+    del fleet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_controllers(device):
+    """Every entry of the port's controller registry built and stepped a
+    few times on the card machine: DWA on the card, the host controllers
+    (Stanley, DVZ, Pure Pursuit) along a curve past a post, the RGB and
+    RGBD followers on a target ahead; each returns commands, finite."""
+    from kompass_core_tpu_torch import control
+    from kompass_core_tpu_torch.datatypes import Bbox2D, LaserScanData
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits, RobotGeometry,
+        RobotType,
+    )
+
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=3.0, max_decel=5.0),
+        omega_limits=AngularCtrlLimits(max_vel=2.0, max_acc=6.0, max_decel=6.0,
+                                       max_steer=1.0))
+    t = np.linspace(0.0, 1.0, 12)
+    path = np.stack([6.0 * t, 1.2 * np.sin(2.0 * t)], 1)
+    angles = np.linspace(-np.pi, np.pi, 180, endpoint=False)
+    box = Bbox2D(top_left_corner=np.array([270, 200]), size=np.array([100, 80]))
+    box.set_img_size(np.array([640, 480]))
+    depth = np.zeros((480, 640), np.uint16)
+    depth[200:281, 270:371] = 3000
+    summary = []
+    for cid in control.ControllersID:
+        robot = Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+                      geometry_type=RobotGeometry.Type.CYLINDER,
+                      geometry_params=np.array([0.2, 0.4]))
+        cls = control.ControlClasses[cid]
+        if cid == control.ControllersID.DWA:
+            ctl = cls(robot=robot, ctrl_limits=limits,
+                      config=control.DWAConfig(max_linear_samples=10,
+                                               max_angular_samples=10),
+                      device=device)
+        elif cid == control.ControllersID.VISION_DEPTH:
+            ctl = cls(robot=robot, ctrl_limits=limits,
+                      config=control.VisionRGBDFollowerConfig(target_distance_m=1.0),
+                      camera_focal_length=(500.0, 500.0),
+                      camera_principal_point=(320.0, 240.0))
+            assert ctl.set_initial_tracking_2d_target(depth, box)
+        elif cid == control.ControllersID.VISION_IMG:
+            ctl = cls(robot=robot, ctrl_limits=limits)
+            assert ctl.set_initial_tracking_2d_target(box)
+        else:
+            ctl = cls(robot=robot, ctrl_limits=limits, control_time_step=DT)
+        if hasattr(ctl, "set_path") and "VISION" not in cid.name:
+            ctl.set_path(path)
+        oks = []
+        for _ in range(5):
+            scan = LaserScanData(ranges=np.full(180, 8.0), angles=angles, range_max=8.0)
+            scan.ranges[88:93] = 1.5  # a post ahead
+            oks.append(bool(ctl.loop_step(current_state=robot.state, laser_scan=scan,
+                                          detections_2d=[box], aligned_depth_image=depth)))
+            cmd = [float(getattr(ctl, k)[0]) for k in
+                   ("linear_x_control", "linear_y_control", "angular_control")]
+            assert all(math.isfinite(v) for v in cmd), f"{cid}: {cmd}"
+            robot.set_control(velocity_x=cmd[0], velocity_y=cmd[1], omega=cmd[2])
+            robot.get_state(dt=DT)
+        assert any(oks), f"{cid}: no step found a command"
+        summary.append(f"{cid} {sum(oks)}/5 (x {robot.state.x:.3f}, yaw "
+                       f"{robot.state.yaw:.3f})")
+    log(f"controller registry: {len(summary)} controllers stepped 5 times each: "
+        + "; ".join(summary))
+
+
+def box_bound(px, rows, active, moving):
+    """K9's bound: K9_PAIR_OPS FP32 instructions per active (point, row)
+    pair, and 4 per (robot, active step, row) to move a row; bytes: each
+    point's x, y, cos and sin, the rows (and velocities), the half
+    extents, one output per point, once each."""
+    B, S, T = px.shape
+    steps = float(active.clamp(max=T).sum())
+    ops = K9_PAIR_OPS * steps * S * rows + (4.0 * steps * rows if moving else 0.0)
+    nbytes = 4.0 * (4 * B * S * T + B * 2 * rows * (2 if moving else 1) + 2 * B
+                    + B * S * T)
+    return bound(ops, nbytes)
+
+
+def _fleet_tick_ms(fleet, drive, ticks):
+    """Host-clock median ms of closed-loop ``tick`` calls (after TIMED_WARMUP)."""
+    import torch
+
+    lat = []
+    for i in range(TIMED_WARMUP + ticks):
+        states, vels, ranges, angles, tracked = drive.inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fleet.tick(states, vels, ranges, angles, tracked=tracked)
+        if i >= TIMED_WARMUP:
+            lat.append((time.perf_counter() - t0) * 1e3)
+        drive.advance(out)
+    return statistics.median(lat)
+
+
+def _fleet_graph_ms(fleet, drive):
+    """Per-tick ms of the k-tick graph: host clock over whole calls with
+    syncs, median of TICKS_TIMED calls, over k."""
+    inputs = drive.inputs()
+    fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])  # capture
+    ms = _median_ms(lambda: fleet.run_ticks_on_device(TICKS_K, *inputs[:4],
+                                                      tracked=inputs[4]), TICKS_TIMED)
+    return ms[0] / TICKS_K
+
+
+def phase_split_box_times(kernels, device, card):
+    """Times of this slice, each pair in turns A, B, B, A in one run: the
+    split against the tail-slot tracked fleet (tick median and k = 8
+    graph per tick), the mixed BOX against the circle peer fleet (the
+    same), K9 against its plain version at 64 x 2025 x 30 vs 768 static
+    rows (the kernels line) and at the peer width (1344 moving rows),
+    and K3s at 64 x 2025 x 30 vs 8 rows, beside their bounds. Returns
+    (K3s's, K9's (ms, plain ms, bound ms, bound by))."""
+    import torch
+
+    def turns(label, makers):
+        fleets = {name: make() for name, make in makers.items()}
+        res = {name: [] for name in fleets}
+        names = list(fleets)
+        for name in (names[0], names[1], names[1], names[0]):
+            fleet, drive = fleets[name]
+            tick = _fleet_tick_ms(fleet, drive, FLEET_TIMED_TICKS)
+            res[name].append((tick, _fleet_graph_ms(fleet, drive)))
+        for name, runs in res.items():
+            log(f"{label}: {name} ({card}): tick median {statistics.mean(r[0] for r in runs):.4f} "
+                f"ms (turns {[round(r[0], 4) for r in runs]}); k={TICKS_K} graph "
+                f"{statistics.mean(r[1] for r in runs):.4f} ms per tick (turns "
+                f"{[round(r[1], 4) for r in runs]})")
+        del fleets
+        torch.cuda.empty_cache()
+
+    def fleet_with_drive(split):
+        fleet, lanes, circles = make_fleet(device, split=split)
+        return fleet, FleetDrive(lanes, circles, FLEET_TRACKED)
+
+    turns(f"tracked fleet, {FLEET_ROBOTS} robots, {FLEET_TRACKED} slots", {
+        "tail-slot (K3, 768 + 384 rows)": lambda: fleet_with_drive(False),
+        "split (K1, 512 + 384 rows, + K3s, 8 rows)": lambda: fleet_with_drive(True)})
+    turns(f"peer fleet, {FLEET_ROBOTS} robots, peers + prediction + safety", {
+        "circles (K3)": lambda: make_peer_fleet(device),
+        f"every {BOX_EVERY}th a BOX (K3 + K9)": lambda: make_peer_fleet(
+            device, box_every=BOX_EVERY)})
+
+    B, S, T, O, G = FLEET_SHAPE
+    gen = torch.Generator().manual_seed(23)
+    ap = torch.full((B,), T, dtype=torch.int32, device=device)
+    results = {}
+    for name, rows, moving in (("K9", O, False), ("K9 peer width", PEER_ROWS, True)):
+        cases = [_box_case(gen, device, B, S, T, rows) for _ in range(K9_INPUTS)]
+        inputs = [(px, py, c, sn, obs, vel if moving else None, dt, half, ap)
+                  for px, py, c, sn, obs, vel, dt, half in cases]
+        k_ms, p_ms, runs = _in_turns(kernels.box_min_dist_sq,
+                                     kernels.box_min_dist_sq_reference, inputs, warm=1)
+        g_ms = _graph_ms(kernels.box_min_dist_sq, inputs)
+        b_ms, b_by = box_bound(cases[0][0], rows, ap, moving)
+        log(f"box_min_dist_sq ({name}) at B={B}, {S}x{T} vs {rows} "
+            f"{'moving' if moving else 'static'} rows ({card}), CUDA events over "
+            f"{K9_INPUTS} distinct inputs, in turns {runs}: kernel {k_ms:.5f} ms "
+            f"(graph replay {g_ms:.5f} ms), plain {p_ms:.5f} ms; bound {b_ms:.5f} ms "
+            f"({b_by}, {K9_PAIR_OPS} per pair), {b_ms / k_ms:.1%} of it, "
+            f"{b_ms / g_ms:.1%} of the replay")
+        results[name] = (k_ms, p_ms, b_ms, b_by)
+        del cases, inputs
+    cases = [_moving_case(gen, device, B, S, T, FLEET_TRACKED, 1)
+             for _ in range(FLEET_KERNEL_INPUTS)]
+    inputs = [(px, py, obs, vel, dt, ap) for px, py, obs, vel, dt, _, _ in cases]
+    k_ms, p_ms, runs = _in_turns(kernels.min_dist_sq_moving,
+                                 kernels.min_dist_sq_moving_reference, inputs)
+    g_ms = _graph_ms(kernels.min_dist_sq_moving, inputs)
+    b_ms, b_by = form_bound(cases[0][0], FLEET_TRACKED, ap, 0, 6, 0, row_ops=4,
+                            moving=True, fields=1)
+    log(f"min_dist_sq_moving (K3s) at B={B}, {S}x{T} vs {FLEET_TRACKED} rows ({card}), "
+        f"CUDA events over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
+        f"kernel {k_ms:.5f} ms (graph replay {g_ms:.5f} ms), plain {p_ms:.5f} ms; bound "
+        f"{b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it, {b_ms / g_ms:.1%} of the replay")
+    del cases, inputs
+    torch.cuda.empty_cache()
+    return (k_ms, p_ms, b_ms, b_by), results["K9"]
+
+
 def main() -> int:
     import torch
 
@@ -3116,7 +3562,7 @@ def main() -> int:
     k4_launches = kernels.min_dist_sq_expanded.launches
     assert kernels.fused_min_dist_sq_moving.launches == 0
     phase_evaluator(kernels, device)
-    phase_box_dwa(kernels, device)
+    box_dwa_k9 = phase_box_dwa(kernels, device)
     form_errs = phase_tpu_forms_vs_plain(kernels, device)
     for counter in kernels.SWEEP_KERNELS.values():
         counter.launches = 0
@@ -3143,6 +3589,16 @@ def main() -> int:
         f"reference loops included: {counted})")
     assert all(peer_launches.get(key) for key in ("K1", "K3", "K7", "K8"))
     peer_errs = phase_peer_sweeps_vs_plain(kernels, device)
+    k3s_err, k9_err = phase_box_sweeps_vs_plain(kernels, device)
+    for counter in kernels.SWEEP_KERNELS.values():
+        counter.launches = 0
+    split_launches = phase_split_fleet(kernels, device)
+    box_launches = phase_box_fleet(kernels, device)
+    log(f"split and BOX fleet main-path launches: {split_launches}, {box_launches} "
+        f"(wrapper calls, the comparisons included: "
+        f"{ {k: c for k, c in kernels.launch_counts().items() if c} })")
+    assert split_launches["K3s"] and box_launches["K9"] and box_dwa_k9
+    phase_controllers(device)
     phase_times(kernels, device, card)
     static_times = phase_static_times(kernels, device, card)
     k3_times = phase_fleet_times(kernels, device, card)
@@ -3152,6 +3608,7 @@ def main() -> int:
     phase_ticks_times(device, card)
     phase_peer_sweep_times(kernels, device, card)
     phase_peer_times(device, card)
+    k3s_times, k9_times = phase_split_box_times(kernels, device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -3169,12 +3626,15 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
-            k1_launches + peer_launches["K1"], max(k1_err, peer_errs["K1"]),
-            *static_times["K1"]),
+            k1_launches + peer_launches["K1"] + split_launches["K1"],
+            max(k1_err, peer_errs["K1"]), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches, k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
-            k3_launches + peer_launches["K3"], max(k3_err, peer_errs["K3"]), *k3_times),
+            k3_launches + peer_launches["K3"] + box_launches["K3"],
+            max(k3_err, peer_errs["K3"]), *k3_times),
+        row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES, split_launches["K3s"],
+            k3s_err, *k3s_times),
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES, k4_launches,
             k4_err, *static_times["K4"]),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
@@ -3188,6 +3648,8 @@ def main() -> int:
         row("fused_min_dist_sq_moving_broadcast", KERNEL_SOURCE,
             MOVING_BROADCAST_REPLACES, form_launches["K8"] + peer_launches["K8"],
             max(form_errs["K8"], peer_errs["K8"]), *form_times["K8"]),
+        row("box_min_dist_sq", K9_SOURCE, K9_REPLACES,
+            box_dwa_k9 + box_launches["K9"], k9_err, *k9_times),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

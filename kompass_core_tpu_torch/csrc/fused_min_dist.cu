@@ -24,6 +24,9 @@
 //   K3 moving_min_dist_kernel<kDirect>: the XLA form of the moving sweep,
 //      (p - (o + v tau))^2 (solver.py:365 _min_obstacle_dist_sq_moving;
 //      backend "xla" with moving obstacles), its segment sweep direct.
+//   K3s moving_min_dist_kernel<kDirect> with the segment sweep compiled
+//      out (kSegments = false): the same function over the split mover
+//      rows alone (solver.py:737 dwa_solve's mover4, every backend).
 //   K7 moving_min_dist_kernel<kExpanded>: pallas_kernels.py:116
 //      _fused_kernel_mxu_moving, the 7-feature dot (backends "pallas" and
 //      "pallas_v1" with moving obstacles), its segment sweep K2's.
@@ -369,8 +372,10 @@ __device__ void norm_rows(const StepPoints& p, float (&acc)[kPoints],
 
 // One block: step t = blockIdx.y of robot b = blockIdx.z, samples
 // blockIdx.x * kMovingBlock * kPoints + threadIdx.x + k * kMovingBlock.
-// kForm: kDirect (K3), kExpanded (K7) or kBroadcast (K8).
-template <int kForm>
+// kForm: kDirect (K3; K3s with kSegments = false, which compiles the
+// segment sweep and its stores out: seg_x, seg_y and out_seg are not
+// read), kExpanded (K7) or kBroadcast (K8).
+template <int kForm, bool kSegments = true>
 __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
     const float* __restrict__ px, const float* __restrict__ py, int samples,
     int steps, const float* __restrict__ obs, const float* __restrict__ obs_vel,
@@ -392,7 +397,9 @@ __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
       const int s = s0 + k * kMovingBlock;
       if (s < samples) {
         out_obs[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
-        out_seg[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
+        if constexpr (kSegments) {
+          out_seg[point0 + static_cast<long long>(s) * steps] = CUDART_INF_F;
+        }
       }
     }
     return;
@@ -418,9 +425,12 @@ __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
     float2* tile2 = reinterpret_cast<float2*>(tile);
     sweep_rows<true>(x, y, mo, obs + 2 * row0, obs + 2 * row0 + 1, 2,
                      obs_vel + 2 * row0, tau, n_obs, points_non_finite, tile2);
-    sweep_rows<false>(x, y, ms, seg_x + seg0, seg_y + seg0, 1, nullptr, 0.0f,
-                      n_seg, points_non_finite, tile2);
+    if constexpr (kSegments) {
+      sweep_rows<false>(x, y, ms, seg_x + seg0, seg_y + seg0, 1, nullptr, 0.0f,
+                        n_seg, points_non_finite, tile2);
+    }
   } else {
+    static_assert(kSegments, "the feature forms always sweep the segment");
     StepPoints p;
     bool wild = false;
 #pragma unroll
@@ -451,12 +461,14 @@ __global__ void __launch_bounds__(kMovingBlock) moving_min_dist_kernel(
     const int s = s0 + k * kMovingBlock;
     if (s < samples) {
       out_obs[point0 + static_cast<long long>(s) * steps] = mo[k];
-      out_seg[point0 + static_cast<long long>(s) * steps] = ms[k];
+      if constexpr (kSegments) {
+        out_seg[point0 + static_cast<long long>(s) * steps] = ms[k];
+      }
     }
   }
 }
 
-template <int kForm>
+template <int kForm, bool kSegments = true>
 int launch_moving(const float* px, const float* py, int batch, int n_points,
                   int steps, const float* obs, const float* obs_vel,
                   const float* dt, int n_obs, const float* seg_x,
@@ -465,8 +477,8 @@ int launch_moving(const float* px, const float* py, int batch, int n_points,
   const int samples = n_points / steps;
   const int per_block = kMovingBlock * kPoints;
   const dim3 grid((samples + per_block - 1) / per_block, steps, batch);
-  moving_min_dist_kernel<kForm><<<grid, kMovingBlock, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  moving_min_dist_kernel<kForm, kSegments><<<grid, kMovingBlock, 0,
+                                             static_cast<cudaStream_t>(stream)>>>(
       px, py, samples, steps, obs, obs_vel, dt, n_obs, seg_x, seg_y, n_seg,
       active_points, out_obs, out_seg);
   return static_cast<int>(cudaGetLastError());
@@ -758,6 +770,18 @@ extern "C" int kompass_fused_min_dist_sq_moving(
   return launch_moving<kDirect>(px, py, batch, n_points, steps, obs, obs_vel,
                                 dt, n_obs, seg_x, seg_y, n_seg, active_points,
                                 out_obs, out_seg, stream);
+}
+
+// K3s, K3's moving obstacle sweep alone: [B, S, T] points against rows
+// [B, n_rows, 2] moving at vel [B, n_rows, 2] (pad rows zero) into out
+// [B, S, T]; dt [B]. Launches on `stream`; returns cudaGetLastError().
+extern "C" int kompass_min_dist_sq_moving(
+    const float* px, const float* py, int batch, int n_points, int steps,
+    const float* rows, const float* vel, const float* dt, int n_rows,
+    const int* active_points, float* out, void* stream) {
+  return launch_moving<kDirect, false>(px, py, batch, n_points, steps, rows,
+                                       vel, dt, n_rows, nullptr, nullptr, 0,
+                                       active_points, out, nullptr, stream);
 }
 
 // K7, the moving sweep's 7-feature dot; arguments as for

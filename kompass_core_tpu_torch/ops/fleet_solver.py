@@ -9,6 +9,7 @@ axis:
                                    per follower.cpp:155-183, last-min tie)
     curvature-adaptive horizon    (dwa.cpp:157-206)
     scan -> world obstacle points, tracked movers in the tail slots
+                                  (or, split, in their own sweep)
     tracked-segment windowing     (dwa.cpp:208-233)
     dynamic window + rollout + costs + argmin   (ops/solver.dwa_solve)
     rotate-in-place shortcut      (corrected sign, see PARITY.md #7)
@@ -30,9 +31,13 @@ builds a tensor from host data. So a tick, and the k-tick loop
 
 Peers ride the robot's sweep as extra obstacle rows after the scan
 bucket (``_peer_model``); the safety gate is plain tensor code after the
-solve (``FleetSafety``). Not ported yet (ROADMAP items 5e-5g; they raise
-``NotImplementedError`` naming each): the split mover sweep, BOX fleets
-and the mesh.
+solve (``FleetSafety``). With ``FleetSpec.split_mover_sweep`` the tracked
+movers skip the scan bucket and run as the solver's narrow ``mover4``
+sweep (K3s). A fleet with any BOX robot runs ``SolverSpec.dynamic_box``:
+every robot's admissibility on its oriented box (K9), a circle robot as
+a (0, 0) box with its radius in its margin (``FleetConfig.collision_box2``).
+The mesh is not ported yet (ROADMAP item 5g; it raises
+``NotImplementedError`` naming it).
 """
 
 import dataclasses
@@ -72,7 +77,11 @@ class FleetSpec:
     # object enters the fused sweep at its constant-velocity predicted
     # position (pairs with SolverSpec.moving_obstacles)
     tracked_obstacles: int = 0
-    split_mover_sweep: bool = False  # not ported (item 5e)
+    # route the tracked movers through the solver's separate narrow
+    # moving sweep (mover4, K3s), min-combined with the scan's field,
+    # instead of the scan bucket's tail slots: the same commands bit for
+    # bit (a min over the same rows), and the scan bucket stays at rays
+    split_mover_sweep: bool = False
 
 
 def fleet_spec_from_jax(jax_fleet_spec) -> FleetSpec:
@@ -124,6 +133,10 @@ class FleetConfig(NamedTuple):
     curvature_tol: torch.Tensor  # [N]
     vx_max: torch.Tensor  # [N]
     max_segment_size: torch.Tensor  # [N] i32 (lookahead floor, points)
+    # per-robot box half extents (spec.dynamic_box fleets): (0, 0) for
+    # circle robots, whose radius is folded into params12[2] (the
+    # collision margin); (l/2, w/2) for BOX robots
+    collision_box2: torch.Tensor = None  # [N, 2] f32
 
 
 class FleetSafety(NamedTuple):
@@ -371,6 +384,7 @@ def _fleet_step(
     obs_world=None,  # [N, scan_size, 2] world obstacles (the k-tick loop)
     peers=None,  # (rows [N, P, 2], velocities [N, P, 2] or None, count)
     safety: FleetSafety = None,  # the fused critical-zone gate
+    split_movers: bool = False,  # tracked movers through mover4 (K3s)
 ):
     """Every robot's full control tick on the device: (carry', out [N, 10])
     with the columns of ``OUT_FIELDS``. ``obs_world``: the scan already
@@ -391,9 +405,14 @@ def _fleet_step(
     the k-tick loop the frozen world points against the current pose.
     Peers and tracked movers stay out of it: avoidance owns their
     spacing, and a stop against them would freeze the robot in their
-    path."""
+    path.
+
+    ``split_movers``: the tracked rows go to the solver's ``mover4``
+    sweep instead of the scan bucket's tail (``obs_count`` still counts
+    the real ones). A ``dynamic_box`` spec decides admissibility on each
+    robot's box, ``cfg.collision_box2``."""
     (params12, limits9, sensor_pose, rot_in_place, goal_tol, ori_tol,
-     losing_tol, interp_dist, base_h, curv_tol, vx_max, max_seg_size) = cfg
+     losing_tol, interp_dist, base_h, curv_tol, vx_max, max_seg_size) = cfg[:12]
     x, y, yaw = states[:, 0], states[:, 1], states[:, 2]
     L = paths.x.shape[-1]
 
@@ -451,6 +470,14 @@ def _fleet_step(
     obs_count = torch.full_like(goal_i, min(R, spec.scan_size))
     scan_len = obs.shape[1]
     m_rows = 0
+    mover4 = None
+    if tracked is not None and split_movers:
+        # the split form: the movers never touch the scan bucket; they run
+        # as the solver's narrow moving sweep, and count for the obstacle
+        # cost's gate as in the tail-slot form
+        mover4 = tracked
+        obs_count = obs_count + (tracked[:, :, 0] < 1e7).sum(-1).to(torch.int32)
+        tracked = None
     if tracked is not None:
         # positions ride the scan bucket's guaranteed-pad TAIL slots (the
         # fleet sizes scan_size >= rays + M); pad slots sit at x >= 1e7
@@ -509,6 +536,8 @@ def _fleet_step(
         spec, params, states[:, 0:3], window, obs, obs_count, seg_x, seg_y,
         seg_arc, seg_count, seg_total_len, paths.total_len, active_points,
         obs_vel=obs_vel,
+        collision_box_dyn=cfg.collision_box2 if spec.dynamic_box else None,
+        mover4=mover4,
     )
 
     # --- rotate-in-place / reached overrides ---
@@ -592,16 +621,6 @@ def _check_tracked_spec(fleet_spec: FleetSpec) -> None:
         )
 
 
-def _check_fleet_spec(fleet_spec: FleetSpec) -> None:
-    """The fleet forms that are not ported raise naming their ROADMAP
-    item; tracked slots need the moving sweep."""
-    if fleet_spec.split_mover_sweep:
-        _not_ported("split_mover_sweep", "5e")
-    if fleet_spec.solver.dynamic_box or fleet_spec.solver.collision_box:
-        _not_ported("BOX fleets (dynamic_box)", "5f")
-    _check_tracked_spec(fleet_spec)
-
-
 def _check_peer_cfg(fleet_spec: FleetSpec, peer_cfg) -> None:
     """peer_cfg['predict'] without the moving sweep would silently fall
     back to frozen live-position peers (prediction off, no error).
@@ -620,11 +639,18 @@ def _check_peer_cfg(fleet_spec: FleetSpec, peer_cfg) -> None:
 
 
 def _split_tick_inputs(fleet_spec: FleetSpec, inputs, safety: bool = False,
-                       safety_arg=None):
+                       safety_arg=None, cfg=None):
     """The packed tick input ``[N, 7 + R (+ 4M)]`` -> (states [N, 4],
     vels [N, 3], ranges [N, R], tracked [N, M, 4] or None). A program
     built with ``safety`` refuses to run without its ``FleetSafety``: a
-    silent factor of 1 would be unsafe."""
+    silent factor of 1 would be unsafe. A ``dynamic_box`` program refuses
+    a ``cfg`` without ``collision_box2``: the solver would fall back to the
+    circle model with the radius counted twice (it is in the margin)."""
+    if (fleet_spec.solver.dynamic_box and cfg is not None
+            and cfg.collision_box2 is None):
+        raise ValueError(
+            "dynamic_box fleet spec requires FleetConfig.collision_box2"
+        )
     if safety and safety_arg is None:
         raise ValueError(
             "tick program built with safety=True requires a FleetSafety arg"
@@ -742,7 +768,7 @@ def make_fleet_tick(fleet_spec: FleetSpec, device, mesh=None, peer_cfg=None,
     (ROADMAP item 5g)."""
     if mesh is not None:
         _not_ported("make_fleet_tick(mesh=...)", "5g")
-    _check_fleet_spec(fleet_spec)
+    _check_tracked_spec(fleet_spec)
     _check_peer_cfg(fleet_spec, peer_cfg)
     spec = fleet_spec.solver
     device = torch.device(device)
@@ -752,12 +778,13 @@ def make_fleet_tick(fleet_spec: FleetSpec, device, mesh=None, peer_cfg=None,
              inputs, safety_arg=None):
         inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
         states, vels, ranges, tracked = _split_tick_inputs(
-            fleet_spec, inputs, safety, safety_arg)
+            fleet_spec, inputs, safety, safety_arg, cfg)
         return _fleet_step(
             spec, paths, cfg, carry, states, vels, ranges, angles,
             spec.seg_size, tracked,
             peers=None if peers is None else peers(inputs[:, 0:7]),
             safety=safety_arg if safety else None,
+            split_movers=fleet_spec.split_mover_sweep,
         )
 
     return tick
@@ -793,7 +820,7 @@ def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
     item 5g)."""
     if mesh is not None:
         _not_ported("make_fleet_ticks_on_device(mesh=...)", "5g")
-    _check_fleet_spec(fleet_spec)
+    _check_tracked_spec(fleet_spec)
     _check_peer_cfg(fleet_spec, peer_cfg)
     if int(k) < 1:
         raise ValueError(f"the k-tick loop needs k >= 1 ticks, got {k}")
@@ -806,7 +833,7 @@ def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
               inputs, safety_arg=None):
         inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
         states, vels, ranges, tracked = _split_tick_inputs(
-            fleet_spec, inputs, safety, safety_arg)
+            fleet_spec, inputs, safety, safety_arg, cfg)
         obs_world, _ = _scan_to_world_obs(
             spec, ranges, angles, cfg.sensor_pose, states[:, 0], states[:, 1],
             states[:, 2],
@@ -826,6 +853,7 @@ def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
                 peers=(None if peers is None
                        else peers(torch.cat([states, vels], dim=1))),
                 safety=safety_arg if safety else None,
+                split_movers=fleet_spec.split_mover_sweep,
             )
             vx, vy, om = out[:, 2], out[:, 3], out[:, 4]
             cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])

@@ -24,6 +24,9 @@ runs follows the solver's ``SolverSpec.backend``, as in the JAX package
   obstacles): every obstacle row moves at constant velocity, o + v * t *
   dt at rollout step t, in the direct form, the function of the XLA sweep
   ``_min_obstacle_dist_sq_moving``. The segment rows stay static.
+- ``min_dist_sq_moving`` (K3s): K3's moving obstacle sweep alone, over the
+  split mover rows (``dwa_solve``'s ``mover4``, every backend), as K4 is
+  K2's obstacle sweep alone.
 - ``fused_min_dist_sq_moving_expanded`` is the port of
   ``_fused_kernel_mxu_moving`` (K7, backends ``"pallas"`` and
   ``"pallas_v1"`` with moving obstacles): the 7-feature dot f(o).g(p) as
@@ -42,6 +45,14 @@ origin, where the JAX package's scenarios lie (``bench.py``), and a
 hundred times that at 100 m. They are ported as
 the TPU kernels compute them; the XLA sweeps (K1, K3) use the direct
 form.
+
+BOX robots' collision field is one kernel (``csrc/box_min_dist.cu``):
+
+- ``box_min_dist_sq`` (K9): the squared distance from the robot's
+  oriented box to every obstacle row, min over the rows, the function of
+  the JAX package's XLA sweep ``kompass_core_tpu/ops/solver.py::
+  _min_box_dist_sq``; static or moving rows, per-robot half extents, the
+  headings' cos and sin given by the caller.
 
 The occupancy mapper's per-cell pass is one kernel:
 
@@ -184,6 +195,14 @@ def _library() -> ctypes.CDLL:
             lib.kompass_min_dist_sq_expanded.restype = ctypes.c_int
             lib.kompass_min_dist_sq_expanded.argtypes = [
                 p, p, i, i, i, p, i, p, p, i, p,
+            ]
+            lib.kompass_min_dist_sq_moving.restype = ctypes.c_int
+            lib.kompass_min_dist_sq_moving.argtypes = [
+                p, p, i, i, i, p, p, p, i, p, p, p,
+            ]
+            lib.kompass_box_min_dist_sq.restype = ctypes.c_int
+            lib.kompass_box_min_dist_sq.argtypes = [
+                p, p, p, p, i, i, i, p, p, p, i, p, p, p, i, p,
             ]
             lib.kompass_scan_to_grid_cells.restype = ctypes.c_int
             lib.kompass_scan_to_grid_cells.argtypes = [
@@ -428,6 +447,14 @@ def fused_min_dist_sq_moving_broadcast_reference(px, py, obs_xy, obs_vel, dt,
     ``fused_min_dist_sq_moving``."""
     return _reference("fused_min_dist_sq_moving_broadcast", px, py, obs_xy,
                       seg_x, seg_y, active_points, obs_vel, dt, form="broadcast")
+
+
+def min_dist_sq_moving_reference(px, py, rows, vel, dt, active_points):
+    """Plain PyTorch version of K3s: K3's moving obstacle sweep alone
+    (``fused_min_dist_sq_reference``'s obstacle half), over ``rows``.
+    Arguments as for ``min_dist_sq_moving``."""
+    return _reference("min_dist_sq_moving", px, py, rows, None, None,
+                      active_points, vel, dt)
 
 
 def min_dist_sq_expanded_reference(px, py, rows, active_points):
@@ -675,22 +702,161 @@ def fused_min_dist_sq_moving_broadcast(px, py, obs_xy, obs_vel, dt, seg_x,
     return out
 
 
+def min_dist_sq_moving(px, py, rows, vel, dt, active_points):
+    """K3s: K3's moving obstacle sweep alone, in one kernel launch (the
+    split mover sweep).
+
+    px, py: [S, T] ([B, S, T]); rows: [M, 2] ([B, M, 2]) world positions,
+    pads at 1e8 with zero velocity; vel: [M, 2] ([B, M, 2]) world
+    velocities; dt and active_points as for ``fused_min_dist_sq_moving``.
+    Returns d2 shaped like px: the min over the rows of |p - (o + v * (t *
+    dt))|^2, +inf where t >= active_points. On CUDA it adds one to
+    ``min_dist_sq_moving.launches``."""
+    if px.device.type == "cpu":
+        return min_dist_sq_moving_reference(px, py, rows, vel, dt, active_points)
+    dims = _check_sweep("min_dist_sq_moving", px, py, rows, None, None,
+                        active_points, vel, dt)
+    out = _launch("kompass_min_dist_sq_moving", dims, px, py, rows, None, None,
+                  active_points, vel, dt)
+    min_dist_sq_moving.launches += 1
+    return out
+
+
+# --- BOX robots' collision field (K9) ---------------------------------------------
+
+
+def _check_box(px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points):
+    """Check K9's inputs; returns (B, S, T, O): px, py, cos_yaw, sin_yaw
+    [B, S, T]; rows (and vel) [B, O, 2]; dt [B] (with vel); half [B, 2];
+    active_points [B] int32; all on one device and contiguous."""
+    name = "box_min_dist_sq"
+    tensors = [px, py, cos_yaw, sin_yaw, rows, half, active_points]
+    if vel is not None:
+        tensors += [vel, dt]
+    device = px.device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    if any(t.dtype != torch.float32 for t in tensors if t is not active_points):
+        raise TypeError(f"{name}: every tensor but active_points must be float32")
+    if active_points.dtype != torch.int32:
+        raise TypeError(f"{name}: active_points must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: all tensors must be contiguous")
+    if px.dim() != 3 or px.numel() == 0 or any(
+            t.shape != px.shape for t in (py, cos_yaw, sin_yaw)):
+        raise ValueError(f"{name}: px, py, cos_yaw, sin_yaw must be one "
+                         "non-empty [B, S, T] shape")
+    B, S, T = px.shape
+    if S * T >= 2**31 or B > _MAX_BATCH:
+        raise ValueError(f"{name}: S * T must fit in int32 and B <= {_MAX_BATCH}")
+    if rows.dim() != 3 or rows.shape[0] != B or rows.shape[2] != 2 or rows.shape[1] == 0:
+        raise ValueError(f"{name}: rows must be non-empty [B, O, 2]")
+    if half.shape != (B, 2) or active_points.shape != (B,):
+        raise ValueError(f"{name}: half must be [B, 2] and active_points [B]")
+    if vel is not None and (vel.shape != rows.shape or dt.shape != (B,)):
+        raise ValueError(f"{name}: vel must match rows and dt be [B]")
+    return B, S, T, rows.shape[1]
+
+
+def box_min_dist_sq_reference(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
+                              active_points):
+    """Plain PyTorch version of K9, the JAX package's XLA form operation
+    by operation, each rounded on its own: rows moved to o + v * (t * dt)
+    when ``vel`` is given, dx = o - p, bx = c dx + s dy, by = (-s) dx + c
+    dy, ex = max(|bx| - hl, 0), ey = max(|by| - hw, 0), ex^2 + ey^2, the
+    min over the rows (NaN kept, as ``torch.amin`` keeps it), +inf where t
+    >= active_points. Arguments as for ``box_min_dist_sq``; evaluated in
+    slabs of samples so the [B, S, T, O] broadcast stays bounded."""
+    B, S, T, O = _check_box(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
+                            active_points)
+    t = torch.arange(T, dtype=torch.float32, device=px.device)
+    c = cos_yaw.unsqueeze(-1)
+    s = sin_yaw.unsqueeze(-1)
+    ox = rows[:, None, None, :, 0]  # [B, 1, 1, O]
+    oy = rows[:, None, None, :, 1]
+    if vel is not None:
+        tau = (t * dt[:, None])[:, None, :, None]  # [B, 1, T, 1]
+        ox = ox + vel[:, None, None, :, 0] * tau
+        oy = oy + vel[:, None, None, :, 1] * tau
+    hl = half[:, 0].reshape(B, 1, 1, 1)
+    hw = half[:, 1].reshape(B, 1, 1, 1)
+    step = max(1, _SLAB_ELEMS // (B * T * O))
+    out = px.new_empty(px.shape)
+    for s0 in range(0, S, step):
+        sl = slice(s0, s0 + step)
+        dxw = ox - px[:, sl, :, None]
+        dyw = oy - py[:, sl, :, None]
+        cs, ss = c[:, sl], s[:, sl]
+        bx = cs * dxw + ss * dyw  # body-frame obstacle coordinates
+        by = -ss * dxw + cs * dyw
+        ex = torch.clamp(torch.abs(bx) - hl, min=0.0)
+        ey = torch.clamp(torch.abs(by) - hw, min=0.0)
+        out[:, sl] = torch.amin(ex * ex + ey * ey, dim=-1)
+    active = (t[None, :] < active_points[:, None])[:, None, :]  # [B, 1, T]
+    return torch.where(active, out, torch.inf)
+
+
+def box_min_dist_sq(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
+                    active_points, *, _points=None):
+    """K9: the oriented-box collision field of B robots in one kernel
+    launch (``csrc/box_min_dist.cu``).
+
+    px, py: [B, S, T] rollout points; cos_yaw, sin_yaw: [B, S, T], the
+    body's heading at each point (the caller's cos and sin, so the card
+    evaluates no trigonometry); rows: [B, O, 2] obstacle rows, pads at
+    1e8; vel: [B, O, 2] world velocities or None (static rows), with dt
+    [B] the control step; half: [B, 2] the box's half extents (hl, hw),
+    (0, 0) for a circle robot whose radius is in its margin;
+    active_points: [B] int32. Returns d2 [B, S, T]: 0 inside the
+    footprint, +inf where t >= active_points. On CUDA it launches on the
+    current stream without synchronising and adds one to
+    ``box_min_dist_sq.launches``; its samples per thread are
+    ``sweep_points``', or ``_points`` where a test forces them."""
+    _forced_points("box_min_dist_sq", _points)
+    if px.device.type == "cpu":
+        return box_min_dist_sq_reference(px, py, cos_yaw, sin_yaw, rows, vel,
+                                         dt, half, active_points)
+    B, S, T, O = _check_box(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
+                            active_points)
+    points = _static_points("box_min_dist_sq", (B, S, T), _points, px.device)
+    lib = _library()
+    out = torch.empty_like(px)
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream(px.device).cuda_stream
+        err = lib.kompass_box_min_dist_sq(
+            px.data_ptr(), py.data_ptr(), cos_yaw.data_ptr(),
+            sin_yaw.data_ptr(), B, S * T, T, rows.data_ptr(),
+            None if vel is None else vel.data_ptr(),
+            None if vel is None else dt.data_ptr(), O, half.data_ptr(),
+            active_points.data_ptr(), out.data_ptr(), points, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"box_min_dist_sq: kernel launch failed (cudaError {err})")
+    box_min_dist_sq.launches += 1
+    return out
+
+
 # the sweep kernels by their PERF.md names
 SWEEP_KERNELS = {
     "K1": fused_min_dist_sq,
     "K2": fused_min_dist_sq_expanded,
     "K3": fused_min_dist_sq_moving,
+    "K3s": min_dist_sq_moving,
     "K4": min_dist_sq_expanded,
     "K6": fused_min_dist_sq_broadcast,
     "K7": fused_min_dist_sq_moving_expanded,
     "K8": fused_min_dist_sq_moving_broadcast,
+    "K9": box_min_dist_sq,
 }
 for _wrapper in SWEEP_KERNELS.values():
     _wrapper.launches = 0
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count by its PERF.md name (K1-K8)."""
+    """Every kernel wrapper's launch count by its PERF.md name (K1-K9,
+    K3s)."""
     counts = {k: w.launches for k, w in SWEEP_KERNELS.items()}
     counts["K5"] = scan_to_grid_cells.launches
     return dict(sorted(counts.items()))

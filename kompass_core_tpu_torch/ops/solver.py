@@ -8,7 +8,8 @@ Counterpart of ``kompass_core_tpu/ops/solver.py``:
                 versions on the CPU; which kernel follows
                 ``SolverSpec.backend`` as in the JAX package, see
                 ``_sweeps``)
-             -> BOX robots: the oriented-box surface distance [S, T]
+             -> split movers (``mover4``): K3s, min-combined
+             -> BOX robots: the oriented-box surface distance [S, T] (K9)
              -> drop / truncate semantics as masks (no ragged shapes)
              -> five costs + custom costs -> weighted sum [S]
              -> first-minimum argmin
@@ -36,18 +37,18 @@ one-hot masked sums in place of per-row gathers) are not carried over;
 their outputs are: ``torch.gather`` picks the same rows exactly.
 
 Also here: the standalone cost evaluator (``evaluate_trajectory_costs``),
-the debug sampler (``dwa_sample_debug``) and the cached solvers. The
-split mover sweep (``mover4``) is not ported (ROADMAP item 5e).
+the debug sampler (``dwa_sample_debug``) and the cached solvers.
 """
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .kernels import (
-    _SLAB_ELEMS,
+    box_min_dist_sq,
     fused_min_dist_sq,
     fused_min_dist_sq_broadcast,
     fused_min_dist_sq_expanded,
@@ -55,6 +56,7 @@ from .kernels import (
     fused_min_dist_sq_moving_broadcast,
     fused_min_dist_sq_moving_expanded,
     min_dist_sq_expanded,
+    min_dist_sq_moving,
 )
 from .window import MIN_VEL, VelocityWindow
 
@@ -337,41 +339,33 @@ def _min_box_dist_sq(params, state, vels, px, py, obs_xy, active_points,
 
     ``half_extents``: (half length, half width) as two floats (static
     ``collision_box``) or two [...] tensors (``dynamic_box``). With
-    ``obs_vel`` the rows move as in the moving sweep. Plain torch, as XLA
-    fuses it in the JAX package; evaluated in slabs of samples so the
-    [..., S, T, O] broadcast stays bounded."""
-    T = px.shape[-1]
-    S = px.shape[-2]
+    ``obs_vel`` the rows move as in the moving sweep. The headings' cos
+    and sin are computed here; the sweep over the rows is K9
+    (``kernels.box_min_dist_sq``: the card's kernel, or its plain version
+    on the CPU), over the robots flattened to one axis."""
     lead = px.shape[:-2]
+    S, T = px.shape[-2:]
+    B = math.prod(lead)
     t = torch.arange(T, dtype=torch.float32, device=px.device)
     dt = _col(params.time_step, 2)
     yaw = _col(state[..., 2], 2) + vels[..., 2:3] * t * dt  # [..., S, T]
-    c = torch.cos(yaw).unsqueeze(-1)
-    s = torch.sin(yaw).unsqueeze(-1)
-    ox = obs_xy[..., None, None, :, 0]  # [..., 1, 1, O]
-    oy = obs_xy[..., None, None, :, 1]
-    if obs_vel is not None:
-        tau = (t * _col(params.time_step))[..., None, :, None]  # [..., 1, T, 1]
-        ox = ox + obs_vel[..., None, None, :, 0] * tau
-        oy = oy + obs_vel[..., None, None, :, 1] * tau
     hl, hw = half_extents
     if isinstance(hl, torch.Tensor):
-        hl, hw = _col(hl, 3), _col(hw, 3)
-    robots = max(1, lead.numel())
-    rows = max(1, _SLAB_ELEMS // (robots * T * obs_xy.shape[-2]))
-    out = px.new_empty(px.shape)
-    for s0 in range(0, S, rows):
-        sl = slice(s0, s0 + rows)
-        dxw = ox - px[..., sl, :, None]
-        dyw = oy - py[..., sl, :, None]
-        cs, ss = c[..., sl, :, :], s[..., sl, :, :]
-        bx = cs * dxw + ss * dyw  # body-frame obstacle coordinates
-        by = -ss * dxw + cs * dyw
-        ex = torch.clamp(torch.abs(bx) - hl, min=0.0)
-        ey = torch.clamp(torch.abs(by) - hw, min=0.0)
-        out[..., sl, :] = torch.amin(ex * ex + ey * ey, dim=-1)
-    active = torch.arange(T, device=px.device) < _col(active_points)
-    return torch.where(active.unsqueeze(-2), out, _INF)
+        half = torch.stack([hl, hw], dim=-1).reshape(B, 2)
+    else:
+        half = torch.stack([px.new_full((B,), hl), px.new_full((B,), hw)], -1)
+
+    def flat(x):
+        return x.reshape((B,) + x.shape[len(lead):]).contiguous()
+
+    moving = obs_vel is not None
+    d2 = box_min_dist_sq(
+        flat(px), flat(py), flat(torch.cos(yaw)), flat(torch.sin(yaw)),
+        flat(obs_xy), flat(obs_vel) if moving else None,
+        params.time_step.reshape(B).contiguous() if moving else None,
+        half, active_points.reshape(B).contiguous(),
+    )
+    return d2.reshape(px.shape)
 
 
 def _admissibility(spec, params, d2_obs, active_points, valid,
@@ -632,6 +626,7 @@ def dwa_solve(
     *,
     custom_costs: Sequence = (),
     collision_box_dyn=None,  # [..., 2] box half-extents (spec.dynamic_box)
+    mover4=None,  # [..., M, 4] (x, y, vx, vy): the split mover sweep
     return_all_paths: bool = False,
 ):
     """One DWA tick per robot on the device of ``state``: the
@@ -646,7 +641,15 @@ def dwa_solve(
     admissibility on the body's surface distance; the obstacle cost keeps
     the point distance. ``return_all_paths``: return ``(result, (px,
     py))``, the paths the costs were computed on (truncated in truncate
-    mode)."""
+    mode).
+
+    ``mover4``: the split mover sweep (the fleet's ``split_mover_sweep``),
+    a narrow set of moving rows (pads at 1e8 with zero velocity) swept in
+    K3's direct moving form (K3s) whatever the backend, as the JAX package
+    sweeps them, and min-combined with the main obstacle field: in drop
+    mode at once; in truncate mode after the static freeze-patch, from the
+    truncated positions (time still advances past a frozen pose). BOX
+    robots meet the movers in the box field too."""
     T = spec.max_points
     vels, valid = _build_velocity_grid(spec, window)
     px, py = _rollout(spec, params, state, vels)
@@ -658,6 +661,25 @@ def dwa_solve(
                     params.time_step, seg_x, seg_y, active_points)
     d2_obs, d2_seg = sweep(px, py)
 
+    # the split movers: K3s, whatever the backend. Drop mode folds them in
+    # at once; truncate mode keeps them apart until the freeze-patch below
+    # has touched the static part alone
+    d2_mov = mover_sweep = None
+    if mover4 is not None:
+        m_xy = mover4[..., 0:2].contiguous()
+        m_vel = mover4[..., 2:4].contiguous()
+        step = params.time_step.contiguous()
+        ap = active_points.contiguous()
+
+        def mover_sweep(px, py):
+            return min_dist_sq_moving(px, py, m_xy, m_vel, step, ap)
+
+        d2_mov = mover_sweep(px, py)
+        if spec.drop_samples:
+            d2_obs = torch.minimum(d2_obs, d2_mov)
+            d2_mov = None
+    d2_adm = d2_obs if d2_mov is None else torch.minimum(d2_obs, d2_mov)
+
     if spec.collision_box is not None or (
         spec.dynamic_box and collision_box_dyn is not None
     ):
@@ -667,12 +689,17 @@ def dwa_solve(
         d2_col = _min_box_dist_sq(params, state, vels, px, py, obs_xy,
                                   active_points, half,
                                   obs_vel if moving else None)
+        if mover4 is not None:
+            # the movers meet the box model too (their point field above
+            # serves the obstacle cost)
+            d2_col = torch.minimum(d2_col, _min_box_dist_sq(
+                params, state, vels, px, py, m_xy, active_points, half, m_vel))
         admissible, truncate_ok, i_col, last_free = _admissibility(
             spec, params, d2_col, active_points, valid, surface_distance=True
         )
     else:
         admissible, truncate_ok, i_col, last_free = _admissibility(
-            spec, params, d2_obs, active_points, valid
+            spec, params, d2_adm, active_points, valid
         )
     if spec.drop_samples:
         # drop mode never truncates: constant velocity along every row
@@ -694,6 +721,11 @@ def dwa_solve(
             lf = last_free.unsqueeze(-1)
             d2_obs = torch.where(frozen, d2_obs.gather(-1, lf), d2_obs)
             d2_seg = torch.where(frozen, d2_seg.gather(-1, lf), d2_seg)
+        if d2_mov is not None:
+            # split movers: a frozen point keeps its position while the
+            # movers advance, so they are swept again from the truncated
+            # positions and combined
+            d2_obs = torch.minimum(d2_obs, mover_sweep(px, py))
 
     # in drop mode every row keeps one velocity: smoothness and jerk are
     # exactly zero, so they are not computed

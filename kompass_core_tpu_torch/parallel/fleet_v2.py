@@ -20,10 +20,14 @@ kernels. On the CPU the same loop runs eagerly.
 With ``peer_avoidance`` every robot sees the others as obstacle discs in
 its sweep, re-derived from the fleet's states every tick (inside the
 k-tick loop too); with ``safety_config`` every command passes the
-critical-zone emergency stop on the device.
+critical-zone emergency stop on the device. ``split_mover_sweep`` runs
+the tracked movers as their own narrow sweep (K3s) beside a scan bucket
+of the rays alone. A fleet with any BOX robot decides every robot's
+admissibility on its oriented box (K9), a circle robot as a (0, 0) box
+with its radius in its margin.
 
-Not ported yet (raise ``NotImplementedError`` naming their ROADMAP item):
-the split mover sweep, BOX robots and the mesh.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+the mesh.
 """
 
 import dataclasses
@@ -117,10 +121,6 @@ class DeviceFleet:
     ):
         if mesh is not None:
             _not_ported("DeviceFleet(mesh=...)", "5g")
-        if split_mover_sweep:
-            _not_ported("split_mover_sweep", "5e")
-        if any(r.geometry_type == RobotGeometry.Type.BOX for r in robots):
-            _not_ported("BOX robots in a fleet (dynamic_box)", "5f")
         self._device = torch.device(device)
         self.num_robots = len(robots)
         self.config = config
@@ -154,10 +154,24 @@ class DeviceFleet:
         seg_size = segment_capacity(
             config.path_segment_length, interp, base_h, fleet_vx_max
         )
+        # collision shapes: an all-circle fleet sweeps points; any BOX robot
+        # switches the whole fleet to the oriented-box field, where a circle
+        # is a (0, 0) box with its radius folded into the margin (the same
+        # circle model)
+        has_box = any(
+            r.geometry_type == RobotGeometry.Type.BOX for r in robots
+        )
         margin = config.octree_resolution * COLLISION_MARGIN_FACTOR
+        box2 = np.zeros((self._n, 2), np.float32)
+        eff_margin = np.full(self._n, margin, np.float32)
         radius = np.zeros(self._n, np.float32)
         for i, r in enumerate(robots):
             radius[i] = r.radius
+            if has_box and r.geometry_type == RobotGeometry.Type.BOX:
+                gp = np.asarray(r.geometry_params, np.float64)
+                box2[i] = (gp[0] / 2.0, gp[1] / 2.0)
+            elif has_box:
+                eff_margin[i] = r.radius + margin
 
         solver_spec = SolverSpec(
             is_omni=is_omni,
@@ -167,14 +181,23 @@ class DeviceFleet:
             max_points=int(config.prediction_horizon),
             num_ctrl_points=int(config.control_horizon),
             # tracked-mover slots share the scan bucket: they overwrite its
-            # guaranteed-pad tail (ops/fleet_solver), so it holds rays + M
-            scan_size=max(256, _round_up(scan_rays + tracked_obstacles, 256)),
+            # guaranteed-pad tail (ops/fleet_solver), so it holds rays + M;
+            # split movers run their own sweep, and the bucket holds rays
+            scan_size=max(256, _round_up(
+                scan_rays + (0 if split_mover_sweep else tracked_obstacles),
+                256)),
             seg_size=seg_size,
             drop_samples=bool(config.drop_samples),
             device_window=True,
+            dynamic_box=has_box,
             # tracked movers and predicted peers ride the sweep at their
-            # constant-velocity positions (the moving sweep)
-            moving_obstacles=tracked_obstacles > 0 or peer_prediction,
+            # constant-velocity positions (the moving sweep); split movers
+            # carry their velocities in their own sweep, so only peer
+            # prediction needs the main sweep's velocity block then
+            moving_obstacles=(
+                (tracked_obstacles > 0 and not split_mover_sweep)
+                or peer_prediction
+            ),
         )
         self._tracked = int(tracked_obstacles)
         self.spec = FleetSpec(
@@ -182,6 +205,7 @@ class DeviceFleet:
             path_capacity=path_capacity,
             max_segments=max_segments,
             tracked_obstacles=self._tracked,
+            split_mover_sweep=bool(split_mover_sweep),
         )
         # fleet mutual avoidance: every robot sees the others as live
         # obstacle discs (center + circumference ring) in the same sweep
@@ -247,7 +271,7 @@ class DeviceFleet:
             params[i] = (
                 dt,
                 radius[i],
-                margin,
+                eff_margin[i],
                 w.reference_path_distance_weight,
                 w.goal_distance_weight,
                 w.obstacles_distance_weight,
@@ -288,6 +312,7 @@ class DeviceFleet:
             max_segment_size=full(
                 int(config.path_segment_length / interp) + 1, torch.int32
             ),
+            collision_box2=self._put(box2),
         )
         self._paths: Optional[FleetPaths] = None
         self._carry: Optional[FleetCarry] = None

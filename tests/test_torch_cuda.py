@@ -828,3 +828,123 @@ def test_k_tick_graph_replay_with_peers_and_safety(cuda):
     np.testing.assert_allclose(got["safety_factor"], want["safety_factor"], atol=1e-6)
     np.testing.assert_allclose(got["final_states"], want["final_states"],
                                rtol=1e-5, atol=1e-6)
+
+
+# --- K3s and K9 (the split movers and BOX robots) --------------------------------
+
+
+def _box_args(seed, B, S, T, O, device, moving):
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, scale=10.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(device)
+
+    yaw = u(B, S, T, scale=3.2)
+    half = (torch.rand(B, 2, generator=g) * 0.5).to(device)
+    half[0] = 0.0  # a circle robot's (0, 0) box
+    vel = u(B, O, 2, scale=1.5) if moving else None
+    dt = torch.full((B,), 0.1, device=device)
+    return [u(B, S, T), u(B, S, T), torch.cos(yaw), torch.sin(yaw), u(B, O, 2),
+            vel, dt, half]
+
+
+@pytest.mark.parametrize("moving", [False, True])
+@pytest.mark.parametrize("points", [None, 2, 8])
+@pytest.mark.parametrize("B,S,T,O", [(1, 2025, 30, 512), (3, 37, 7, 1100), (2, 300, 1, 5)])
+def test_k9_bit_identical_to_plain(cuda, moving, points, B, S, T, O):
+    """K9 against its plain version: per-robot extents, a row inside a
+    footprint, pad rows, mixed active steps, at each kPts."""
+    args = _box_args(B * 31 + O, B, S, T, O, cuda, moving)
+    px, py, obs = args[0], args[1], args[4]
+    obs[0, 0] = torch.stack([px[0, 0, 0], py[0, 0, 0]])
+    if moving:
+        args[5][0, 0] = 0.0
+    obs[:, -1] = 1e8
+    ap = torch.tensor([T] + [max(1, T // 2)] * (B - 1), dtype=torch.int32, device=cuda)
+    before = kernels.box_min_dist_sq.launches
+    got = kernels.box_min_dist_sq(*args, ap, _points=points)
+    want = kernels.box_min_dist_sq_reference(*args, ap)
+    torch.cuda.synchronize()
+    assert kernels.box_min_dist_sq.launches == before + 1
+    assert torch.equal(got, want)
+    assert float(got[0, 0, 0]) == 0.0
+
+
+def test_k9_keeps_a_nan_row(cuda):
+    args = _box_args(5, 2, 200, 6, 40, cuda, False)
+    args[4][1, 3, 0] = float("nan")
+    ap = torch.tensor([6, 6], dtype=torch.int32, device=cuda)
+    got = kernels.box_min_dist_sq(*args, ap)
+    want = kernels.box_min_dist_sq_reference(*args, ap)
+    assert bool(got[1].isnan().all()) and not bool(got[0].isnan().any())
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("M", [1, 8, 1100])
+def test_k3s_bit_identical_to_plain_and_to_k3(cuda, M):
+    g = torch.Generator().manual_seed(M)
+    B, S, T = 4, 2025, 30
+
+    def u(*shape, scale=10.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(cuda)
+
+    px, py, rows, vel = u(B, S, T), u(B, S, T), u(B, M, 2), u(B, M, 2, scale=1.5)
+    dt = torch.full((B,), 0.1, device=cuda)
+    ap = torch.tensor([30, 17, 1, 30], dtype=torch.int32, device=cuda)
+    seg = u(B, 16)
+    before = kernels.min_dist_sq_moving.launches
+    got = kernels.min_dist_sq_moving(px, py, rows, vel, dt, ap)
+    torch.cuda.synchronize()
+    assert kernels.min_dist_sq_moving.launches == before + 1
+    assert torch.equal(got, kernels.min_dist_sq_moving_reference(px, py, rows, vel, dt, ap))
+    k3 = kernels.fused_min_dist_sq_moving(px, py, rows, vel, dt, seg, seg, ap)[0]
+    assert torch.equal(got, k3)
+
+
+@pytest.mark.parametrize("form", ["split", "box"])
+def test_split_and_box_fleet_tick_on_card_matches_cpu(cuda, form):
+    """A small split or mixed BOX fleet: the card's tick agrees with the
+    CPU's (the solver tolerances) and launches K3s or K9."""
+    from kompass_core_tpu_torch.control import DWAConfig
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits, RobotGeometry,
+        RobotType,
+    )
+
+    def robots():
+        return [Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+                      geometry_type=RobotGeometry.Type.BOX if (form == "box" and i == 1)
+                      else RobotGeometry.Type.CYLINDER,
+                      geometry_params=np.array([0.5, 0.3, 0.4] if (form == "box" and i == 1)
+                                               else [0.2, 0.4]))
+                for i in range(3)]
+
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
+        omega_limits=AngularCtrlLimits(max_vel=2.0, max_acc=3.0, max_decel=3.0))
+    config = DWAConfig(max_linear_samples=10, max_angular_samples=10,
+                       prediction_horizon=20, control_horizon=2)
+    fleets = [DeviceFleet(robots(), limits, config, 64, path_capacity=512,
+                          max_segments=8, tracked_obstacles=2,
+                          split_mover_sweep=form == "split", device=dev)
+              for dev in (cuda, "cpu")]
+    key = "K3s" if form == "split" else "K9"
+    wrapper = kernels.SWEEP_KERNELS[key]
+    rng = np.random.default_rng(1)
+    ranges = rng.uniform(0.8, 10.0, (3, 64)).astype(np.float32)
+    angles = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    trk = np.full((3, 2, 4), np.nan, np.float32)
+    trk[:, 0] = (2.0, 1.0, 0.0, -0.5)
+    states = np.zeros((3, 4), np.float32)
+    states[:, 1] = 3.0 * np.arange(3)
+    outs = []
+    for fleet in fleets:
+        fleet.set_paths([np.array([[0.0, 3.0 * i], [5.0, 3.0 * i]]) for i in range(3)])
+        before = wrapper.launches
+        outs.append(fleet.tick(states, np.zeros((3, 3)), ranges, angles, tracked=trk))
+        assert wrapper.launches == before + (1 if fleet.device.type == "cuda" else 0)
+    gpu, cpu = outs
+    for k in ("found", "num_admissible", "active_points"):
+        np.testing.assert_array_equal(gpu[k], cpu[k])
+    np.testing.assert_allclose(gpu["cost"], cpu["cost"], rtol=1e-4, atol=1e-6)

@@ -31,9 +31,11 @@ from kompass_core_tpu.models import (
     RobotState,
     RobotType,
 )
+from kompass_core_tpu.parallel.fleet_v2 import DeviceFleet as JaxDeviceFleet
 from kompass_core_tpu_torch.control import DWA, DWAConfig, TrajectoryCostsWeights
 from kompass_core_tpu_torch.datatypes import LaserScanData as PortLaserScanData
 from kompass_core_tpu_torch.models import RobotState as PortRobotState
+from kompass_core_tpu_torch.ops.fleet_solver import fleet_spec_from_jax
 from kompass_core_tpu_torch.parallel import DeviceFleet
 
 from test_dwa_closed_loop import make_global_path
@@ -268,10 +270,18 @@ def test_unported_paths_raise_naming_their_roadmap_item():
         DeviceFleet([to_port(_robot())], to_port(_limits()),
                     _config(4, 0.0, cls=DWAConfig), scan_rays=16,
                     peer_avoidance=True, mesh=object(), device="cpu")
-    box = to_port(_robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4)))
-    with pytest.raises(NotImplementedError, match="item 5f"):
-        DeviceFleet([box], to_port(_limits()), _config(4, 0.0, cls=DWAConfig),
-                    scan_rays=16, device="cpu")
+    # a BOX robot's fleet (item 5f) builds the oriented-box solver as the
+    # JAX package's does (its ticks: test_torch_box_fleet.py)
+    jbox = _robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4))
+    box = to_port(jbox)
+    fleet = DeviceFleet([box], to_port(_limits()), _config(4, 0.0, cls=DWAConfig),
+                        scan_rays=16, device="cpu")
+    jfleet = JaxDeviceFleet([jbox], _limits(), _config(4, 0.0, cls=DWAConfig),
+                            scan_rays=16)
+    assert fleet.spec == fleet_spec_from_jax(jfleet.spec)
+    assert fleet.spec.solver.dynamic_box
+    np.testing.assert_array_equal(fleet._cfg.collision_box2.numpy(),
+                                  np.asarray(jfleet._cfg.collision_box2))
     # what no longer raises: peers, BOX robots, custom costs, the debug
     # search
     DeviceFleet([to_port(_robot())], to_port(_limits()),

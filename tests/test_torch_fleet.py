@@ -246,31 +246,49 @@ def test_device_is_required_and_explicit():
      (dict(split_mover_sweep=True), "5e")],
 )
 def test_unported_options_raise_naming_their_roadmap_item(kw, item):
-    """The mesh (5g) and the split sweep (5e) raise naming their item;
-    peers (5c) and the safety gate (5d) are ported: the fleet builds and
-    ticks (``test_torch_peers.py``, ``test_torch_safety.py``)."""
-    if item in ("5c", "5d"):
-        fleet = _port(**kw)
-        fleet.set_paths(_lanes())
-        out = fleet.tick(*_start(), _free_ranges(), ANGLES)
-        assert out["found"].all()
+    """The mesh (5g) raises naming its item; peers (5c), the safety gate
+    (5d) and the split mover sweep (5e) are ported: the fleet builds and
+    ticks (``test_torch_peers.py``, ``test_torch_safety.py``,
+    ``test_torch_fleet_moving.py``), the split fleet as the JAX one."""
+    if item == "5g":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            _port(**kw)
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        _port(tracked=2 if "split_mover_sweep" in kw else 0, **kw)
+    tracked = 2 if item == "5e" else 0
+    fleet = _port(tracked, **kw)
+    fleet.set_paths(_lanes())
+    trk = _crossing_movers(0) if tracked else None
+    out = fleet.tick(*_start(), _free_ranges(), ANGLES, tracked=trk)
+    assert out["found"].all()
+    if item == "5e":
+        jf = _fleet(JaxDeviceFleet, tracked, **kw)
+        jf.set_paths(_lanes())
+        assert fleet_spec_from_jax(jf.spec) == fleet.spec
+        assert_rows_match(jf.tick(*_start(), _free_ranges(), ANGLES, tracked=trk), out)
 
 
 def test_unported_box_robots_and_k_tick_loop_raise():
-    """BOX fleets raise naming item 5f; the k-tick loop runs with its peer
-    and safety forms, and its mesh form raises naming item 5g."""
-    with pytest.raises(NotImplementedError, match="item 5f"):
-        DeviceFleet(*to_port((_robots(geometry=RobotGeometry.Type.BOX,
-                                      params=(0.5, 0.3, 0.4)), _limits(1.0))),
-                    _config(), N_RAYS, device="cpu")
+    """BOX fleets are ported (item 5f): a fleet with a BOX robot builds,
+    ticks and runs its k-tick loop as the JAX one does
+    (``test_torch_box_fleet.py``); the k-tick loop runs with its peer and
+    safety forms, and its mesh form raises naming item 5g."""
+    robots = _robots()
+    robots[1] = _robots(1, RobotGeometry.Type.BOX, (0.5, 0.3, 0.4))[0]
+    jf = JaxDeviceFleet(robots, LIMITS, _config(), N_RAYS, path_capacity=1024,
+                        max_segments=16)
+    box = DeviceFleet(*to_port((robots, LIMITS)), _config(), N_RAYS,
+                      path_capacity=1024, max_segments=16, device="cpu")
+    assert fleet_spec_from_jax(jf.spec) == box.spec and box.spec.solver.dynamic_box
+    for f in (jf, box):
+        f.set_paths(_lanes())
+    assert_rows_match(jf.tick(*_start(), _free_ranges(), ANGLES),
+                      box.tick(*_start(), _free_ranges(), ANGLES))
     fleet = _port()
     fleet.set_paths(_lanes())
     states, vels = _start()
-    out = fleet.run_ticks_on_device(3, states, vels, _free_ranges(), ANGLES)
-    assert out["vx"].shape == (N_ROBOTS, 3)
+    for f in (fleet, box):
+        out = f.run_ticks_on_device(3, states, vels, _free_ranges(), ANGLES)
+        assert out["vx"].shape == (N_ROBOTS, 3)
     for kw in (dict(peer_cfg={"ring": 8, "n_real": 3, "radii": [0.2] * 3}),
                dict(safety=True)):
         make_fleet_ticks_on_device(fleet.spec, 3, "cpu", **kw)

@@ -9,12 +9,19 @@ fallback.
 
 ``to_port`` turns a JAX package host object into the port's own object
 with the same state; the other port test files build the port's side of
-a comparison with it.
+a comparison with it. ``port_twin`` loads a JAX package test module with
+its imports pointed at the port, so the port's controller tests run the
+JAX package's own assertions (``test_torch_controllers.py``,
+``test_torch_vision.py``).
 """
 
 import io
 import math
 import pickle
+import re
+import sys
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -52,6 +59,46 @@ def to_port(obj):
     """The port's object with ``obj``'s state: the same class path under
     ``kompass_core_tpu_torch`` (enums by value), every field copied."""
     return _ToPort(io.BytesIO(pickle.dumps(obj))).load()
+
+
+_TESTS = Path(__file__).resolve().parent
+_JAX_NAME = re.compile(r"\bkompass_core_tpu\b(?!_torch)")
+
+
+def port_twin(name, replace=()):
+    """The JAX package's test module ``tests/<name>.py`` run against the
+    port: its source with every ``kompass_core_tpu`` name pointed at
+    ``kompass_core_tpu_torch`` and each ``(old, new)`` of ``replace``
+    applied (each must occur), executed as module ``torch_twin_<name>``
+    (registered, so another twin can import it). Its line numbers are the
+    original's."""
+    mod_name = f"torch_twin_{name}"
+    if mod_name in sys.modules:
+        return sys.modules[mod_name]
+    path = _TESTS / f"{name}.py"
+    src = _JAX_NAME.sub("kompass_core_tpu_torch", path.read_text())
+    for old, new in replace:
+        assert old in src, f"{name}: {old!r} not found"
+        src = src.replace(old, new)
+    mod = types.ModuleType(mod_name)
+    mod.__file__ = str(path)
+    sys.modules[mod_name] = mod
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+def twin_tests(namespace, mod, names=None):
+    """Put the twin's tests and fixtures (or those of ``names``) into a
+    test module's ``namespace``, where pytest collects them; a name that
+    is already there raises."""
+    for key, value in vars(mod).items():
+        is_test = key.startswith("test_") and callable(value)
+        is_fixture = hasattr(value, "_fixture_function_marker") or type(
+            value).__name__ == "FixtureFunctionDefinition"
+        if (names is None and (is_test or is_fixture)) or (
+                names is not None and key in names):
+            assert key not in namespace, f"{key} is defined twice"
+            namespace[key] = value
 
 
 # --- the native host library -------------------------------------------------
@@ -216,3 +263,98 @@ def test_to_port_builds_the_ports_own_objects():
     np.testing.assert_array_equal(robot.geometry_params, jrobot.geometry_params)
     assert (robot.state.x, robot.state.yaw) == (1.5, 0.25)
     assert type(robot.state).__module__.startswith("kompass_core_tpu_torch.")
+
+
+# --- the controllers' host modules ---------------------------------------------
+
+CONTROLLER_COPIES = (
+    "algorithms/__init__.py", "algorithms/dvz.py", "datatypes/tracking.py",
+    "vision/__init__.py", "vision/kalman.py", "vision/tracker.py",
+    "vision/depth_detector.py", "control/pid.py", "control/stanley.py",
+    "control/dvz.py", "control/pure_pursuit.py", "control/vision_followers.py",
+)
+
+
+@pytest.mark.parametrize("rel", CONTROLLER_COPIES)
+def test_controller_modules_are_copies(rel):
+    """The copies keep the originals' code line for line: only the
+    package's own name differs (the loggers')."""
+    root = _TESTS.parent
+    original = (root / _JAX / rel).read_text()
+    copy = (root / _PORT / rel).read_text()
+    assert _JAX_NAME.sub(_PORT, original) == copy
+
+
+def _dvz_pair(pkg_models, pkg_dvz, scan):
+    robot = pkg_models.Robot(robot_type=pkg_models.RobotType.DIFFERENTIAL_DRIVE,
+                             geometry_type=pkg_models.RobotGeometry.Type.CYLINDER,
+                             geometry_params=np.array([0.3, 0.4]))
+    limits = pkg_models.RobotCtrlLimits(
+        vx_limits=pkg_models.LinearCtrlLimits(max_vel=1.0, max_acc=2.0, max_decel=2.0),
+        omega_limits=pkg_models.AngularCtrlLimits(max_vel=2.0, max_acc=3.0,
+                                                  max_decel=3.0, max_steer=1.2))
+    zone = pkg_dvz.DeformableVirtualZone(
+        robot=robot, ctrl_limits=limits,
+        config=pkg_dvz.DeformableVirtualZoneParams(min_front_margin=0.8, K_I=4.0))
+    out = []
+    for speed, (ranges, angles) in zip((0.0, 0.4, 0.9), scan):
+        zone.update_zone_size(robot_speed=speed)
+        zone.set_scan_values(ranges, angles)
+        out.append((zone.get_total_deformation(),
+                    zone.compute_linear_control(0.8, speed, 0.1),
+                    zone.compute_angular_control(0.3)))
+    return out
+
+
+def test_dvz_algorithm_values_match_jax():
+    import kompass_core_tpu.algorithms.dvz as jdvz
+    import kompass_core_tpu.models as jmodels
+    import kompass_core_tpu_torch.algorithms.dvz as tdvz
+    import kompass_core_tpu_torch.models as tmodels
+
+    rng = np.random.default_rng(5)
+    angles = np.linspace(-np.pi, np.pi, 120, endpoint=False)
+    scans = [(rng.uniform(0.3, 4.0, 120), angles) for _ in range(3)]
+    assert _dvz_pair(tmodels, tdvz, scans) == _dvz_pair(jmodels, jdvz, scans)
+
+
+def _track(tracking, vision, seed):
+    rng = np.random.default_rng(seed)
+    kf = vision.LinearSSKalmanFilter(4, 1)
+    kf.setup(np.eye(4) + np.eye(4, k=2) * 0.1, np.zeros((4, 1)), np.eye(4) * 0.01,
+             np.eye(4), np.eye(4) * 0.2)
+    kf.set_initial_state([0.0, 0.0, 0.3, -0.1])
+    states = []
+    for k in range(12):
+        kf.estimate(rng.normal(size=4), 1 + k % 3)
+        states.append(kf.get_state().copy())
+    tracker = vision.FeatureBasedBboxTracker(0.1, 2.0, 0.2, 0.5)
+    box = tracking.Bbox3D(center=np.array([2.0, 0.5, 0.0], np.float32),
+                          size=np.array([0.5, 0.4, 1.0], np.float32),
+                          center_img_frame=np.array([320, 240]),
+                          size_img_frame=np.array([40, 80]), timestamp=0.0)
+    tracker.set_initial_tracking_box(box)
+    for k in range(1, 15):
+        moved = tracking.Bbox3D(
+            center=box.center + np.float32(0.05 * k) + rng.normal(0, 0.01, 3).astype(np.float32),
+            size=box.size, center_img_frame=box.center_img_frame,
+            size_img_frame=box.size_img_frame, timestamp=0.1 * k)
+        decoy = tracking.Bbox3D(center=np.array([0.0, -2.0, 0.0], np.float32),
+                                size=box.size, center_img_frame=np.array([100, 200]),
+                                size_img_frame=np.array([40, 80]), timestamp=0.1 * k)
+        states.append(float(tracker.update_tracking([decoy, moved])))
+        states.append(tracker.get_tracked_state().copy())
+    return states
+
+
+def test_vision_modules_values_match_jax():
+    import kompass_core_tpu.datatypes.tracking as jtracking
+    import kompass_core_tpu.vision as jvision
+    import kompass_core_tpu_torch.datatypes.tracking as ttracking
+    import kompass_core_tpu_torch.vision as tvision
+
+    for seed in range(2):
+        got, want = _track(ttracking, tvision, seed), _track(jtracking, jvision, seed)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

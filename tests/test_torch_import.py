@@ -36,6 +36,7 @@ def test_port_import_loads_no_jax_and_no_triton():
         "import kompass_core_tpu_torch.parallel.fleet\n"
         "import kompass_core_tpu_torch.ops.fleet_solver\n"
         "import kompass_core_tpu_torch.mapping, kompass_core_tpu_torch.ops.mapping\n"
+        "import kompass_core_tpu_torch.vision, kompass_core_tpu_torch.algorithms\n"
         "import chip_smoke\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

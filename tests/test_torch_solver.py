@@ -47,7 +47,11 @@ from kompass_core_tpu.ops.window import (
 )
 from kompass_core_tpu_torch.datatypes import InterpolationType, ReferencePath
 from kompass_core_tpu_torch.ops import solver as tsolver
-from kompass_core_tpu_torch.ops.fleet_solver import FleetSpec, make_fleet_tick
+from kompass_core_tpu_torch.ops.fleet_solver import (
+    FleetSpec,
+    fleet_spec_from_jax,
+    make_fleet_tick,
+)
 from kompass_core_tpu_torch.parallel.fleet import (
     make_fleet_solver,
     make_sample_parallel_solver,
@@ -391,12 +395,21 @@ def test_spec_from_jax_rejects_other_backends():
 
 
 def _split_mover_tick(spec):
-    fleet = FleetSpec(
-        dataclasses.replace(spec, moving_obstacles=True, device_window=True),
+    """The split mover sweep (item 5e) is ported: its tick builds from the
+    port's image of the JAX package's split fleet spec (the tick's
+    numbers against JAX: ``test_torch_fleet_moving.py``)."""
+    from kompass_core_tpu.ops.fleet_solver import FleetSpec as JaxFleetSpec
+
+    jfleet = JaxFleetSpec(
+        dataclasses.replace(_jax_spec(False, True), device_window=True),
         path_capacity=64, max_segments=4, tracked_obstacles=1,
         split_mover_sweep=True,
     )
-    return make_fleet_tick(fleet, CPU)
+    fleet = FleetSpec(dataclasses.replace(spec, device_window=True),
+                      path_capacity=64, max_segments=4, tracked_obstacles=1,
+                      split_mover_sweep=True)
+    assert fleet_spec_from_jax(jfleet) == fleet
+    assert callable(make_fleet_tick(fleet, CPU))
 
 
 @pytest.mark.parametrize(
@@ -406,7 +419,12 @@ def _split_mover_tick(spec):
      (_split_mover_tick, "5e")],
 )
 def test_unported_modes_raise_naming_their_roadmap_item(build, item):
+    """The mesh solvers raise naming item 9; the split mover tick (5e)
+    builds."""
     spec = tsolver.spec_from_jax(_jax_spec(False, True))
+    if item == "5e":
+        build(spec)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         build(spec)
 
