@@ -147,12 +147,20 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     768 rows (per-robot extents with (0, 0) circles, pad rows, a point
     inside a footprint, NaN, inf and values above 1e18, mixed active
     steps), at one robot (2025 x 30 vs 512) and on ragged tiles, at each
-    number of samples per thread; K3s at 8 rows and past one tile, and
-    against K3's obstacle field.
+    number of samples per thread; K3s at the fleet shape against 8 rows,
+    ``POINT_MAJOR_ROWS`` (M*), M* + 1 and 1100 rows (pads, a NaN row, an
+    inf point, a row whose move overflows, mixed active steps), in its
+    own layout (point-major up to M* rows) and forced into each, and
+    against K3's obstacle field. Then K9's heading probe (ROADMAP fault
+    2, ``heading_probe``): the collision decisions of 2 x 16384 points on
+    the margin's contour with the card's cos, sin and K9 against the
+    CPU's, counted and printed.
 22. The split tracked fleet (``split_mover_sweep``): 64 robots, 30
     closed-loop ticks, K1 and K3s once per tick, no host sync, equal to
     the tail-slot fleet on the card bit for bit every tick, 4 robots on 2
-    ticks against the CPU; its k = 8 graph (replay == eager).
+    ticks against the CPU; its k = 8 graph (replay == eager); then 5
+    ticks with M* + 1 tracked slots (K3s in K3's layout), equal to their
+    tail-slot fleet.
 23. The mixed circle + BOX fleet (every fourth robot a BOX) with peers,
     prediction, tracked slots and the safety gate: 30 ticks, K3 and K9
     once per tick, 4 robots on 2 ticks against the CPU, no contact; its
@@ -161,9 +169,15 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     stepped 5 times (DWA on the card, the host controllers and the
     vision followers on the host).
 25. Times: the split against the tail-slot fleet and the BOX against
-    the circle peer fleet (tick median and k = 8 graph per tick, in
-    turns), K9 against its plain version at 64 x 2025 x 30 vs 768 static
-    rows and 1344 moving rows, K3s at 8 rows, beside their bounds.
+    the circle peer fleet (tick median, k = 8 graph per tick and its
+    replay alone by CUDA events, in turns), K9 against its plain version
+    at 64 x 2025 x 30 vs 768 static rows and 1344 moving rows, K3s at 8
+    rows against its plain version, and K3s in each layout by graph
+    replay and by events at 8, 16, 32, 64, 128 and 256 rows, in turns,
+    beside their bounds.
+26. One ``torch.profiler`` pass over one k = 8 replay of the tail-slot
+    and of the split tracked fleet: the ten kernels with the most device
+    time (fails if the profiler records none).
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -175,8 +189,8 @@ launches: a replay calls no wrapper, so each replay counts the captured
 loop's launches once), and adds the peer path's K1, K3, K7 and K8
 launches (phase 18 counted as phase 14 is); the counts are set to 0
 again before phases 22 and 23, whose launches (around their own fleets'
-calls, not the comparisons') give K3s and add to K1, K3 and K9 (with
-phase 11's K9 launches). Its times are
+calls, not the comparisons') give K3s (both layouts) and add to K1, K3
+and K9 (with phase 11's K9 launches). Its times are
 K1, K2 and K4 at the flagship shapes (one robot), K3, K5, K6, K7 and K8
 at 64 robots, all by CUDA events in turns with the plain version. K1,
 K2, K4 and K6 are one static kernel (``static_min_dist_kernel``); its
@@ -769,24 +783,31 @@ def cells_bound(robots, height, width, bins, bayes=True):
     return bound(45.0 * robots * cells, nbytes)
 
 
+def _events_ms(fn, inputs, warm=2):
+    """CUDA-event ms per call of ``fn`` over ``inputs`` (argument tuples),
+    back to back after ``warm`` warm-up calls."""
+    import torch
+
+    for args in inputs[:warm]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for args in inputs:
+        fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / len(inputs)
+
+
 def _in_turns(kernel, plain, inputs, warm=2):
     """CUDA-event ms per call of ``plain`` and ``kernel`` over ``inputs``
     (argument tuples), in turns plain, kernel, kernel, plain. Returns
     (kernel ms, plain ms, the four runs)."""
-    import torch
 
     def timed(fn):
-        for args in inputs[:warm]:
-            fn(*args)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for args in inputs:
-            fn(*args)
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / len(inputs)
+        return _events_ms(fn, inputs, warm)
 
     runs = [("plain", timed(plain)), ("kernel", timed(kernel)),
             ("kernel", timed(kernel)), ("plain", timed(plain))]
@@ -1184,7 +1205,10 @@ def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None,
     solver = fleet.spec.solver
     shape = (fleet._n, solver.num_samples, solver.max_points,
              solver.scan_size, solver.seg_size)
-    assert shape[1:] == FLEET_SHAPE[1:] or tracked == 0 or split, f"fleet shapes {shape}"
+    # the scan bucket: the rays and the tracked slots (the split form's
+    # movers sweep on their own: the rays alone), rounded up to 256 rows
+    bucket = -(-(RAYS + (0 if split else tracked)) // 256) * 256
+    assert shape[1:] == (*FLEET_SHAPE[1:3], bucket, FLEET_SHAPE[4]), f"fleet shapes {shape}"
     return fleet, lanes, circles
 
 
@@ -3132,6 +3156,7 @@ def phase_peer_times(device, card):
 SPLIT_TICKS = 30
 SPLIT_CPU_TICKS = (0, 29)
 SPLIT_ROWS = 512
+SPLIT_WIDE_TICKS = 5  # ticks of the split fleet past K3s's point-major rows
 # the mixed fleet: PeerDrive's 64 robots with peers, prediction, 8 tracked
 # slots and the safety gate, every fourth robot a BOX of 0.5 x 0.3 m
 # (half extents 0.25 x 0.15), the others circles of PEER_RADIUS
@@ -3146,6 +3171,156 @@ K3S_REPLACES = "kompass_core_tpu/ops/solver.py:737"
 # 2 FMNMX (the clamps), 2 FMUL and an FADD (the square) and the min
 K9_PAIR_OPS = 16
 K9_INPUTS = 2  # distinct inputs per timed run (the plain field takes ~0.1 s each)
+# K3s's rows timed in each layout (the split fleet's 8 first: the kernels line)
+K3S_TIMED_ROWS = (FLEET_TRACKED, 16, 32, 64, 128, 256)
+# K3s's rows past the point-major kernel's staged rows (kPointMajorMaxRows =
+# 1024, csrc/fused_min_dist.cu): its entry point refuses them
+K3S_PAST_STAGED = 1100
+
+
+# K9's heading probe (ROADMAP fault 2): 4 robots (two 0.5 x 0.3 m BOXes at a
+# 0.2 m margin, two (0, 0) circles at 0.25 + 0.2 m) x 128 samples x 32
+# steps, headings yaw0 + omega * t * dt; every point has one obstacle row
+# (static, or moving at up to 0.5 m/s) on the margin's contour in its body
+# frame, the even samples at margin^2 itself, the odd ones at margin^2 +
+# k ulps, k in [-HEADING_SPREAD, HEADING_SPREAD]; 7 pad rows at 1e8
+HEADING_HALF = ((0.25, 0.15), (0.25, 0.15), (0.0, 0.0), (0.0, 0.0))
+HEADING_MARGIN = (0.2, 0.2, 0.45, 0.45)
+HEADING_SHAPE = (128, 32, 8)  # samples, steps, rows
+HEADING_SPREAD = 64
+# the tie rule (ROADMAP fault 2): a decision may differ from the reference's
+# only where the reference's d2 lies within TIE_ULPS ulps of margin^2, the
+# port's CPU against JAX without FMA and the card against the CPU
+TIE_ULPS = 8
+
+
+def heading_probe(seed=0):
+    """K9's heading probe (numpy, float32): (yaw0 [B], omega [B, S], dt,
+    half [B, 2], margin [B], {moving: (px, py, rows, vel or None)}, each
+    [B, S, T] or [B, O, 2]). The solver heads the body at pose t at the
+    float32 yaw0 + (omega * t) * dt; each point sits at the body-frame
+    offset b from its obstacle row's position o(t) = o + v * (t * dt), p
+    = o(t) - R(yaw) b in float64, rounded once, with b on the contour
+    where the squared distance to the box is margin^2 (+ k ulps)."""
+    rng = np.random.default_rng(seed)
+    S, T, O = HEADING_SHAPE
+    half = np.array(HEADING_HALF, np.float32)
+    margin = np.array(HEADING_MARGIN, np.float32)
+    B = len(margin)
+    dt = np.float32(DT)
+    yaw0 = rng.uniform(-np.pi, np.pi, B).astype(np.float32)
+    omega = rng.uniform(-2.0, 2.0, (B, S)).astype(np.float32)
+    t = np.arange(T, dtype=np.float32)
+    yaw = yaw0[:, None, None] + (omega[:, :, None] * t) * dt  # float32, as the solver
+    r2 = (margin * margin).astype(np.float64)  # float32 products, exact in float64
+    k = rng.integers(-HEADING_SPREAD, HEADING_SPREAD + 1, (B, S, T))
+    k[:, ::2] = 0
+    reach = np.sqrt(r2[:, None, None] + k * np.spacing(margin * margin)[:, None, None])
+    cases = {}
+    for moving in (False, True):
+        v = (rng.uniform(-0.5, 0.5, (B, 2)) if moving else np.zeros((B, 2))).astype(np.float32)
+        o = (rng.uniform(-0.2, 0.2, (B, 2)) - v * (T // 2) * dt).astype(np.float32)
+        rows = np.full((B, O, 2), 1e8, np.float32)
+        vel = np.zeros((B, O, 2), np.float32)
+        rows[:, 0], vel[:, 0] = o, v
+        at = (o[:, None] + v[:, None] * (t * dt)[:, None]).astype(np.float32)  # [B, T, 2]
+        bx, by = np.empty((B, S, T)), np.empty((B, S, T))
+        for i in range(B):
+            hl, hw = (float(x) for x in half[i])
+            # the contour: 4 sides at distance d, 4 quarter arcs of radius d
+            # around the corners, picked in proportion to their lengths
+            m = float(margin[i])
+            lens = np.array([2 * hl, 2 * hw] * 2 + [m * np.pi / 2] * 4)
+            part = rng.choice(8, size=(S, T), p=lens / lens.sum())
+            u = rng.uniform(0.0, 1.0, (S, T))
+            d = reach[i]
+            sides = ((-hl + 2 * hl * u, hw + d), (hl + d, -hw + 2 * hw * u),
+                     (hl - 2 * hl * u, -hw - d), (-hl - d, hw - 2 * hw * u))
+            corners = ((hl, hw), (-hl, hw), (-hl, -hw), (hl, -hw))
+            for j in range(4):
+                on = part == j
+                bx[i][on], by[i][on] = sides[j][0][on], sides[j][1][on]
+                on = part == 4 + j
+                a = (u + j) * np.pi / 2
+                bx[i][on] = (corners[j][0] + d * np.cos(a))[on]
+                by[i][on] = (corners[j][1] + d * np.sin(a))[on]
+        c, s = np.cos(yaw.astype(np.float64)), np.sin(yaw.astype(np.float64))
+        px = (at[:, None, :, 0] - (c * bx - s * by)).astype(np.float32)
+        py = (at[:, None, :, 1] - (s * bx + c * by)).astype(np.float32)
+        cases[moving] = (px, py, rows, vel if moving else None)
+    return yaw0, omega, dt, half, margin, cases
+
+
+def heading_probe_fields(probe, device):
+    """The port's box field of each probe case on ``device``, through the
+    solver's ``_min_box_dist_sq`` (its headings: torch's cos and sin of
+    the yaw, on that device; K9 on the card, its plain version on the
+    CPU): {moving: d2 [B, S, T] numpy}."""
+    import torch
+
+    from kompass_core_tpu_torch.ops import solver
+
+    yaw0, omega, dt, half, _, cases = probe
+    B, S = omega.shape
+    T = HEADING_SHAPE[1]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    zero = dev(np.zeros(B, np.float32))
+    params = solver.SolverParams(dev(np.full(B, dt, np.float32)), *([zero] * 11))
+    state = dev(np.stack([np.zeros(B), np.zeros(B), yaw0], 1).astype(np.float32))
+    vels = np.zeros((B, S, 3), np.float32)
+    vels[..., 2] = omega
+    ap = dev(np.full(B, T, np.int32))
+    fields = {}
+    for moving, (px, py, rows, vel) in cases.items():
+        d2 = solver._min_box_dist_sq(params, state, dev(vels), dev(px), dev(py), dev(rows),
+                                     ap, (dev(half[:, 0]), dev(half[:, 1])),
+                                     None if vel is None else dev(vel))
+        fields[moving] = d2.cpu().numpy()
+    return fields
+
+
+def heading_flips(got, want, margin):
+    """Collision decisions (d2 < margin^2, the surface rule of
+    ``_admissibility``) that differ between two fields of the probe, and
+    the largest distance of ``want``'s d2 from margin^2 among them, in
+    ulps of margin^2: (flips, ulps)."""
+    r = np.maximum(margin, np.float32(1e-6)).astype(np.float32)
+    r2 = (r * r)[:, None, None]
+    flips = (got < r2) != (want < r2)
+    dist = np.abs(want.astype(np.float64) - r2) / np.spacing(r2)
+    return int(flips.sum()), float(dist[flips].max()) if flips.any() else 0.0
+
+
+def phase_heading_flips(kernels, device):
+    """ROADMAP fault 2 on the card: the heading probe's collision
+    decisions with the card's torch.cos and torch.sin and K9 against the
+    CPU's (torch's CPU cos and sin, K9's plain version), static and
+    moving rows; not asserted to be zero (the decision is a tie rule):
+    every one lies within TIE_ULPS ulps of margin^2 by the CPU's d2.
+    Returns the flips per case."""
+    probe = heading_probe()
+    before = kernels.box_min_dist_sq.launches
+    card = heading_probe_fields(probe, device)
+    assert kernels.box_min_dist_sq.launches == before + len(card)
+    cpu = heading_probe_fields(probe, "cpu")
+    margin = probe[4]
+    res = {}
+    for moving in card:
+        assert card[moving].shape == cpu[moving].shape
+        assert np.isfinite(card[moving]).all() and np.isfinite(cpu[moving]).all()
+        res[moving] = heading_flips(card[moving], cpu[moving], margin)
+        points = card[moving].size
+        log(f"K9 heading probe, {'moving' if moving else 'static'} rows: {res[moving][0]} "
+            f"of {points} collision decisions differ between the card and the CPU "
+            f"(the farthest {res[moving][1]:.0f} ulps of margin^2 from it); max |d2 "
+            f"card - CPU| {float(np.abs(card[moving] - cpu[moving]).max()):.3e}")
+        assert res[moving][1] <= TIE_ULPS, (
+            f"K9 heading probe: a card decision differs {res[moving][1]} ulps from "
+            f"margin^2, past the tie rule's {TIE_ULPS}")
+    return res
 
 
 def _box_case(gen, device, B, S, T, O, span=10.0, vmax=1.5):
@@ -3224,17 +3399,39 @@ def phase_box_sweeps_vs_plain(kernels, device):
             log(f"box_min_dist_sq (K9) == plain, moving={moving}, at its own and "
                 f"each of {kernels.STATIC_POINTS} samples per thread: {name}")
     k3s_err = 0.0
-    for name, rows in (("the split fleet's 8 rows", 8), ("O=1100", 1100)):
+    star = kernels.POINT_MAJOR_ROWS
+    for rows in (FLEET_TRACKED, star, star + 1, K3S_PAST_STAGED):
         px, py, obs, vel, dt, sx, sy = _moving_case(gen, device, B, S, T, rows, G)
         obs[:, rows - 3:], vel[:, rows - 3:] = 1e8, 0.0
         obs[7, 0, 0] = float("nan")
+        px[9, S // 2, 4] = float("inf")
+        vel[11, 0] = 3e38  # the moved row overflows to inf at t >= 1
         ap = _mixed_active(gen, B, T, device)
-        got = kernels.min_dist_sq_moving(px, py, obs, vel, dt, ap)
+        ap[12] = 0
         want = kernels.min_dist_sq_moving_reference(px, py, obs, vel, dt, ap)
         full = kernels.fused_min_dist_sq_moving(px, py, obs, vel, dt, sx, sy, ap)[0]
-        torch.cuda.synchronize()
-        k3s_err = max(k3s_err, _check_nan_equal(f"K3s {name}", (got, got), (want, full)))
-        log(f"min_dist_sq_moving (K3s) == plain == K3's obstacle field: {name}")
+        layouts = (None, False) if rows == K3S_PAST_STAGED else (None, True, False)
+        if rows == K3S_PAST_STAGED:
+            before = kernels.min_dist_sq_moving.launches
+            try:
+                kernels.min_dist_sq_moving(px, py, obs, vel, dt, ap, _point_major=True)
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(f"K3s: point-major launched {rows} rows")
+            assert kernels.min_dist_sq_moving.launches == before
+        for layout in layouts:
+            got = kernels.min_dist_sq_moving(px, py, obs, vel, dt, ap, _point_major=layout)
+            torch.cuda.synchronize()
+            k3s_err = max(k3s_err, _check_nan_equal(
+                f"K3s {rows} rows, layout {layout}", (got, got), (want, full)))
+        assert bool(want[7].isnan().any()) and not bool(want[0].isnan().any())
+        own = "point-major" if rows <= star else "K3's"
+        forced = "each" if len(layouts) == 3 else "K3's (point-major refused)"
+        log(f"min_dist_sq_moving (K3s) == plain == K3's obstacle field at B={B}, "
+            f"{S}x{T} vs {rows} rows (its own layout: {own}; and forced into "
+            f"{forced} layout): pads, a NaN row, an inf point, an overflowing row, "
+            f"mixed active steps")
     return k3s_err, k9_err
 
 
@@ -3245,8 +3442,10 @@ def phase_split_fleet(kernels, device):
     sync; its outputs equal the tail-slot fleet's on the card bit for bit
     (the same inputs and carry: a min over the same rows); at
     SPLIT_CPU_TICKS 4 robots' rows agree with the CPU. Then the k = 8
-    graph, replay == eager, TICKS_CALLS calls. Returns the main path's
-    launches (the split fleet's; the tail-slot fleet is the comparison)."""
+    graph, replay == eager, TICKS_CALLS calls. Then SPLIT_WIDE_TICKS ticks
+    of a side run past K3s's point-major rows (its launches counted apart).
+    Returns the main path's launches (the 8-slot split fleet's; the
+    tail-slot fleet is the comparison)."""
     import torch
 
     split, lanes, circles = make_fleet(device, split=True)
@@ -3285,6 +3484,29 @@ def phase_split_fleet(kernels, device):
     log(f"split k-tick loop: {TICKS_CALLS} calls of k={TICKS_K}, replay == eager bit "
         f"for bit; K1 and K3s {TICKS_K} per replay")
     del split
+    # past K3s's point-major rows: its block per (robot, step) layout
+    wide = kernels.POINT_MAJOR_ROWS + 1
+    split, lanes, circles = make_fleet(device, tracked=wide, split=True)
+    tail, _, _ = make_fleet(device, tracked=wide)
+    drive = FleetDrive(lanes, circles, wide)
+    wide_launches = {}
+    for tick in range(SPLIT_WIDE_TICKS):
+        inputs = drive.inputs()
+        before = kernels.launch_counts()
+        out = split.tick(*inputs)
+        made = _launches_made(kernels, before)
+        assert made == {"K1": 1, "K3s": 1}, f"wide split tick {tick}: launches {made}"
+        for k, n in made.items():
+            wide_launches[k] = wide_launches.get(k, 0) + n
+        ref = tail.tick(*inputs)
+        for key in out:
+            assert np.array_equal(out[key], ref[key]), f"wide split tick {tick}: {key}"
+        drive.advance(out)
+    log(f"split mover sweep with {wide} tracked slots (K3s past its point-major "
+        f"{kernels.POINT_MAJOR_ROWS} rows, K3's layout): {SPLIT_WIDE_TICKS} ticks == the "
+        f"tail-slot fleet bit for bit; its launches {wide_launches} (a side run: not "
+        f"the main path's)")
+    del split, tail
     torch.cuda.empty_cache()
     return launches
 
@@ -3444,12 +3666,23 @@ def _fleet_tick_ms(fleet, drive, ticks):
 
 def _fleet_graph_ms(fleet, drive):
     """Per-tick ms of the k-tick graph: host clock over whole calls with
-    syncs, median of TICKS_TIMED calls, over k."""
+    syncs, median of TICKS_TIMED calls, over k; and the replay alone by
+    CUDA events, TICKS_TIMED replays back to back, over k."""
+    import torch
+
     inputs = drive.inputs()
     fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])  # capture
     ms = _median_ms(lambda: fleet.run_ticks_on_device(TICKS_K, *inputs[:4],
                                                       tracked=inputs[4]), TICKS_TIMED)
-    return ms[0] / TICKS_K
+    replay = fleet.tick_graphs[TICKS_K].graph.replay
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TICKS_TIMED):
+        replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return ms[0] / TICKS_K, start.elapsed_time(stop) / (TICKS_TIMED * TICKS_K)
 
 
 def phase_split_box_times(kernels, device, card):
@@ -3469,12 +3702,14 @@ def phase_split_box_times(kernels, device, card):
         for name in (names[0], names[1], names[1], names[0]):
             fleet, drive = fleets[name]
             tick = _fleet_tick_ms(fleet, drive, FLEET_TIMED_TICKS)
-            res[name].append((tick, _fleet_graph_ms(fleet, drive)))
+            res[name].append((tick, *_fleet_graph_ms(fleet, drive)))
         for name, runs in res.items():
             log(f"{label}: {name} ({card}): tick median {statistics.mean(r[0] for r in runs):.4f} "
                 f"ms (turns {[round(r[0], 4) for r in runs]}); k={TICKS_K} graph "
                 f"{statistics.mean(r[1] for r in runs):.4f} ms per tick (turns "
-                f"{[round(r[1], 4) for r in runs]})")
+                f"{[round(r[1], 4) for r in runs]}), the replay alone "
+                f"{statistics.mean(r[2] for r in runs):.4f} ms per tick by CUDA events "
+                f"(turns {[round(r[2], 4) for r in runs]})")
         del fleets
         torch.cuda.empty_cache()
 
@@ -3510,21 +3745,82 @@ def phase_split_box_times(kernels, device, card):
             f"{b_ms / g_ms:.1%} of the replay")
         results[name] = (k_ms, p_ms, b_ms, b_by)
         del cases, inputs
-    cases = [_moving_case(gen, device, B, S, T, FLEET_TRACKED, 1)
-             for _ in range(FLEET_KERNEL_INPUTS)]
-    inputs = [(px, py, obs, vel, dt, ap) for px, py, obs, vel, dt, _, _ in cases]
-    k_ms, p_ms, runs = _in_turns(kernels.min_dist_sq_moving,
-                                 kernels.min_dist_sq_moving_reference, inputs)
-    g_ms = _graph_ms(kernels.min_dist_sq_moving, inputs)
-    b_ms, b_by = form_bound(cases[0][0], FLEET_TRACKED, ap, 0, 6, 0, row_ops=4,
-                            moving=True, fields=1)
-    log(f"min_dist_sq_moving (K3s) at B={B}, {S}x{T} vs {FLEET_TRACKED} rows ({card}), "
-        f"CUDA events over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
-        f"kernel {k_ms:.5f} ms (graph replay {g_ms:.5f} ms), plain {p_ms:.5f} ms; bound "
-        f"{b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it, {b_ms / g_ms:.1%} of the replay")
-    del cases, inputs
+    k3s = None
+    for rows in K3S_TIMED_ROWS:
+        cases = [_moving_case(gen, device, B, S, T, rows, 1)
+                 for _ in range(FLEET_KERNEL_INPUTS)]
+        inputs = [(px, py, obs, vel, dt, ap) for px, py, obs, vel, dt, _, _ in cases]
+        b_ms, b_by = form_bound(cases[0][0], rows, ap, 0, 6, 0, row_ops=4,
+                                moving=True, fields=1)
+        if rows == FLEET_TRACKED:  # the kernels line: the split fleet's rows
+            k_ms, p_ms, runs = _in_turns(kernels.min_dist_sq_moving,
+                                         kernels.min_dist_sq_moving_reference, inputs)
+            g_ms = _graph_ms(kernels.min_dist_sq_moving, inputs)
+            log(f"min_dist_sq_moving (K3s) at B={B}, {S}x{T} vs {rows} rows ({card}), "
+                f"CUDA events over {FLEET_KERNEL_INPUTS} distinct inputs, in turns {runs}: "
+                f"kernel {k_ms:.5f} ms (graph replay {g_ms:.5f} ms), plain {p_ms:.5f} ms; "
+                f"bound {b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.1%} of it, "
+                f"{b_ms / g_ms:.1%} of the replay")
+            k3s = (k_ms, p_ms, b_ms, b_by)
+        # each layout by graph replay and by events, in turns point-major,
+        # K3's, K3's, point-major
+        layouts = {True: [], False: []}
+        for layout in (True, False, False, True):
+            def fn(*args, _layout=layout):
+                return kernels.min_dist_sq_moving(*args, _point_major=_layout)
+            layouts[layout].append((_graph_ms(fn, inputs), _events_ms(fn, inputs)))
+        pm, k3 = ([statistics.mean(r[i] for r in layouts[key]) for i in (0, 1)]
+                  for key in (True, False))
+        own = "point-major" if rows <= kernels.POINT_MAJOR_ROWS else "K3's"
+        log(f"K3s layouts at B={B}, {S}x{T} vs {rows} rows ({card}; its own: {own}): "
+            f"point-major {pm[0]:.5f} ms by graph replay, {pm[1]:.5f} by events "
+            f"({b_ms / pm[0]:.1%} of the bound by replay); K3's layout {k3[0]:.5f} ms "
+            f"by replay, {k3[1]:.5f} by events ({b_ms / k3[0]:.1%}); bound {b_ms:.5f} "
+            f"ms ({b_by}); replay turns {[round(r[0], 5) for r in layouts[True]]} vs "
+            f"{[round(r[0], 5) for r in layouts[False]]}")
+        del cases, inputs
     torch.cuda.empty_cache()
-    return (k_ms, p_ms, b_ms, b_by), results["K9"]
+    return k3s, results["K9"]
+
+
+def _device_us(event):
+    """An averaged profiler event's own device time, in us."""
+    return getattr(event, "self_device_time_total", 0.0)
+
+
+def phase_replay_profile(device, card):
+    """One ``torch.profiler`` pass over one k = 8 replay of the tail-slot
+    and of the split tracked fleet (64 robots, 8 slots): the ten kernels
+    with the most device time and their share of the replay's. Fails if
+    the profiler records no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, split in (("tail-slot", False), ("split", True)):
+        fleet, lanes, circles = make_fleet(device, split=split)
+        drive = FleetDrive(lanes, circles, FLEET_TRACKED)
+        inputs = drive.inputs()
+        fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])  # capture
+        replay = fleet.tick_graphs[TICKS_K].graph.replay
+        replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        timed = [e for e in prof.key_averages() if _device_us(e) > 0]
+        total = sum(_device_us(e) for e in timed)
+        if not timed or total <= 0:
+            raise RuntimeError(f"torch.profiler recorded no device time in the {name} "
+                               f"fleet's k={TICKS_K} replay")
+        top = sorted(timed, key=_device_us, reverse=True)[:10]
+        log(f"replay profile, {name} fleet, {FLEET_ROBOTS} robots, k={TICKS_K} ({card}): "
+            f"{len(timed)} kernels, {total / 1e3:.4f} ms of device time "
+            f"({total / 1e3 / TICKS_K:.4f} ms per tick); the ten with the most:")
+        for e in top:
+            log(f"  {_device_us(e) / 1e3:.4f} ms ({_device_us(e) / total:.1%}), "
+                f"{e.count} launches: {e.key[:120]}")
+        del fleet, prof
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3590,12 +3886,13 @@ def main() -> int:
     assert all(peer_launches.get(key) for key in ("K1", "K3", "K7", "K8"))
     peer_errs = phase_peer_sweeps_vs_plain(kernels, device)
     k3s_err, k9_err = phase_box_sweeps_vs_plain(kernels, device)
+    phase_heading_flips(kernels, device)
     for counter in kernels.SWEEP_KERNELS.values():
         counter.launches = 0
     split_launches = phase_split_fleet(kernels, device)
     box_launches = phase_box_fleet(kernels, device)
     log(f"split and BOX fleet main-path launches: {split_launches}, {box_launches} "
-        f"(wrapper calls, the comparisons included: "
+        f"(wrapper calls, the comparisons and the wide split side run included: "
         f"{ {k: c for k, c in kernels.launch_counts().items() if c} })")
     assert split_launches["K3s"] and box_launches["K9"] and box_dwa_k9
     phase_controllers(device)
@@ -3609,6 +3906,7 @@ def main() -> int:
     phase_peer_sweep_times(kernels, device, card)
     phase_peer_times(device, card)
     k3s_times, k9_times = phase_split_box_times(kernels, device, card)
+    phase_replay_profile(device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")

@@ -24,9 +24,11 @@
 //   K3 moving_min_dist_kernel<kDirect>: the XLA form of the moving sweep,
 //      (p - (o + v tau))^2 (solver.py:365 _min_obstacle_dist_sq_moving;
 //      backend "xla" with moving obstacles), its segment sweep direct.
-//   K3s moving_min_dist_kernel<kDirect> with the segment sweep compiled
-//      out (kSegments = false): the same function over the split mover
-//      rows alone (solver.py:737 dwa_solve's mover4, every backend).
+//   K3s point_major_min_dist_kernel: the same function over the split mover
+//      rows alone (solver.py:737 dwa_solve's mover4, every backend), a
+//      few rows against every point, laid out point-major (below); past
+//      ops/kernels.py::POINT_MAJOR_ROWS rows moving_min_dist_kernel<kDirect>
+//      with the segment sweep compiled out (kSegments = false).
 //   K7 moving_min_dist_kernel<kExpanded>: pallas_kernels.py:116
 //      _fused_kernel_mxu_moving, the 7-feature dot (backends "pallas" and
 //      "pallas_v1" with moving obstacles), its segment sweep K2's.
@@ -127,6 +129,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <climits>
 
 #include <type_traits>
 
@@ -484,6 +488,130 @@ int launch_moving(const float* px, const float* py, int batch, int n_points,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- K3s at a few rows: the point-major moving sweep ------------------------------
+//
+// K3s sweeps the split movers: 8 rows against 64 x 2025 x 30 points on the
+// fleet's path. There each point meets so few rows that the sweep is bound
+// by its bytes (the points read once, d2 written once: 46.7 MB), not by its
+// pairs. moving_min_dist_kernel's block per (robot, step) reads a point
+// stride-T apart from its neighbour's, one 32-byte sector per 4-byte access
+// (8 times the bytes at T = 30), so here:
+//   * a block is a run of kPointMajorBlock * kPointMajorPts consecutive
+//     points of one robot b = blockIdx.y (grid (runs, B): no block spans
+//     two robots), thread i holding points base + i + k * kPointMajorBlock;
+//     each load of px, py and store of d2 is one coalesced 128-byte line
+//     per warp. The step t = p mod T takes one division per thread and is
+//     stepped per k (+ kPointMajorBlock mod T, less T on a wrap);
+//   * the robot's M rows are staged once per block in shared memory as
+//     (ox, oy, vx, vy); every thread reads the same row at once (a
+//     broadcast), and moves it per pair, o + v * tau with tau = f32(t) *
+//     dt[b] once per point: 2 FMUL and 2 FADD on top of K3's 6, so 10 FP32
+//     instructions per pair, about 0.011 ms of issue at 8 rows against the
+//     0.014 ms byte bound. The moved rows differ per step, and the steps
+//     differ across a warp, so no per-step row is staged;
+//   * the min is fminf unless the block holds a non-finite point, tau or
+//     row value (flag reduced with __syncthreads_or, block-uniform); only
+//     then does the NaN-keeping min run. From finite o, v and tau a moved
+//     row can overflow to +-inf, but then each square is +inf or finite
+//     and the distance +inf, never NaN, and fminf keeps it as the
+//     NaN-keeping min does;
+//   * an inactive point (t >= active_points[b]) reads nothing and writes
+//     +inf.
+// At many rows the per-pair move makes this layout issue-bound at 10
+// instructions per pair against moving_min_dist_kernel's 6, so the wrapper
+// takes that kernel past POINT_MAJOR_ROWS rows (measured on the H100,
+// PERF.md). The rows take M * 16 bytes of dynamic shared memory, at most
+// kPointMajorMaxRows.
+
+constexpr int kPointMajorBlock = 128;  // threads per block
+constexpr int kPointMajorPts = 4;      // points per thread
+constexpr int kPointMajorMaxRows = 1024;
+
+template <bool kKeepNan>
+__device__ __forceinline__ void point_major_rows(const float (&x)[kPointMajorPts],
+                                                 const float (&y)[kPointMajorPts],
+                                                 const float (&tau)[kPointMajorPts],
+                                                 float (&acc)[kPointMajorPts],
+                                                 const float4* rows, int n) {
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const float4 r = rows[j];
+#pragma unroll
+    for (int k = 0; k < kPointMajorPts; ++k) {
+      const float ox = __fadd_rn(r.x, __fmul_rn(r.z, tau[k]));
+      const float oy = __fadd_rn(r.y, __fmul_rn(r.w, tau[k]));
+      const float d = dist_sq(x[k], y[k], ox, oy);
+      acc[k] = kKeepNan ? min_nan(acc[k], d) : fminf(acc[k], d);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPointMajorBlock) point_major_min_dist_kernel(
+    const float* __restrict__ px, const float* __restrict__ py, int n_points,
+    int steps, const float* __restrict__ rows, const float* __restrict__ vel,
+    const float* __restrict__ dt, int n_rows,
+    const int* __restrict__ active_points, float* __restrict__ out) {
+  extern __shared__ float4 staged[];  // n_rows x (ox, oy, vx, vy)
+  const int b = blockIdx.y;
+  const long long robot0 = static_cast<long long>(b) * n_points;
+  const int p0 = blockIdx.x * kPointMajorBlock * kPointMajorPts + threadIdx.x;
+  const int active = active_points[b];
+  const float step_dt = dt[b];
+  const int stride_t = kPointMajorBlock % steps;
+  bool flag = false;
+  for (int i = threadIdx.x; i < n_rows; i += kPointMajorBlock) {
+    const long long r = 2LL * (static_cast<long long>(b) * n_rows + i);
+    const float4 row = make_float4(rows[r], rows[r + 1], vel[r], vel[r + 1]);
+    flag |= !(both_finite(row.x, row.y) && both_finite(row.z, row.w));
+    staged[i] = row;
+  }
+  float x[kPointMajorPts], y[kPointMajorPts], tau[kPointMajorPts];
+  float acc[kPointMajorPts];
+  bool live[kPointMajorPts];
+  int t = p0 % steps;
+#pragma unroll
+  for (int k = 0; k < kPointMajorPts; ++k) {
+    const int p = p0 + k * kPointMajorBlock;
+    live[k] = p < n_points && t < active;
+    x[k] = live[k] ? px[robot0 + p] : 0.0f;
+    y[k] = live[k] ? py[robot0 + p] : 0.0f;
+    tau[k] = __fmul_rn(static_cast<float>(t), step_dt);
+    flag |= live[k] && !(both_finite(x[k], y[k]) && isfinite(tau[k]));
+    acc[k] = CUDART_INF_F;
+    t += stride_t;
+    t -= t >= steps ? steps : 0;
+  }
+  // a barrier for the staged rows that also makes the flag block-uniform
+  if (__syncthreads_or(flag)) {
+    point_major_rows<true>(x, y, tau, acc, staged, n_rows);
+  } else {
+    point_major_rows<false>(x, y, tau, acc, staged, n_rows);
+  }
+#pragma unroll
+  for (int k = 0; k < kPointMajorPts; ++k) {
+    const int p = p0 + k * kPointMajorBlock;
+    if (p < n_points) {
+      out[robot0 + p] = live[k] ? acc[k] : CUDART_INF_F;
+    }
+  }
+}
+
+int launch_point_major(const float* px, const float* py, int batch,
+                       int n_points, int steps, const float* rows,
+                       const float* vel, const float* dt, int n_rows,
+                       const int* active_points, float* out, void* stream) {
+  const int per_block = kPointMajorBlock * kPointMajorPts;
+  if (n_rows > kPointMajorMaxRows || n_points > INT_MAX - per_block) {
+    return cudaErrorInvalidValue;  // the point indices stay in int
+  }
+  const dim3 grid((n_points + per_block - 1) / per_block, batch);
+  const size_t shared = sizeof(float4) * n_rows;
+  point_major_min_dist_kernel<<<grid, kPointMajorBlock, shared,
+                              static_cast<cudaStream_t>(stream)>>>(
+      px, py, n_points, steps, rows, vel, dt, n_rows, active_points, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // --- K1, K2, K4, K6: the static sweeps, several samples of one step per thread ---
 
 constexpr int kStaticBlock = 128;  // threads per block
@@ -774,11 +902,18 @@ extern "C" int kompass_fused_min_dist_sq_moving(
 
 // K3s, K3's moving obstacle sweep alone: [B, S, T] points against rows
 // [B, n_rows, 2] moving at vel [B, n_rows, 2] (pad rows zero) into out
-// [B, S, T]; dt [B]. Launches on `stream`; returns cudaGetLastError().
+// [B, S, T]; dt [B]. point_major: 1 for point_major_min_dist_kernel (at most
+// kPointMajorMaxRows rows), 0 for moving_min_dist_kernel. Launches on
+// `stream`; returns cudaErrorInvalidValue for rows or points the chosen
+// kernel does not take, else cudaGetLastError().
 extern "C" int kompass_min_dist_sq_moving(
     const float* px, const float* py, int batch, int n_points, int steps,
     const float* rows, const float* vel, const float* dt, int n_rows,
-    const int* active_points, float* out, void* stream) {
+    const int* active_points, float* out, int point_major, void* stream) {
+  if (point_major) {
+    return launch_point_major(px, py, batch, n_points, steps, rows, vel, dt,
+                              n_rows, active_points, out, stream);
+  }
   return launch_moving<kDirect, false>(px, py, batch, n_points, steps, rows,
                                        vel, dt, n_rows, nullptr, nullptr, 0,
                                        active_points, out, nullptr, stream);

@@ -26,7 +26,8 @@ runs follows the solver's ``SolverSpec.backend``, as in the JAX package
   ``_min_obstacle_dist_sq_moving``. The segment rows stay static.
 - ``min_dist_sq_moving`` (K3s): K3's moving obstacle sweep alone, over the
   split mover rows (``dwa_solve``'s ``mover4``, every backend), as K4 is
-  K2's obstacle sweep alone.
+  K2's obstacle sweep alone; a point-major kernel of its own up to
+  ``POINT_MAJOR_ROWS`` rows, K3's layout past them.
 - ``fused_min_dist_sq_moving_expanded`` is the port of
   ``_fused_kernel_mxu_moving`` (K7, backends ``"pallas"`` and
   ``"pallas_v1"`` with moving obstacles): the 7-feature dot f(o).g(p) as
@@ -198,7 +199,7 @@ def _library() -> ctypes.CDLL:
             ]
             lib.kompass_min_dist_sq_moving.restype = ctypes.c_int
             lib.kompass_min_dist_sq_moving.argtypes = [
-                p, p, i, i, i, p, p, p, i, p, p, p,
+                p, p, i, i, i, p, p, p, i, p, p, i, p,
             ]
             lib.kompass_box_min_dist_sq.restype = ctypes.c_int
             lib.kompass_box_min_dist_sq.argtypes = [
@@ -464,11 +465,12 @@ def min_dist_sq_expanded_reference(px, py, rows, active_points):
                       active_points, form="expanded")
 
 
-def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None, points=()):
+def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None, extra=()):
     """Launch ``fn`` of the library on the current stream of the inputs'
     card; returns the output fields (shaped like px; one without segment
-    rows), or raises on a refused launch. ``points``: the static
-    kernel's samples per thread, as a 1-tuple."""
+    rows), or raises on a refused launch. ``extra``: the entry point's
+    int arguments after its outputs (the static kernel's samples per
+    thread, K3s's layout)."""
     lib = _library()
     B, S, T, O, G, _ = dims
     outs = [torch.empty_like(px) for _ in range(1 if sx is None else 2)]
@@ -478,7 +480,7 @@ def _launch(fn, dims, px, py, obs, sx, sy, ap, vel=None, dt=None, points=()):
         seg = () if sx is None else (sx.data_ptr(), sy.data_ptr(), G)
         err = getattr(lib, fn)(
             px.data_ptr(), py.data_ptr(), B, S * T, T, obs.data_ptr(), *mid,
-            O, *seg, ap.data_ptr(), *(o.data_ptr() for o in outs), *points,
+            O, *seg, ap.data_ptr(), *(o.data_ptr() for o in outs), *extra,
             stream,
         )
     if err != 0:
@@ -545,7 +547,7 @@ def _static_launch(name, px, py, rows, seg_x, seg_y, active_points, points):
     dims = _check_sweep(name, px, py, rows, seg_x, seg_y, active_points)
     points = _static_points(name, dims, points, px.device)
     return _launch(f"kompass_{name}", dims, px, py, rows, seg_x, seg_y,
-                   active_points, points=(points,))
+                   active_points, extra=(points,))
 
 
 def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points, *,
@@ -702,7 +704,22 @@ def fused_min_dist_sq_moving_broadcast(px, py, obs_xy, obs_vel, dt, seg_x,
     return out
 
 
-def min_dist_sq_moving(px, py, rows, vel, dt, active_points):
+# K3s's layout by its rows M (csrc/fused_min_dist.cu): the point-major
+# kernel up to POINT_MAJOR_ROWS rows, where it is bound by the points'
+# bytes, the block per (robot, step) past them, where the pairs' issue
+# bounds both and the point-major pair costs 10 instructions against 6
+# (the threshold measured on the H100, PERF.md); the point-major kernel
+# stages at most kPointMajorMaxRows rows, and its entry point refuses more
+POINT_MAJOR_ROWS = 64
+
+
+def _k3s_layout(rows, forced):
+    """K3s's layout for ``rows`` rows: ``forced`` if given, else
+    point-major up to POINT_MAJOR_ROWS rows."""
+    return rows <= POINT_MAJOR_ROWS if forced is None else bool(forced)
+
+
+def min_dist_sq_moving(px, py, rows, vel, dt, active_points, *, _point_major=None):
     """K3s: K3's moving obstacle sweep alone, in one kernel launch (the
     split mover sweep).
 
@@ -710,14 +727,18 @@ def min_dist_sq_moving(px, py, rows, vel, dt, active_points):
     pads at 1e8 with zero velocity; vel: [M, 2] ([B, M, 2]) world
     velocities; dt and active_points as for ``fused_min_dist_sq_moving``.
     Returns d2 shaped like px: the min over the rows of |p - (o + v * (t *
-    dt))|^2, +inf where t >= active_points. On CUDA it adds one to
+    dt))|^2, +inf where t >= active_points. On CUDA it launches the
+    point-major kernel up to ``POINT_MAJOR_ROWS`` rows and K3's layout past
+    them (``_point_major`` forces one where a test does; the point-major
+    kernel refuses more rows than it stages), and adds one to
     ``min_dist_sq_moving.launches``."""
     if px.device.type == "cpu":
         return min_dist_sq_moving_reference(px, py, rows, vel, dt, active_points)
     dims = _check_sweep("min_dist_sq_moving", px, py, rows, None, None,
                         active_points, vel, dt)
+    point_major = _k3s_layout(dims[3], _point_major)
     out = _launch("kompass_min_dist_sq_moving", dims, px, py, rows, None, None,
-                  active_points, vel, dt)
+                  active_points, vel, dt, extra=(int(point_major),))
     min_dist_sq_moving.launches += 1
     return out
 

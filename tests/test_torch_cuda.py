@@ -568,7 +568,7 @@ def test_refused_static_launch_raises(cuda, name):
     dims = kernels._check_sweep(name, px, py, obs, *seg, ap)
     with pytest.raises(RuntimeError, match="cudaError"):
         kernels._launch(f"kompass_{counter.__name__}", dims, px, py, obs, *seg, ap,
-                        points=(4,))
+                        extra=(4,))
     before = counter.launches
     with pytest.raises(ValueError, match="samples per thread"):
         kernel(px, py, obs, sx, sy, ap, _points=4)
@@ -881,25 +881,97 @@ def test_k9_keeps_a_nan_row(cuda):
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
-@pytest.mark.parametrize("M", [1, 8, 1100])
-def test_k3s_bit_identical_to_plain_and_to_k3(cuda, M):
-    g = torch.Generator().manual_seed(M)
-    B, S, T = 4, 2025, 30
+def _k3s_case(M, B, S, T, special, device):
+    g = torch.Generator().manual_seed(M * 7 + B + S + T)
 
     def u(*shape, scale=10.0):
-        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(cuda)
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(device)
 
     px, py, rows, vel = u(B, S, T), u(B, S, T), u(B, M, 2), u(B, M, 2, scale=1.5)
-    dt = torch.full((B,), 0.1, device=cuda)
-    ap = torch.tensor([30, 17, 1, 30], dtype=torch.int32, device=cuda)
-    seg = u(B, 16)
+    dt = (0.05 + torch.rand(B, generator=g) * 0.1).to(device)
+    # every robot's steps active but robots 1 and 2's: one step and none
+    ap = torch.full((B,), T, dtype=torch.int32, device=device)
+    ap[1:3] = torch.tensor([1, 0][: B - 1], dtype=torch.int32)
+    if special:  # B >= 5: an inf point of robot 3, a NaN row of the last
+        if M > 2:
+            rows[:, -2:], vel[:, -2:] = 1e8, 0.0  # pad rows
+        px[3, S // 2, T - 1] = float("inf")
+        rows[B - 1, 0, 0] = float("nan")
+    return px, py, rows, vel, dt, ap
+
+
+_M_STAR = kernels.POINT_MAJOR_ROWS
+# past the rows the point-major kernel stages (csrc/fused_min_dist.cu,
+# kPointMajorMaxRows = 1024): its entry point refuses them
+_PAST_STAGED_ROWS = 1100
+_K3S_CASES = [
+    (1, 4, 2025, 30, False), (8, 5, 2025, 30, True),
+    (_M_STAR, 5, 2025, 30, True), (_M_STAR + 1, 5, 2025, 30, True),
+    (_PAST_STAGED_ROWS, 5, 2025, 30, True),
+    (8, 64, 2025, 30, True),  # the split fleet's robots and rows
+    (8, 5, 1025, 31, True),  # S x T past a block's points, ragged
+    (_M_STAR, 5, 37, 31, True), (8, 5, 1023, 1, True), (3, 3, 5, 1, False),
+]
+# each case in its own layout and forced into each
+_K3S_RUNS = [(*case, layout) for case in _K3S_CASES for layout in (None, True, False)]
+
+
+@pytest.mark.parametrize("M,B,S,T,special,layout", _K3S_RUNS)
+def test_k3s_bit_identical_to_plain_and_to_k3(cuda, M, B, S, T, special, layout):
+    """K3s in its own layout (point-major up to POINT_MAJOR_ROWS rows) and
+    forced into each: one launch, the plain version's values and K3's
+    obstacle field's bit for bit (NaN where they have NaN), +inf at
+    inactive steps (robot 1 has one active step, robot 2 none); pad rows
+    at 1e8, an inf point and a NaN row where ``special``. Forced into the
+    point-major layout past the rows it stages, the launch is refused: it
+    raises and counts nothing."""
+    px, py, rows, vel, dt, ap = _k3s_case(M, B, S, T, special, cuda)
+    seg = torch.full((B, 16), 1e8, device=cuda)
     before = kernels.min_dist_sq_moving.launches
-    got = kernels.min_dist_sq_moving(px, py, rows, vel, dt, ap)
+    if layout and M >= _PAST_STAGED_ROWS:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.min_dist_sq_moving(px, py, rows, vel, dt, ap, _point_major=True)
+        assert kernels.min_dist_sq_moving.launches == before
+        return
+    got = kernels.min_dist_sq_moving(px, py, rows, vel, dt, ap, _point_major=layout)
     torch.cuda.synchronize()
     assert kernels.min_dist_sq_moving.launches == before + 1
-    assert torch.equal(got, kernels.min_dist_sq_moving_reference(px, py, rows, vel, dt, ap))
+    want = kernels.min_dist_sq_moving_reference(px, py, rows, vel, dt, ap)
+    _nan_equal((got,), (want,))
     k3 = kernels.fused_min_dist_sq_moving(px, py, rows, vel, dt, seg, seg, ap)[0]
-    assert torch.equal(got, k3)
+    _nan_equal((got,), (k3,))
+    active = torch.arange(T, device=cuda) < ap[:, None, None]
+    assert bool(torch.isinf(got[~active.expand_as(got)]).all())
+    assert bool(got[0].isfinite().all())
+    if special:
+        assert float(got[3, S // 2, T - 1]) == float("inf")
+        assert bool(got[B - 1][active[B - 1].expand_as(got[B - 1])].isnan().all())
+
+
+def test_k3s_in_a_cuda_graph_equals_the_eager_call(cuda):
+    """K3s captured in a CUDA graph at the split fleet's shape (one launch
+    counted at capture) and replayed on new inputs equals the eager call
+    on them, in each layout."""
+    for layout in (True, False):
+        px, py, rows, vel, dt, ap = _k3s_case(8, 64, 2025, 30, False, cuda)
+        static = [t.clone() for t in (px, py, rows, vel, dt, ap)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernels.min_dist_sq_moving(*static, _point_major=layout)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.min_dist_sq_moving.launches
+        with torch.cuda.graph(graph):
+            out = kernels.min_dist_sq_moving(*static, _point_major=layout)
+        assert kernels.min_dist_sq_moving.launches == before + 1
+        px, py, rows, vel, dt, ap = _k3s_case(8, 64, 2025, 30, True, cuda)
+        fresh = (0.5 * py, px + 1.0, rows.flip(1), -vel, 2.0 * dt, ap.flip(0))
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _nan_equal((out,), (kernels.min_dist_sq_moving(*fresh, _point_major=layout),))
 
 
 @pytest.mark.parametrize("form", ["split", "box"])

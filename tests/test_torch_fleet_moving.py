@@ -301,3 +301,113 @@ def test_k3s_is_k3s_obstacle_field():
     for b in range(B):
         one = kernels.min_dist_sq_moving(px[b], py[b], rows[b], vel[b], dt[b], ap[b])
         assert torch.equal(one, got[b])
+
+
+# --- K3s's layouts: the wrapper's choice and the point-major kernel's order ------
+
+
+def test_k3s_layout_follows_its_rows():
+    """Point-major up to ``POINT_MAJOR_ROWS`` rows, K3's layout past them,
+    a forced layout as forced (the card refuses the point-major kernel
+    past the rows it stages: tests/test_torch_cuda.py). The plain version
+    does not depend on the layout."""
+    M = kernels.POINT_MAJOR_ROWS
+    for rows, want in ((1, True), (8, True), (M, True), (M + 1, False), (1100, False)):
+        assert kernels._k3s_layout(rows, None) is want
+        assert kernels._k3s_layout(rows, False) is False
+        assert kernels._k3s_layout(rows, True) is True
+    rng = np.random.default_rng(3)
+    px, py = (torch.from_numpy(rng.uniform(-5, 5, (2, 9, 4)).astype(np.float32))
+              for _ in range(2))
+    ap = torch.tensor([4, 2], dtype=torch.int32)
+    dt = torch.tensor([0.1, 0.1])
+    for rows in (8, 1100):
+        obs = torch.from_numpy(rng.uniform(-5, 5, (2, rows, 2)).astype(np.float32))
+        vel = torch.zeros(2, rows, 2)
+        want = kernels.min_dist_sq_moving_reference(px, py, obs, vel, dt, ap)
+        for forced in (None, False, True):
+            got = kernels.min_dist_sq_moving(px, py, obs, vel, dt, ap,
+                                             _point_major=forced)
+            assert torch.equal(got, want)
+
+
+# csrc/fused_min_dist.cu point_major_min_dist_kernel: a block is a run of
+# POINT_MAJOR_BLOCK consecutive points of one robot
+POINT_MAJOR_BLOCK = 128 * 4
+
+
+def _point_major_sweep(px, py, rows, vel, dt, ap):
+    """The point-major kernel's order of operations on the CPU: per pair
+    the row moved to o + v * tau (tau = f32(t) * dt, once per point) and
+    the direct distance, each operation rounded on its own; per block the
+    min is fminf's (a NaN dropped) unless a live point, its tau or a row
+    value is non-finite, then the NaN-keeping min; +inf at a dead point."""
+    B, S, T = px.shape
+    P = S * T
+    t = torch.arange(P) % T
+    tau = t.to(torch.float32)[None, :] * dt[:, None]  # [B, P]
+    live = t[None, :] < ap[:, None]
+    x, y = px.reshape(B, P), py.reshape(B, P)
+    ox = rows[:, None, :, 0] + vel[:, None, :, 0] * tau[..., None]  # [B, P, M]
+    oy = rows[:, None, :, 1] + vel[:, None, :, 1] * tau[..., None]
+    dx, dy = x[..., None] - ox, y[..., None] - oy
+    d = dx * dx + dy * dy
+    keep = torch.amin(d, dim=-1)
+    drop = torch.where(d.isnan(), torch.inf, d).amin(dim=-1)
+    wild = live & ~(x.isfinite() & y.isfinite() & tau.isfinite())
+    rows_wild = ~(rows.isfinite().all(-1) & vel.isfinite().all(-1)).all(-1)  # [B]
+    out = torch.empty_like(keep)
+    for b in range(B):
+        for p0 in range(0, P, POINT_MAJOR_BLOCK):
+            blk = slice(p0, p0 + POINT_MAJOR_BLOCK)
+            flag = bool(rows_wild[b]) or bool(wild[b, blk].any())
+            out[b, blk] = (keep if flag else drop)[b, blk]
+    return torch.where(live, out, torch.inf).reshape(B, S, T)
+
+
+def _point_major_case(rng, B, S, T, M):
+    def u(*shape, scale=5.0):
+        return torch.from_numpy(rng.uniform(-scale, scale, shape).astype(np.float32))
+
+    return (u(B, S, T), u(B, S, T), u(B, M, 2), u(B, M, 2, scale=1.5),
+            torch.full((B,), 0.1), torch.full((B,), T, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", ["finite", "nan_row", "inf_point", "inf_velocity",
+                                  "tau_overflow", "row_overflow", "ragged"])
+def test_point_major_order_of_operations_equals_the_plain_version(case):
+    """The CPU mirror of the point-major kernel equals K3s's plain version
+    bit for bit (NaN where it has NaN) on 3 robots of 200 x 7 points (3
+    blocks each) against 5 rows: finite values (fminf in every block), a
+    NaN row, an inf point in one block, an inf velocity (inf * tau = NaN at
+    t = 0), dt = 1e38 (tau = inf past t = 3: a pad row's 0 * inf is NaN),
+    velocities of 3e38 at dt = 2 (the moved row overflows to inf: its d2
+    is inf, no NaN, fminf's path) and mixed active steps with a ragged
+    last block."""
+    rng = np.random.default_rng(5)
+    px, py, rows, vel, dt, ap = _point_major_case(rng, 3, 200, 7, 5)
+    rows[:, -1], vel[:, -1] = 1e8, 0.0  # pad rows
+    if case == "nan_row":
+        rows[1, 2, 0] = float("nan")
+    elif case == "inf_point":
+        px[2, 150, 3] = float("inf")
+    elif case == "inf_velocity":
+        vel[0, 1, 1] = float("inf")
+    elif case == "tau_overflow":
+        dt[1] = 1e38
+    elif case == "row_overflow":
+        vel[:, 0] = torch.tensor([3e38, -3e38])
+        dt[:] = 2.0
+    elif case == "ragged":
+        px, py, rows, vel, dt, ap = _point_major_case(rng, 2, 77, 9, 3)
+        ap = torch.tensor([9, 4], dtype=torch.int32)
+    want = kernels.min_dist_sq_moving_reference(px, py, rows, vel, dt, ap)
+    got = _point_major_sweep(px, py, rows, vel, dt, ap)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    has_nan = case in ("nan_row", "inf_velocity", "tau_overflow")
+    assert bool(want.isnan().any()) == has_nan
+    if case == "inf_point":
+        assert float(want[2, 150, 3]) == float("inf")
+    if case == "row_overflow":  # the other rows' finite distances win
+        assert bool(want.isfinite().all())

@@ -1147,8 +1147,8 @@ def test_k4_and_k6_launch_the_static_kernel_at_sweep_points(name, monkeypatch):
     wrapper, entry, O, G = _STATIC_WRAPPERS[name]
     launched = []
 
-    def launch(fn, dims, *args, points=()):
-        launched.append((fn, dims, points))
+    def launch(fn, dims, *args, extra=()):
+        launched.append((fn, dims, extra))
         return ()
 
     monkeypatch.setattr(kernels, "_sm_count", lambda device: H100_SMS)
