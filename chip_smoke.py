@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the DWA control tick, of the device fleet
-tick and its k-tick loop and of the local occupancy mapper once on an
-NVIDIA GPU.
+tick and its k-tick loop, of the local occupancy mapper and of the global
+planners once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -178,6 +178,23 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 26. One ``torch.profiler`` pass over one k = 8 replay of the tail-slot
     and of the split tracked fleet: the ten kernels with the most device
     time (fails if the profiler records none).
+27. Global planning on the turtlebot problem (the reference's own,
+    ``tests/resources/reference/ompl``, at ``planner_bench.py``'s
+    settings): every one of the 30 registry ids solves on the card with
+    its scans replayed as CUDA graphs, twice; each path starts at the
+    start, ends within ``goal_tolerance`` of the goal and is free by the
+    host check; its length beside the reference's, and the first (capture
+    included) and second solve's seconds.
+28. The twelve planning device programs (the roadmap solve, RRT*, RRT#,
+    RRT-Connect, EST, KPIECE1, SST, FMT*, TRRT, BiEST, PDST, BFMT*) at the
+    bench shape on the card and on the CPU on the same draws, made once
+    on the CPU: discrete outputs equal, nodes and costs within rel 1e-4.
+29. Each of the 11 planning scan cores replayed as CUDA graphs equals its
+    eager loop on the card bit for bit (3 chunks and a remainder, two
+    calls); eager and replay per iteration for RRT*, RRT-Connect and EST.
+30. The fleet planner: ``solve_fleet`` for 16 robots on the turtlebot
+    map, every robot solved with a valid path, and the one-dispatch
+    roadmap solve timed. Planning reaches no kernel of the kernels line.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -3823,6 +3840,344 @@ def phase_replay_profile(device, card):
         torch.cuda.empty_cache()
 
 
+# --- global planning (phases 27-30) ------------------------------------------
+# the reference's own planner problem (kompass_core_tpu/benchmark/
+# planner_bench.py:55-73): the recorded turtlebot map, a cylinder robot of
+# radius 0.1 m, 512 roadmap samples, 1024 tree iterations
+
+PLAN_DIR = "tests/resources/reference/ompl"
+PLAN_ROBOT = (0.1, 0.4)  # cylinder radius, height
+PLAN_START = (-1.88, -0.38, 0.3)
+PLAN_GOAL = (0.59, 0.73, 0.0)
+PLAN_CONFIG = dict(num_samples=512, seed=2, connection_radius=1.5,
+                   max_iterations=1024, step_size=0.3, planning_timeout=30.0)
+PLAN_EXTRA_IDS = ("FMTstar", "AITstar")  # registry ids with no reference row
+PLAN_REL = 1e-4  # card vs CPU on the same draws: nodes and costs
+PLAN_REPLAY_ITERS = 100  # graph == eager: 3 chunks of 32 and a remainder of 4
+PLAN_TIMED = ("RRTstar", "RRTConnect", "EST")
+PLAN_TIMED_ITERS = 128  # 4 chunks
+PLAN_FLEET_ROBOTS = 16
+
+
+def plan_problem():
+    """(map meta, obstacle cloud, {planner id: reference CSV row})."""
+    import csv
+    import os
+
+    with open(os.path.join(PLAN_DIR, "map_meta.json")) as f:
+        meta = json.load(f)
+    cloud = np.load(os.path.join(PLAN_DIR, "turtlebot_map.npy"))
+    with open(os.path.join(PLAN_DIR, "test_results_geometric_ref.csv")) as f:
+        ref = {row["method"].rsplit(".", 1)[-1]: row for row in csv.DictReader(f)}
+    return meta, cloud, ref
+
+
+def make_planner(planner_id, device, problem=None, **overrides):
+    """A port ``GlobalPlanner`` on ``device`` set up on the turtlebot
+    problem (or ``problem`` = (meta, cloud, start, goal))."""
+    from kompass_core_tpu_torch.models import Robot, RobotGeometry, RobotType
+    from kompass_core_tpu_torch.planning import GlobalPlanner, GlobalPlannerConfig
+
+    robot = Robot(robot_type=RobotType.DIFFERENTIAL_DRIVE,
+                  geometry_type=RobotGeometry.Type.CYLINDER,
+                  geometry_params=np.array(PLAN_ROBOT))
+    cfg = GlobalPlannerConfig(planner_id=planner_id, **{**PLAN_CONFIG, **overrides})
+    planner = GlobalPlanner(robot, config=cfg, device=device)
+    if problem is None:
+        meta, cloud, _ = plan_problem()
+        start, goal = PLAN_START, PLAN_GOAL
+    else:
+        meta, cloud, start, goal = problem
+    planner.setup_problem(meta, *start, *goal, cloud)
+    return planner
+
+
+def check_plan(planner, path, what):
+    """The path starts at the start, ends within ``goal_tolerance`` of the
+    goal, and every segment is free by the planner's host check."""
+    prob = planner._problem
+    assert path is not None and len(path) >= 2, f"{what}: no path"
+    assert np.allclose(path[0], prob["start"], atol=1e-6), f"{what}: starts at {path[0]}"
+    miss = float(np.hypot(*(np.asarray(path[-1], np.float64) - prob["goal"])))
+    assert miss <= planner._config.goal_tolerance, f"{what}: ends {miss} m off the goal"
+    for a, b in zip(path[:-1], path[1:]):
+        assert planner._segment_free_host(a, b), f"{what}: segment {a} -> {b} collides"
+
+
+def phase_planners(device, card):
+    """Phase 27: every registry id solves the turtlebot problem on the
+    card (graph replay), twice; solved, length, ratio to the reference's,
+    first (capture included) and second solve seconds."""
+    import torch
+
+    from kompass_core_tpu_torch.planning import planner_registry
+
+    _, _, ref = plan_problem()
+    ids = list(ref) + [i for i in PLAN_EXTRA_IDS if i not in ref]
+    assert sorted(ids) == sorted(planner_registry), sorted(set(planner_registry) ^ set(ids))
+    rows = []
+    t_phase = time.perf_counter()
+    for pid in ids:
+        planner = make_planner(pid, device)
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = planner.solve()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check_plan(planner, path, pid)
+        length = planner.path_cost
+        ref_len = float(ref[pid]["solution_len"]) if pid in ref else 0.0
+        ratio = length / ref_len if ref_len > 0 else None
+        rows.append({"planner": pid, "solved": True, "length": length,
+                     "ref_length": ref_len or None, "ratio": ratio,
+                     "first_s": secs[0], "second_s": secs[1]})
+        log(f"planner {pid}: solved, length {length:.4f} m"
+            + (f" ({ratio:.3f} of the reference's {ref_len:.4f})" if ratio else
+               " (no reference row)")
+            + f", first solve {secs[0]:.3f} s (capture included), second "
+            f"{secs[1]:.3f} s ({card})")
+        del planner
+    ratios = [r["ratio"] for r in rows if r["ratio"]]
+    log(f"planners: {len(rows)} of {len(ids)} solved, median length ratio "
+        f"{statistics.median(ratios):.3f}, phase {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    log("planners json: " + json.dumps(rows))
+    return rows
+
+
+# name: (registry id, the outputs that must be equal; the rest are floats
+# within PLAN_REL); "roadmap" is PRM's roadmap solve and "fleet" the fleet
+# planner's, whose one scan is the relaxation ``minplus_relax``
+TREE_OUT = (False, True, True, False)  # nodes, parents, chosen node, cost
+BIDIR_OUT = (False, True, True, True)  # nodes, parents, found, bridge
+PLAN_CORES = {"roadmap": ("PRM", (False, True)),
+              "fleet": (None, (False, False, True)),
+              "RRTstar": ("RRTstar", TREE_OUT), "RRTsharp": ("RRTsharp", TREE_OUT),
+              "RRTConnect": ("RRTConnect", BIDIR_OUT), "EST": ("EST", TREE_OUT),
+              "KPIECE1": ("KPIECE1", TREE_OUT), "SST": ("SST", TREE_OUT),
+              "FMT": ("FMT", (False, True, False)), "TRRT": ("TRRT", TREE_OUT),
+              "BiEST": ("BiEST", BIDIR_OUT), "PDST": ("PDST", TREE_OUT),
+              "BFMT": ("BFMT", (False, True, True, True, False))}
+# the 11 scan cores: the roadmap's relaxation, then the tree and wavefront
+# scans
+SCANS = ("roadmap",) + tuple(n for n in PLAN_CORES if n not in ("roadmap", "fleet"))
+
+
+def plan_planners(device, problem=None, **overrides):
+    """{name: a planner of the name's registry id (PRM for the fleet) on
+    ``device``, set up on the problem} for every name of PLAN_CORES."""
+    return {name: make_planner(pid or "PRM", device, problem, **overrides)
+            for name, (pid, _) in PLAN_CORES.items()}
+
+
+def fleet_queries(planner, robots, seed):
+    """(starts, goals) of ``robots`` robots, half from around the
+    problem's start to around its goal and half the other way, each at a
+    free cell center within 0.6 m."""
+    prob = planner._problem
+    rng = np.random.default_rng(seed)
+    res, origin = float(prob["resolution"]), prob["origin"]
+    cells = np.argwhere(~planner._blocked_host.numpy())[:, ::-1]  # free (x, y)
+    centers = (cells + 0.5).astype(np.float32) * res + origin
+
+    def near(point):
+        pool = centers[np.hypot(*(centers - point).T) < 0.6]
+        return pool[rng.choice(len(pool), robots, replace=False)]
+
+    half = robots // 2
+    a, b = near(prob["start"]), near(prob["goal"])
+    pts = np.concatenate([a[:half], b[half:], b[:half], a[half:]])
+    return pts[:robots], pts[robots:]
+
+
+def planning_draws(planners, seed=0):
+    """Every core's random input at its planner's sizes, made once on the
+    CPU from ``seed`` by the registry's own ``draws`` (name -> a tuple of
+    [iterations, ...] tensors, or a roadmap's or wavefront's samples; the
+    fleet's: its queries and samples)."""
+    from kompass_core_tpu_torch.planning.planner import _uniform_points, core_registry
+
+    draws = {}
+    for j, (name, (pid, _)) in enumerate(PLAN_CORES.items()):
+        planner = planners[name]
+        prob = planner._problem
+        if pid is None:
+            starts, goals = fleet_queries(planner, PLAN_FLEET_ROBOTS, seed + j)
+            samples = _uniform_points(seed + j, planner._config.num_samples, prob)
+            draws[name] = (starts, goals, samples)
+            continue
+        d = core_registry[pid].draws(planner, prob, seed + j)
+        draws[name] = d(0, planner._config.max_iterations) if callable(d) else d
+    return draws
+
+
+def run_core(planner, name, draws, graphs):
+    """The device program of ``name`` on its planner's device, with the
+    arguments ``solve()`` passes (``solve_fleet``'s for the fleet) and the
+    draws given."""
+    from kompass_core_tpu_torch.planning.fleet_planner import fleet_run
+    from kompass_core_tpu_torch.planning.planner import core_registry
+
+    pid = PLAN_CORES[name][0]
+    if pid is None:
+        return fleet_run(planner, planner._problem, *draws[name], graphs)
+    return core_registry[pid].run(planner, planner._problem, draws[name], graphs)
+
+
+def torch_from(a):
+    import torch
+
+    return torch.from_numpy(np.asarray(a))
+
+
+def _prefix(draws, p):
+    """The first p iterations of a core's draws; node-wide Gumbel noise
+    cut to the p + 2 nodes a p-iteration scan holds."""
+    width = draws[0].shape[0] + 2
+    return tuple(d[:p, :p + 2] if d.dim() == 2 and d.shape[1] == width else d[:p]
+                 for d in draws)
+
+
+def _outputs_agree(name, got, want):
+    """None if the card's outputs equal the CPU's (discrete exactly,
+    floats within PLAN_REL), else what differs."""
+    import torch
+
+    for i, (g, w, exact) in enumerate(zip(got, want, PLAN_CORES[name][1])):
+        g, w = g.cpu(), w.cpu()
+        if exact:
+            if not torch.equal(g, w):
+                return f"output {i} differs"
+            continue
+        if not torch.equal(torch.isinf(g), torch.isinf(w)):
+            return f"output {i}: infinities differ"
+        fin = torch.isfinite(w)
+        if not torch.allclose(g[fin].double(), w[fin].double(), rtol=PLAN_REL, atol=0):
+            return f"output {i}: beyond rel {PLAN_REL}"
+    return None
+
+
+def _split_iteration(name, device, draws, iterations):
+    """The first iteration after which a tree core's card and CPU runs
+    differ in a discrete output, by bisection over prefixes of its draws."""
+    lo, hi = 0, iterations  # prefix lo agrees, prefix hi does not
+    pid, exact = PLAN_CORES[name]
+
+    def run(dev, p):
+        planner = make_planner(pid, dev, max_iterations=p)
+        return run_core(planner, name, {name: _prefix(draws[name], p)}, None)
+
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        a, b = run("cpu", mid), run(device, mid)
+        same = all(torch_equal(x, y) for x, y, e in zip(a, b, exact) if e)
+        lo, hi = (mid, hi) if same else (lo, mid)
+    return lo
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def phase_planning_card_vs_cpu(device, card):
+    """Phase 28: the twelve device programs at the bench shape (PRM's
+    roadmap, the fleet's, the RRT scan as RRT* and as RRT#, and nine more
+    tree and wavefront scans) on the card and on the CPU, each with the
+    arguments its front end passes, on the same draws made once on the
+    CPU: discrete outputs equal, nodes and costs within PLAN_REL. (Every
+    root and transcendental function that feeds a decision is taken in
+    float64 on both, so the devices round alike.) A tree core whose runs
+    differ prints the iteration after which they split, then fails."""
+    iterations = PLAN_CONFIG["max_iterations"]
+    cpu = plan_planners("cpu")
+    gpu = plan_planners(device)
+    draws = planning_draws(cpu)
+    for name in PLAN_CORES:
+        t0 = time.perf_counter()
+        want = run_core(cpu[name], name, draws, None)
+        got = run_core(gpu[name], name, draws, gpu[name]._graphs)
+        problem = _outputs_agree(name, got, want)
+        if problem is not None and name not in ("roadmap", "fleet", "FMT", "BFMT"):
+            split = _split_iteration(name, device, draws, iterations)
+            problem += f"; the runs split after iteration {split}"
+        assert problem is None, f"card vs CPU, {name}: {problem}"
+        log(f"card == CPU: {name} ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_planning_replay(device, card):
+    """Phase 29: each of the 11 scan cores replayed as CUDA graphs (3 chunks
+    of 32 iterations and a remainder of 4, captured once and replayed on a
+    second call) equals its eager loop on the card bit for bit; then
+    eager against replay per iteration (median of 2 runs of 128
+    iterations) for RRT*, RRT-Connect and EST at the bench's shapes."""
+    import torch
+
+    from kompass_core_tpu_torch.planning._scan import EAGER
+
+    planners = plan_planners(device, max_iterations=PLAN_REPLAY_ITERS)
+    draws = planning_draws(planners, seed=7)
+    graphs = {}
+    for name in SCANS:
+        eager = run_core(planners[name], name, draws, EAGER)
+        for call in range(2):
+            replay = run_core(planners[name], name, draws, graphs)
+            for i, (r, e) in enumerate(zip(replay, eager)):
+                assert torch.equal(r, e), f"{name}: replay {call} output {i} != eager"
+        log(f"graph replay == eager: {name}")
+    log(f"captured chunks: {len(graphs)}")
+    iterations = PLAN_TIMED_ITERS
+    planners = plan_planners(device, max_iterations=iterations)
+    draws = planning_draws(planners, seed=8)
+    for name in PLAN_TIMED:
+        ms = {}
+        for mode, graphs in (("eager", EAGER), ("replay", {})):
+            run_core(planners[name], name, draws, graphs)  # warm-up, capture
+            med, _, _ = _median_ms(
+                lambda: run_core(planners[name], name, draws, graphs), 2)
+            ms[mode] = med / iterations
+        log(f"{name} per iteration: eager {ms['eager']:.4f} ms, replay "
+            f"{ms['replay']:.4f} ms ({ms['eager'] / ms['replay']:.1f}x), "
+            f"{iterations} iterations ({card})")
+
+
+def phase_planning_fleet(device, card):
+    """Phase 30: ``solve_fleet`` for 16 robots on the turtlebot map: every
+    robot solves with a valid path; the one-dispatch roadmap solve timed."""
+    from kompass_core_tpu_torch.planning.fleet_planner import fleet_run
+    from kompass_core_tpu_torch.planning.planner import _uniform_points
+
+    planner = make_planner("PRM", device)
+    prob = planner._problem
+    starts, goals = fleet_queries(planner, PLAN_FLEET_ROBOTS, 3)
+    t0 = time.perf_counter()
+    paths = planner.solve_fleet(starts, goals)
+    total = time.perf_counter() - t0
+    for i, path in enumerate(paths):
+        assert path is not None, f"fleet robot {i} unsolved"
+        assert np.allclose(path[0], starts[i], atol=1e-6)
+        assert np.allclose(path[-1], goals[i], atol=1e-6)
+        for a, b in zip(path[:-1], path[1:]):
+            assert planner._segment_free_host(a, b), f"fleet robot {i} collides"
+    cfg = planner._config
+    samples = _uniform_points(3, cfg.num_samples, prob)
+    M = 2 * PLAN_FLEET_ROBOTS + cfg.num_samples
+
+    def dispatch():
+        return fleet_run(planner, prob, starts, goals, samples, planner._graphs)
+
+    dispatch()
+    med, lo, hi = _median_ms(dispatch, 5)
+    lengths = [float(np.hypot(*np.diff(p, axis=0).T).sum()) for p in paths]
+    log(f"fleet planner: {PLAN_FLEET_ROBOTS} of {PLAN_FLEET_ROBOTS} robots solved "
+        f"(median length {statistics.median(lengths):.3f} m) in {total:.3f} s with "
+        f"the shortcut pass; one dispatch ({M} nodes, {min(M, 128)} relaxations) "
+        f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}) ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -3907,6 +4262,12 @@ def main() -> int:
     phase_peer_times(device, card)
     k3s_times, k9_times = phase_split_box_times(kernels, device, card)
     phase_replay_profile(device, card)
+    t_plan = time.perf_counter()
+    phase_planners(device, card)
+    phase_planning_card_vs_cpu(device, card)
+    phase_planning_replay(device, card)
+    phase_planning_fleet(device, card)
+    log(f"planning phases: {time.perf_counter() - t_plan:.1f} s")
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")

@@ -57,6 +57,7 @@ from ..ops.fleet_solver import (
 )
 from ..ops.solver import COLLISION_MARGIN_FACTOR, SolverSpec
 from ..ops.window import compute_linear_sample_split, num_angular_slots
+from ..utils.cuda_graph import capture
 
 _PAD = 1e8
 
@@ -645,15 +646,12 @@ class DeviceFleet:
         carry = FleetCarry(*(t.clone() for t in self._carry))
         safety = (self._safety,) if self._safety is not None else ()
         args = (self._paths, self._cfg, carry, self._angles, inputs, *safety)
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(torch.cuda.current_stream(self._device))
-        with torch.cuda.stream(side):
-            fn(*args)
-        torch.cuda.current_stream(self._device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+
+        def ticks():
             carry_out, outs, final = fn(*args)
-            out = torch.cat([outs.flatten(1), final], dim=1)
+            return carry_out, torch.cat([outs.flatten(1), final], dim=1)
+
+        graph, (carry_out, out) = capture(ticks, self._device)
         return TickGraph(graph, inputs, carry, carry_out, out, self._paths,
                          self._angles, self._safety)
 

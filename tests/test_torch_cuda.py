@@ -1020,3 +1020,114 @@ def test_split_and_box_fleet_tick_on_card_matches_cpu(cuda, form):
     for k in ("found", "num_admissible", "active_points"):
         np.testing.assert_array_equal(gpu[k], cpu[k])
     np.testing.assert_allclose(gpu["cost"], cpu["cost"], rtol=1e-4, atol=1e-6)
+
+
+# --- global planning: the scans' CUDA graphs ----------------------------------
+
+PLAN_ITERS = 40  # a chunk of 32 iterations and a remainder of 8
+
+
+def _plan_problem():
+    """A 6 x 6 m map at 0.1 m with a wall and posts (the CPU planning
+    tests' map), start (1, 1), goal (1.2, 5)."""
+    meta = {"resolution": 0.1, "width": 60, "height": 60,
+            "origin_x": 0.0, "origin_y": 0.0}
+    xs = np.arange(0.0, 4.0, 0.05)
+    wall = np.stack([xs, np.full_like(xs, 3.0), np.zeros_like(xs)], axis=1)
+    posts = np.random.default_rng(1).uniform(0.3, 5.7, (14, 3)) * [1, 1, 0]
+    posts[:3, :2] = [[1.0, 1.9], [1.9, 1.0], [0.2, 1.1]]
+    return meta, np.concatenate([wall, posts]), (1.0, 1.0, 0.0), (1.2, 5.0, 0.0)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.fixture
+def plan_pair(cuda, smoke):
+    """(CPU planners, card planners) of every core on the small problem,
+    128 samples."""
+    return tuple(smoke.plan_planners(dev, problem=_plan_problem(), num_samples=128,
+                                     max_iterations=PLAN_ITERS)
+                 for dev in ("cpu", cuda))
+
+
+@pytest.mark.parametrize("name", ["minplus", "RRTstar", "RRTsharp", "RRTConnect",
+                                  "EST", "KPIECE1", "SST", "FMT", "TRRT", "BiEST",
+                                  "PDST", "BFMT"])
+def test_planning_scan_replay_equals_eager(smoke, plan_pair, name):
+    """Each scan core replayed as CUDA graphs (captured on the first call,
+    replayed on the second) equals its eager loop on the card bit for bit
+    ("minplus": the roadmap solve's relaxation)."""
+    from kompass_core_tpu_torch.planning._scan import EAGER
+
+    name = "roadmap" if name == "minplus" else name
+    planners = plan_pair[1]
+    draws = smoke.planning_draws(planners, seed=3)
+    eager = smoke.run_core(planners[name], name, draws, EAGER)
+    graphs = {}
+    for _ in range(2):
+        replay = smoke.run_core(planners[name], name, draws, graphs)
+        for r, e in zip(replay, eager):
+            assert r.device.type == "cuda"
+            assert torch.equal(r, e)
+    assert graphs  # the replay path captured
+
+
+@pytest.mark.parametrize("name", ["roadmap", "RRTstar", "RRTConnect", "FMT", "fleet"])
+def test_planning_core_card_equals_cpu(smoke, plan_pair, name):
+    """The card's run of a core equals the CPU's on the same draws:
+    discrete outputs equal, floats within rel 1e-4."""
+    cpu, gpu = plan_pair
+    draws = smoke.planning_draws(cpu, seed=4)
+    want = smoke.run_core(cpu[name], name, draws, None)
+    got = smoke.run_core(gpu[name], name, draws, {})
+    assert smoke._outputs_agree(name, got, want) is None
+
+
+def test_planner_solves_on_the_card(smoke, cuda):
+    """GlobalPlanner(device=cuda) end to end on the small problem."""
+    planner = smoke.make_planner("RRTstar", cuda, problem=_plan_problem(),
+                                 max_iterations=512, step_size=0.5)
+    path = planner.solve()
+    smoke.check_plan(planner, path, "RRTstar")
+    assert planner._graphs
+
+
+def test_planner_drops_its_graphs_on_a_map_of_another_size(smoke, cuda):
+    """Re-running ``setup_problem`` on a map of another size drops the
+    captured chunks (each holds device memory); the same size keeps them."""
+    meta, cloud, start, goal = _plan_problem()
+    planner = smoke.make_planner("RRT", cuda, problem=(meta, cloud, start, goal),
+                                 max_iterations=PLAN_ITERS, planning_timeout=0.0)
+    planner.solve()
+    captured = len(planner._graphs)
+    assert captured
+    planner.setup_problem(meta, *start, *goal, cloud)
+    assert len(planner._graphs) == captured
+    wider = dict(meta, width=80)
+    planner.setup_problem(wider, *start, *goal, cloud)
+    assert not planner._graphs
+    planner.solve()
+    assert len(planner._graphs) == captured
+
+
+def test_planning_capture_failure_raises(cuda):
+    """A body that syncs (here through ``.item()``) cannot be captured: the
+    scan raises instead of running the eager loop."""
+    from kompass_core_tpu_torch.planning._scan import run_scan
+
+    def body(carry, c, i, draw):
+        (x,) = carry
+        return (x + float(x.sum().item()),)
+
+    with pytest.raises(RuntimeError):
+        run_scan(body, (torch.zeros(3, device=cuda),), iterations=4, chunk=4,
+                 graphs={})
