@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the DWA control tick, of the device fleet
-tick and its k-tick loop, of the local occupancy mapper and of the global
-planners once on an NVIDIA GPU.
+tick and its k-tick loop, of the local occupancy mapper, of the global
+planners and of the serving artifacts once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -195,6 +195,36 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 30. The fleet planner: ``solve_fleet`` for 16 robots on the turtlebot
     map, every robot solved with a valid path, and the one-dispatch
     roadmap solve timed. Planning reaches no kernel of the kernels line.
+31. Serving, the flagship packed solver (``serving/export.py``): the
+    solver of phase 4's spec exported on the card with ``torch.export``
+    (its graph holds K1's operator, ``kompass_torch::fused_min_dist_sq``,
+    once), then loaded in this process, in a fresh process that imports
+    only ``kompass_core_tpu_torch.serving`` (and asserts that no ``ops``
+    or ``control`` module came with it), and exported on the CPU and
+    loaded on the card; each serves the first 10 packed inputs of phase
+    4's closed loop: every output equals the live solver's with
+    ``torch.equal``, every served call launches K1 exactly once.
+32. Serving the 64-robot fleet with 8 tracked slots: a tick artifact and
+    a k = 8 artifact (the eager k-tick loop) per backend (``xla``: K3,
+    ``pallas``: K7, ``pallas_vpu``: K8) and the static ``pallas_vpu``
+    fleet's tick artifact (K6), each exported on the CPU for both device
+    types by a process of its own, all at once (``export_fleet_artifacts``:
+    the tracing is host work), then loaded on the card and called 5
+    times in a chained closed loop beside the live ``DeviceFleet.tick`` or
+    ``run_ticks_on_device`` on the same inputs: outputs, final states and
+    carry bit for bit, the backend's kernel once per served tick.
+33. A snapshot of the tracked fleet after 4 ticks (``state_dict``, through
+    a disk round trip) restored into a new fleet on the card: 3 more ticks
+    equal the original's bit for bit; then a 32-robot tick artifact
+    (exported with phase 32's) served over ``[cuda, cuda]`` by
+    ``sharded_fleet_call`` equals the 64-robot tick bit for bit.
+34. Serving times: per artifact the export seconds (in its own process
+    for the fleet's, beside the wall time of all of them), its bytes, the
+    cold load (load and first call) and the served against the live program
+    per call in turns (CUDA events, median of 20, for the solver; the
+    host clock with syncs, median of 20, for the fleet; for the k = 8
+    artifacts also the live graph replay), and the flagship
+    ``DWA.loop_step`` median of phase 12 with the kernels as operators.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -222,10 +252,12 @@ non-zero and prints no result.
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -856,6 +888,7 @@ def phase_times(kernels, device, card):
     p99 = lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
     log(f"tick latency over {len(lat)} ticks ({card}): median {p50:.4f} ms, "
         f"p99 {p99:.4f} ms, min {lat[0]:.4f} ms, max {lat[-1]:.4f} ms")
+    return p50
 
 
 def _graph_ms(fn, inputs, replays=2):
@@ -4178,6 +4211,402 @@ def phase_planning_fleet(device, card):
         f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}) ({card})")
 
 
+# --- serving (phases 31-34) ---------------------------------------------------
+
+SERVE_INPUTS = 10  # flagship packed inputs served per artifact
+SERVE_CALLS = 5  # chained calls per fleet artifact
+SERVE_TIMED = 20  # calls per timer, the median kept
+# (backend, tracked slots, the kernel one tick launches, a k = 8 artifact too)
+SERVE_FORMS = (("xla", FLEET_TRACKED, "K3", True),
+               ("pallas", FLEET_TRACKED, "K7", True),
+               ("pallas_vpu", FLEET_TRACKED, "K8", True),
+               ("pallas_vpu", 0, "K6", False))
+RESUME_TICKS = (4, 3)  # ticks before the snapshot, ticks compared after it
+FLAGSHIP_TICK_RANGE = "2.54-5.41 ms"  # PERF.md, the flagship tick's medians so far
+OP_NAMES = {"K1": "fused_min_dist_sq", "K3": "fused_min_dist_sq_moving",
+            "K6": "fused_min_dist_sq_broadcast", "K7": "fused_min_dist_sq_moving_expanded",
+            "K8": "fused_min_dist_sq_moving_broadcast"}
+
+# a serving process: it imports the serving module alone, which must load
+# no ops or control module, then loads the artifact on the card and serves
+# the buffers (argv: artifact, buffers .npy, outputs .npy)
+FRESH_LOAD = (
+    "import sys, numpy as np, torch\n"
+    "import kompass_core_tpu_torch.serving as serving\n"
+    "banned = [m for m in sys.modules if m.startswith(\n"
+    "    ('kompass_core_tpu_torch.ops', 'kompass_core_tpu_torch.control'))]\n"
+    "assert not banned, f'serving import pulled in {banned}'\n"
+    "art = serving.load_artifact(sys.argv[1], device='cuda')\n"
+    "from kompass_core_tpu_torch.ops import kernels\n"
+    "outs = []\n"
+    "for buf in np.load(sys.argv[2]):\n"
+    "    n = kernels.fused_min_dist_sq.launches\n"
+    "    outs.append(art.call(buf).cpu().numpy())\n"
+    "    assert kernels.fused_min_dist_sq.launches == n + 1\n"
+    "np.save(sys.argv[3], np.stack(outs))\n"
+    "print('fresh process served', len(outs), 'calls')\n"
+)
+
+
+# a fleet artifact's export in a process of its own (argv: the sizes this
+# process runs at as JSON, backend, tracked slots, k or 0, robots, path):
+# the fleet built on the CPU as phase 32 builds it on the card, its program
+# traced there for both device types; prints the export's seconds
+EXPORT_FLEET = (
+    "import json, sys, time, torch\n"
+    "import chip_smoke as cs\n"
+    "from kompass_core_tpu_torch import serving\n"
+    "vars(cs).update({k: tuple(v) if isinstance(v, list) else v\n"
+    "                 for k, v in json.loads(sys.argv[1]).items()})\n"
+    "backend, tracked, k, robots, path = sys.argv[2:7]\n"
+    "fleet, _ = cs._serving_fleet(torch.device('cpu'), backend, int(tracked), int(robots))\n"
+    "t0 = time.perf_counter()\n"
+    "kw = dict(device=torch.device('cpu'), platforms=('cpu', 'cuda'))\n"
+    "if int(k):\n"
+    "    serving.export_fleet_ticks_on_device(fleet, int(k), path, **kw)\n"
+    "else:\n"
+    "    serving.export_fleet_tick(fleet, path, **kw)\n"
+    "print(time.perf_counter() - t0)\n"
+)
+SHARD_LABEL = "xla/8 tick, half the robots"
+
+
+def _fleet_label(backend, tracked, k):
+    return f"{backend}/{tracked} {'tick' if k is None else f'k={k}'}"
+
+
+def export_fleet_artifacts(tmp, times):
+    """The fleet artifacts of phases 32 and 33 (SERVE_FORMS' tick and k-tick
+    programs, and half the tracked fleet's tick), each exported in a process
+    of its own on the CPU, all at once (the tracing is host work and takes
+    minutes one after another), for loading on the card. Returns {label:
+    path}; the export seconds go into ``times``."""
+    sizes = json.dumps({"FLEET_ROBOTS": FLEET_ROBOTS, "SAMPLES": SAMPLES,
+                        "RAYS": RAYS, "FLEET_SHAPE": FLEET_SHAPE})
+    jobs = [(_fleet_label(b, t, k), b, t, k, FLEET_ROBOTS)
+            for b, t, _, loop in SERVE_FORMS for k in ((None, TICKS_K) if loop else (None,))]
+    jobs.append((SHARD_LABEL, "xla", FLEET_TRACKED, None, FLEET_ROBOTS // 2))
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, paths = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for n, (label, backend, tracked, k, robots) in enumerate(jobs):
+            paths[label] = os.path.join(tmp, f"fleet_{n}.ktpuart")
+            procs[label] = subprocess.Popen(
+                [sys.executable, "-c", EXPORT_FLEET, sizes, backend, str(tracked),
+                 str(k or 0), str(robots), paths[label]],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            assert proc.returncode == 0, f"{label}: export failed\n{err[-4000:]}"
+            times[label] = {"export_s": float(out.split()[-1]),
+                            "bytes": os.path.getsize(paths[label])}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    times["fleet exports"] = {"processes": len(jobs),
+                              "wall_s": time.perf_counter() - t0}
+    return paths
+
+
+def served_kernels(art):
+    """The kernel operators in a served program's graph, by name."""
+    return sorted(str(n.target).split(".")[1] for n in art.program.graph.nodes
+                  if str(n.target).startswith("kompass_torch."))
+
+
+def flagship_inputs(device, count):
+    """The flagship's spec and the packed inputs of its first ``count``
+    closed-loop ticks (phase 4's DWA and scene)."""
+    robot = make_robot()
+    dwa = make_dwa(robot, device)
+    circles = obstacle_circles()
+    bufs = []
+    for i in range(count):
+        assert dwa.loop_step(current_state=robot.state,
+                             laser_scan=cast_scan(robot.state, circles)), f"tick {i}"
+        spec, buf, _ = dwa.last_solver_io
+        bufs.append(buf.copy())
+        apply_first_command(robot, dwa)
+    shape = (spec.num_samples, spec.max_points, spec.scan_size, spec.seg_size)
+    assert shape == SLICE_SHAPE, f"solved {shape}, not {SLICE_SHAPE}"
+    return spec, bufs
+
+
+def _events_median_ms(fn, repeats=SERVE_TIMED):
+    """Median CUDA-event ms of one call of ``fn``, over ``repeats`` calls."""
+    import torch
+
+    fn()
+    lat = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        lat.append(start.elapsed_time(stop))
+    return statistics.median(lat)
+
+
+def _turns(timer, live, served):
+    """Medians of ``live`` and ``served`` by ``timer``, in turns live,
+    served, served, live: (live ms, served ms)."""
+    runs = [timer(live), timer(served), timer(served), timer(live)]
+    return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+
+
+def _tally(served, made):
+    for key, n in made.items():
+        served[key] = served.get(key, 0) + n
+
+
+def _load_timed(load, first_args, times, label):
+    """Load an artifact and make its first call: the cold-load seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    art = load()
+    art.call(*first_args)
+    torch.cuda.synchronize()
+    times[label]["cold_load_s"] = time.perf_counter() - t0
+    return art
+
+
+def phase_serving_solver(kernels, device, tmp, times):
+    """Phase 31: the flagship packed solver exported on the card, then
+    loaded in this process, in a fresh process that imports only the
+    serving module, and exported on the CPU and loaded on the card: every
+    served output equals the live solver's with ``torch.equal``, and each
+    served call launches K1 once. Returns the served calls' launches."""
+    import torch
+
+    from kompass_core_tpu_torch import serving
+    from kompass_core_tpu_torch.ops.solver import get_packed_dwa_solver
+
+    spec, bufs = flagship_inputs(device, SERVE_INPUTS)
+    live = get_packed_dwa_solver(spec, device)
+    want = [live(b) for b in bufs]
+    served = {}
+
+    def serve(art, what):
+        assert served_kernels(art) == ["fused_min_dist_sq"], served_kernels(art)
+        for i, (buf, w) in enumerate(zip(bufs, want)):
+            before = kernels.launch_counts()
+            out = art.call(buf)
+            made = _launches_made(kernels, before)
+            assert made == {"K1": 1}, f"{what} call {i}: launches {made}"
+            assert torch.equal(out, w), f"{what} call {i}: served != live"
+            _tally(served, made)
+
+    t = times["solver"] = {}
+    path = os.path.join(tmp, "solver.ktpuart")
+    t0 = time.perf_counter()
+    serving.export_packed_solver(spec, path, device=device)
+    t["export_s"] = time.perf_counter() - t0
+    t["bytes"] = os.path.getsize(path)
+    art = _load_timed(lambda: serving.load_packed_solver(path, device=device)[0],
+                      (bufs[0],), times, "solver")
+    assert serving.load_packed_solver(path, device=device)[1] == spec
+    serve(art, "same-process load")
+
+    cpu_path = os.path.join(tmp, "solver_cpu.ktpuart")
+    t0 = time.perf_counter()
+    serving.export_packed_solver(spec, cpu_path, device=torch.device("cpu"),
+                                 platforms=("cpu", "cuda"))
+    t["cpu_export_s"] = time.perf_counter() - t0
+    cpu_art, _ = serving.load_packed_solver(cpu_path, device=device)
+    assert cpu_art.device == device
+    serve(cpu_art, "CPU-exported artifact")
+
+    bufs_path, outs_path = (os.path.join(tmp, n) for n in ("bufs.npy", "outs.npy"))
+    np.save(bufs_path, np.stack(bufs))
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_LOAD, path, bufs_path, outs_path],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    t["fresh_process_s"] = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    fresh = np.load(outs_path)
+    for i, w in enumerate(want):
+        assert torch.equal(torch.from_numpy(fresh[i]), w.cpu()), f"fresh process call {i}"
+
+    dev_buf = torch.from_numpy(bufs[0]).to(device)
+    t["live_ms"], t["served_ms"] = _turns(
+        _events_median_ms, lambda: live(dev_buf), lambda: art.call(dev_buf))
+    log(f"served packed solver (flagship {SLICE_SHAPE}): {3 * SERVE_INPUTS} served "
+        f"calls == live with torch.equal (same-process load, CPU-exported artifact "
+        f"loaded on the card, fresh process: {proc.stdout.strip()}), K1 once per call")
+    return served
+
+
+def _serving_fleet(device, backend, tracked, robots=None):
+    """A closed-loop fleet of ``make_fleet`` whose tick, like its k-tick
+    loop, runs ``backend``'s kernels, with its first inputs packed."""
+    from kompass_core_tpu_torch.ops.fleet_solver import make_fleet_tick
+
+    fleet, lanes, circles = make_fleet(device, tracked, backend=backend, robots=robots)
+    if backend != "xla":
+        fleet._tick_fn = make_fleet_tick(fleet.spec, device)
+    drive = FleetDrive(lanes, circles, tracked)
+    fleet._prepare_tick_inputs(*drive.inputs())
+    return fleet, drive
+
+
+def _fleet_outputs_equal(live, served, label):
+    """``DeviceFleet``'s output dict against a served output matrix
+    ([N, F] or [N, k, F]) of the same call, bit for bit."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+
+    got = served[:FLEET_ROBOTS].cpu().numpy()
+    for i, name in enumerate(OUT_FIELDS):
+        col = got[..., i]
+        col = col > 0.5 if name in ("found", "reached") else col
+        assert np.array_equal(col, live[name]), f"{label}: {name} served != live"
+
+
+def _serve_fleet(kernels, fleet, drive, art, key, k, label, served):
+    """SERVE_CALLS chained calls of a fleet artifact (the tick, or the
+    k-tick loop when ``k``) beside the live ``DeviceFleet.tick`` or
+    ``run_ticks_on_device`` on the same inputs: outputs, final states and
+    carry bit for bit; the served call launches ``key``'s kernel once per
+    tick."""
+    import torch
+
+    carry = None
+    for call in range(SERVE_CALLS):
+        inputs = drive.inputs()
+        fleet._prepare_tick_inputs(*inputs)
+        args = fleet.tick_example_args()
+        if carry is not None:
+            args = (*args[:2], carry, *args[3:])
+        before = kernels.launch_counts()
+        result = art.call(*args)
+        made = _launches_made(kernels, before)
+        assert made == {key: k or 1}, f"{label} call {call}: launches {made}"
+        _tally(served, made)
+        carry = result[0]
+        what = f"{label} call {call}"
+        if k:
+            live = fleet.run_ticks_on_device(k, *inputs[:4], tracked=inputs[4])
+            _fleet_outputs_equal(live, result[1], what)
+            assert np.array_equal(live["final_states"],
+                                  result[2][:FLEET_ROBOTS].cpu().numpy()), what
+            drive.advance_ticks(live, k)
+        else:
+            live = fleet.tick(*inputs[:4], tracked=inputs[4])
+            _fleet_outputs_equal(live, result[1], what)
+            drive.advance(live)
+        assert all(torch.equal(a, b) for a, b in zip(carry, fleet._carry)), f"{what}: carry"
+
+
+def phase_serving_fleet(kernels, device, paths, times):
+    """Phase 32: the 64-robot fleet with 8 tracked slots as a tick artifact
+    and a k = 8 artifact per backend (``xla``: K3, ``pallas``: K7,
+    ``pallas_vpu``: K8), and the static ``pallas_vpu`` fleet's tick (K6),
+    each exported on the CPU (``export_fleet_artifacts``) and loaded on the
+    card; each served == live over SERVE_CALLS chained calls. Returns the
+    served calls' launches."""
+    import torch
+
+    from kompass_core_tpu_torch import serving
+
+    served = {}
+    for backend, tracked, key, loop in SERVE_FORMS:
+        fleet, drive = _serving_fleet(device, backend, tracked)
+        for k in (None, TICKS_K) if loop else (None,):
+            label = _fleet_label(backend, tracked, k)
+            t = times[label]
+            art = _load_timed(lambda: serving.load_artifact(paths[label], device=device),
+                              fleet.tick_example_args(), times, label)
+            assert art.device == device
+            assert served_kernels(art) == [OP_NAMES[key]] * (k or 1), served_kernels(art)
+            _serve_fleet(kernels, fleet, drive, art, key, k, label, served)
+            args = fleet.tick_example_args()
+            live = (fleet._tick_fn if k is None else fleet.ticks_fn(k))
+            t["live_ms"], t["served_ms"] = _turns(
+                lambda fn: _median_ms(fn, SERVE_TIMED)[0],
+                lambda: live(*args), lambda: art.call(*args))
+            if k:
+                inputs = drive.inputs()
+                t["replay_ms"] = _median_ms(lambda: fleet.run_ticks_on_device(
+                    k, *inputs[:4], tracked=inputs[4]), SERVE_TIMED)[0]
+            log(f"served fleet artifact ({label}, {FLEET_ROBOTS} robots): "
+                f"{SERVE_CALLS} chained calls == live bit for bit, {key} "
+                f"{k or 1} per call")
+            del art
+        del fleet
+        torch.cuda.empty_cache()
+    return served
+
+
+def phase_serving_resume(kernels, device, tmp, paths):
+    """Phase 33: a snapshot of the tracked fleet after RESUME_TICKS[0] ticks,
+    through a disk round trip, restored into a new fleet on the card:
+    RESUME_TICKS[1] ticks equal the original's bit for bit. Then the tick
+    artifact of half the fleet served across [cuda, cuda]
+    (``sharded_fleet_call``) equals the whole fleet's tick. Returns the
+    served calls' launches."""
+    import torch
+
+    from kompass_core_tpu_torch import serving
+
+    fleet, drive = _serving_fleet(device, "xla", FLEET_TRACKED)
+    for _ in range(RESUME_TICKS[0]):
+        inputs = drive.inputs()
+        drive.advance(fleet.tick(*inputs[:4], tracked=inputs[4]))
+    path = os.path.join(tmp, "fleet_state.npz")
+    np.savez(path, **fleet.state_dict())
+    resumed, _ = _serving_fleet(device, "xla", FLEET_TRACKED)
+    resumed.load_state_dict(dict(np.load(path)))
+    for tick in range(RESUME_TICKS[1]):
+        inputs = drive.inputs()
+        want = fleet.tick(*inputs[:4], tracked=inputs[4])
+        got = resumed.tick(*inputs[:4], tracked=inputs[4])
+        for name, col in want.items():
+            assert np.array_equal(col, got[name]), f"resumed tick {tick}: {name}"
+        drive.advance(want)
+    log(f"snapshot resume on the card: {RESUME_TICKS[1]} ticks after a snapshot at "
+        f"tick {RESUME_TICKS[0]} == the original fleet bit for bit")
+    del resumed
+
+    art = serving.load_artifact(paths[SHARD_LABEL], device=device)
+    fleet._prepare_tick_inputs(*drive.inputs())
+    args = fleet.tick_example_args()
+    live_carry, live_out = fleet._tick_fn(*args)
+    before = kernels.launch_counts()
+    carry, out = serving.sharded_fleet_call(art, args, [device, device])
+    made = _launches_made(kernels, before)
+    assert made == {"K3": 2}, f"sharded call: launches {made}"
+    assert np.array_equal(out, live_out.cpu().numpy()), "sharded != whole fleet"
+    for a, b in zip(live_carry, carry):
+        assert np.array_equal(a.cpu().numpy(), b), "sharded carry != whole fleet"
+    log(f"sharded_fleet_call: a {FLEET_ROBOTS // 2}-robot tick artifact served over "
+        f"[{device}, {device}] == the {FLEET_ROBOTS}-robot tick bit for bit")
+    del fleet, art
+    torch.cuda.empty_cache()
+    return made
+
+
+def phase_serving_times(card, times, tick_p50):
+    """Phase 34: the serving timings of phases 31 and 32, with the card."""
+    log(f"serving times ({card}):")
+    for label, t in times.items():
+        log(f"  {label}: " + ", ".join(
+            f"{name} {value}" if isinstance(value, int) else f"{name} {value:.4f}"
+            for name, value in t.items()))
+    log(f"flagship DWA.loop_step median with the kernels as operators: "
+        f"{tick_p50:.4f} ms (PERF.md so far: {FLAGSHIP_TICK_RANGE}) ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -4251,7 +4680,7 @@ def main() -> int:
         f"{ {k: c for k, c in kernels.launch_counts().items() if c} })")
     assert split_launches["K3s"] and box_launches["K9"] and box_dwa_k9
     phase_controllers(device)
-    phase_times(kernels, device, card)
+    tick_p50 = phase_times(kernels, device, card)
     static_times = phase_static_times(kernels, device, card)
     k3_times = phase_fleet_times(kernels, device, card)
     k5_times = phase_mapping_times(kernels, device, card)
@@ -4268,6 +4697,20 @@ def main() -> int:
     phase_planning_replay(device, card)
     phase_planning_fleet(device, card)
     log(f"planning phases: {time.perf_counter() - t_plan:.1f} s")
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    t_serve = time.perf_counter()
+    serve_times, served = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _tally(served, phase_serving_solver(kernels, device, tmp, serve_times))
+        paths = export_fleet_artifacts(tmp, serve_times)
+        _tally(served, phase_serving_fleet(kernels, device, paths, serve_times))
+        _tally(served, phase_serving_resume(kernels, device, tmp, paths))
+    log(f"serving path launches: served calls {served} (every wrapper launch, the "
+        f"live comparisons included: { {k: c for k, c in kernels.launch_counts().items() if c} })")
+    assert all(served.get(key) for key in ("K1", "K3", "K6", "K7", "K8")), served
+    phase_serving_times(card, serve_times, tick_p50)
+    log(f"serving phases: {time.perf_counter() - t_serve:.1f} s")
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -4285,12 +4728,12 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
-            k1_launches + peer_launches["K1"] + split_launches["K1"],
+            k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"],
             max(k1_err, peer_errs["K1"]), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches, k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
-            k3_launches + peer_launches["K3"] + box_launches["K3"],
+            k3_launches + peer_launches["K3"] + box_launches["K3"] + served["K3"],
             max(k3_err, peer_errs["K3"]), *k3_times),
         row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES, split_launches["K3s"],
             k3s_err, *k3s_times),
@@ -4299,13 +4742,15 @@ def main() -> int:
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
             *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
-            form_launches["K6"], max(form_errs["K6"], peer_errs["K6"]),
+            form_launches["K6"] + served["K6"], max(form_errs["K6"], peer_errs["K6"]),
             *form_times["K6"]),
         row("fused_min_dist_sq_moving_expanded", KERNEL_SOURCE,
-            MOVING_EXPANDED_REPLACES, form_launches["K7"] + peer_launches["K7"],
+            MOVING_EXPANDED_REPLACES,
+            form_launches["K7"] + peer_launches["K7"] + served["K7"],
             max(form_errs["K7"], peer_errs["K7"]), *form_times["K7"]),
         row("fused_min_dist_sq_moving_broadcast", KERNEL_SOURCE,
-            MOVING_BROADCAST_REPLACES, form_launches["K8"] + peer_launches["K8"],
+            MOVING_BROADCAST_REPLACES,
+            form_launches["K8"] + peer_launches["K8"] + served["K8"],
             max(form_errs["K8"], peer_errs["K8"]), *form_times["K8"]),
         row("box_min_dist_sq", K9_SOURCE, K9_REPLACES,
             box_dwa_k9 + box_launches["K9"], k9_err, *k9_times),

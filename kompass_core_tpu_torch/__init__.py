@@ -20,3 +20,13 @@ __version__ = "0.1.0"
 # error into squared distances as the TPU's bf16 matmul pass did.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from . import utils  # noqa: E402,F401
+from .utils.logger import (  # noqa: E402,F401
+    get_available_accelerators,
+    set_log_file,
+    set_log_level,
+)
+
+# reference-compatible alias (kompass_core.set_logging_level)
+set_logging_level = set_log_level

@@ -63,7 +63,7 @@ _PAD = 1e8
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to kompass_core_tpu_torch yet "
-        f"(ROADMAP queue 1, item {item})"
+        f"(ROADMAP queue 1, item 1: scale-out, item {item})"
     )
 
 

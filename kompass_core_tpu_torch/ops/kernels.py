@@ -75,9 +75,13 @@ loaded with ``ctypes``. The library goes into
 root. A missing ``nvcc`` or a failed build raises with the compiler's
 output; nothing falls back to the plain version.
 
-Device rule: a wrapper given CPU tensors runs the plain version (that is
-how the CPU tests run); given CUDA tensors it launches the kernel or
-raises.
+Device rule: every kernel is a registered operator
+(``torch.ops.kompass_torch.*``, at the end of this module) whose
+implementation the dispatcher picks by the tensors' device: on CPU
+tensors the plain version (that is how the CPU tests run), on CUDA
+tensors the kernel's launch, which raises where it cannot launch. The
+wrappers call the operators, so a program traced into a graph keeps the
+operator, not either implementation (``serving/export.py``).
 """
 
 import ctypes
@@ -106,6 +110,10 @@ _MAX_BATCH = 65535
 
 _lib = None
 _lib_lock = threading.Lock()
+
+# the tensors' devices a kernel's operator takes: the plain version's, the
+# kernel's, and "meta", where the operator gives its outputs' shapes only
+_DEVICE_TYPES = ("cpu", "cuda", "meta")
 
 
 def _nvcc() -> str:
@@ -230,7 +238,7 @@ def _check_sweep(name, px, py, obs_xy, seg_x, seg_y, active_points,
     device = px.device
     if any(t.device != device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one device")
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in _DEVICE_TYPES:
         raise ValueError(f"{name}: unsupported device {device}")
     if any(t.dtype != torch.float32 for t in tensors if t is not active_points):
         raise TypeError(f"{name}: every tensor but active_points must be float32")
@@ -564,14 +572,8 @@ def fused_min_dist_sq(px, py, obs_xy, seg_x, seg_y, active_points, *,
     samples per thread are ``sweep_points``', or ``_points`` where a test
     forces them (checked on every device)."""
     _forced_points("fused_min_dist_sq", _points)
-    if px.device.type == "cpu":
-        return fused_min_dist_sq_reference(
-            px, py, obs_xy, seg_x, seg_y, active_points
-        )
-    out = _static_launch("fused_min_dist_sq", px, py, obs_xy, seg_x, seg_y,
-                         active_points, _points)
-    fused_min_dist_sq.launches += 1
-    return out
+    return torch.ops.kompass_torch.fused_min_dist_sq(
+        px, py, obs_xy, seg_x, seg_y, active_points, _points or 0)
 
 
 def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points,
@@ -585,14 +587,8 @@ def fused_min_dist_sq_expanded(px, py, obs_xy, seg_x, seg_y, active_points,
     points and rows within about 10 m of the origin. On CUDA it adds one
     to ``fused_min_dist_sq_expanded.launches``."""
     _forced_points("fused_min_dist_sq_expanded", _points)
-    if px.device.type == "cpu":
-        return fused_min_dist_sq_expanded_reference(
-            px, py, obs_xy, seg_x, seg_y, active_points
-        )
-    out = _static_launch("fused_min_dist_sq_expanded", px, py, obs_xy, seg_x,
-                         seg_y, active_points, _points)
-    fused_min_dist_sq_expanded.launches += 1
-    return out
+    return torch.ops.kompass_torch.fused_min_dist_sq_expanded(
+        px, py, obs_xy, seg_x, seg_y, active_points, _points or 0)
 
 
 def fused_min_dist_sq_broadcast(px, py, obs_xy, seg_x, seg_y, active_points,
@@ -606,14 +602,8 @@ def fused_min_dist_sq_broadcast(px, py, obs_xy, seg_x, seg_y, active_points,
     coordinates grow like K2. On CUDA it adds one to
     ``fused_min_dist_sq_broadcast.launches``."""
     _forced_points("fused_min_dist_sq_broadcast", _points)
-    if px.device.type == "cpu":
-        return fused_min_dist_sq_broadcast_reference(
-            px, py, obs_xy, seg_x, seg_y, active_points
-        )
-    out = _static_launch("fused_min_dist_sq_broadcast", px, py, obs_xy, seg_x,
-                         seg_y, active_points, _points)
-    fused_min_dist_sq_broadcast.launches += 1
-    return out
+    return torch.ops.kompass_torch.fused_min_dist_sq_broadcast(
+        px, py, obs_xy, seg_x, seg_y, active_points, _points or 0)
 
 
 def min_dist_sq_expanded(px, py, rows, active_points, *, _points=None):
@@ -625,12 +615,8 @@ def min_dist_sq_expanded(px, py, rows, active_points, *, _points=None):
     d2 shaped like px. On CUDA it adds one to
     ``min_dist_sq_expanded.launches``."""
     _forced_points("min_dist_sq_expanded", _points)
-    if px.device.type == "cpu":
-        return min_dist_sq_expanded_reference(px, py, rows, active_points)
-    out = _static_launch("min_dist_sq_expanded", px, py, rows, None, None,
-                         active_points, _points)
-    min_dist_sq_expanded.launches += 1
-    return out
+    return torch.ops.kompass_torch.min_dist_sq_expanded(px, py, rows, active_points,
+                                                        _points or 0)
 
 
 def fused_min_dist_sq_moving(px, py, obs_xy, obs_vel, dt, seg_x, seg_y,
@@ -644,16 +630,8 @@ def fused_min_dist_sq_moving(px, py, obs_xy, obs_vel, dt, seg_x, seg_y,
     o + v * (t * dt). A zero velocity gives ``fused_min_dist_sq``'s
     values bit for bit. On CUDA it adds one to
     ``fused_min_dist_sq_moving.launches``."""
-    if px.device.type == "cpu":
-        return fused_min_dist_sq_reference(
-            px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt
-        )
-    dims = _check_sweep("fused_min_dist_sq_moving", px, py, obs_xy, seg_x,
-                        seg_y, active_points, obs_vel, dt)
-    out = _launch("kompass_fused_min_dist_sq_moving", dims, px, py, obs_xy,
-                  seg_x, seg_y, active_points, obs_vel, dt)
-    fused_min_dist_sq_moving.launches += 1
-    return out
+    return torch.ops.kompass_torch.fused_min_dist_sq_moving(
+        px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points)
 
 
 def fused_min_dist_sq_moving_expanded(px, py, obs_xy, obs_vel, dt, seg_x,
@@ -668,16 +646,8 @@ def fused_min_dist_sq_moving_expanded(px, py, obs_xy, obs_vel, dt, seg_x,
     fused multiply-adds (``csrc/fused_min_dist.cu``); the segment field is
     K2's. Pad rows sit at 1e8 with zero velocity. On CUDA it adds one to
     ``fused_min_dist_sq_moving_expanded.launches``."""
-    if px.device.type == "cpu":
-        return fused_min_dist_sq_moving_expanded_reference(
-            px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points
-        )
-    dims = _check_sweep("fused_min_dist_sq_moving_expanded", px, py, obs_xy,
-                        seg_x, seg_y, active_points, obs_vel, dt)
-    out = _launch("kompass_fused_min_dist_sq_moving_expanded", dims, px, py,
-                  obs_xy, seg_x, seg_y, active_points, obs_vel, dt)
-    fused_min_dist_sq_moving_expanded.launches += 1
-    return out
+    return torch.ops.kompass_torch.fused_min_dist_sq_moving_expanded(
+        px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points)
 
 
 def fused_min_dist_sq_moving_broadcast(px, py, obs_xy, obs_vel, dt, seg_x,
@@ -692,16 +662,8 @@ def fused_min_dist_sq_moving_broadcast(px, py, obs_xy, obs_vel, dt, seg_x,
     on its own. A zero velocity gives ``fused_min_dist_sq_broadcast``'s
     values bit for bit. On CUDA it adds one to
     ``fused_min_dist_sq_moving_broadcast.launches``."""
-    if px.device.type == "cpu":
-        return fused_min_dist_sq_moving_broadcast_reference(
-            px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points
-        )
-    dims = _check_sweep("fused_min_dist_sq_moving_broadcast", px, py, obs_xy,
-                        seg_x, seg_y, active_points, obs_vel, dt)
-    out = _launch("kompass_fused_min_dist_sq_moving_broadcast", dims, px, py,
-                  obs_xy, seg_x, seg_y, active_points, obs_vel, dt)
-    fused_min_dist_sq_moving_broadcast.launches += 1
-    return out
+    return torch.ops.kompass_torch.fused_min_dist_sq_moving_broadcast(
+        px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points)
 
 
 # K3s's layout by its rows M (csrc/fused_min_dist.cu): the point-major
@@ -732,15 +694,9 @@ def min_dist_sq_moving(px, py, rows, vel, dt, active_points, *, _point_major=Non
     them (``_point_major`` forces one where a test does; the point-major
     kernel refuses more rows than it stages), and adds one to
     ``min_dist_sq_moving.launches``."""
-    if px.device.type == "cpu":
-        return min_dist_sq_moving_reference(px, py, rows, vel, dt, active_points)
-    dims = _check_sweep("min_dist_sq_moving", px, py, rows, None, None,
-                        active_points, vel, dt)
-    point_major = _k3s_layout(dims[3], _point_major)
-    out = _launch("kompass_min_dist_sq_moving", dims, px, py, rows, None, None,
-                  active_points, vel, dt, extra=(int(point_major),))
-    min_dist_sq_moving.launches += 1
-    return out
+    layout = -1 if _point_major is None else int(bool(_point_major))
+    return torch.ops.kompass_torch.min_dist_sq_moving(px, py, rows, vel, dt,
+                                                      active_points, layout)
 
 
 # --- BOX robots' collision field (K9) ---------------------------------------------
@@ -757,7 +713,7 @@ def _check_box(px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points):
     device = px.device
     if any(t.device != device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one device")
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in _DEVICE_TYPES:
         raise ValueError(f"{name}: unsupported device {device}")
     if any(t.dtype != torch.float32 for t in tensors if t is not active_points):
         raise TypeError(f"{name}: every tensor but active_points must be float32")
@@ -836,27 +792,8 @@ def box_min_dist_sq(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
     ``box_min_dist_sq.launches``; its samples per thread are
     ``sweep_points``', or ``_points`` where a test forces them."""
     _forced_points("box_min_dist_sq", _points)
-    if px.device.type == "cpu":
-        return box_min_dist_sq_reference(px, py, cos_yaw, sin_yaw, rows, vel,
-                                         dt, half, active_points)
-    B, S, T, O = _check_box(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
-                            active_points)
-    points = _static_points("box_min_dist_sq", (B, S, T), _points, px.device)
-    lib = _library()
-    out = torch.empty_like(px)
-    with torch.cuda.device(px.device):
-        stream = torch.cuda.current_stream(px.device).cuda_stream
-        err = lib.kompass_box_min_dist_sq(
-            px.data_ptr(), py.data_ptr(), cos_yaw.data_ptr(),
-            sin_yaw.data_ptr(), B, S * T, T, rows.data_ptr(),
-            None if vel is None else vel.data_ptr(),
-            None if vel is None else dt.data_ptr(), O, half.data_ptr(),
-            active_points.data_ptr(), out.data_ptr(), points, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"box_min_dist_sq: kernel launch failed (cudaError {err})")
-    box_min_dist_sq.launches += 1
-    return out
+    return torch.ops.kompass_torch.box_min_dist_sq(
+        px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points, _points or 0)
 
 
 # the sweep kernels by their PERF.md names
@@ -965,7 +902,7 @@ def _check_cells(base, dist_m, tables, endpoint, prev, params):
     device = base.device
     if any(t.device != device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one device")
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in _DEVICE_TYPES:
         raise ValueError(f"{name}: unsupported device {device}")
     dtypes = [torch.int32, torch.float32, torch.int32, torch.bool,
               torch.float32, torch.float32]
@@ -1063,13 +1000,10 @@ def scan_to_grid_cells(base, dist_m, tables, endpoint, start_cell,
     Returns occ [R, H, W] int32, and in the Bayesian form (occ, prob
     [R, H, W] f32). On CUDA it launches on the current stream without
     synchronising and adds one to ``scan_to_grid_cells.launches``."""
-    if base.device.type == "cpu":
-        return scan_to_grid_cells_reference(base, dist_m, tables, endpoint,
-                                            start_cell, prev, params)
-    occ, prob, _ = _scan_to_grid_cells_cuda(base, dist_m, tables, endpoint,
-                                            start_cell, prev, params)
-    scan_to_grid_cells.launches += 1
-    return occ if prob is None else (occ, prob)
+    occ, prob = torch.ops.kompass_torch.scan_to_grid_cells(
+        base, dist_m, tables, endpoint, int(start_cell[0]), int(start_cell[1]),
+        prev, params)
+    return occ if prev is None else (occ, prob)
 
 
 def _scan_to_grid_cells_cuda(base, dist_m, tables, endpoint, start_cell,
@@ -1097,3 +1031,185 @@ def _scan_to_grid_cells_cuda(base, dist_m, tables, endpoint, start_cell,
 
 
 scan_to_grid_cells.launches = 0
+
+
+# --- the kernels as registered ops ------------------------------------------------
+#
+# Every kernel entry point is one operator of the ``kompass_torch`` namespace
+# (``torch.ops.kompass_torch.<wrapper's name>``), with three implementations:
+# the CUDA one launches the kernel and adds one to its wrapper's ``launches``,
+# the CPU one is the plain version, and the fake one gives the outputs' shapes
+# and dtypes only, for tracing (``torch.export``). The wrappers above check
+# what a caller forces and call the operator; the dispatcher picks the
+# implementation by the tensors' device at run time, so a program traced on
+# one device and served on another (``serving/export.py``) launches the
+# kernel on the card and never carries the plain version in its graph.
+# Launch parameters that depend on the card (the static kernel's samples per
+# thread, K3s's layout) are chosen inside the CUDA implementation: every
+# kernel gives the same bits at each of them.
+
+_OPS = torch.library.Library("kompass_torch", "DEF")
+
+
+def _register(schema, cuda, cpu, fake):
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, cuda, "CUDA")
+    _OPS.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"kompass_torch::{name}", fake, lib=_OPS)
+
+
+def _launched(wrapper, out):
+    wrapper.launches += 1
+    return out
+
+
+def _fields_like(px, two):
+    return (px.new_empty(px.shape), px.new_empty(px.shape)) if two else px.new_empty(px.shape)
+
+
+def _register_static(wrapper, form, segments):
+    name = wrapper.__name__
+    rows = "Tensor seg_x, Tensor seg_y, " if segments else ""
+    schema = (f"{name}(Tensor px, Tensor py, Tensor obs_xy, {rows}"
+              f"Tensor active_points, int points) -> "
+              + ("(Tensor, Tensor)" if segments else "Tensor"))
+
+    def split(args):
+        # (px, py, obs_xy, seg_x, seg_y, active_points), points
+        *tensors, points = args
+        if not segments:
+            tensors[3:3] = [None, None]
+        return tensors, points
+
+    def cuda(*args):
+        tensors, points = split(args)
+        return _launched(wrapper, _static_launch(name, *tensors, points or None))
+
+    def cpu(*args):
+        tensors, _ = split(args)
+        return _reference(name, *tensors, form=form)
+
+    def fake(*args):
+        tensors, _ = split(args)
+        _check_sweep(name, *tensors)
+        return _fields_like(tensors[0], segments)
+
+    _register(schema, cuda, cpu, fake)
+
+
+def _register_moving(wrapper, form):
+    name = wrapper.__name__
+    schema = (f"{name}(Tensor px, Tensor py, Tensor obs_xy, Tensor obs_vel, "
+              "Tensor dt, Tensor seg_x, Tensor seg_y, Tensor active_points) "
+              "-> (Tensor, Tensor)")
+
+    def cuda(px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points):
+        dims = _check_sweep(name, px, py, obs_xy, seg_x, seg_y, active_points,
+                            obs_vel, dt)
+        return _launched(wrapper, _launch(f"kompass_{name}", dims, px, py, obs_xy,
+                                          seg_x, seg_y, active_points, obs_vel, dt))
+
+    def cpu(px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points):
+        return _reference(name, px, py, obs_xy, seg_x, seg_y, active_points,
+                          obs_vel, dt, form=form)
+
+    def fake(px, py, obs_xy, obs_vel, dt, seg_x, seg_y, active_points):
+        _check_sweep(name, px, py, obs_xy, seg_x, seg_y, active_points, obs_vel, dt)
+        return _fields_like(px, True)
+
+    _register(schema, cuda, cpu, fake)
+
+
+def _k3s_cuda(px, py, rows, vel, dt, active_points, point_major):
+    dims = _check_sweep("min_dist_sq_moving", px, py, rows, None, None,
+                        active_points, vel, dt)
+    layout = _k3s_layout(dims[3], None if point_major < 0 else bool(point_major))
+    return _launched(min_dist_sq_moving, _launch(
+        "kompass_min_dist_sq_moving", dims, px, py, rows, None, None,
+        active_points, vel, dt, extra=(int(layout),)))
+
+
+def _k3s_cpu(px, py, rows, vel, dt, active_points, point_major):
+    return min_dist_sq_moving_reference(px, py, rows, vel, dt, active_points)
+
+
+def _k3s_fake(px, py, rows, vel, dt, active_points, point_major):
+    _check_sweep("min_dist_sq_moving", px, py, rows, None, None, active_points,
+                 vel, dt)
+    return _fields_like(px, False)
+
+
+def _k9_cuda(px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points, points):
+    B, S, T, O = _check_box(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
+                            active_points)
+    points = _static_points("box_min_dist_sq", (B, S, T), points or None, px.device)
+    lib = _library()
+    out = torch.empty_like(px)
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream(px.device).cuda_stream
+        err = lib.kompass_box_min_dist_sq(
+            px.data_ptr(), py.data_ptr(), cos_yaw.data_ptr(),
+            sin_yaw.data_ptr(), B, S * T, T, rows.data_ptr(),
+            None if vel is None else vel.data_ptr(),
+            None if vel is None else dt.data_ptr(), O, half.data_ptr(),
+            active_points.data_ptr(), out.data_ptr(), points, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"box_min_dist_sq: kernel launch failed (cudaError {err})")
+    return _launched(box_min_dist_sq, out)
+
+
+def _k9_cpu(px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points, points):
+    return box_min_dist_sq_reference(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
+                                     active_points)
+
+
+def _k9_fake(px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points, points):
+    _check_box(px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points)
+    return _fields_like(px, False)
+
+
+def _k5_cuda(base, dist_m, tables, endpoint, si, sj, prev, params):
+    occ, prob, _ = _scan_to_grid_cells_cuda(base, dist_m, tables, endpoint,
+                                            (si, sj), prev, params)
+    return _launched(scan_to_grid_cells, (occ, _no_prob(base) if prob is None else prob))
+
+
+def _no_prob(base):
+    """The Bayesian grid's place in the plain form's result: empty."""
+    return base.new_empty((0,), dtype=torch.float32)
+
+
+def _k5_cpu(base, dist_m, tables, endpoint, si, sj, prev, params):
+    out = scan_to_grid_cells_reference(base, dist_m, tables, endpoint, (si, sj),
+                                       prev, params)
+    return (out, _no_prob(base)) if prev is None else out
+
+
+def _k5_fake(base, dist_m, tables, endpoint, si, sj, prev, params):
+    R, H, W, _ = _check_cells(base, dist_m, tables, endpoint, prev, params)
+    occ = base.new_empty((R, H, W), dtype=torch.int32)
+    return occ, _no_prob(base) if prev is None else prev.new_empty(prev.shape)
+
+
+_register_static(fused_min_dist_sq, "direct", segments=True)
+_register_static(fused_min_dist_sq_expanded, "expanded", segments=True)
+_register_static(fused_min_dist_sq_broadcast, "broadcast", segments=True)
+_register_static(min_dist_sq_expanded, "expanded", segments=False)
+_register_moving(fused_min_dist_sq_moving, "direct")
+_register_moving(fused_min_dist_sq_moving_expanded, "expanded")
+_register_moving(fused_min_dist_sq_moving_broadcast, "broadcast")
+_register("min_dist_sq_moving(Tensor px, Tensor py, Tensor rows, Tensor vel, "
+          "Tensor dt, Tensor active_points, int point_major) -> Tensor",
+          _k3s_cuda, _k3s_cpu, _k3s_fake)
+_register("box_min_dist_sq(Tensor px, Tensor py, Tensor cos_yaw, Tensor sin_yaw, "
+          "Tensor rows, Tensor? vel, Tensor? dt, Tensor half, Tensor active_points, "
+          "int points) -> Tensor", _k9_cuda, _k9_cpu, _k9_fake)
+_register("scan_to_grid_cells(Tensor base, Tensor dist_m, Tensor tables, "
+          "Tensor endpoint, int si, int sj, Tensor? prev, Tensor? params) "
+          "-> (Tensor, Tensor)", _k5_cuda, _k5_cpu, _k5_fake)
+
+# the operators by their PERF.md names
+OPS = {key: getattr(torch.ops.kompass_torch, w.__name__)
+       for key, w in (*SWEEP_KERNELS.items(), ("K5", scan_to_grid_cells))}

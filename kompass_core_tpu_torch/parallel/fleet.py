@@ -11,7 +11,7 @@ dispatches it in chunks of 64 rows; here the robot axis is a plain batch
 dimension, and ``chunk_size`` keeps the JAX meaning: rows per dispatch.
 
 Not ported yet: the device mesh (scenario sharding across cards) and the
-sample-parallel solve, both ROADMAP item 9; they raise
+sample-parallel solve, both ROADMAP queue 1 item 1; they raise
 ``NotImplementedError``.
 """
 
@@ -32,7 +32,7 @@ from ..ops.solver import (
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to kompass_core_tpu_torch yet "
-        "(ROADMAP queue 1, item 9: scale-out over torch.distributed)"
+        "(ROADMAP queue 1, item 1: scale-out over torch.distributed)"
     )
 
 
@@ -79,7 +79,7 @@ def make_fleet_solver(
 
 def make_sample_parallel_solver(spec: SolverSpec, mesh, axis_name: str = "sp"):
     """One robot's sample axis split across cards, with a lowest-cost,
-    lowest-rank combine: not ported yet (ROADMAP item 9)."""
+    lowest-rank combine: not ported yet (ROADMAP queue 1, item 1)."""
     _not_ported("make_sample_parallel_solver")
 
 

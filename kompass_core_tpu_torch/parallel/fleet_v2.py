@@ -556,6 +556,27 @@ class DeviceFleet:
             r = r[np.isfinite(r).all(axis=1)]  # non-finite row == empty slot
             blk[i, : r.shape[0]] = r
 
+    def tick_example_args(self):
+        """The tick program's arguments ``(paths, cfg, carry, angles,
+        inputs[, safety])``, as ``tick`` passes them: the fleet's device
+        tensors and the packed input matrix as it stands, copied to the
+        device. ``serving.export_fleet_tick`` traces the program on them
+        (only their shapes and dtypes go into the artifact). Requires
+        ``set_paths`` and ``set_scan_angles``: the path tables and the
+        angle grid pin the artifact's static shapes."""
+        if self._paths is None or self._carry is None:
+            raise RuntimeError(
+                "call set_paths() first — the path tables define the "
+                "artifact's shapes"
+            )
+        if self._angles is None:
+            raise RuntimeError("call set_scan_angles() first")
+        extra = (self._safety,) if self._safety is not None else ()
+        return (
+            self._paths, self._cfg, self._carry, self._angles,
+            torch.tensor(self._inputs, device=self._device), *extra,
+        )
+
     def state_dict(self) -> dict:
         """Host snapshot of the fleet's mutable state (path tables,
         follower carry, scan-angle grid) as a flat dict of numpy arrays,

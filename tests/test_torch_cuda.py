@@ -1131,3 +1131,123 @@ def test_planning_capture_failure_raises(cuda):
     with pytest.raises(RuntimeError):
         run_scan(body, (torch.zeros(3, device=cuda),), iterations=4, chunk=4,
                  graphs={})
+
+
+# --- the kernels as operators, and served artifacts (serving, module 11) --------
+
+
+def _operator_args(key, device):
+    """The operator's arguments for ``key`` (PERF.md name), built on the
+    CPU from a seed and moved to ``device``: 3 robots x 300 x 30 points
+    against 200 rows and 64 segment rows; K5 at a 120 x 90 / 360 grid."""
+    if key == "K5":
+        from kompass_core_tpu_torch.ops.mapping import MapperSpec
+
+        spec = MapperSpec(120, 90, 360, 0.05)
+        geo, tables, endpoint, prev, params = _mapper_inputs(spec, _scan(spec, 2, 5), "cpu")
+        args = (geo.base, geo.dist_m, tables, endpoint, *spec.start_cell, prev, params)
+    else:
+        rng = np.random.default_rng(sorted(kernels.OPS).index(key))
+
+        def f(*shape, lo=-8.0, hi=8.0):
+            return torch.tensor(rng.uniform(lo, hi, shape), dtype=torch.float32)
+
+        B, S, T, O, G = 3, 300, 30, 200, 64
+        px, py, obs, vel = f(B, S, T), f(B, S, T), f(B, O, 2), f(B, O, 2, lo=-1, hi=1)
+        sx, sy, dt = f(B, G), f(B, G), torch.full((B,), 0.1)
+        ap = torch.tensor([30, 17, 1], dtype=torch.int32)
+        args = {
+            "K1": (px, py, obs, sx, sy, ap, 0), "K2": (px, py, obs, sx, sy, ap, 0),
+            "K6": (px, py, obs, sx, sy, ap, 0), "K4": (px, py, obs, ap, 0),
+            "K3": (px, py, obs, vel, dt, sx, sy, ap),
+            "K7": (px, py, obs, vel, dt, sx, sy, ap),
+            "K8": (px, py, obs, vel, dt, sx, sy, ap),
+            "K3s": (px, py, obs[:, :8].contiguous(), vel[:, :8].contiguous(), dt, ap, -1),
+            "K9": (px, py, f(B, S, T, lo=-1, hi=1), f(B, S, T, lo=-1, hi=1), obs, vel,
+                   dt, f(B, 2, lo=0, hi=0.5), ap, 0),
+        }[key]
+    return [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+@pytest.mark.parametrize("key", sorted(kernels.OPS))
+def test_operator_cuda_implementation_equals_its_cpu_implementation(cuda, key):
+    """Each kernel's operator, called through ``torch.ops.kompass_torch``
+    on CUDA tensors, launches the kernel once and gives its CPU
+    implementation's (the plain version's) values bit for bit."""
+    before = kernels.launch_counts()[key]
+    got = kernels.OPS[key](*_operator_args(key, cuda))
+    want = kernels.OPS[key](*_operator_args(key, "cpu"))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[key] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert all(g.device.type == "cuda" for g in got)
+    _nan_equal([g.cpu() for g in got], want)
+
+
+def test_tick_graph_captures_the_operators(cuda):
+    """The k-tick loop's capture goes through the operators with no host
+    sync (a sync would abort the capture): the first call counts the
+    warm-up's and the capture's launches of K3, a replay none, and the
+    replay equals the eager loop bit for bit."""
+    fleet, inputs = _small_fleet(cuda, 2)
+    fleet._prepare_tick_inputs(*inputs)
+    eager = fleet.ticks_fn(3)(*fleet.tick_example_args())
+    before = kernels.launch_counts()
+    out = fleet.run_ticks_on_device(3, *inputs[:4], tracked=inputs[4])
+    made = {k: c - before[k] for k, c in kernels.launch_counts().items() if c != before[k]}
+    assert made == {"K3": 6}
+    np.testing.assert_array_equal(out["final_states"], eager[2][:4].cpu().numpy())
+    before = kernels.launch_counts()
+    fleet.run_ticks_on_device(3, *inputs[:4], tracked=inputs[4])
+    assert kernels.launch_counts() == before
+
+
+def _packed_buffer(spec, seed):
+    """A flagship-sized packed input: 100 scan points 1-6 m around the
+    robot and a 3.8 m segment, at a seeded current velocity."""
+    from kompass_core_tpu_torch.ops.window import sample_velocity_window
+
+    rng = np.random.default_rng(seed)
+    limits = np.array([1.2, 1.5, 2.5, 0.0, 0.0, 0.0, 1.5, 3.0, 3.0])
+    vel = (rng.uniform(0.0, 1.0), 0.0, rng.uniform(-0.5, 0.5))
+    window = sample_velocity_window(vel, limits, 0.1, 45, 1, 45, False)
+    obs = np.full((512, 2), 1e8, np.float32)
+    ang = rng.uniform(-np.pi, np.pi, 100)
+    r = rng.uniform(1.0, 6.0, 100)
+    obs[:100] = np.stack([r * np.cos(ang), r * np.sin(ang)], 1)
+    s = np.linspace(0.0, 3.8, 381).astype(np.float32)
+    seg = [np.full(384, 1e8, np.float32) for _ in range(2)]
+    arc = np.zeros(384, np.float32)
+    seg[0][:381], seg[1][:381], arc[:381] = s, 0.2 * np.sin(s), s
+    params = np.array([0.1, 0.25, 0.07, 3, 3, 1, 0, 0, 1.5, 0, 3, 10 / 3], np.float32)
+    buf = np.zeros(solver.packed_input_size(spec), np.float32)
+    solver.pack_solver_input(spec, buf, params, (0.0, 0.0, 0.1), window, obs, 100,
+                             seg[0], seg[1], arc, 381, 3.8, 3.8, 30)
+    return buf
+
+
+def test_served_packed_solver_on_the_card_equals_live(cuda, tmp_path):
+    """The packed solver exported on the card, and exported on the CPU for
+    both device types, each loaded on the card: its graph holds K1's
+    operator once, each call launches K1 once and equals the live card
+    solver bit for bit."""
+    from kompass_core_tpu_torch import serving
+
+    spec = solver.SolverSpec(is_omni=False, n_vx=45, n_vy=1, n_omega=45, max_points=30,
+                             num_ctrl_points=6, scan_size=512, seg_size=384)
+    live = solver.get_packed_dwa_solver(spec, cuda)
+    for device, platforms in ((cuda, None), (torch.device("cpu"), ("cpu", "cuda"))):
+        path = str(tmp_path / f"{device.type}.ktpuart")
+        serving.export_packed_solver(spec, path, device=device, platforms=platforms)
+        art, loaded = serving.load_packed_solver(path, device=cuda)
+        assert loaded == spec and art.device == cuda
+        ops = [str(n.target) for n in art.program.graph.nodes
+               if str(n.target).startswith("kompass_torch.")]
+        assert ops == ["kompass_torch.fused_min_dist_sq.default"]
+        for seed in range(3):
+            buf = _packed_buffer(spec, seed)
+            before = kernels.fused_min_dist_sq.launches
+            out = art.call(buf)
+            assert kernels.fused_min_dist_sq.launches == before + 1
+            assert out.device.type == "cuda" and torch.equal(out, live(buf))

@@ -39,6 +39,15 @@ def test_port_import_loads_no_jax_and_no_triton():
         "import kompass_core_tpu_torch.vision, kompass_core_tpu_torch.algorithms\n"
         "import kompass_core_tpu_torch.planning\n"
         "import kompass_core_tpu_torch.planning.planners_trees\n"
+        "import kompass_core_tpu_torch.serving, kompass_core_tpu_torch.utils.runtime\n"
+        "import kompass_core_tpu_torch.utils.logger\n"
+        "import kompass_core_tpu_torch.utils.visualization\n"
+        "import kompass_core_tpu_torch.calibration, kompass_core_tpu_torch.motion_cost\n"
+        "import kompass_core_tpu_torch.performance, kompass_core_tpu_torch.simulation\n"
+        "import kompass_core_tpu_torch.py_path_tools\n"
+        "import kompass_core_tpu_torch.datatypes.obstacles\n"
+        "import kompass_core_tpu_torch.datatypes.path_sample\n"
+        "import kompass_core_tpu_torch.datatypes.pcd\n"
         "import chip_smoke\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
@@ -54,6 +63,27 @@ def test_port_import_loads_no_jax_and_no_triton():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"port loaded: {proc.stdout.strip()}"
+
+
+def test_serving_import_loads_no_tracing_module():
+    """A serving process imports ``kompass_core_tpu_torch.serving`` and
+    nothing that builds programs: no ``ops`` or ``control`` module (and no
+    jax) until ``load_artifact`` registers the kernels' operators."""
+    code = (
+        "import sys\n"
+        "import kompass_core_tpu_torch.serving as serving\n"
+        "assert callable(serving.load_artifact)\n"
+        "print(','.join(sorted(m for m in sys.modules\n"
+        "    if m.startswith(('kompass_core_tpu_torch.ops',\n"
+        "                     'kompass_core_tpu_torch.control', 'jax')))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"serving loaded: {proc.stdout.strip()}"
 
 
 def test_port_sources_never_import_the_jax_package():

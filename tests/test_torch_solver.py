@@ -414,12 +414,12 @@ def _split_mover_tick(spec):
 
 @pytest.mark.parametrize(
     "build,item",
-    [(lambda s: make_fleet_solver(s, CPU, mesh=object()), "9"),
-     (lambda s: make_sample_parallel_solver(s, object()), "9"),
+    [(lambda s: make_fleet_solver(s, CPU, mesh=object()), "1"),
+     (lambda s: make_sample_parallel_solver(s, object()), "1"),
      (_split_mover_tick, "5e")],
 )
 def test_unported_modes_raise_naming_their_roadmap_item(build, item):
-    """The mesh solvers raise naming item 9; the split mover tick (5e)
+    """The mesh solvers raise naming item 1 (scale-out); the split mover tick (5e)
     builds."""
     spec = tsolver.spec_from_jax(_jax_spec(False, True))
     if item == "5e":
