@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the DWA control tick, of the device fleet
 tick and its k-tick loop, of the local occupancy mapper, of the global
-planners and of the serving artifacts once on an NVIDIA GPU.
+planners, of the serving artifacts and of the scale-out over a device
+mesh once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -225,6 +226,30 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     host clock with syncs, median of 20, for the fleet; for the k = 8
     artifacts also the live graph replay), and the flagship
     ``DWA.loop_step`` median of phase 12 with the kernels as operators.
+35. Scale-out, the fleet on a mesh (``parallel/multihost.py``): the
+    128-robot peer fleet (phase 17's scene widened, peers, prediction, 8
+    tracked slots, the safety gate) on a 2-shard mesh ``[cuda, cuda]``
+    beside the same fleet on ``cuda``, per backend (K3, K7, K8): 10 ticks
+    and 2 calls of ``run_ticks_on_device(8)`` (eager on the mesh, the
+    graph on one device), every output bit for bit; each shard launches
+    once per tick, and the mesh gathers the states once per tick (8 per
+    call); then one tick each without prediction (K1, one gather), with
+    tracked slots and no peers (K3) and static on ``pallas_vpu`` (K6),
+    the last two with no collective.
+36. The sharded solver: ``make_fleet_solver`` on 128 BASELINE scenarios
+    over 2 shards per backend (K1, K2 or K4 per shard) == one device bit
+    for bit with no collective; a 129-robot ``FleetPlanner`` (130 rows,
+    one pad row not found); ``make_sample_parallel_solver`` on the
+    flagship over 4 shards (K1 once a shard, three all-reduces) == the
+    one-device full-window solve, and against the CPU port's.
+37. Two processes on the card in a gloo group (``mesh_worker``), each a
+    one-shard mesh: half the 128 scenarios and 5 ticks of the 128-robot
+    peer fleet each, == this process's one-device results bit for bit.
+38. ``FleetRuntime`` (32 Ackermann robots over ``[cuda, cuda]``): every
+    robot reaches its goal with ``solver_failures == 0``.
+39. Mesh times: the mesh tick against the one-device tick, the eager mesh
+    k = 8 call against the one-device replay per tick, one gather and
+    its share, the two-process wall seconds, FleetRuntime's host ms.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -241,7 +266,10 @@ and K9 (with phase 11's K9 launches). Its times are
 K1, K2 and K4 at the flagship shapes (one robot), K3, K5, K6, K7 and K8
 at 64 robots, all by CUDA events in turns with the plain version. K1,
 K2, K4 and K6 are one static kernel (``static_min_dist_kernel``); its
-samples per thread come from ``ops/kernels.py::sweep_points``.
+samples per thread come from ``ops/kernels.py::sweep_points``. The counts
+are set to 0 again before the mesh phases (35-38): each kernel's row adds
+the launches of the mesh calls alone (not the one-device fleets and
+solves they are compared with) and those the two worker processes report.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -1219,7 +1247,7 @@ def cast_fleet_scans(states, lanes, circles):
 
 
 def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None,
-               split=False):
+               split=False, mesh=None):
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
@@ -1243,7 +1271,7 @@ def make_fleet(device, tracked=FLEET_TRACKED, backend="xla", robots=None,
     )
     fleet = DeviceFleet(robots, limits, config, RAYS, path_capacity=4608,
                         tracked_obstacles=tracked, split_mover_sweep=split,
-                        device=device)
+                        **_placed(device, mesh))
     if backend != "xla":
         # the fleet solves with the JAX fleet's "xla"; its k-tick loop,
         # built from fleet.spec on the loop's first call, runs the
@@ -2040,21 +2068,28 @@ def phase_expanded_vs_plain(kernels, device):
     return errs
 
 
+BASELINE_SHAPE = (45, 30, 512, 384)  # samples per axis, steps, scan and segment slots
+
+
 def baseline_spec(backend):
     """``kompass_core_tpu/benchmark/baseline.py``'s flagship solve (45 x 45
     samples, 30 steps, 512 obstacle and 384 segment slots, drop mode) as
     the port's ``SolverSpec`` with ``backend``."""
     from kompass_core_tpu_torch.ops.solver import SolverSpec
 
-    return SolverSpec(is_omni=False, n_vx=45, n_vy=1, n_omega=45, max_points=30,
-                      num_ctrl_points=6, scan_size=512, seg_size=384,
-                      drop_samples=True, backend=backend)
+    samples, steps, scan, segments = BASELINE_SHAPE
+    return SolverSpec(is_omni=False, n_vx=samples, n_vy=1, n_omega=samples,
+                      max_points=steps, num_ctrl_points=6, scan_size=scan,
+                      seg_size=segments, drop_samples=True, backend=backend)
 
 
-def baseline_scenario(spec, rng, robot_index):
+def baseline_scenario(spec, rng, robot_index, omega_shard=None):
     """``bench.py``'s ``build_scenario`` with the port's functions: robot i
     at x = 0.1 i with yaw 0.05 i, a 3 m arc of segment at 1 cm, 512
-    obstacles scattered at 2.5-9 m around it. Returns its packed buffer."""
+    obstacles scattered at 2.5-9 m around it. Returns its packed buffer;
+    with ``omega_shard`` (c, shards) its velocity window keeps the omega
+    samples c, c + shards, ... alone (``tests/test_fleet.py``'s split of the
+    sample axis)."""
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, RobotCtrlLimits,
     )
@@ -2081,6 +2116,11 @@ def baseline_scenario(spec, rng, robot_index):
                     ranges * np.sin(angles + yaw0)], axis=1).astype(np.float32)
     window = sample_velocity_window((0.5, 0.0, 0.1), limits, 0.1, spec.n_vx,
                                     spec.n_vy, spec.n_omega, spec.is_omni)
+    if omega_shard is not None:
+        c, shards = omega_shard
+        mask = np.zeros_like(window.omega_mask)
+        mask[c::shards] = window.omega_mask[c::shards]
+        window = window._replace(omega_mask=mask)
     params = np.array([0.1, 0.3, 0.05, 2.0, 1.0, 1.0, 0.1, 0.05, 5.0, 0.0, 3.0,
                        10.0 / 3], np.float32)
     buf = np.zeros(packed_input_size(spec), np.float32)
@@ -2867,14 +2907,19 @@ class PeerDrive:
         self.movers += k * DT * self.mover_vel
 
 
+def _placed(device, mesh):
+    """A fleet's placement arguments: its device, or its mesh."""
+    return dict(device=device) if mesh is None else dict(mesh=mesh)
+
+
 def make_peer_fleet(device, backend="xla", predict=True, robots=None,
                     wall_gap=WALL_GAP, wall_speed=0.0, tracked=FLEET_TRACKED,
-                    box_every=0):
+                    box_every=0, mesh=None):
     """A DeviceFleet of PeerDrive's scene with peers (and prediction),
     ``tracked`` slots and the safety gate; ``backend`` for its tick and
     its k-tick loop; with ``box_every``, every such robot a BOX
-    (FLEET_BOX_PARAMS), which makes the fleet a BOX fleet. Returns
-    (fleet, drive)."""
+    (FLEET_BOX_PARAMS), which makes the fleet a BOX fleet; over ``mesh``
+    instead of on ``device`` when given. Returns (fleet, drive)."""
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
@@ -2904,12 +2949,12 @@ def make_peer_fleet(device, backend="xla", predict=True, robots=None,
     fleet = DeviceFleet(robot_list, limits, config, RAYS, tracked_obstacles=tracked,
                         peer_avoidance=True, peer_ring_points=PEER_RING,
                         peer_prediction=predict, safety_config=FleetSafetyConfig(),
-                        device=device)
+                        **_placed(device, mesh))
     if backend != "xla":
         fleet.spec = dataclasses.replace(fleet.spec, solver=dataclasses.replace(
             fleet.spec.solver, backend=backend))
-        fleet._tick_fn = make_fleet_tick(fleet.spec, device, peer_cfg=fleet._peer_cfg,
-                                         safety=True)
+        fleet._tick_fn = make_fleet_tick(fleet.spec, **_placed(device, mesh),
+                                         peer_cfg=fleet._peer_cfg, safety=True)
     drive = PeerDrive(n, wall_gap, wall_speed, tracked)
     fleet.set_paths(drive.paths)
     solver = fleet.spec.solver
@@ -4607,6 +4652,565 @@ def phase_serving_times(card, times, tick_p50):
         f"{tick_p50:.4f} ms (PERF.md so far: {FLAGSHIP_TICK_RANGE}) ({card})")
 
 
+# --- scale-out: the robot-sharded fleet, solver and runtime -----------------
+
+MESH_ROBOTS = 128  # the JAX north star's 100+ robots, the fleet width of phase 17
+MESH_SHARDS = 2  # shards of the fleet mesh, all on the one card
+MESH_TICKS = 10
+MESH_K_CALLS = 2
+MESH_TIMED = 20  # ticks per timer, the median kept
+MESH_K_TIMED = 5  # k = 8 calls per timer
+MESH_PLANNER_ROBOTS = 129  # 130 rows on 2 shards: one pad row
+SP_SHARDS = 4
+SP_SEED = 5
+MP_PROCESSES = 2
+MP_TICKS = 5
+MP_TIMEOUT = 300  # seconds per worker process
+RUNTIME_ROBOTS = 32
+RUNTIME_TICKS = 60
+MESH_WORKER = (
+    "import json, sys\n"
+    "import chip_smoke as cs\n"
+    "vars(cs).update({k: tuple(v) if isinstance(v, list) else v\n"
+    "                 for k, v in json.loads(sys.argv[1]).items()})\n"
+    "sys.exit(cs.mesh_worker(*sys.argv[2:]))\n"
+)
+
+
+def _counted(kernels, fn):
+    """(the kernels ``fn`` launched by wrapper calls, what it returned)."""
+    before = kernels.launch_counts()
+    out = fn()
+    return _launches_made(kernels, before), out
+
+
+def _outputs_equal(got, want, label):
+    """Two fleets' output dicts bit for bit (``np.array_equal``, and the
+    same sign of every zero)."""
+    assert got.keys() == want.keys(), label
+    for key in want:
+        assert np.array_equal(got[key], want[key]), f"{label}: {key} differs"
+        assert np.array_equal(np.signbit(got[key]), np.signbit(want[key])), (
+            f"{label}: {key} signs differ")
+
+
+def _tick_backend(fleet, backend, device, mesh):
+    """Make ``fleet``'s single tick (not only its k-tick loop) run
+    ``backend``."""
+    from kompass_core_tpu_torch.ops.fleet_solver import make_fleet_tick
+
+    fleet.spec = dataclasses.replace(fleet.spec, solver=dataclasses.replace(
+        fleet.spec.solver, backend=backend))
+    fleet._tick_fn = make_fleet_tick(fleet.spec, **_placed(device, mesh),
+                                     peer_cfg=fleet._peer_cfg,
+                                     safety=fleet._safety_cfgs is not None)
+
+
+def _mesh_pair(make, device, label, **kw):
+    """(the fleet over a fresh MESH_SHARDS-shard mesh of ``device``, the
+    same fleet on ``device``, the mesh, the drive), from ``make``."""
+    from kompass_core_tpu_torch.parallel import FleetMesh
+
+    mesh = FleetMesh([device] * MESH_SHARDS)
+    sharded, drive = make(device, mesh=mesh, **kw)
+    one, _ = make(device, **kw)
+    assert sharded._n == one._n == MESH_ROBOTS, label
+    assert sharded.spec == one.spec, label
+    return sharded, one, mesh, drive
+
+
+def _peer_pair(device, backend, predict=True, tracked=FLEET_TRACKED):
+    def make(dev, mesh=None):
+        return make_peer_fleet(dev, backend, predict=predict, robots=MESH_ROBOTS,
+                               tracked=tracked, mesh=mesh)
+    return _mesh_pair(make, device, f"peers {backend}")
+
+
+def _lane_pair(device, backend, tracked):
+    def make(dev, mesh=None):
+        fleet, lanes, circles = make_fleet(dev, tracked, backend, MESH_ROBOTS,
+                                           mesh=mesh)
+        _tick_backend(fleet, backend, dev, mesh)
+        return fleet, FleetDrive(lanes, circles, tracked)
+    return _mesh_pair(make, device, f"lanes {backend}")
+
+
+def _mesh_ticks(kernels, pair, ticks, expect, label, gathers_per_tick):
+    """``ticks`` closed-loop single ticks of a (mesh, one-device) pair on
+    the same inputs: the mesh launches MESH_SHARDS times the one device's
+    ``expect`` per tick, its outputs equal the one device's bit for bit,
+    and its gathers count ``gathers_per_tick`` per tick. Returns the mesh
+    launches."""
+    sharded, one, mesh, drive = pair
+    made_total = {}
+    for tick in range(ticks):
+        inputs = drive.inputs()
+        made_m, got = _counted(kernels, lambda: sharded.tick(*inputs[:4],
+                                                             tracked=inputs[4]))
+        made_1, want = _counted(kernels, lambda: one.tick(*inputs[:4],
+                                                          tracked=inputs[4]))
+        assert made_1 == expect, f"{label} tick {tick}: one device launched {made_1}"
+        assert made_m == {k: MESH_SHARDS * n for k, n in expect.items()}, (
+            f"{label} tick {tick}: the mesh launched {made_m}")
+        _outputs_equal(got, want, f"{label} tick {tick}")
+        _assert_finite(got, f"{label} tick {tick}")
+        assert mesh.collectives == {"all_gather": gathers_per_tick * (tick + 1),
+                                    "all_reduce": 0}, mesh.collectives
+        for k, n in made_m.items():
+            made_total[k] = made_total.get(k, 0) + n
+        drive.advance(want)
+    return made_total
+
+
+def _mesh_graph_calls(kernels, pair, key, label):
+    """MESH_K_CALLS k = 8 calls of a (mesh, one-device) pair without peers:
+    on the card each shard replays a graph of its own (the first call
+    captures it: 2k wrapper calls a shard, none after), equal to the
+    one-device graph bit for bit, with no collective. Returns the mesh's
+    launches, counted as ``_replay_calls`` counts them."""
+    sharded, one, mesh, drive = pair
+    counted = 0
+    for call in range(MESH_K_CALLS):
+        inputs = drive.inputs()
+        made, got = _counted(kernels, lambda: sharded.run_ticks_on_device(
+            TICKS_K, *inputs[:4], tracked=inputs[4]))
+        want = one.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
+        if sharded._graphed():
+            expect = {key: 2 * TICKS_K * MESH_SHARDS} if call == 0 else {}
+        else:  # the CPU rehearsal: eager
+            expect = {key: TICKS_K * MESH_SHARDS}
+        assert made == expect, f"{label} k-call {call}: wrapper calls {made}"
+        _outputs_equal(got, want, f"{label} k-call {call}")
+        counted += made.get(key, 0)
+        drive.advance_ticks(want, TICKS_K)
+    assert mesh.collectives == {"all_gather": 0, "all_reduce": 0}
+    if not sharded._graphed():
+        return {key: counted}
+    assert len(sharded.tick_graphs[TICKS_K]) == MESH_SHARDS, "one graph per shard"
+    return {key: counted + (MESH_K_CALLS - 1) * (counted // 2)}
+
+
+def phase_mesh_fleet(kernels, device):
+    """The 128-robot peer fleet (PeerDrive, peers with 8 ring points,
+    prediction, 8 tracked slots, the safety gate) on a 2-shard mesh
+    ``[cuda, cuda]`` beside the same fleet on ``cuda``, per backend
+    (``xla``: K3, ``pallas``: K7, ``pallas_vpu``: K8): MESH_TICKS ticks,
+    then MESH_K_CALLS calls of ``run_ticks_on_device(8)``; every output,
+    ``final_states`` included, equal to the one-device fleet's bit for
+    bit; the mesh launches twice the one-device count per tick (each
+    shard once) and 16 per k = 8 call, and gathers once per tick and 8
+    times per k = 8 call. Then one tick each of the peer fleet without
+    prediction or tracked slots (K1, one gather), the tracked fleet
+    without peers (K3) and the static ``pallas_vpu`` fleet (K6), those two
+    with no collective; the tracked fleet without peers then makes
+    MESH_K_CALLS k = 8 calls, each shard replaying its own graph
+    (``_mesh_graph_calls``). Returns the mesh's launches per kernel."""
+    import torch
+
+    launches = {}
+
+    def add(made):
+        for k, n in made.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for backend, key in PEER_FORMS:
+        pair = _peer_pair(device, backend)
+        sharded, one, mesh, drive = pair
+        add(_mesh_ticks(kernels, pair, MESH_TICKS, {key: 1}, f"mesh peers {backend}", 1))
+        for call in range(MESH_K_CALLS):
+            inputs = drive.inputs()
+            made_m, got = _counted(kernels, lambda: sharded.run_ticks_on_device(
+                TICKS_K, *inputs[:4], tracked=inputs[4]))
+            want = one.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
+            assert made_m == {key: MESH_SHARDS * TICKS_K}, (
+                f"{backend} k-call {call}: the mesh launched {made_m}")
+            _outputs_equal(got, want, f"mesh peers {backend} k-call {call}")
+            assert mesh.collectives["all_gather"] == MESH_TICKS + (call + 1) * TICKS_K
+            add(made_m)
+            drive.advance_ticks(want, TICKS_K)
+        assert drive.min_pair > 2 * PEER_RADIUS, f"{backend}: robots collided"
+        log(f"mesh peer fleet ({backend}, {key}): {MESH_ROBOTS} robots on "
+            f"{MESH_SHARDS} shards of {device}, {MESH_TICKS} ticks and "
+            f"{MESH_K_CALLS} k={TICKS_K} calls == the one-device fleet bit for bit; "
+            f"gathers {mesh.collectives}; {key} launches per tick {MESH_SHARDS} "
+            f"(one device 1); closest pair {drive.min_pair:.3f} m")
+        del pair, sharded, one
+    for label, pair, key, gathers in (
+            ("peers without prediction or tracked slots",
+             _peer_pair(device, "xla", predict=False, tracked=0), "K1", 1),
+            ("tracked, no peers", _lane_pair(device, "xla", FLEET_TRACKED), "K3", 0),
+            ("static pallas_vpu, no peers", _lane_pair(device, "pallas_vpu", 0), "K6", 0)):
+        add(_mesh_ticks(kernels, pair, 1, {key: 1}, f"mesh {label}", gathers))
+        log(f"mesh fleet, {label}: 1 tick == one device bit for bit, {key} x "
+            f"{MESH_SHARDS}, gathers {pair[2].collectives}")
+        if key == "K3":
+            made = _mesh_graph_calls(kernels, pair, key, f"mesh {label}")
+            add(made)
+            log(f"mesh fleet, {label}: {MESH_K_CALLS} k={TICKS_K} calls, a graph per "
+                f"shard ({pair[0]._graphed()}), == the one-device graph bit for bit, "
+                f"no collective; {key} launches {made}")
+        del pair
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _chunks(rows):
+    """``make_fleet_solver``'s dispatches for ``rows`` rows on one device."""
+    return -(-rows // SOLVER_CHUNK)
+
+
+def mesh_solver_bufs(spec, rows=None, seed=3):
+    """``rows`` (MESH_ROBOTS) BASELINE scenarios (robot i at x = 0.1 i)."""
+    rows = MESH_ROBOTS if rows is None else rows
+    rng = np.random.default_rng(seed)
+    return np.stack([baseline_scenario(spec, rng, i) for i in range(rows)])
+
+
+def phase_mesh_solver(kernels, device):
+    """``make_fleet_solver`` on 128 BASELINE scenarios over a 2-shard mesh
+    for backends ``xla``, ``pallas`` and ``pallas_v1``: each shard's 64
+    rows one chunk (K1 or K2 once, K4 twice, per shard), every row equal
+    to the one-device solver's bit for bit, no collective; a
+    ``FleetPlanner`` of 129 robots (130 rows: 65 a shard, two chunks each)
+    equal to the one device, its pad row not found; then
+    ``make_sample_parallel_solver`` over 4 shards on the flagship scenario,
+    the omega axis split as ``tests/test_fleet.py`` splits it: K1 once a
+    shard, three all-reduces, every shard's output the one-device
+    full-window solve's (found, winner, cost and trajectory bit for bit;
+    num_admissible counts the winning shard's samples), and the CPU port's
+    sample-parallel output by the card-against-CPU rule of phase 9.
+    Returns the mesh's launches per kernel."""
+    from kompass_core_tpu_torch.parallel import (
+        FleetMesh, FleetPlanner, make_fleet_solver, make_sample_parallel_solver,
+    )
+
+    expect = {"xla": {"K1": 1}, "pallas": {"K2": 1}, "pallas_v1": {"K4": 2}}
+    launches = {}
+
+    def add(made):
+        for k, n in made.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for backend in SOLVER_BACKENDS:
+        spec = baseline_spec(backend)
+        bufs = mesh_solver_bufs(spec)
+        mesh = FleetMesh([device] * MESH_SHARDS)
+        made_m, got = _counted(kernels, lambda: mesh.host_rows(
+            make_fleet_solver(spec, mesh=mesh)(bufs)))
+        made_1, want = _counted(kernels, lambda: make_fleet_solver(spec, device)(
+            bufs).cpu().numpy())
+        chunks = (MESH_SHARDS * _chunks(MESH_ROBOTS // MESH_SHARDS),
+                  _chunks(MESH_ROBOTS))
+        assert (made_m, made_1) == tuple(
+            {k: c * n for k, n in expect[backend].items()} for c in chunks), (
+            backend, made_m, made_1)
+        assert np.array_equal(got, want) and np.array_equal(np.signbit(got),
+                                                            np.signbit(want)), backend
+        assert mesh.collectives == {"all_gather": 0, "all_reduce": 0}
+        found = int((got[:, 0] > 0.5).sum())
+        assert found >= 0.9 * MESH_ROBOTS, f"{backend}: found {found}"
+        add(made_m)
+        log(f"mesh fleet solver ({backend}): {MESH_ROBOTS} scenarios on {MESH_SHARDS} "
+            f"shards == one device bit for bit, launches {made_m}, found {found}, "
+            f"no collective")
+    spec = baseline_spec("xla")
+    mesh = FleetMesh([device] * MESH_SHARDS)
+    planner = FleetPlanner(spec, MESH_PLANNER_ROBOTS, mesh=mesh)
+    assert planner.inputs.shape[0] == MESH_PLANNER_ROBOTS + 1
+    planner.inputs[:MESH_PLANNER_ROBOTS] = mesh_solver_bufs(spec, MESH_PLANNER_ROBOTS, 4)
+    made, got = _counted(kernels, planner.step)
+    assert made == {"K1": MESH_SHARDS * _chunks(len(planner.inputs) // MESH_SHARDS)}, made
+    add(made)
+    want = make_fleet_solver(spec, device)(planner.inputs).cpu().numpy()
+    assert np.array_equal(got, want[:MESH_PLANNER_ROBOTS])
+    assert want[MESH_PLANNER_ROBOTS, 0] == 0.0, "the pad row reported found"
+    log(f"mesh FleetPlanner: {MESH_PLANNER_ROBOTS} robots in {len(want)} rows on "
+        f"{MESH_SHARDS} shards (K1 {made['K1']}: chunks of {SOLVER_CHUNK} a shard) == one device; "
+        f"the pad row not found")
+
+    mesh = FleetMesh([device] * SP_SHARDS, axis_name="sp")
+    bufs = np.stack([baseline_scenario(spec, np.random.default_rng(SP_SEED), 0,
+                                       omega_shard=(c, SP_SHARDS))
+                     for c in range(SP_SHARDS)])
+    whole = baseline_scenario(spec, np.random.default_rng(SP_SEED), 0)
+    made, got = _counted(kernels, lambda: mesh.host_rows(
+        make_sample_parallel_solver(spec, mesh)(bufs)))
+    assert made == {"K1": SP_SHARDS}, made
+    add(made)
+    assert mesh.collectives == {"all_gather": 0, "all_reduce": 3}, mesh.collectives
+    assert (got == got[0]).all(), "the shards disagree on the winner"
+    from kompass_core_tpu_torch.ops.solver import make_packed_dwa_solver
+
+    ref = make_packed_dwa_solver(spec, device)(whole).cpu().numpy()
+    assert got[0, 0] == ref[0] == 1.0 and got[0, 2] == ref[2], "found / winner"
+    # num_admissible (column 3) counts the winning shard's samples alone
+    assert np.array_equal(np.delete(got[0], 3), np.delete(ref, 3)), "winner's output"
+    cpu_mesh = FleetMesh(["cpu"] * SP_SHARDS, axis_name="sp")
+    cpu = cpu_mesh.host_rows(make_sample_parallel_solver(spec, cpu_mesh)(bufs))
+    equal, n_ties = _rows_agree(got, cpu, "sample-parallel card vs CPU")
+    log(f"sample-parallel solve: the flagship's {spec.n_omega} omega samples over "
+        f"{SP_SHARDS} shards, K1 x {SP_SHARDS}, collectives {mesh.collectives}; "
+        f"winner {int(got[0, 2])} cost {got[0, 1]:.6f} == the one-device full window "
+        f"(found, winner, cost, trajectory bit for bit); against the CPU port's "
+        f"sample-parallel solve: {equal} of {SP_SHARDS} rows bit-equal, winner ties "
+        f"{n_ties}")
+    return launches
+
+
+def mesh_worker(device, rank, world, port, out_path):
+    """One process of ``phase_mesh_multiprocess``: joins the gloo group on
+    ``port``, builds a mesh of one shard on ``device`` (``world`` x 1 shards),
+    solves its half of the 128 scenarios and runs MP_TICKS ticks of the
+    128-robot peer fleet (the ``xla`` backend) on its own robots, and
+    writes its rows, launches and gathers to ``out_path``."""
+    import torch
+
+    from kompass_core_tpu_torch.ops import kernels
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+    from kompass_core_tpu_torch.parallel import (
+        build_fleet_mesh, initialize_multihost, make_fleet_solver,
+    )
+
+    rank, world, device = int(rank), int(world), torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    mesh = build_fleet_mesh([device])
+    assert (mesh.size, mesh.process_index) == (world, rank), mesh
+    spec = baseline_spec("xla")
+    bufs = mesh_solver_bufs(spec)
+    solved = mesh.host_rows(make_fleet_solver(spec, mesh=mesh)(
+        bufs[mesh.local_rows(len(bufs))]))
+    fleet, drive = make_peer_fleet(None, "xla", robots=MESH_ROBOTS, mesh=mesh)
+    mine = fleet.local_robots
+    ticks = []
+    for _ in range(MP_TICKS):
+        inputs = drive.inputs()
+        out = fleet.tick(*inputs[:4], tracked=inputs[4])
+        ticks.append(np.stack([out[k].astype(np.float32) for k in OUT_FIELDS], 1))
+        # the other process's robots: rows this process never feeds (each
+        # robot's state reaches the others through the gather)
+        whole = {k: np.zeros((MESH_ROBOTS,) + v.shape[1:], v.dtype)
+                 for k, v in out.items()}
+        for k, v in out.items():
+            whole[k][mine.start:mine.stop] = v
+        drive.advance(whole)
+    counts = kernels.launch_counts()
+    np.savez(out_path, solver=solved, ticks=np.stack(ticks),
+             robots=np.array([mine.start, mine.stop]),
+             launches=np.array([counts["K1"], counts["K3"]]),
+             collectives=np.array([mesh.collectives["all_gather"],
+                                   mesh.collectives["all_reduce"]]))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh_multiprocess(kernels, device):
+    """Two processes on the one card (``cuda:0`` each; NCCL refuses two
+    ranks on one GPU, so they join a gloo group on a free localhost port:
+    the gathered states go through the host), each a mesh of one shard
+    (``mesh_worker``): each solves its half of the 128 scenarios and runs
+    MP_TICKS ticks of the 128-robot peer fleet on its 64 robots. Their
+    rows equal this process's one-device solve and fleet bit for bit;
+    each made MP_TICKS gathers. A worker that fails or outlives
+    MP_TIMEOUT fails the phase (and both are killed). Returns (the wall
+    seconds, the workers' launches per kernel)."""
+    import socket
+
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+    from kompass_core_tpu_torch.parallel import make_fleet_solver
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # the sizes the workers build with (overridden when rehearsed)
+    sizes = json.dumps({k: globals()[k] for k in (
+        "MESH_ROBOTS", "MP_TICKS", "SAMPLES", "RAYS", "FLEET_SHAPE", "PEER_SHAPE",
+        "PEER_ROWS", "BASELINE_SHAPE", "SOLVER_CHUNK")})
+    worker_device = str(device) if device.type == "cpu" else "cuda:0"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MESH_WORKER, sizes, worker_device, str(r),
+             str(MP_PROCESSES), str(port), os.path.join(tmp, f"rows_{r}.npz")],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MP_PROCESSES)]
+        try:
+            spec = baseline_spec("xla")
+            want_solver = make_fleet_solver(spec, device)(mesh_solver_bufs(spec))
+            want_solver = want_solver.cpu().numpy()
+            one, drive = make_peer_fleet(device, "xla", robots=MESH_ROBOTS)
+            want_ticks = []
+            for _ in range(MP_TICKS):
+                inputs = drive.inputs()
+                out = one.tick(*inputs[:4], tracked=inputs[4])
+                want_ticks.append(np.stack([out[k].astype(np.float32)
+                                            for k in OUT_FIELDS], 1))
+                drive.advance(out)
+            want_ticks = np.stack(want_ticks)
+            logs = []
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+                except subprocess.TimeoutExpired as err:
+                    raise AssertionError(f"a mesh worker outlived {MP_TIMEOUT} s") from err
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"mesh worker {r} failed:\n{text[-3000:]}"
+        launches = {"K1": 0, "K3": 0}
+        for r in range(MP_PROCESSES):
+            data = np.load(os.path.join(tmp, f"rows_{r}.npz"))
+            lo, hi = (int(v) for v in data["robots"])
+            assert (lo, hi) == (r * MESH_ROBOTS // MP_PROCESSES,
+                                (r + 1) * MESH_ROBOTS // MP_PROCESSES)
+            assert np.array_equal(data["solver"], want_solver[lo:hi]), f"worker {r} solver"
+            assert np.array_equal(data["ticks"], want_ticks[:, lo:hi]), f"worker {r} ticks"
+            assert data["collectives"].tolist() == [MP_TICKS, 0], data["collectives"]
+            assert data["launches"].tolist() == [_chunks(hi - lo), MP_TICKS], (
+                data["launches"])
+            launches["K1"] += int(data["launches"][0])
+            launches["K3"] += int(data["launches"][1])
+    log(f"two processes (gloo, {MP_PROCESSES} x 1 shard on {device}): each one's "
+        f"{MESH_ROBOTS // MP_PROCESSES} solver rows and {MP_TICKS} peer-fleet ticks == "
+        f"this process's one-device results bit for bit, {MP_TICKS} gathers each; "
+        f"launches {launches}; wall {wall:.1f} s")
+    return wall, launches
+
+
+def phase_fleet_runtime(kernels, device):
+    """``FleetRuntime`` closed loop (``tests/test_fleet_runtime.py``): 32
+    Ackermann robots on straight 2.5 m paths over a 2-shard mesh
+    ``[cuda, cuda]``, up to RUNTIME_TICKS ticks: every robot reaches its
+    goal, no dispatch failed (``solver_failures == 0``: a kernel that
+    failed and was retried into a safe stop fails here), K1 once per
+    shard per solved tick, no collective. Returns (launches, the host ms
+    per tick: median)."""
+    from kompass_core_tpu_torch.control import DWAConfig, TrajectoryCostsWeights
+    from kompass_core_tpu_torch.datatypes import LaserScanData
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
+        RobotGeometry, RobotType,
+    )
+    from kompass_core_tpu_torch.parallel import FleetMesh, FleetRuntime
+
+    robots = [Robot(robot_type=RobotType.ACKERMANN,
+                    geometry_type=RobotGeometry.Type.CYLINDER,
+                    geometry_params=np.array([0.1, 0.4]))
+              for _ in range(RUNTIME_ROBOTS)]
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
+        omega_limits=AngularCtrlLimits(max_vel=4.0, max_acc=3.0, max_decel=3.0,
+                                       max_steer=np.pi),
+    )
+    config = DWAConfig(
+        max_linear_samples=4, max_angular_samples=4,
+        costs_weights=TrajectoryCostsWeights(
+            reference_path_distance_weight=3.0, goal_distance_weight=1.0,
+            smoothness_weight=0.0, jerk_weight=0.0, obstacles_distance_weight=0.0,
+        ),
+        prediction_horizon=10, control_horizon=2, control_time_step=DT,
+    )
+    mesh = FleetMesh([device] * MESH_SHARDS)
+    runtime = FleetRuntime(robots, limits, config, mesh=mesh)
+    paths = []
+    for i, robot in enumerate(robots):
+        x0 = 0.5 * i
+        robot.state.x, robot.state.y, robot.state.yaw = x0, 0.0, np.pi / 2
+        paths.append(np.array([[x0, 0.0], [x0, 2.5]]))
+    runtime.set_paths(paths)
+    scans = [LaserScanData()] * RUNTIME_ROBOTS
+    reached = np.zeros(RUNTIME_ROBOTS, bool)
+    host_ms, launches, solved = [], {}, 0
+    for tick in range(RUNTIME_TICKS):
+        made, results = _counted(kernels, lambda: runtime.tick(
+            [r.state for r in robots], scans))
+        host_ms.append(runtime.last_tick_seconds * 1e3)
+        if made:
+            assert made == {"K1": MESH_SHARDS}, f"runtime tick {tick}: {made}"
+            solved += 1
+        for k, n in made.items():
+            launches[k] = launches.get(k, 0) + n
+        for i, (robot, res) in enumerate(zip(robots, results)):
+            if res.get("reason") == "goal_reached":
+                reached[i] = True
+                continue
+            if res["found"]:
+                robot.set_control(velocity_x=res["vx"], velocity_y=res["vy"],
+                                  omega=res["omega"])
+                robot.get_state(dt=DT)
+        if reached.all():
+            break
+    assert runtime.solver_failures == 0, "a fleet dispatch failed"
+    assert reached.all(), f"only {int(reached.sum())}/{RUNTIME_ROBOTS} robots reached"
+    assert mesh.collectives == {"all_gather": 0, "all_reduce": 0}
+    ms = statistics.median(host_ms)
+    log(f"FleetRuntime: {RUNTIME_ROBOTS} robots on {MESH_SHARDS} shards of {device}, "
+        f"all reached in {tick + 1} ticks ({solved} solved: K1 x {MESH_SHARDS} each), "
+        f"solver_failures 0; host ms per tick median {ms:.3f} (min {min(host_ms):.3f}, "
+        f"max {max(host_ms):.3f})")
+    return launches, ms
+
+
+def phase_mesh_times(kernels, device, card, mp_wall, runtime_ms):
+    """Times (none a gate): the 128-robot peer fleet's tick on the 2-shard
+    mesh against the one device (host clock with syncs, median of
+    MESH_TIMED), its k = 8 call per tick eager on the mesh against the one
+    device's graph replay (median of MESH_K_TIMED), the same for the
+    tracked fleet without peers (a graph per shard), one gather of the
+    [64, 7] blocks of two shards alone and its share of the mesh tick,
+    the two-process phase's wall seconds and FleetRuntime's host ms per
+    tick."""
+    import torch
+
+    sharded, one, mesh, drive = _peer_pair(device, "xla")
+    inputs = drive.inputs()
+    tick_mesh = _median_ms(lambda: sharded.tick(*inputs[:4], tracked=inputs[4]),
+                           MESH_TIMED)
+    tick_one = _median_ms(lambda: one.tick(*inputs[:4], tracked=inputs[4]), MESH_TIMED)
+    one.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])  # capture
+    k_mesh = _median_ms(lambda: sharded.run_ticks_on_device(
+        TICKS_K, *inputs[:4], tracked=inputs[4]), MESH_K_TIMED)
+    k_one = _median_ms(lambda: one.run_ticks_on_device(
+        TICKS_K, *inputs[:4], tracked=inputs[4]), MESH_K_TIMED)
+    blocks = [torch.zeros(MESH_ROBOTS // MESH_SHARDS, 7, device=device)
+              for _ in range(MESH_SHARDS)]
+    gather = _median_ms(lambda: mesh.all_gather_rows(blocks), MESH_TIMED)
+    del sharded, one
+    lane_mesh, lane_one, _, lanes = _lane_pair(device, "xla", FLEET_TRACKED)
+    lane_in = lanes.inputs()
+    lane_k = []
+    for fleet in (lane_mesh, lane_one):
+        fleet.run_ticks_on_device(TICKS_K, *lane_in[:4], tracked=lane_in[4])  # capture
+        lane_k.append(_median_ms(lambda: fleet.run_ticks_on_device(
+            TICKS_K, *lane_in[:4], tracked=lane_in[4]), MESH_K_TIMED)[0] / TICKS_K)
+    times = {"tick_mesh_ms": tick_mesh[0], "tick_one_ms": tick_one[0],
+             "k8_mesh_ms_per_tick": k_mesh[0] / TICKS_K,
+             "k8_one_replay_ms_per_tick": k_one[0] / TICKS_K,
+             "k8_tracked_mesh_replay_ms_per_tick": lane_k[0],
+             "k8_tracked_one_replay_ms_per_tick": lane_k[1],
+             "gather_ms": gather[0], "gather_share": gather[0] / tick_mesh[0],
+             "two_process_s": mp_wall, "runtime_host_ms": runtime_ms}
+    log(f"mesh times ({card}): peer fleet tick, {MESH_ROBOTS} robots: mesh "
+        f"{tick_mesh[0]:.3f} ms (min {tick_mesh[1]:.3f}) vs one device "
+        f"{tick_one[0]:.3f} ms (min {tick_one[1]:.3f}); k={TICKS_K} per tick: mesh "
+        f"eager {k_mesh[0] / TICKS_K:.3f} ms vs one-device replay "
+        f"{k_one[0] / TICKS_K:.3f} ms; the tracked fleet without peers, k={TICKS_K} "
+        f"per tick: a graph per shard {lane_k[0]:.3f} ms vs one device {lane_k[1]:.3f} "
+        f"ms; gather of {MESH_SHARDS} x "
+        f"[{MESH_ROBOTS // MESH_SHARDS}, 7] {gather[0]:.4f} ms, "
+        f"{100 * times['gather_share']:.2f}% of the mesh tick; two-process phase "
+        f"{mp_wall:.1f} s wall; FleetRuntime {runtime_ms:.3f} host ms per tick")
+    log("mesh times json: " + json.dumps(times))
+    torch.cuda.empty_cache()
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -4711,6 +5315,22 @@ def main() -> int:
     assert all(served.get(key) for key in ("K1", "K3", "K6", "K7", "K8")), served
     phase_serving_times(card, serve_times, tick_p50)
     log(f"serving phases: {time.perf_counter() - t_serve:.1f} s")
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    t_mesh = time.perf_counter()
+    mesh = phase_mesh_fleet(kernels, device)
+    for key, n in phase_mesh_solver(kernels, device).items():
+        mesh[key] = mesh.get(key, 0) + n
+    mp_wall, mp_launches = phase_mesh_multiprocess(kernels, device)
+    runtime_launches, runtime_ms = phase_fleet_runtime(kernels, device)
+    for key, n in (*mp_launches.items(), *runtime_launches.items()):
+        mesh[key] = mesh.get(key, 0) + n
+    log(f"mesh path launches: {mesh} (the mesh calls and the workers' own; every "
+        f"wrapper launch in this process, the one-device comparisons included: "
+        f"{ {k: c for k, c in kernels.launch_counts().items() if c} })")
+    assert all(mesh.get(key) for key in ("K1", "K2", "K3", "K4", "K6", "K7", "K8")), mesh
+    phase_mesh_times(kernels, device, card, mp_wall, runtime_ms)
+    log(f"mesh phases: {time.perf_counter() - t_mesh:.1f} s")
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -4728,29 +5348,32 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
-            k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"],
+            k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"]
+            + mesh["K1"],
             max(k1_err, peer_errs["K1"]), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
-            k2_launches, k2_err, *static_times["K2"]),
+            k2_launches + mesh["K2"], k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
-            k3_launches + peer_launches["K3"] + box_launches["K3"] + served["K3"],
+            k3_launches + peer_launches["K3"] + box_launches["K3"] + served["K3"]
+            + mesh["K3"],
             max(k3_err, peer_errs["K3"]), *k3_times),
         row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES, split_launches["K3s"],
             k3s_err, *k3s_times),
-        row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES, k4_launches,
-            k4_err, *static_times["K4"]),
+        row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES,
+            k4_launches + mesh["K4"], k4_err, *static_times["K4"]),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
             *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
-            form_launches["K6"] + served["K6"], max(form_errs["K6"], peer_errs["K6"]),
+            form_launches["K6"] + served["K6"] + mesh["K6"],
+            max(form_errs["K6"], peer_errs["K6"]),
             *form_times["K6"]),
         row("fused_min_dist_sq_moving_expanded", KERNEL_SOURCE,
             MOVING_EXPANDED_REPLACES,
-            form_launches["K7"] + peer_launches["K7"] + served["K7"],
+            form_launches["K7"] + peer_launches["K7"] + served["K7"] + mesh["K7"],
             max(form_errs["K7"], peer_errs["K7"]), *form_times["K7"]),
         row("fused_min_dist_sq_moving_broadcast", KERNEL_SOURCE,
             MOVING_BROADCAST_REPLACES,
-            form_launches["K8"] + peer_launches["K8"] + served["K8"],
+            form_launches["K8"] + peer_launches["K8"] + served["K8"] + mesh["K8"],
             max(form_errs["K8"], peer_errs["K8"]), *form_times["K8"]),
         row("box_min_dist_sq", K9_SOURCE, K9_REPLACES,
             box_dwa_k9 + box_launches["K9"], k9_err, *k9_times),

@@ -36,8 +36,15 @@ movers skip the scan bucket and run as the solver's narrow ``mover4``
 sweep (K3s). A fleet with any BOX robot runs ``SolverSpec.dynamic_box``:
 every robot's admissibility on its oriented box (K9), a circle robot as
 a (0, 0) box with its radius in its margin (``FleetConfig.collision_box2``).
-The mesh is not ported yet (ROADMAP item 5g; it raises
-``NotImplementedError`` naming it).
+
+Over a ``FleetMesh`` (``parallel/multihost.py``) the tick and the k-tick
+loop run this body per shard, on the shard's rows and device. Every
+argument is then a list with one value per local shard
+(``FleetMesh.split`` and ``place`` cut them from the fleet's rows). With
+peers each tick gathers the fleet's [N, 7] state and velocity block with
+exactly one ``FleetMesh.all_gather_rows``; every shard builds the whole
+fleet's peer discs from it and masks its own robots' blocks by their
+global row ids. Without peers the shards never communicate.
 """
 
 import dataclasses
@@ -58,13 +65,6 @@ from .solver import (
 )
 
 _PAD = 1e8
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to kompass_core_tpu_torch yet "
-        f"(ROADMAP queue 1, item 1: scale-out, item {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -666,14 +666,22 @@ def _split_tick_inputs(fleet_spec: FleetSpec, inputs, safety: bool = False,
     return states, vels, ranges, tracked
 
 
-def _gather_peer_state(mesh, sv):
-    """The peer-state layout of both peer programs: the [N, 7]
-    state + velocity block -> ([N, 4] states, [N, 3] vels, N). Off the
-    mesh it is a split (views); the mesh form, one all-gather per tick,
-    is not ported (ROADMAP item 5g)."""
-    if mesh is not None:
-        _not_ported("the peer state's all-gather on a mesh", "5g")
-    return sv[:, 0:4], sv[:, 4:7], sv.shape[0]
+def _gather_peer_state(mesh, sv_loc):
+    """The peer-state layout of both peer programs. One device: the [N, 7]
+    state + velocity block -> ([N, 4] states, [N, 3] vels, N, row ids
+    0..N-1), a split into views. A mesh: one [n_loc, 7] block per local
+    shard -> per shard (the fleet's [N_glob, 4] states and [N_glob, 3]
+    vels on the shard's device, N_glob, the shard's global row ids), from
+    ONE ``all_gather_rows``. Row ids are host ranges: the peer tables are
+    built from them once (``_peer_model``)."""
+    if mesh is None:
+        n = sv_loc.shape[0]
+        return sv_loc[:, 0:4], sv_loc[:, 4:7], n, np.arange(n)
+    n_loc = sv_loc[0].shape[0]
+    gathered = mesh.all_gather_rows(sv_loc)
+    n_glob = n_loc * mesh.size
+    return [(sv[:, 0:4], sv[:, 4:7], n_glob, mesh.shard_index(d) * n_loc + np.arange(n_loc))
+            for d, sv in enumerate(gathered)]
 
 
 def _peer_points_builder(peer_cfg, n_rows: int, device):
@@ -712,42 +720,81 @@ def _peer_points_builder(peer_cfg, n_rows: int, device):
     return build, build_vel, block, max(n_real - 1, 0) * block
 
 
-def _peer_model(spec: SolverSpec, peer_cfg, device):
-    """fn(sv [N, 7] state + velocity block) -> ``_fleet_step``'s
-    ``peers``: the fleet's peer points as every robot's own rows
-    [N, N * block, 2], its own block masked to the pad, with their
-    velocities when the fleet predicts peers. The constant
-    tensors (copied from the host) are built here for N = len(radii), the
-    fleet's rows, so a tick neither waits for a copy nor breaks a graph
-    capture; another N builds its own on its first call."""
+def _peer_tables(peer_cfg, n_glob: int, row_ids, device):
+    """The peer set's constants for the robots ``row_ids`` (host ints) of
+    an ``n_glob``-row fleet on ``device``: the point builders, the real
+    peer point count and the [n, n_glob * block, 1] mask of each robot's
+    own block."""
+    build, build_vel, block, count = _peer_points_builder(peer_cfg, n_glob, device)
+    slot = torch.arange(n_glob * block, device=device) // block
+    rows = torch.as_tensor(np.asarray(row_ids, np.int64), device=device)
+    own = slot[None, :, None] == rows[:, None, None]
+    return build, build_vel, count, own
+
+
+def _peer_model(spec: SolverSpec, peer_cfg, device, mesh=None):
+    """fn(sv) -> ``_fleet_step``'s ``peers``: the fleet's peer points as
+    every robot's own rows [n, N * block, 2], its own block masked to the
+    pad, with their velocities when the fleet predicts peers. One device:
+    sv is the [N, 7] state + velocity block. A mesh: sv is one [n_loc, 7]
+    block per local shard, gathered once (``_gather_peer_state``), and the
+    result one ``peers`` per shard. The constant tensors (copied from the
+    host) are built here for N = len(radii), the fleet's rows, so a tick
+    neither waits for a copy nor breaks a graph capture; on one device
+    another N builds its own on its first call."""
     predict = bool(peer_cfg.get("predict") and spec.moving_obstacles)
-    built = {}
 
-    def constants(n):
-        build, build_vel, block, count = _peer_points_builder(peer_cfg, n, device)
-        slot = torch.arange(n * block, device=device) // block
-        own = slot[None, :, None] == torch.arange(n, device=device)[:, None, None]
-        built[n] = build, build_vel, count, own
-
-    constants(len(peer_cfg["radii"]))
-
-    def peers(sv):
-        s_g, v_g, n = _gather_peer_state(None, sv)
-        if n not in built:
-            constants(n)
-        build, build_vel, count, own = built[n]
-        # every robot's rows [N, N * block, 2]: the fleet's points, its
-        # own block at the pad (and with zero velocity)
+    def rows_of(tables, s_g, v_g):
+        build, build_vel, count, own = tables
         rows = torch.where(own, _PAD, build(s_g))
         vel = torch.where(own, 0.0, build_vel(s_g, v_g)) if predict else None
         return rows, vel, count
 
+    n_fleet = len(peer_cfg["radii"])
+    if mesh is not None:
+        tables = [_peer_tables(peer_cfg, n_fleet, mesh.row_ids(d, n_fleet), dev)
+                  for d, dev in enumerate(mesh.devices)]
+
+        def sharded_peers(sv_loc):
+            return [rows_of(t, s_g, v_g) for t, (s_g, v_g, _, _) in
+                    zip(tables, _gather_peer_state(mesh, sv_loc))]
+
+        return sharded_peers
+    built = {n_fleet: _peer_tables(peer_cfg, n_fleet, np.arange(n_fleet), device)}
+
+    def peers(sv):
+        s_g, v_g, n, row_ids = _gather_peer_state(None, sv)
+        if n not in built:
+            built[n] = _peer_tables(peer_cfg, n, row_ids, device)
+        return rows_of(built[n], s_g, v_g)
+
     return peers
 
 
-def make_fleet_tick(fleet_spec: FleetSpec, device, mesh=None, peer_cfg=None,
+def _shard_inputs(mesh, inputs):
+    """The mesh programs' ``inputs``, one per local shard, as float32
+    tensors on the shards' devices (a copy where one is on the host)."""
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x, dev in zip(inputs, mesh.devices)]
+
+
+def _per_shard(mesh, safety_arg):
+    """The mesh programs' optional safety argument, one per local shard."""
+    return [None] * len(mesh.devices) if safety_arg is None else list(safety_arg)
+
+
+def check_target(device, mesh, what: str) -> None:
+    """Every fleet entry point runs on an explicit ``device`` or over a
+    ``mesh``: one of them, never both."""
+    if device is None and mesh is None:
+        raise TypeError(f"{what} needs a device or a mesh")
+    if device is not None and mesh is not None:
+        raise ValueError(f"{what} takes a device or a mesh, not both")
+
+
+def make_fleet_tick(fleet_spec: FleetSpec, device=None, mesh=None, peer_cfg=None,
                     safety: bool = False):
-    """The fleet tick on ``device``:
+    """The fleet tick on ``device`` or over ``mesh`` (exactly one):
     (paths, cfg, carry, angles [N, R], inputs [N, 7 + R (+ 4M)]
     [, safety: FleetSafety, when built with safety=True]) ->
     (carry', outputs [N, len(OUT_FIELDS)]), every tensor on ``device``.
@@ -764,35 +811,53 @@ def make_fleet_tick(fleet_spec: FleetSpec, device, mesh=None, peer_cfg=None,
     within the rollout). Each robot sees every other robot as a center
     point and ``ring`` points on its circle, from this tick's states: the
     sweep grows by N * (ring + 1) rows per robot. ``safety``: the
-    emergency-stop gate (``FleetSafety``). The mesh form is not ported
-    (ROADMAP item 5g)."""
-    if mesh is not None:
-        _not_ported("make_fleet_tick(mesh=...)", "5g")
+    emergency-stop gate (``FleetSafety``).
+
+    Over a mesh every argument is a list of one value per local shard, N
+    in ``peer_cfg`` the global padded count, and so is the result (one
+    carry and one output per shard). With ``peer_cfg`` the tick makes exactly one
+    ``all_gather_rows`` of the shards' [n_loc, 7] blocks; without, none."""
+    check_target(device, mesh, "make_fleet_tick")
     _check_tracked_spec(fleet_spec)
     _check_peer_cfg(fleet_spec, peer_cfg)
     spec = fleet_spec.solver
-    device = torch.device(device)
-    peers = None if peer_cfg is None else _peer_model(spec, peer_cfg, device)
+    device = None if device is None else torch.device(device)
+    peers = None if peer_cfg is None else _peer_model(spec, peer_cfg, device, mesh)
 
-    def tick(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
-             inputs, safety_arg=None):
-        inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
-        states, vels, ranges, tracked = _split_tick_inputs(
-            fleet_spec, inputs, safety, safety_arg, cfg)
+    def step(paths, cfg, carry, angles, split, safety_arg, peer_set):
+        states, vels, ranges, tracked = split
         return _fleet_step(
             spec, paths, cfg, carry, states, vels, ranges, angles,
-            spec.seg_size, tracked,
-            peers=None if peers is None else peers(inputs[:, 0:7]),
+            spec.seg_size, tracked, peers=peer_set,
             safety=safety_arg if safety else None,
             split_movers=fleet_spec.split_mover_sweep,
         )
 
-    return tick
+    def tick(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
+             inputs, safety_arg=None):
+        inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
+        split = _split_tick_inputs(fleet_spec, inputs, safety, safety_arg, cfg)
+        return step(paths, cfg, carry, angles, split, safety_arg,
+                    None if peers is None else peers(inputs[:, 0:7]))
+
+    def mesh_tick(paths, cfg, carry, angles, inputs, safety_arg=None):
+        parts = _shard_inputs(mesh, inputs)
+        safety_args = _per_shard(mesh, safety_arg)
+        splits = [_split_tick_inputs(fleet_spec, x, safety, s, c)
+                  for x, s, c in zip(parts, safety_args, cfg)]
+        peer_sets = (peers([x[:, 0:7] for x in parts]) if peers is not None
+                     else [None] * len(parts))
+        results = [step(*args) for args in zip(paths, cfg, carry, angles, splits,
+                                               safety_args, peer_sets)]
+        return [r[0] for r in results], [r[1] for r in results]
+
+    return tick if mesh is None else mesh_tick
 
 
-def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
+def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device=None,
                                mesh=None, peer_cfg=None, safety: bool = False):
-    """K carry-chained control ticks of every robot on ``device``.
+    """K carry-chained control ticks of every robot on ``device`` or over
+    ``mesh`` (exactly one).
 
     Returns ``(paths, cfg, carry, angles [N, R], inputs [N, 7 + R (+ 4M)]
     [, safety]) -> (carry', outs [N, k, len(OUT_FIELDS)], final_states
@@ -816,55 +881,83 @@ def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device,
     Nothing in it waits for the device or builds a tensor from host
     data after its first call, so the loop can be captured as one CUDA
     graph (``DeviceFleet.run_ticks_on_device``); given host ``inputs`` it
-    copies them to the device first. The mesh form is not ported (ROADMAP
-    item 5g)."""
-    if mesh is not None:
-        _not_ported("make_fleet_ticks_on_device(mesh=...)", "5g")
+    copies them to the device first. Over a mesh the arguments and
+    results are per shard as in ``make_fleet_tick``; with peers every
+    tick gathers the shards' live carried state once (k gathers per
+    call), so peers on other shards move as they do on one device."""
+    check_target(device, mesh, "make_fleet_ticks_on_device")
     _check_tracked_spec(fleet_spec)
     _check_peer_cfg(fleet_spec, peer_cfg)
     if int(k) < 1:
         raise ValueError(f"the k-tick loop needs k >= 1 ticks, got {k}")
     k = int(k)
     spec = fleet_spec.solver
-    device = torch.device(device)
-    peers = None if peer_cfg is None else _peer_model(spec, peer_cfg, device)
+    device = None if device is None else torch.device(device)
+    peers = None if peer_cfg is None else _peer_model(spec, peer_cfg, device, mesh)
 
-    def ticks(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
-              inputs, safety_arg=None):
-        inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
+    def begin(cfg, angles, inputs, safety_arg):
+        """One shard's loop state at tick 0: (states, vels, ranges,
+        tracked, the frozen world obstacles, dt)."""
         states, vels, ranges, tracked = _split_tick_inputs(
             fleet_spec, inputs, safety, safety_arg, cfg)
         obs_world, _ = _scan_to_world_obs(
             spec, ranges, angles, cfg.sensor_pose, states[:, 0], states[:, 1],
             states[:, 2],
         )
-        dt = cfg.params12[:, 0]
+        return states, vels, ranges, tracked, obs_world, cfg.params12[:, 0]
+
+    def advance(i, paths, cfg, carry, angles, safety_arg, loop, peer_set):
+        """Tick i of one shard: (carry', out, the next loop state)."""
+        states, vels, ranges, tracked, obs_world, dt = loop
+        trk = None
+        if tracked is not None:
+            shift = tracked[:, :, 2:4] * (float(i) * dt)[:, None, None]
+            pos = torch.where(tracked[:, :, 0:1] < 1e7,
+                              tracked[:, :, 0:2] + shift, tracked[:, :, 0:2])
+            trk = torch.cat([pos, tracked[:, :, 2:4]], dim=-1)
+        carry, out = _fleet_step(
+            spec, paths, cfg, carry, states, vels, ranges, angles,
+            spec.seg_size, trk, obs_world=obs_world, peers=peer_set,
+            safety=safety_arg if safety else None,
+            split_movers=fleet_spec.split_mover_sweep,
+        )
+        vx, vy, om = out[:, 2], out[:, 3], out[:, 4]
+        cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])
+        states = torch.stack([
+            states[:, 0] + dt * (vx * cy - vy * sy),
+            states[:, 1] + dt * (vx * sy + vy * cy),
+            states[:, 2] + dt * om,
+            _sqrt(vx * vx + vy * vy),
+        ], dim=-1)
+        return carry, out, (states, out[:, 2:5], ranges, tracked, obs_world, dt)
+
+    def ticks(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
+              inputs, safety_arg=None):
+        inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
+        loop = begin(cfg, angles, inputs, safety_arg)
         outs = []
         for i in range(k):
-            trk = None
-            if tracked is not None:
-                shift = tracked[:, :, 2:4] * (float(i) * dt)[:, None, None]
-                pos = torch.where(tracked[:, :, 0:1] < 1e7,
-                                  tracked[:, :, 0:2] + shift, tracked[:, :, 0:2])
-                trk = torch.cat([pos, tracked[:, :, 2:4]], dim=-1)
-            carry, out = _fleet_step(
-                spec, paths, cfg, carry, states, vels, ranges, angles,
-                spec.seg_size, trk, obs_world=obs_world,
-                peers=(None if peers is None
-                       else peers(torch.cat([states, vels], dim=1))),
-                safety=safety_arg if safety else None,
-                split_movers=fleet_spec.split_mover_sweep,
-            )
-            vx, vy, om = out[:, 2], out[:, 3], out[:, 4]
-            cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])
-            states = torch.stack([
-                states[:, 0] + dt * (vx * cy - vy * sy),
-                states[:, 1] + dt * (vx * sy + vy * cy),
-                states[:, 2] + dt * om,
-                _sqrt(vx * vx + vy * vy),
-            ], dim=-1)
-            vels = out[:, 2:5]
+            peer_set = (None if peers is None
+                        else peers(torch.cat([loop[0], loop[1]], dim=1)))
+            carry, out, loop = advance(i, paths, cfg, carry, angles, safety_arg,
+                                       loop, peer_set)
             outs.append(out)
-        return carry, torch.stack(outs, dim=1), states
+        return carry, torch.stack(outs, dim=1), loop[0]
 
-    return ticks
+    def mesh_ticks(paths, cfg, carry, angles, inputs, safety_arg=None):
+        parts = _shard_inputs(mesh, inputs)
+        safety_args = _per_shard(mesh, safety_arg)
+        loops = [begin(*args) for args in zip(cfg, angles, parts, safety_args)]
+        carry = list(carry)
+        outs = [[] for _ in parts]
+        for i in range(k):
+            peer_sets = (peers([torch.cat([lp[0], lp[1]], dim=1) for lp in loops])
+                         if peers is not None else [None] * len(parts))
+            for d in range(len(parts)):
+                carry[d], out, loops[d] = advance(
+                    i, paths[d], cfg[d], carry[d], angles[d], safety_args[d],
+                    loops[d], peer_sets[d])
+                outs[d].append(out)
+        return carry, [torch.stack(o, dim=1) for o in outs], [lp[0] for lp in loops]
+
+    return ticks if mesh is None else mesh_ticks

@@ -7,8 +7,9 @@ input matrix to the device, runs ``ops/fleet_solver`` over the whole
 robot axis at once, and copies one [N, 10] output matrix back.
 
 The robot count is padded by the JAX package's rule (a multiple of the
-dispatch chunk above it), so the two packages' snapshots have the same
-``n`` and load into each other; only the JAX chunk loop is gone.
+dispatch chunk above it; under a mesh a multiple of the mesh size, with
+no chunk), so the two packages' snapshots have the same ``n`` and load
+into each other; only the JAX chunk loop is gone.
 
 ``run_ticks_on_device`` runs k carry-chained ticks per call
 (``ops/fleet_solver.py::make_fleet_ticks_on_device``). On a CUDA device
@@ -26,8 +27,16 @@ of the rays alone. A fleet with any BOX robot decides every robot's
 admissibility on its oriented box (K9), a circle robot as a (0, 0) box
 with its radius in its margin.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the mesh.
+Over a ``FleetMesh`` (``parallel/multihost.py``) each shard's slice of
+the path, config, carry, angle and safety tables is placed on its device
+once; a tick copies each shard's input rows to its device once, runs the
+fleet tick per shard (``ops/fleet_solver.py``; one state all-gather per
+tick with peers, none without) and reads the outputs back in fleet row
+order. Under a process group every process passes the whole fleet's
+inputs and gets back its own robots' rows (``local_robots``). Without
+peers the mesh's k-tick loop is row-local: on CUDA devices each shard
+captures and replays the one-device loop's graph on its rows. With
+peers it gathers the shards' live states every tick and runs eagerly.
 """
 
 import dataclasses
@@ -50,8 +59,8 @@ from ..ops.fleet_solver import (
     FleetPaths,
     FleetSafety,
     FleetSpec,
-    _not_ported,
     build_fleet_safety,
+    check_target,
     make_fleet_tick,
     make_fleet_ticks_on_device,
 )
@@ -118,18 +127,19 @@ class DeviceFleet:
         peer_prediction: bool = False,  # peers advect within the rollout
         split_mover_sweep: bool = False,
         *,
-        device,
+        device=None,
     ):
-        if mesh is not None:
-            _not_ported("DeviceFleet(mesh=...)", "5g")
-        self._device = torch.device(device)
+        check_target(device, mesh, "DeviceFleet")
+        self._device = None if device is None else torch.device(device)
+        self.mesh = mesh
         self.num_robots = len(robots)
         self.config = config
-        self._n = self.num_robots
         # the JAX package pads the robot axis to whole 64-row dispatch
-        # chunks above 64 robots; the same padded n keeps the two
-        # packages' snapshots interchangeable (there is no chunk loop here)
-        if dispatch_chunk and self._n > dispatch_chunk:
+        # chunks above 64 robots, and under a mesh to a multiple of the
+        # mesh size alone; the same padded n keeps the two packages'
+        # snapshots interchangeable (there is no chunk loop here)
+        self._n = _round_up(self.num_robots, mesh.size if mesh is not None else 1)
+        if mesh is None and dispatch_chunk and self._n > dispatch_chunk:
             self._n = _round_up(self._n, int(dispatch_chunk))
 
         # --- per-robot limits / kinematics ---
@@ -246,11 +256,11 @@ class DeviceFleet:
                 for r in robots
             ]
         self._tick_fn = make_fleet_tick(
-            self.spec, self._device, peer_cfg=self._peer_cfg,
+            self.spec, self._device, mesh=mesh, peer_cfg=self._peer_cfg,
             safety=self._safety_cfgs is not None,
         )
         self._ticks_fns = {}  # k -> the eager k-tick loop
-        self.tick_graphs = {}  # k -> TickGraph (CUDA devices)
+        self.tick_graphs = {}  # k -> TickGraph (a list of one per shard on a mesh)
         self._scan_rays = scan_rays
 
         # per-robot config arrays
@@ -295,26 +305,26 @@ class DeviceFleet:
             sensor[: len(sp)] = sp
         self._sensor_host = sensor.copy()  # the zone presets' sensor poses
 
-        def full(value, dtype=torch.float32):
-            return torch.full((N,), value, dtype=dtype, device=self._device)
+        def full(value, dtype=np.float32):
+            return np.full(N, value, dtype)
 
-        self._cfg = FleetConfig(
-            params12=self._put(params),
-            limits9=self._put(limits_rows),
-            sensor_pose=self._put(sensor),
-            rotate_in_place=self._put(rotate),
+        self._cfg = self._put(FleetConfig(
+            params12=params,
+            limits9=limits_rows,
+            sensor_pose=sensor,
+            rotate_in_place=rotate,
             goal_dist_tol=full(config.goal_dist_tolerance),
             goal_ori_tol=full(config.goal_orientation_tolerance),
             losing_goal_dist=full(config.loosing_goal_distance),
             interp_dist=full(interp),
             base_horizon_s=full(base_h),
             curvature_tol=full(config.curvature_horizon_tolerance),
-            vx_max=self._put(vx_max_rows),
+            vx_max=vx_max_rows,
             max_segment_size=full(
-                int(config.path_segment_length / interp) + 1, torch.int32
+                int(config.path_segment_length / interp) + 1, np.int32
             ),
-            collision_box2=self._put(box2),
-        )
+            collision_box2=box2,
+        ))
         self._paths: Optional[FleetPaths] = None
         self._carry: Optional[FleetCarry] = None
         self._angles = None  # device-resident per-robot scan angles
@@ -327,13 +337,46 @@ class DeviceFleet:
         self.last_tick_seconds = 0.0
 
     @property
-    def device(self) -> torch.device:
+    def device(self) -> Optional[torch.device]:
+        """The fleet's device (None for a mesh fleet: ``mesh.devices``)."""
         return self._device
 
-    def _put(self, array) -> torch.Tensor:
-        """A host array as a tensor of its own on the fleet's device (a
-        copy: later in-place row updates never reach the caller's array)."""
-        return torch.tensor(np.asarray(array), device=self._device)
+    @property
+    def local_robots(self) -> range:
+        """The robots whose rows this process holds and whose outputs
+        ``tick`` and ``run_ticks_on_device`` return (every robot but under
+        a process group)."""
+        if self.mesh is None:
+            return range(self.num_robots)
+        rows = self.mesh.local_rows(self._n)
+        return range(min(rows.start, self.num_robots),
+                     min(rows.stop, self.num_robots))
+
+    def _put(self, value):
+        """The whole fleet's rows (an array, a CPU tensor or a NamedTuple of
+        them) as tensors of their own on the fleet's device (a copy: later
+        in-place row updates never reach the caller's array); under a mesh
+        this process's rows, one value per local shard on its device."""
+        if self.mesh is not None:
+            return self.mesh.place(value)
+        if isinstance(value, tuple) and hasattr(value, "_fields"):
+            return type(value)(*(None if a is None else self._put(a) for a in value))
+        if isinstance(value, torch.Tensor):
+            return value.to(self._device, copy=True)
+        return torch.tensor(np.asarray(value), device=self._device)
+
+    def _host(self, value) -> np.ndarray:
+        """A placed tensor's rows (this process's), on the host."""
+        if self.mesh is not None:
+            return self.mesh.host_rows(value)
+        return value.cpu().numpy()
+
+    def _fields(self, tree):
+        """A placed NamedTuple's fields as host arrays, in field order."""
+        if self.mesh is None:
+            return [self._host(t) for t in tree]
+        return [self._host([shard[i] for shard in tree])
+                for i in range(len(tree[0]))]
 
     def set_scan_angles(self, angles: np.ndarray):
         """Upload the (usually static) scan angle grid once: [R] for every
@@ -366,8 +409,8 @@ class DeviceFleet:
                     slowdown_distance=c.slowdown_distance,
                     angles=np.asarray(ang[i], np.float64),
                 ))
-            self._safety = build_fleet_safety(specs, self._n, self._scan_rays,
-                                              self._device)
+            self._safety = self._put(build_fleet_safety(
+                specs, self._n, self._scan_rays, "cpu"))
 
     # ------------------------------------------------------------------
 
@@ -446,32 +489,40 @@ class DeviceFleet:
         for i, pts in enumerate(paths):
             (x[i], y[i], arc[i], curv[i], n_points[i], seg_starts[i],
              n_segs[i], total[i]) = self._path_row(pts, i)
-        self._paths = FleetPaths(*(
-            self._put(a)
-            for a in (x, y, arc, curv, n_points, seg_starts, n_segs, total)
-        ))
-        self._carry = FleetCarry(
-            closest_idx=self._put(np.zeros(N, np.int32)),
-            seg_idx=self._put(np.zeros(N, np.int32)),
-            pos_in_seg=self._put(np.full(N, -1.0, np.float32)),
-            goal_dist=self._put(np.full(N, np.inf, np.float32)),
-            reached=self._put(
+        self._paths = self._put(FleetPaths(
+            x, y, arc, curv, n_points, seg_starts, n_segs, total))
+        self._carry = self._put(FleetCarry(
+            closest_idx=np.zeros(N, np.int32),
+            seg_idx=np.zeros(N, np.int32),
+            pos_in_seg=np.full(N, -1.0, np.float32),
+            goal_dist=np.full(N, np.inf, np.float32),
+            reached=np.array(
                 [False] * self.num_robots + [True] * (N - self.num_robots)
             ),
-        )
+        ))
 
     def update_path(self, i: int, pts):
         """Re-route ONE robot mid-mission: write its new path row and reset
         ONLY its follower carry, in place on the device; every other
-        robot's tracking state is untouched."""
+        robot's tracking state is untouched. Under a mesh only the shard
+        that holds robot i is written (in another process's shard, none
+        here)."""
         if self._paths is None:
             raise ValueError("update_path before set_paths")
         if not 0 <= i < self.num_robots:
             raise IndexError(f"robot index {i} out of range")
-        for field, value in zip(self._paths, self._path_row(pts, i)):
-            field[i] = torch.as_tensor(value)
-        for field, value in zip(self._carry, (0, 0, -1.0, np.inf, False)):
-            field[i] = value
+        row = self._path_row(pts, i)
+        paths, carry, r = self._paths, self._carry, i
+        if self.mesh is not None:
+            n_loc = self.mesh.rows_per_shard(self._n)
+            d = i // n_loc - self.mesh.shard_index(0)
+            if not 0 <= d < len(self.mesh.devices):
+                return
+            paths, carry, r = self._paths[d], self._carry[d], i % n_loc
+        for field, value in zip(paths, row):
+            field[r] = torch.as_tensor(value)
+        for field, value in zip(carry, (0, 0, -1.0, np.inf, False)):
+            field[r] = value
 
     def _reset_tracked_block(self):
         """Pad every tracked-object slot: position at the sentinel,
@@ -574,7 +625,7 @@ class DeviceFleet:
         extra = (self._safety,) if self._safety is not None else ()
         return (
             self._paths, self._cfg, self._carry, self._angles,
-            torch.tensor(self._inputs, device=self._device), *extra,
+            self._put(self._inputs), *extra,
         )
 
     def state_dict(self) -> dict:
@@ -584,15 +635,17 @@ class DeviceFleet:
         dtypes), so either package resumes the other's snapshot."""
         if self._paths is None or self._carry is None:
             raise RuntimeError("nothing to snapshot: call set_paths() first")
+        self._refuse_multiprocess("state_dict")
         sd = {
             "version": np.int32(1),
             "n": np.int32(self._n),
             "num_robots": np.int32(self.num_robots),
             "scan_rays": np.int32(self._scan_rays),
         }
-        for name, tree in (("paths", self._paths), ("carry", self._carry)):
-            for field, val in zip(type(tree)._fields, tree):
-                sd[f"{name}/{field}"] = val.cpu().numpy().copy()
+        for name, cls, tree in (("paths", FleetPaths, self._paths),
+                                ("carry", FleetCarry, self._carry)):
+            for field, val in zip(cls._fields, self._fields(tree)):
+                sd[f"{name}/{field}"] = val.copy()
         if self._angles_src is not None:
             sd["angles_src"] = self._angles_src.copy()
         return sd
@@ -602,6 +655,7 @@ class DeviceFleet:
         fleet built with the same construction parameters."""
         if int(sd["version"]) != 1:
             raise ValueError(f"unknown fleet state version {sd['version']}")
+        self._refuse_multiprocess("load_state_dict")
         if (
             int(sd["n"]) != self._n
             or int(sd["scan_rays"]) != self._scan_rays
@@ -619,12 +673,17 @@ class DeviceFleet:
             )
         if "angles_src" in sd:
             self.set_scan_angles(np.asarray(sd["angles_src"]))
-        self._paths = FleetPaths(*(
-            self._put(sd[f"paths/{f}"]) for f in FleetPaths._fields
-        ))
-        self._carry = FleetCarry(*(
-            self._put(sd[f"carry/{f}"]) for f in FleetCarry._fields
-        ))
+        self._paths = self._put(FleetPaths(*(
+            sd[f"paths/{f}"] for f in FleetPaths._fields)))
+        self._carry = self._put(FleetCarry(*(
+            sd[f"carry/{f}"] for f in FleetCarry._fields)))
+
+    def _refuse_multiprocess(self, what):
+        if self.mesh is not None and self.mesh.multiprocess:
+            raise ValueError(
+                f"{what} of a fleet sharded over processes: each process "
+                "holds only its own rows; snapshot a fleet of one process"
+            )
 
     def _prepare_tick_inputs(self, states, vels, ranges, angles, tracked):
         """Per-tick host assembly: (re)upload the angle grid when it
@@ -653,45 +712,91 @@ class DeviceFleet:
         built once per k."""
         if k not in self._ticks_fns:
             self._ticks_fns[k] = make_fleet_ticks_on_device(
-                self.spec, k, self._device, peer_cfg=self._peer_cfg,
-                safety=self._safety_cfgs is not None,
+                self.spec, k, self._device, mesh=self.mesh,
+                peer_cfg=self._peer_cfg, safety=self._safety_cfgs is not None,
             )
         return self._ticks_fns[k]
 
-    def _capture(self, k: int) -> TickGraph:
-        """Capture the k-tick loop on the fleet's tensors as one CUDA
-        graph, after one eager warm-up run on a side stream (what PyTorch's
-        graph capture requires). A capture that fails raises."""
-        fn = self.ticks_fn(k)
-        inputs = torch.tensor(self._inputs, device=self._device)
-        carry = FleetCarry(*(t.clone() for t in self._carry))
-        safety = (self._safety,) if self._safety is not None else ()
-        args = (self._paths, self._cfg, carry, self._angles, inputs, *safety)
+    def _graphed(self) -> bool:
+        """Whether ``run_ticks_on_device`` replays CUDA graphs: on a CUDA
+        device, and on a mesh of CUDA devices without peers, where each
+        shard's loop is row-local and replays a graph of its own. With
+        peers every tick of the mesh's loop gathers the shards' states,
+        and the loop runs eagerly."""
+        if self.mesh is None:
+            return self._device.type == "cuda"
+        return (self._peer_cfg is None
+                and all(d.type == "cuda" for d in self.mesh.devices))
+
+    def _shards(self):
+        """Per shard (the whole fleet on one device): its device, path,
+        config, carry, angle and safety tables and its rows of the packed
+        input matrix."""
+        if self.mesh is None:
+            return [(self._device, self._paths, self._cfg, self._carry,
+                     self._angles, self._safety, slice(None))]
+        n_loc = self.mesh.rows_per_shard(self._n)
+        first = self.mesh.local_rows(self._n).start
+        safety = self._safety or [None] * len(self.mesh.devices)
+        return [(dev, self._paths[d], self._cfg[d], self._carry[d], self._angles[d],
+                 safety[d], slice(first + d * n_loc, first + (d + 1) * n_loc))
+                for d, dev in enumerate(self.mesh.devices)]
+
+    def _shard_ticks_fn(self, k: int, device):
+        """The one-device k-tick loop on a shard's ``device``: a mesh
+        fleet without peers runs it per shard."""
+        if self.mesh is None:
+            return self.ticks_fn(k)
+        if (k, device) not in self._ticks_fns:
+            self._ticks_fns[(k, device)] = make_fleet_ticks_on_device(
+                self.spec, k, device, safety=self._safety_cfgs is not None)
+        return self._ticks_fns[(k, device)]
+
+    def _capture(self, k: int, device, paths, cfg, carry, angles, safety,
+                 rows) -> TickGraph:
+        """Capture one shard's k-tick loop on its tensors as one CUDA graph
+        on its device, after one eager warm-up run on a side stream (what
+        PyTorch's graph capture requires). A capture that fails raises."""
+        fn = self._shard_ticks_fn(k, device)
+        inputs = torch.tensor(self._inputs[rows], device=device)
+        carry = FleetCarry(*(t.clone() for t in carry))
+        args = (paths, cfg, carry, angles, inputs,
+                *(() if safety is None else (safety,)))
 
         def ticks():
             carry_out, outs, final = fn(*args)
             return carry_out, torch.cat([outs.flatten(1), final], dim=1)
 
-        graph, (carry_out, out) = capture(ticks, self._device)
-        return TickGraph(graph, inputs, carry, carry_out, out, self._paths,
-                         self._angles, self._safety)
+        with torch.cuda.device(device):
+            graph, (carry_out, out) = capture(ticks, device)
+        return TickGraph(graph, inputs, carry, carry_out, out, paths, angles, safety)
 
     def _replay(self, k: int):
         """(carry', the [N, k * F + 4] output matrix) of one replay of the
-        k-tick graph, captured anew when the fleet's path tables or angle
-        grid (and with it the safety tables) are new tensors."""
+        k-tick graph (per shard on a mesh: lists of both), captured anew
+        when the fleet's path tables or angle grid (and with it the safety
+        tables) are new tensors. ``tick_graphs[k]`` is the TickGraph, or
+        on a mesh the list of the shards' TickGraphs."""
+        shards = self._shards()
         for key, old in list(self.tick_graphs.items()):
-            if (old.paths is not self._paths or old.angles is not self._angles
-                    or old.safety is not self._safety):
+            graphs = old if isinstance(old, list) else [old]
+            if any(g.paths is not s[1] or g.angles is not s[4] or g.safety is not s[5]
+                   for g, s in zip(graphs, shards)):
                 del self.tick_graphs[key]  # stale: free its memory first
-        g = self.tick_graphs.get(k)
-        if g is None:
-            g = self.tick_graphs[k] = self._capture(k)
-        g.inputs.copy_(torch.from_numpy(self._inputs))
-        for static, value in zip(g.carry, self._carry):
-            static.copy_(value)
-        g.graph.replay()
-        return FleetCarry(*(t.clone() for t in g.carry_out)), g.out
+        if k not in self.tick_graphs:
+            graphs = [self._capture(k, *shard) for shard in shards]
+            self.tick_graphs[k] = graphs if self.mesh is not None else graphs[0]
+        graphs = self.tick_graphs[k]
+        graphs = graphs if isinstance(graphs, list) else [graphs]
+        for g, shard in zip(graphs, shards):
+            g.inputs.copy_(torch.from_numpy(self._inputs[shard[6]]))
+            for static, value in zip(g.carry, shard[3]):
+                static.copy_(value)
+            g.graph.replay()
+        carry = [FleetCarry(*(t.clone() for t in g.carry_out)) for g in graphs]
+        if self.mesh is None:
+            return carry[0], graphs[0].out
+        return carry, [g.out for g in graphs]
 
     def run_ticks_on_device(self, k: int, states, vels, ranges, angles,
                             tracked=None):
@@ -708,27 +813,37 @@ class DeviceFleet:
         frozen world points from the current pose. On a CUDA device the k
         ticks run as one CUDA graph (captured on the first call for each
         k, and again after ``set_paths``, ``load_state_dict`` or a new
-        angle grid); on the CPU eagerly.
+        angle grid); over a mesh of CUDA devices without peers each shard
+        replays a graph of its own; on the CPU, and over a mesh with
+        peers, they run eagerly.
 
         Same inputs as ``tick``. Returns the usual output dict with a
         trailing per-tick axis ([num_robots, k] per field) plus
-        ``final_states`` [num_robots, 4]."""
+        ``final_states`` [num_robots, 4] (``local_robots``' rows under a
+        process group)."""
         t0 = time.perf_counter()
         k = int(k)
         if k < 1:
             raise ValueError(f"run_ticks_on_device needs k >= 1, got {k}")
         safety = self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
-        if self._device.type == "cuda":
+        if self._graphed():
             self._carry, out = self._replay(k)
+        elif self.mesh is not None:
+            self._carry, outs, final = self.ticks_fn(k)(
+                self._paths, self._cfg, self._carry, self._angles,
+                self._put(self._inputs), *safety,
+            )
+            out = [torch.cat([o.flatten(1), f], dim=1) for o, f in zip(outs, final)]
         else:
             self._carry, outs, final = self.ticks_fn(k)(
                 self._paths, self._cfg, self._carry, self._angles,
                 torch.from_numpy(self._inputs.copy()), *safety,
             )
             out = torch.cat([outs.flatten(1), final], dim=1)
-        out_np = out[: self.num_robots].cpu().numpy()  # one copy out
+        n = len(self.local_robots)
+        out_np = self._host(out)[:n]  # one copy out (per shard)
         F = len(OUT_FIELDS)
-        per_tick = out_np[:, : k * F].reshape(self.num_robots, k, F)
+        per_tick = out_np[:, : k * F].reshape(n, k, F)
         result = {f: per_tick[:, :, i] for i, f in enumerate(OUT_FIELDS)}
         result["found"] = result["found"] > 0.5
         result["reached"] = result["reached"] > 0.5
@@ -745,14 +860,15 @@ class DeviceFleet:
         moving objects as a [num_robots, M', 4] array or a sequence of
         [m_i, 4] world (x, y, vx, vy) rows; each enters the robot's sweep
         at its constant-velocity predicted position.
-        Returns a dict of numpy arrays per robot (``OUT_FIELDS``)."""
+        Returns a dict of numpy arrays per robot (``OUT_FIELDS``; the rows
+        of ``local_robots`` under a process group)."""
         t0 = time.perf_counter()
         safety = self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
-        inputs = torch.tensor(self._inputs, device=self._device)  # one copy in
+        inputs = self._put(self._inputs)  # one copy in (per shard)
         self._carry, out_mat = self._tick_fn(
             self._paths, self._cfg, self._carry, self._angles, inputs, *safety
         )
-        out_np = out_mat[: self.num_robots].cpu().numpy()  # one copy out
+        out_np = self._host(out_mat)[: len(self.local_robots)]  # one copy out
         out = {k: out_np[:, i] for i, k in enumerate(OUT_FIELDS)}
         out["found"] = out["found"] > 0.5
         out["reached"] = out["reached"] > 0.5

@@ -726,6 +726,40 @@ def test_k_tick_graph_replay_equals_the_eager_loop(cuda, tracked):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("peers", [False, True])
+def test_mesh_fleet_on_card_equals_one_device(cuda, peers):
+    """The 4-robot fleet on a 2-shard mesh of the card: its tick and
+    its k = 6 loop equal the one-device fleet's bit for bit. Without peers
+    each shard captures its own graph on the first call and a second call
+    replays them without a wrapper call; with peers (and prediction) the
+    loop runs eagerly with one gather per tick."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+    from kompass_core_tpu_torch.parallel import FleetMesh
+
+    kw = dict(peer_avoidance=True, peer_prediction=True) if peers else {}
+    mesh = FleetMesh([cuda, cuda])
+    sharded, inputs = _small_fleet(None, 2, mesh=mesh, **kw)
+    one, _ = _small_fleet(cuda, 2, **kw)
+    for f in (sharded, one):
+        f.tick(*inputs[:4], tracked=inputs[4])
+    for call in range(2):
+        before = kernels.launch_counts()
+        got = sharded.run_ticks_on_device(6, *inputs[:4], tracked=inputs[4])
+        replayed = kernels.launch_counts() == before
+        want = one.run_ticks_on_device(6, *inputs[:4], tracked=inputs[4])
+        for key in (*OUT_FIELDS, "final_states"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        assert replayed == (call == 1 and not peers)
+    if peers:
+        assert not sharded.tick_graphs
+        assert mesh.collectives == {"all_gather": 1 + 2 * 6, "all_reduce": 0}
+    else:
+        assert len(sharded.tick_graphs[6]) == 2
+        assert mesh.collectives == {"all_gather": 0, "all_reduce": 0}
+    for a, b in zip(sharded.state_dict().items(), one.state_dict().items()):
+        np.testing.assert_array_equal(a[1], b[1], err_msg=a[0])
+
+
 # --- the emergency stop, the safety gate and peers (items 5c, 5d) -------------
 
 

@@ -36,7 +36,7 @@ from kompass_core_tpu_torch.control import DWA, DWAConfig, TrajectoryCostsWeight
 from kompass_core_tpu_torch.datatypes import LaserScanData as PortLaserScanData
 from kompass_core_tpu_torch.models import RobotState as PortRobotState
 from kompass_core_tpu_torch.ops.fleet_solver import fleet_spec_from_jax
-from kompass_core_tpu_torch.parallel import DeviceFleet
+from kompass_core_tpu_torch.parallel import DeviceFleet, FleetMesh
 
 from test_dwa_closed_loop import make_global_path
 from test_torch_host_modules import to_port
@@ -266,10 +266,17 @@ def test_device_is_required_and_explicit():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 5g"):
+    # the mesh (item 5g) is ported: a peer fleet builds on a mesh, padded
+    # to the mesh size, and refuses a device beside its mesh
+    mesh = FleetMesh(["cpu"] * 2)
+    with pytest.raises(ValueError, match="not both"):
         DeviceFleet([to_port(_robot())], to_port(_limits()),
                     _config(4, 0.0, cls=DWAConfig), scan_rays=16,
-                    peer_avoidance=True, mesh=object(), device="cpu")
+                    peer_avoidance=True, mesh=mesh, device="cpu")
+    sharded = DeviceFleet([to_port(_robot())], to_port(_limits()),
+                          _config(4, 0.0, cls=DWAConfig), scan_rays=16,
+                          peer_avoidance=True, mesh=mesh)
+    assert sharded._n == 2 and sharded.device is None
     # a BOX robot's fleet (item 5f) builds the oriented-box solver as the
     # JAX package's does (its ticks: test_torch_box_fleet.py)
     jbox = _robot(geometry=RobotGeometry.Type.BOX, params=(0.5, 0.3, 0.4))

@@ -46,7 +46,7 @@ from kompass_core_tpu_torch.ops.fleet_solver import (
     make_fleet_tick,
     make_fleet_ticks_on_device,
 )
-from kompass_core_tpu_torch.parallel import DeviceFleet
+from kompass_core_tpu_torch.parallel import DeviceFleet, FleetMesh
 from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
 
 from test_torch_host_modules import to_port
@@ -240,19 +240,29 @@ def test_device_is_required_and_explicit():
 
 @pytest.mark.parametrize(
     "kw,item",
-    [(dict(mesh=object()), "5g"), (dict(peer_avoidance=True), "5c"),
+    [(dict(mesh=FleetMesh(["cpu"] * 3)), "5g"), (dict(peer_avoidance=True), "5c"),
      (dict(peer_avoidance=True, peer_prediction=True), "5c"),
      (dict(safety_config=FleetSafetyConfig()), "5d"),
      (dict(split_mover_sweep=True), "5e")],
 )
 def test_unported_options_raise_naming_their_roadmap_item(kw, item):
-    """The mesh (5g) raises naming its item; peers (5c), the safety gate
-    (5d) and the split mover sweep (5e) are ported: the fleet builds and
-    ticks (``test_torch_peers.py``, ``test_torch_safety.py``,
-    ``test_torch_fleet_moving.py``), the split fleet as the JAX one."""
+    """Every option is ported: the mesh (5g) fleet, one robot per shard,
+    ticks as the one-device fleet bit for bit (``test_torch_scaleout.py``
+    holds it against the JAX mesh); peers (5c), the safety gate (5d) and
+    the split mover sweep (5e) build and tick (``test_torch_peers.py``,
+    ``test_torch_safety.py``, ``test_torch_fleet_moving.py``), the split
+    fleet as the JAX one."""
     if item == "5g":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            _port(**kw)
+        fleet = _fleet(DeviceFleet, **kw)
+        one = _port()
+        for f in (fleet, one):
+            f.set_paths(_lanes())
+        out = fleet.tick(*_start(), _free_ranges(), ANGLES)
+        assert out["found"].all()
+        ref = one.tick(*_start(), _free_ranges(), ANGLES)
+        for key in OUT_FIELDS:
+            np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
+        assert kw["mesh"].collectives == {"all_gather": 0, "all_reduce": 0}
         return
     tracked = 2 if item == "5e" else 0
     fleet = _port(tracked, **kw)
@@ -271,7 +281,7 @@ def test_unported_box_robots_and_k_tick_loop_raise():
     """BOX fleets are ported (item 5f): a fleet with a BOX robot builds,
     ticks and runs its k-tick loop as the JAX one does
     (``test_torch_box_fleet.py``); the k-tick loop runs with its peer and
-    safety forms, and its mesh form raises naming item 5g."""
+    safety forms, and its mesh form runs the one-device loop per shard."""
     robots = _robots()
     robots[1] = _robots(1, RobotGeometry.Type.BOX, (0.5, 0.3, 0.4))[0]
     jf = JaxDeviceFleet(robots, LIMITS, _config(), N_RAYS, path_capacity=1024,
@@ -292,8 +302,16 @@ def test_unported_box_robots_and_k_tick_loop_raise():
     for kw in (dict(peer_cfg={"ring": 8, "n_real": 3, "radii": [0.2] * 3}),
                dict(safety=True)):
         make_fleet_ticks_on_device(fleet.spec, 3, "cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 5g"):
-        make_fleet_ticks_on_device(fleet.spec, 3, "cpu", mesh=object())
+    mesh = FleetMesh(["cpu"] * 3)
+    with pytest.raises(ValueError, match="not both"):
+        make_fleet_ticks_on_device(fleet.spec, 3, "cpu", mesh=mesh)
+    sharded = make_fleet_ticks_on_device(fleet.spec, 3, mesh=mesh)
+    args = (fleet._paths, fleet._cfg, fleet._carry, fleet._angles,
+            torch.from_numpy(fleet._inputs.copy()))
+    carry, outs, final = sharded(*(mesh.split(a) for a in args))
+    want = fleet.ticks_fn(3)(*args)
+    for got, ref in zip((*zip(*carry), outs, final), (*want[0], want[1], want[2])):
+        assert torch.equal(torch.cat(list(got)), ref)
 
 
 def test_tracked_spec_requires_the_moving_sweep():

@@ -38,7 +38,7 @@ from kompass_core_tpu.parallel.fleet_v2 import FleetSafetyConfig as JaxSafety
 from kompass_core_tpu_torch.ops import fleet_solver as tfleet
 from kompass_core_tpu_torch.ops import kernels
 from kompass_core_tpu_torch.ops import solver as tsolver
-from kompass_core_tpu_torch.parallel import DeviceFleet
+from kompass_core_tpu_torch.parallel import DeviceFleet, FleetMesh
 from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
 
 from test_torch_host_modules import to_port
@@ -183,9 +183,12 @@ def test_peer_prediction_requires_avoidance_and_the_moving_sweep():
                  lambda: tfleet.make_fleet_ticks_on_device(spec, 2, "cpu", peer_cfg=cfg)):
         with pytest.raises(ValueError, match="moving_obstacles"):
             make()
-    for kw in (dict(peer_cfg=dict(cfg, predict=False), mesh=object()),):
-        with pytest.raises(NotImplementedError, match="item 5g"):
+    # the mesh form (item 5g) builds, and refuses a device beside its mesh
+    mesh = FleetMesh(["cpu"] * 2)
+    for kw in (dict(peer_cfg=dict(cfg, predict=False), mesh=mesh),):
+        with pytest.raises(ValueError, match="not both"):
             tfleet.make_fleet_tick(spec, "cpu", **kw)
+        assert callable(tfleet.make_fleet_tick(spec, **kw))
 
 
 # --- tests/test_fleet_v2.py's peer cases, in lockstep ---------------------------

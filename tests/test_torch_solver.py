@@ -52,6 +52,7 @@ from kompass_core_tpu_torch.ops.fleet_solver import (
     fleet_spec_from_jax,
     make_fleet_tick,
 )
+from kompass_core_tpu_torch.parallel import FleetMesh
 from kompass_core_tpu_torch.parallel.fleet import (
     make_fleet_solver,
     make_sample_parallel_solver,
@@ -412,21 +413,37 @@ def _split_mover_tick(spec):
     assert callable(make_fleet_tick(fleet, CPU))
 
 
+def _mesh_rows(build):
+    """A mesh solver's rows of the same buffers against the one-device
+    solver's: (its output on the host, the one-device output)."""
+    spec = tsolver.spec_from_jax(_jax_spec(False, True))
+    bufs = np.stack([_pack(_jax_spec(False, True), _scenario_inputs(
+        np.random.default_rng(60 + i), False, 6)) for i in range(2)])
+    mesh = FleetMesh([CPU, CPU])
+    out = mesh.host_rows(build(spec, mesh)(bufs))
+    return out, make_fleet_solver(spec, CPU)(bufs).numpy(), mesh
+
+
 @pytest.mark.parametrize(
     "build,item",
-    [(lambda s: make_fleet_solver(s, CPU, mesh=object()), "1"),
-     (lambda s: make_sample_parallel_solver(s, object()), "1"),
+    [(lambda s, mesh: make_fleet_solver(s, mesh=mesh), "1"),
+     (lambda s, mesh: make_sample_parallel_solver(s, mesh), "1"),
      (_split_mover_tick, "5e")],
 )
 def test_unported_modes_raise_naming_their_roadmap_item(build, item):
-    """The mesh solvers raise naming item 1 (scale-out); the split mover tick (5e)
+    """Every mode is ported: the mesh solvers (item 1, scale-out) give the
+    one-device rows (the sharded solver each row, the sample-parallel
+    solver the lower-cost row on every shard); the split mover tick (5e)
     builds."""
-    spec = tsolver.spec_from_jax(_jax_spec(False, True))
     if item == "5e":
-        build(spec)
+        build(tsolver.spec_from_jax(_jax_spec(False, True)))
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build(spec)
+    out, one, mesh = _mesh_rows(build)
+    if mesh.collectives["all_reduce"]:
+        win = int(np.argmin(one[:, 1]))
+        np.testing.assert_array_equal(out, np.stack([one[win], one[win]]) + 0.0)
+    else:
+        np.testing.assert_array_equal(out, one)
 
 
 def test_packed_solver_rejects_a_wrong_size_buffer():
