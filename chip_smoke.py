@@ -250,6 +250,14 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 39. Mesh times: the mesh tick against the one-device tick, the eager mesh
     k = 8 call against the one-device replay per tick, one gather and
     its share, the two-process wall seconds, FleetRuntime's host ms.
+40. The reference's recordings (``tests/resources/reference``), as the
+    JAX package's own tests assert them: the Ackermann DWA of
+    ``test_reference_fixtures.py`` follows the recorded global plan to
+    its end on the card (K1 once per solve, each solve equal to the
+    CPU's), and the recorded 360-ray scan, the recorded Livox frame and
+    an empty cloud each go through ``LocalMapper`` on the card (K5 once
+    each, every layer equal to the CPU mapper's; the walls stamp
+    occupied cells, the empty cloud none).
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -270,6 +278,8 @@ samples per thread come from ``ops/kernels.py::sweep_points``. The counts
 are set to 0 again before the mesh phases (35-38): each kernel's row adds
 the launches of the mesh calls alone (not the one-device fleets and
 solves they are compared with) and those the two worker processes report.
+The counts are set to 0 again before phase 40, whose K1 and K5 launches
+add to their rows.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -5211,6 +5221,152 @@ def phase_mesh_times(kernels, device, card, mp_wall, runtime_ms):
     return times
 
 
+# --- the reference's recordings ---------------------------------------------
+
+RECORDED = "tests/resources/reference"
+RECORDED_START = (-0.51731912, 0.0, math.pi / 2)  # the reference's run_control
+RECORDED_STEPS = 100  # command applications, as the reference allows
+RECORDED_DT = 0.1
+
+
+def recorded_path(name="global_path.json"):
+    """The reference's recorded ROS global plan as [N, 2] points."""
+    with open(os.path.join(RECORDED, "control", name)) as f:
+        poses = json.load(f)["poses"]
+    return np.array([[p["pose"]["position"]["x"], p["pose"]["position"]["y"]]
+                     for p in poses])
+
+
+def recorded_scan():
+    from kompass_core_tpu_torch.datatypes import LaserScanData
+
+    with open(os.path.join(RECORDED, "mapping", "laserscan_data.json")) as f:
+        d = json.load(f)
+    return LaserScanData(angle_min=d["angle_min"], angle_max=d["angle_max"],
+                         angle_increment=d["angle_increment"],
+                         range_min=d["range_min"], range_max=d["range_max"],
+                         ranges=np.asarray(d["ranges"], np.float64))
+
+
+def recorded_cloud():
+    from kompass_core_tpu_torch.datatypes import PointCloudData
+
+    with open(os.path.join(RECORDED, "mapping", "livox_pointcloud_sample_1.json")) as f:
+        d = json.load(f)
+    fields = {fl["name"]: fl for fl in d["fields"]}
+    return PointCloudData.from_bytes(
+        bytes(d["data"]), point_step=d["point_step"], x_offset=fields["x"]["offset"],
+        y_offset=fields["y"]["offset"], z_offset=fields["z"]["offset"],
+        dtype_code=fields["x"]["datatype"], row_step=d["row_step"], height=d["height"])
+
+
+def _recorded_dwa(device):
+    """``test_reference_fixtures.py``'s DWA on the recorded path: an
+    Ackermann cylinder, 4 x 4 samples, path weight 3, goal weight 1."""
+    from kompass_core_tpu_torch.control import DWA, DWAConfig, TrajectoryCostsWeights
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits, RobotGeometry,
+        RobotType,
+    )
+
+    robot = Robot(robot_type=RobotType.ACKERMANN,
+                  geometry_type=RobotGeometry.Type.CYLINDER,
+                  geometry_params=np.array([0.1, 0.4]))
+    limits = RobotCtrlLimits(
+        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
+        omega_limits=AngularCtrlLimits(max_vel=4.0, max_acc=3.0, max_decel=3.0,
+                                       max_steer=np.pi))
+    config = DWAConfig(
+        max_linear_samples=4, max_angular_samples=4, octree_resolution=0.1,
+        costs_weights=TrajectoryCostsWeights(
+            reference_path_distance_weight=3.0, goal_distance_weight=1.0,
+            smoothness_weight=0.0, jerk_weight=0.0, obstacles_distance_weight=0.0),
+        prediction_horizon=10, control_horizon=2, control_time_step=RECORDED_DT,
+        max_num_threads=1)
+    dwa = DWA(robot=robot, ctrl_limits=limits, config=config, device=device)
+    dwa.set_path(recorded_path())
+    robot.state.x, robot.state.y, robot.state.yaw = RECORDED_START
+    return robot, dwa
+
+
+def _recorded_mapper(device, what):
+    """The mapper of ``test_reference_fixtures.py`` (``"scan"``,
+    ``"cloud"``) or ``test_mapping.py``'s empty-cloud test (``"empty"``)."""
+    from kompass_core_tpu_torch.datatypes import ScanModelConfig
+    from kompass_core_tpu_torch.mapping import LocalMapper, MapConfig
+
+    config, model = {
+        "scan": (MapConfig(width=10.0, height=10.0, resolution=0.05),
+                 ScanModelConfig(angle_step=recorded_scan().angle_increment)),
+        "cloud": (MapConfig(width=10.0, height=10.0, resolution=0.1),
+                  ScanModelConfig(angle_step=np.deg2rad(1.0), max_height=2.0,
+                                  min_height=-0.2)),
+        "empty": (MapConfig(width=6.0, height=6.0, resolution=0.1),
+                  ScanModelConfig(p_prior=0.5, angle_step=2 * np.pi / 72)),
+    }[what]
+    return LocalMapper(config, model, device=device)
+
+
+def phase_recorded(kernels, device):
+    """The reference's recordings on the card, as the JAX package's own
+    tests assert them (``test_reference_fixtures.py``,
+    ``test_mapping.py``): the Ackermann DWA follows the recorded global
+    plan to its end (each solve launches K1 once and equals the CPU's),
+    the recorded 360-ray scan and the recorded Livox frame go through
+    ``LocalMapper`` and an empty cloud leaves no occupied cell (K5 once
+    each, every layer equal to the CPU mapper's). Returns the launches."""
+    from kompass_core_tpu_torch.datatypes import LaserScanData, PointCloudData, PoseData
+
+    t0 = time.perf_counter()
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    robot, dwa = _recorded_dwa(device)
+    cpu_ties, solves, steps, reached = [], 0, 0, False
+    while not reached and steps < RECORDED_STEPS:
+        before = kernels.fused_min_dist_sq.launches
+        ok = dwa.loop_step(current_state=robot.state, laser_scan=LaserScanData())
+        made = kernels.fused_min_dist_sq.launches - before
+        assert made == int(ok), f"step {steps}: {made} K1 launches, loop_step {ok}"
+        if not ok or not dwa.path:
+            reached = dwa.reached_end()
+            break
+        solves += 1
+        _cpu_check(*dwa.last_solver_io, cpu_ties)
+        for vx, vy, omega in zip(np.atleast_1d(dwa.linear_x_control),
+                                 np.atleast_1d(dwa.linear_y_control),
+                                 np.atleast_1d(dwa.angular_control)):
+            robot.set_control(velocity_x=vx, velocity_y=vy, omega=omega)
+            robot.get_state(dt=RECORDED_DT)
+            steps += 1
+            reached = dwa.reached_end()
+    assert reached, f"the recorded path's end was not reached in {steps} steps"
+    log(f"recorded path: end reached after {steps} steps and {solves} solves, "
+        f"robot at ({robot.state.x:.3f}, {robot.state.y:.3f}); CPU ties {cpu_ties}")
+
+    counts = {}
+    for what, scan in (("scan", recorded_scan()), ("cloud", recorded_cloud()),
+                       ("empty", PointCloudData(points=np.zeros((0, 3), np.float32)))):
+        mapper = _recorded_mapper(device, what)
+        state = _mapper_state(mapper)
+        before = kernels.scan_to_grid_cells.launches
+        mapper.update_from_scan(PoseData(), scan)
+        assert kernels.scan_to_grid_cells.launches == before + 1, what
+        n_diff = _mapper_cpu_check(mapper, state, PoseData(), scan, f"recorded {what}")
+        occ = mapper.occupancy
+        counts[what] = (int((occ == 100).sum()), int((occ == 0).sum()), n_diff)
+    (scan_occ, scan_empty, _), (cloud_occ, cloud_empty, _), (empty_occ, _, _) = (
+        counts["scan"], counts["cloud"], counts["empty"])
+    assert scan_occ > 50 and scan_empty > 2000, counts["scan"]
+    assert cloud_occ > 0 and cloud_empty > 0, counts["cloud"]
+    assert empty_occ == 0, counts["empty"]
+    launches = _launches_made(kernels, {k: 0 for k in kernels.launch_counts()})
+    assert launches == {"K1": solves, "K5": 3}, launches
+    log(f"recorded mapper updates (occupied, empty cells, beams whose table "
+        f"differs from the CPU's): {counts}; launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5331,6 +5487,7 @@ def main() -> int:
     assert all(mesh.get(key) for key in ("K1", "K2", "K3", "K4", "K6", "K7", "K8")), mesh
     phase_mesh_times(kernels, device, card, mp_wall, runtime_ms)
     log(f"mesh phases: {time.perf_counter() - t_mesh:.1f} s")
+    recorded = phase_recorded(kernels, device)
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -5349,7 +5506,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
             k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"]
-            + mesh["K1"],
+            + mesh["K1"] + recorded["K1"],
             max(k1_err, peer_errs["K1"]), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches + mesh["K2"], k2_err, *static_times["K2"]),
@@ -5361,8 +5518,8 @@ def main() -> int:
             k3s_err, *k3s_times),
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES,
             k4_launches + mesh["K4"], k4_err, *static_times["K4"]),
-        row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES, k5_launches, k5_err,
-            *k5_times),
+        row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES,
+            k5_launches + recorded["K5"], k5_err, *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
             form_launches["K6"] + served["K6"] + mesh["K6"],
             max(form_errs["K6"], peer_errs["K6"]),

@@ -21,3 +21,6 @@ from .robot import (  # noqa: F401
     RobotState,
     RobotType,
 )
+
+# reference-compatible name (models.py:1109 OmniDirectionalControl)
+OmniDirectionalControl = OmniControl

@@ -6,7 +6,8 @@ with ``g++`` (the JAX package's Makefile flags) into
 ``build/kompass_core_tpu_torch/host/<hash of source and flags>/`` at the
 repository root, never into the source tree. Every entry point has a
 NumPy fallback that computes the same values, used when no compiler is
-found or the build fails (``native_available()`` says which).
+found, the build fails or the library lacks an entry point
+(``native_available()`` says which).
 """
 
 import ctypes
@@ -75,7 +76,16 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if not lib_path.exists() and not _build(lib_path):
             return None
         lib = ctypes.CDLL(str(lib_path))
-        _bind_symbols(lib)
+        try:
+            _bind_symbols(lib)
+        except AttributeError as e:
+            # a library missing newer entry points: serve the API from the
+            # numpy fallbacks rather than crash the first follower tick
+            logger.warning(
+                "native host library is stale and could not be rebuilt (%s); "
+                "using numpy fallbacks", e,
+            )
+            return None
         _lib = lib
         return _lib
 

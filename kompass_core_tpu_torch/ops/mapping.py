@@ -259,6 +259,42 @@ def scan_to_grid(spec: MapperSpec, ranges, angle_offset=0.0):
     return _cells(spec, ranges, angle_offset)
 
 
+def bayes_cell_update(spec: MapperSpec, dist_m, current_range, previous_prob,
+                      p_prior, p_empty, p_occupied, range_sure, range_max,
+                      wall_size):
+    """Inverse sensor model + Bayes odds update, exact formula port of
+    ``updateGridCellProbability`` (``local_mapper.cpp:106-125``), each
+    operation rounded on its own: the JAX package's function as it runs
+    outside ``jax.jit``. The mapper's own update is the cell pass of
+    ``kernels.scan_to_grid_cells``, which contracts two multiply-adds as
+    XLA's CPU backend does inside the jitted mapper."""
+    dist_m = torch.as_tensor(dist_m, dtype=torch.float32)
+    device = dist_m.device
+    # a Python p_prior gives the odds constant in float64, as in JAX
+    odds_k = (1.0 - p_prior) / p_prior
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    (current_range, previous_prob, p_prior, p_empty, p_occupied, range_sure,
+     range_max, wall_size, odds_k) = map(f32, (
+         current_range, previous_prob, p_prior, p_empty, p_occupied,
+         range_sure, range_max, wall_size, odds_k))
+    one = f32(1.0)
+    rng = current_range - wall_size
+    p_f = torch.where(dist_m < rng, p_empty, p_occupied)
+    delta = torch.where(dist_m < range_sure, 0.0 * one, one)
+    p_sensor = p_f + delta * ((dist_m - range_sure) / range_max) * (
+        p_prior - p_f
+    )
+    odds = (
+        (previous_prob / (one - previous_prob))
+        * (p_sensor / (one - p_sensor))
+        * odds_k
+    )
+    return one - one / (one + odds)
+
+
 def scan_to_grid_bayesian(spec: MapperSpec, ranges, previous_prob_grid,
                           p_prior, p_empty, p_occupied, range_sure,
                           range_max, wall_size, angle_offset=0.0):
@@ -360,10 +396,10 @@ def _bin_min(dist, bins, num_bins: int):
     """Per-bin min of ``dist`` [..., N] grouped by ``bins``; +inf where
     a bin is empty."""
     lead = dist.shape[:-1]
-    n = dist.shape[-1]
-    out = torch.full((math.prod(lead), num_bins), math.inf,
+    rows = (math.prod(lead), dist.shape[-1])  # explicit: N may be 0
+    out = torch.full((rows[0], num_bins), math.inf,
                      dtype=torch.float32, device=dist.device)
-    out.scatter_reduce_(1, bins.reshape(-1, n).long(), dist.reshape(-1, n),
+    out.scatter_reduce_(1, bins.reshape(rows).long(), dist.reshape(rows),
                         "amin", include_self=True)
     return out.reshape(lead + (num_bins,))
 

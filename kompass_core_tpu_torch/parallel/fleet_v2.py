@@ -139,8 +139,10 @@ class DeviceFleet:
         # mesh size alone; the same padded n keeps the two packages'
         # snapshots interchangeable (there is no chunk loop here)
         self._n = _round_up(self.num_robots, mesh.size if mesh is not None else 1)
+        self._chunk = 0  # the JAX package's chunk: here it only pads
         if mesh is None and dispatch_chunk and self._n > dispatch_chunk:
-            self._n = _round_up(self._n, int(dispatch_chunk))
+            self._chunk = int(dispatch_chunk)
+            self._n = _round_up(self._n, self._chunk)
 
         # --- per-robot limits / kinematics ---
         if isinstance(ctrl_limits, RobotCtrlLimits):

@@ -1,10 +1,23 @@
-"""``set_params_from_yaml``: patches attributes of an object from a YAML
-file section (reference ``utils/common.py``), for the robot models'
-``set_from_yaml`` and the footprints. The port's logging set-up is the
-host application's own, so ``setup_logging`` is not copied."""
+"""Shared config/logging helpers (reference ``utils/common.py``).
+
+``set_params_from_yaml`` patches attributes of an arbitrary object from
+a YAML file section; ``setup_logging`` configures root logging with a
+``logs/`` file sink. Re-exports the attrs config base + validators like
+the reference module does.
+"""
 
 import logging
-from typing import Sequence
+import os
+from typing import List, Optional, Sequence
+
+from .config import BaseAttrs, base_validators  # noqa: F401 - re-exported
+
+__all__ = [
+    "BaseAttrs",
+    "base_validators",
+    "set_params_from_yaml",
+    "setup_logging",
+]
 
 
 def set_params_from_yaml(
@@ -55,3 +68,34 @@ def set_params_from_yaml(
                 )
     except Exception as exc:  # tolerant, like the reference
         logging.error("File Read Error: %s", exc)
+
+
+def setup_logging(
+    current_dir: str,
+    log_file_name: str,
+    logging_level: int,
+    disable_module_debug: Optional[List[str]] = None,
+) -> None:
+    """Configure root logging with a file sink under
+    ``<current_dir>/logs/<name>.log`` (reference
+    ``utils/common.py:80-118``)."""
+    log_dir = os.path.join(current_dir, "logs")
+    os.makedirs(log_dir, exist_ok=True)
+
+    logging.basicConfig()
+    logging.getLogger().setLevel(logging_level)
+    for module_name in disable_module_debug or []:
+        logging.getLogger(module_name).setLevel(logging.WARNING)
+
+    # divergence from reference utils/common.py:110-115 (which appends a
+    # new FileHandler every call): re-configuration replaces the previous
+    # file sink instead of duplicating every record — same
+    # remove-then-add pattern as utils/logger.set_log_file
+    root = logging.getLogger()
+    for h in [h for h in root.handlers if isinstance(h, logging.FileHandler)]:
+        root.removeHandler(h)
+        h.close()
+    handler = logging.FileHandler(
+        os.path.join(log_dir, f"{log_file_name}.log")
+    )
+    root.addHandler(handler)

@@ -10,18 +10,13 @@ fallback.
 ``to_port`` turns a JAX package host object into the port's own object
 with the same state; the other port test files build the port's side of
 a comparison with it. ``port_twin`` loads a JAX package test module with
-its imports pointed at the port, so the port's controller tests run the
-JAX package's own assertions (``test_torch_controllers.py``,
-``test_torch_vision.py``).
+its imports pointed at the port, so the port's tests run the JAX
+package's own assertions (``test_torch_controllers.py``,
+``test_torch_twin_*.py``). All three live in the JAX-free
+``torch_twin.py`` and are re-exported here.
 """
 
-import io
 import math
-import pickle
-import re
-import sys
-import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -45,60 +40,7 @@ from kompass_core_tpu_torch.datatypes import (
 from kompass_core_tpu_torch.models import Robot, RobotGeometry, RobotType
 from kompass_core_tpu_torch.utils.geometry import yaw_from_quaternion
 
-_JAX, _PORT = "kompass_core_tpu", "kompass_core_tpu_torch"
-
-
-class _ToPort(pickle.Unpickler):
-    def find_class(self, module, name):
-        if module == _JAX or module.startswith(_JAX + "."):
-            module = _PORT + module[len(_JAX):]
-        return super().find_class(module, name)
-
-
-def to_port(obj):
-    """The port's object with ``obj``'s state: the same class path under
-    ``kompass_core_tpu_torch`` (enums by value), every field copied."""
-    return _ToPort(io.BytesIO(pickle.dumps(obj))).load()
-
-
-_TESTS = Path(__file__).resolve().parent
-_JAX_NAME = re.compile(r"\bkompass_core_tpu\b(?!_torch)")
-
-
-def port_twin(name, replace=()):
-    """The JAX package's test module ``tests/<name>.py`` run against the
-    port: its source with every ``kompass_core_tpu`` name pointed at
-    ``kompass_core_tpu_torch`` and each ``(old, new)`` of ``replace``
-    applied (each must occur), executed as module ``torch_twin_<name>``
-    (registered, so another twin can import it). Its line numbers are the
-    original's."""
-    mod_name = f"torch_twin_{name}"
-    if mod_name in sys.modules:
-        return sys.modules[mod_name]
-    path = _TESTS / f"{name}.py"
-    src = _JAX_NAME.sub("kompass_core_tpu_torch", path.read_text())
-    for old, new in replace:
-        assert old in src, f"{name}: {old!r} not found"
-        src = src.replace(old, new)
-    mod = types.ModuleType(mod_name)
-    mod.__file__ = str(path)
-    sys.modules[mod_name] = mod
-    exec(compile(src, str(path), "exec"), mod.__dict__)
-    return mod
-
-
-def twin_tests(namespace, mod, names=None):
-    """Put the twin's tests and fixtures (or those of ``names``) into a
-    test module's ``namespace``, where pytest collects them; a name that
-    is already there raises."""
-    for key, value in vars(mod).items():
-        is_test = key.startswith("test_") and callable(value)
-        is_fixture = hasattr(value, "_fixture_function_marker") or type(
-            value).__name__ == "FixtureFunctionDefinition"
-        if (names is None and (is_test or is_fixture)) or (
-                names is not None and key in names):
-            assert key not in namespace, f"{key} is defined twice"
-            namespace[key] = value
+from torch_twin import _JAX, _JAX_NAME, _PORT, _TESTS, port_twin, to_port, twin_tests  # noqa: F401
 
 
 # --- the native host library -------------------------------------------------

@@ -525,3 +525,87 @@ def test_line_test_bounds_decide_as_the_divisions_on_every_cell():
     assert int((t == L).sum()) > 100
     # cells on a diamond's edge sit 1e-4 inside the halfwidth
     assert int((torch.abs(perp - halfwidth) <= 1.5e-4).sum()) > 100
+
+
+# --- the empty cloud and the cell update -----------------------------------
+
+
+@pytest.mark.parametrize("robots", [None, 3])
+def test_pointcloud_to_scan_of_an_empty_cloud_matches_jax(robots):
+    """No points: every bin at range_max after the clip, as in JAX (the
+    port's bin-min reshaped 0 points by an inferred lead size and raised;
+    JAX itself takes no robot axis with 0 points, so each robot's row is
+    held against its one-robot scan)."""
+    args = tuple(np.float32(v) for v in (4.0, -1.0, 1.0))
+    want = np.asarray(jm.pointcloud_to_scan(np.zeros((0, 3), np.float32), 72, *args))
+    shape = (0, 3) if robots is None else (robots, 0, 3)
+    got = pm.pointcloud_to_scan(torch.zeros(shape), 72, *args)
+    assert got.shape == shape[:-2] + (72,)
+    np.testing.assert_array_equal(got.reshape(-1, 72).numpy(),
+                                  np.broadcast_to(want, (robots or 1, 72)))
+    assert (want == np.float32(4.0)).all()
+    # the fleet path pads the cloud with origin points first: the same scan
+    padded = torch.as_tensor(pm.pad_cloud_to_bucket(np.zeros((0, 3), np.float32)))
+    np.testing.assert_array_equal(pm.pointcloud_to_scan(padded, 72, *args).numpy(), want)
+
+
+@pytest.mark.parametrize("bayesian", [False, True])
+def test_local_mapper_empty_cloud_matches_jax(bayesian):
+    """An empty cloud between two room clouds: every layer equal to the
+    JAX mapper's, no occupied cell left by the empty update."""
+    jax_mapper, port = _mapper_pair(bayesian)
+    empty = PointCloudData(points=np.zeros((0, 3), np.float32))
+    for k, pose in enumerate(_poses(3)):
+        cloud = empty if k == 1 else _room_cloud(pose, k)
+        jax_mapper.update_from_scan(pose, cloud)
+        port.update_from_scan(*to_port((pose, cloud)))
+        _assert_same_layers(jax_mapper, port, f"update {k}")
+        if k == 1:
+            assert not (port.occupancy == OCCUPANCY_TYPE.OCCUPIED.value).any()
+
+
+def _cell_inputs(seed, n=4000):
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0.0, 6.0, n).astype(np.float32)
+    dist[:8] = [0.0, 0.1, 0.3, 2.0, 2.2, 20.0, 6.0, 1e-3]  # range_sure, edges
+    current = rng.uniform(0.0, 6.0, n).astype(np.float32)
+    current[:8] = [0.0, 0.3, 0.5, 2.2, 2.2, 20.0, 0.1, 0.0]
+    prev = rng.uniform(0.01, 0.99, n).astype(np.float32)
+    return dist, current, prev
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("model", ["float", "f32"])
+def test_bayes_cell_update_bit_equal_jax(seed, model):
+    """The public cell update equals JAX's function run eagerly, bit for
+    bit, with the model's scalars as Python floats (JAX takes the odds
+    constant in float64) and as float32 values."""
+    dist, current, prev = _cell_inputs(seed)
+    scalars = (0.6, 0.1, 0.9, 0.1, 20.0, 0.2) if model == "float" else BAYES
+    want = np.asarray(jm.bayes_cell_update(None, dist, current, prev, *scalars))
+    got = pm.bayes_cell_update(None, dist, current, prev, *scalars)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_bayesian_grid_agrees_with_bayes_cell_update():
+    """The mapper's Bayesian pass (the plain version of K5's cell pass)
+    against the public cell update on every covered cell of a ring scan,
+    where each cell's covering beam range is the ring's: within 2 ulps of
+    1 (the pass contracts two multiply-adds as the jitted JAX mapper does;
+    the update rounds each operation); every other cell keeps the prior."""
+    spec = pm.mapper_spec_from_jax(SPECS["61x61/72"])
+    ring = np.float32(2.5)  # exact in bfloat16: the table keeps it whole
+    ranges = torch.full((spec.num_bins,), float(ring))
+    prev = torch.as_tensor(_prev(SPECS["61x61/72"], 3))
+    occ, prob = pm.scan_to_grid_bayesian(spec, ranges, prev, *BAYES)
+    geo = pm._geometry_for(spec, 0.0, CPU)
+    want = pm.bayes_cell_update(spec, geo.dist_m, ring, prev, *BAYES)
+    # cells on a beam's line; an endpoint cell off every line keeps the
+    # prior, as in the reference
+    covered = (occ == OCCUPANCY_TYPE.EMPTY.value) | (
+        (occ == OCCUPANCY_TYPE.OCCUPIED.value) & (prob != np.float32(BAYES[0])))
+    assert covered.sum() > 500 and (~covered).sum() > 500
+    np.testing.assert_allclose(prob[covered].numpy(), want[covered].numpy(),
+                               rtol=0, atol=2 * 2.0**-24 * 2)
+    np.testing.assert_array_equal(prob[~covered].numpy(), np.float32(BAYES[0]))
