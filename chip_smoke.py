@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the DWA control tick, of the device fleet
 tick and its k-tick loop, of the local occupancy mapper, of the global
-planners, of the serving artifacts and of the scale-out over a device
-mesh once on an NVIDIA GPU.
+planners, of the serving artifacts, of the scale-out over a device mesh
+and of the benchmark runner once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -258,6 +258,18 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     an empty cloud each go through ``LocalMapper`` on the card (K5 once
     each, every layer equal to the CPU mapper's; the walls stamp
     occupied cells, the empty cloud none).
+41. The benchmark layer (``kompass_core_tpu_torch/benchmark/``):
+    ``BenchmarkRunner(cuda).run_all()`` once, its nine workloads at the
+    reference's sizes (DWA_2025x30, DWA_LargeBatch_65k at 255 x 255
+    samples, DWA_Fleet_64, CostEvaluator_5k_Trajs, the three 400 x 400
+    mappers, the two critical-zone checks), each record logged beside the
+    card's name and power limit with a finite, positive p50, each DWA
+    workload and the evaluator launching K1 and each mapper K5 exactly once
+    per dispatch (46 each); the DWA device loop at K = 4 and 12 (one CUDA
+    graph per K); then one DWA_2025x30 variant against the CPU port, K1's
+    call of one DWA_LargeBatch_65k solve against its plain version bit
+    for bit, and the device loop's replayed final cost equal to the same
+    chain run eagerly on the card.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -279,7 +291,8 @@ are set to 0 again before the mesh phases (35-38): each kernel's row adds
 the launches of the mesh calls alone (not the one-device fleets and
 solves they are compared with) and those the two worker processes report.
 The counts are set to 0 again before phase 40, whose K1 and K5 launches
-add to their rows.
+add to their rows, and again before phase 41, whose runner dispatches
+and device loop (its warm-ups and replays) add theirs.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -301,6 +314,23 @@ import warnings
 
 import numpy as np
 
+# the benchmark layer's scenario builder, bounds (the card's peaks: the
+# NVIDIA H100 SXM data sheet's, at 700 W), event timers and planner problem
+from kompass_core_tpu_torch.benchmark.baseline import build_scenario as baseline_scenario
+from kompass_core_tpu_torch.benchmark.kernel_bench import _events_ms, _graph_ms, _in_turns
+from kompass_core_tpu_torch.benchmark.planner_bench import CONFIG as PLAN_CONFIG
+from kompass_core_tpu_torch.benchmark.planner_bench import GOAL as PLAN_GOAL
+from kompass_core_tpu_torch.benchmark.planner_bench import ROBOT as PLAN_ROBOT
+from kompass_core_tpu_torch.benchmark.planner_bench import START as PLAN_START
+from kompass_core_tpu_torch.benchmark.planner_bench import problem as plan_problem
+from kompass_core_tpu_torch.benchmark.roofline import (
+    bound,
+    cells_bound,
+    form_bound,
+    sweep_bound,
+)
+from kompass_core_tpu_torch.benchmark.runner import evaluator_inputs
+
 # flagship configuration: 45 x 45 samples, 30-step horizon, 512-ray scan;
 # vx_max 1.2 m/s sizes the tracked segment at 384 slots
 SAMPLES = 45
@@ -318,13 +348,6 @@ TRUNCATE_TICKS = 10
 TIMED_TICKS = 220
 TIMED_WARMUP = 10
 KERNEL_INPUTS = 100
-
-# the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s, and
-# FP32 operations/s outside the tensor cores. 67 TFLOP/s counts an FMA as
-# two operations; the kernels round every operation on its own (no FMA),
-# so each operation is one instruction, at half that rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12 / 2
 
 COST_REL = 1e-4  # CPU vs card, per tick (the port's solver parity tolerance)
 TIE_REL = 1e-6  # two winners within this are a tie of sin/cos ulps
@@ -836,73 +859,6 @@ def phase_slice(kernels, device):
     return launches
 
 
-def bound(ops, nbytes):
-    """(the least ms the card could take, what bounds it): the larger of
-    ops at FP32_OPS_PER_S and bytes at HBM_BYTES_PER_S."""
-    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def sweep_bound(px, rows, active, segments=0, moving=False):
-    """The bound of a direct-form sweep (K1, K3) of [B, S, T] points
-    (``px``) against ``rows`` obstacle rows and ``segments`` segment rows
-    per robot, active steps [B] (``active``): 6 FP32 operations per active
-    (point, row) pair (2 sub, 2 mul, add, min), and in the moving sweep 4
-    per (robot, active step, obstacle row) to move the row; bytes: points,
-    rows (and velocities), two outputs per point, once each."""
-    B, S, T = (1, *px.shape) if px.dim() == 2 else px.shape
-    steps = float(active.clamp(max=T).sum()) if active.dim() else float(min(int(active), T))
-    pairs = steps * S * (rows + segments)
-    ops = 6.0 * pairs + (4.0 * steps * rows if moving else 0.0)
-    nbytes = 4.0 * (2 * B * S * T + B * (2 * rows * (2 if moving else 1) + 2 * segments)
-                    + 2 * B * S * T)
-    return bound(ops, nbytes)
-
-
-def cells_bound(robots, height, width, bins, bayes=True):
-    """The bound of the mapper's per-cell pass: bytes per robot and cell
-    (endpoint flag, occupancy, and in the Bayesian form the previous and
-    new probability), per cell (nearest bin, distance) and per beam (its
-    16-byte table row; the bounds are the call's own scratch); operations:
-    the 5 line tests (4 mul, 2 add, 3 compares each) per robot and cell."""
-    cells = height * width
-    nbytes = robots * cells * (1 + 4 + (8 if bayes else 0)) + cells * 8 + robots * bins * 16
-    return bound(45.0 * robots * cells, nbytes)
-
-
-def _events_ms(fn, inputs, warm=2):
-    """CUDA-event ms per call of ``fn`` over ``inputs`` (argument tuples),
-    back to back after ``warm`` warm-up calls."""
-    import torch
-
-    for args in inputs[:warm]:
-        fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for args in inputs:
-        fn(*args)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / len(inputs)
-
-
-def _in_turns(kernel, plain, inputs, warm=2):
-    """CUDA-event ms per call of ``plain`` and ``kernel`` over ``inputs``
-    (argument tuples), in turns plain, kernel, kernel, plain. Returns
-    (kernel ms, plain ms, the four runs)."""
-
-    def timed(fn):
-        return _events_ms(fn, inputs, warm)
-
-    runs = [("plain", timed(plain)), ("kernel", timed(kernel)),
-            ("kernel", timed(kernel)), ("plain", timed(plain))]
-    return (statistics.mean(t for n, t in runs if n == "kernel"),
-            statistics.mean(t for n, t in runs if n == "plain"),
-            [f"{n} {t:.5f} ms" for n, t in runs])
-
-
 def phase_times(kernels, device, card):
     import torch
 
@@ -927,36 +883,6 @@ def phase_times(kernels, device, card):
     log(f"tick latency over {len(lat)} ticks ({card}): median {p50:.4f} ms, "
         f"p99 {p99:.4f} ms, min {lat[0]:.4f} ms, max {lat[-1]:.4f} ms")
     return p50
-
-
-def _graph_ms(fn, inputs, replays=2):
-    """CUDA-event ms per call of ``fn`` over ``inputs`` (argument tuples),
-    the calls captured once into a CUDA graph and replayed ``replays``
-    times: the device's time, without the host's enqueue between calls
-    (a one-robot sweep takes less time on the card than its wrapper on
-    the host)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for args in inputs[:2]:
-            fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for args in inputs:
-            fn(*args)
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(stop) / (replays * len(inputs))
 
 
 # The static kernel's path shapes, timed by phase_static_times: (kernel,
@@ -2093,55 +2019,6 @@ def baseline_spec(backend):
                       seg_size=segments, drop_samples=True, backend=backend)
 
 
-def baseline_scenario(spec, rng, robot_index, omega_shard=None):
-    """``bench.py``'s ``build_scenario`` with the port's functions: robot i
-    at x = 0.1 i with yaw 0.05 i, a 3 m arc of segment at 1 cm, 512
-    obstacles scattered at 2.5-9 m around it. Returns its packed buffer;
-    with ``omega_shard`` (c, shards) its velocity window keeps the omega
-    samples c, c + shards, ... alone (``tests/test_fleet.py``'s split of the
-    sample axis)."""
-    from kompass_core_tpu_torch.models import (
-        AngularCtrlLimits, LinearCtrlLimits, RobotCtrlLimits,
-    )
-    from kompass_core_tpu_torch.ops.solver import pack_solver_input, packed_input_size
-    from kompass_core_tpu_torch.ops.window import sample_velocity_window
-
-    limits = RobotCtrlLimits(
-        vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
-        omega_limits=AngularCtrlLimits(max_vel=2.0, max_acc=3.0, max_decel=3.0),
-    ).to_array()
-    limits[3:6] = 0.0
-    x0, yaw0 = 0.1 * robot_index, 0.05 * robot_index
-    n_seg = min(301, spec.seg_size)
-    s = 0.01 * np.arange(n_seg, dtype=np.float32)
-    seg_x = np.full(spec.seg_size, 1e8, np.float32)
-    seg_y = np.full(spec.seg_size, 1e8, np.float32)
-    seg_arc = np.zeros(spec.seg_size, np.float32)
-    seg_x[:n_seg] = x0 + s * np.cos(yaw0)
-    seg_y[:n_seg] = s * np.sin(yaw0) + 0.5 * 0.2 * s**2
-    seg_arc[:n_seg] = s
-    ranges = rng.uniform(2.5, 9.0, spec.scan_size)
-    angles = np.linspace(-np.pi, np.pi, spec.scan_size, endpoint=False)
-    obs = np.stack([ranges * np.cos(angles + yaw0) + x0,
-                    ranges * np.sin(angles + yaw0)], axis=1).astype(np.float32)
-    window = sample_velocity_window((0.5, 0.0, 0.1), limits, 0.1, spec.n_vx,
-                                    spec.n_vy, spec.n_omega, spec.is_omni)
-    if omega_shard is not None:
-        c, shards = omega_shard
-        mask = np.zeros_like(window.omega_mask)
-        mask[c::shards] = window.omega_mask[c::shards]
-        window = window._replace(omega_mask=mask)
-    params = np.array([0.1, 0.3, 0.05, 2.0, 1.0, 1.0, 0.1, 0.05, 5.0, 0.0, 3.0,
-                       10.0 / 3], np.float32)
-    buf = np.zeros(packed_input_size(spec), np.float32)
-    pack_solver_input(spec, buf, params_vec=params, state=(x0, 0.0, yaw0),
-                      window=window, obs_xy=obs, obs_count=spec.scan_size,
-                      seg_x=seg_x, seg_y=seg_y, seg_arc=seg_arc, seg_count=n_seg,
-                      seg_total_len=float(s[-1]), ref_total_len=10.0,
-                      active_points=spec.max_points)
-    return buf
-
-
 def baseline_batches(spec, count, seed=0):
     """``count`` distinct [SOLVER_ROBOTS, L] batches: the same scenarios
     with the robots' x moved by 1e-4 m per batch, as ``bench.py`` makes
@@ -2217,47 +2094,6 @@ def phase_fleet_solver(kernels, device):
         f"bit-equal, winner ties {n_ties}")
 
 
-def heavy_samples(S, T, dt=0.01, v1=1.0, max_fluct=0.5):
-    """CostEvaluator_5k_Trajs's sample set: a straight centre trajectory
-    and pairs with a sinusoidal linear or angular fluctuation."""
-    i = np.arange(T, dtype=np.float32)
-    fl = np.sin(2.0 * np.pi * i / T).astype(np.float32)
-    k = np.arange(S)
-    amp = max_fluct / max((S - 1) // 2, 1)
-    a = (((k + 1) // 2) * amp).astype(np.float32)[:, None]
-    odd = (k % 2 == 1)[:, None]  # linear-fluctuation samples
-    ang = ((k % 2 == 0) & (k > 0))[:, None]  # angular-fluctuation samples
-    px = np.broadcast_to(np.float32(dt * v1) * i, (S, T)).copy()
-    py = np.where(odd, np.float32(dt) * (a * fl) * i, 0.0).astype(np.float32)
-    vx = np.full((S, T - 1), v1, np.float32)
-    vy = np.where(odd, a * fl[:-1], 0.0).astype(np.float32)
-    w = np.where(ang, a * fl[:-1], 0.0).astype(np.float32)
-    return px, py, np.stack([vx, vy, w], axis=-1)
-
-
-def evaluator_inputs(device, params_device=None):
-    """(params, the evaluator's 12 array arguments) at EVAL_SHAPE: a
-    straight 10 m path at 1 cm, 4 costs at weight 1, no obstacles."""
-    from kompass_core_tpu_torch.ops.solver import SolverParams
-
-    S, T, G = EVAL_SHAPE
-    px, py, vels = heavy_samples(S, T)
-    s = 0.01 * np.arange(1001, dtype=np.float32)
-    seg_x = np.full(G, 1e8, np.float32)
-    seg_y = np.full(G, 1e8, np.float32)
-    seg_arc = np.zeros(G, np.float32)
-    seg_x[:1001], seg_y[:1001], seg_arc[:1001] = s, 0.0, s
-    params = SolverParams.create(
-        0.01, 0.3, 0.05,
-        {"reference_path_distance_weight": 1.0, "goal_distance_weight": 1.0,
-         "obstacles_distance_weight": 0.0, "smoothness_weight": 1.0,
-         "jerk_weight": 1.0},
-        (3.0, 3.0, 3.0), 10.0 / 3, device=device)
-    obs = np.full((128, 2), 1e8, np.float32)
-    return params, [px, py, vels, obs, np.int32(0), seg_x, seg_y, seg_arc,
-                    np.int32(1001), np.float32(10.0), np.float32(10.0), np.int32(T)]
-
-
 def phase_evaluator(kernels, device):
     """The standalone cost evaluator at CostEvaluator_5k_Trajs's size on
     cuda; a sample of rows against the CPU."""
@@ -2266,7 +2102,7 @@ def phase_evaluator(kernels, device):
     from kompass_core_tpu_torch.ops.solver import get_cost_evaluator
 
     S, T, G = EVAL_SHAPE
-    params, args = evaluator_inputs(device)
+    params, args = evaluator_inputs(device, *EVAL_SHAPE[:2])
     dev_args = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
     before = kernels.fused_min_dist_sq.launches
     res = get_cost_evaluator(device, with_obstacles=False)(params, *dev_args)
@@ -2276,7 +2112,7 @@ def phase_evaluator(kernels, device):
     assert bool(res.found) and int(res.num_admissible) == S
     assert int(res.best_index) == int(torch.argmin(costs))
     rows = np.linspace(0, S - 1, EVAL_CPU_ROWS).astype(np.int64)
-    cpu_params, _ = evaluator_inputs("cpu")
+    cpu_params, _ = evaluator_inputs("cpu", *EVAL_SHAPE[:2])
     cpu = get_cost_evaluator("cpu", with_obstacles=False)(
         cpu_params, *(a[rows] for a in args[:3]), *args[3:]).costs
     got = costs[torch.from_numpy(rows)]
@@ -2379,7 +2215,7 @@ def phase_solver_times(kernels, device, card):
             f"calls {chained:.4f} ms per call, {SOLVER_ROBOTS * 1e3 / chained:.1f} "
             f"solves/s; one call with sync median {p50:.4f} ms, p99 {p99:.4f} ms")
 
-    params, args = evaluator_inputs(device)
+    params, args = evaluator_inputs(device, *EVAL_SHAPE[:2])
     dev_args = [torch.from_numpy(np.asarray(a)).to(device) for a in args]
     ev = get_cost_evaluator(device, with_obstacles=False)
     ref_lens = [torch.tensor(10.0 + 1e-4 * k, device=device)
@@ -2663,23 +2499,6 @@ def phase_ticks_times(device, card):
             f"{eager[0] / TICKS_K:.4f} ms per tick (call median {eager[0]:.4f}, min "
             f"{eager[1]:.4f}, max {eager[2]:.4f} ms)")
         del fleet
-
-
-def form_bound(px, rows, active, segments, pair_ops, seg_ops, row_ops=0.0,
-               moving=False, fields=2):
-    """The bound of a sweep of [B, S, T] points against ``rows`` obstacle
-    and ``segments`` segment rows per robot, active steps [B]: FP32
-    instructions per active (point, obstacle row) pair (``pair_ops``), per
-    (point, segment row) pair (``seg_ops``) and per (robot, active step,
-    obstacle row) (``row_ops``: the moving forms' prefix), an FMA one
-    instruction; bytes as ``sweep_bound``, with ``fields`` outputs per
-    point (K4 one)."""
-    B, S, T = px.shape
-    steps = float(active.clamp(max=T).sum())
-    ops = steps * S * (pair_ops * rows + seg_ops * segments) + row_ops * steps * rows
-    nbytes = 4.0 * (2 * B * S * T + B * (2 * rows * (2 if moving else 1) + 2 * segments)
-                    + fields * B * S * T)
-    return bound(ops, nbytes)
 
 
 # (pair, segment pair, per-step row) FP32 instructions of each form:
@@ -3929,35 +3748,17 @@ def phase_replay_profile(device, card):
 
 
 # --- global planning (phases 27-30) ------------------------------------------
-# the reference's own planner problem (kompass_core_tpu/benchmark/
-# planner_bench.py:55-73): the recorded turtlebot map, a cylinder robot of
-# radius 0.1 m, 512 roadmap samples, 1024 tree iterations
+# the reference's own planner problem (``benchmark/planner_bench.py``'s:
+# PLAN_ROBOT, PLAN_START, PLAN_GOAL, PLAN_CONFIG and plan_problem, imported
+# at the top): the recorded turtlebot map, a cylinder robot of radius
+# 0.1 m, 512 roadmap samples, 1024 tree iterations
 
-PLAN_DIR = "tests/resources/reference/ompl"
-PLAN_ROBOT = (0.1, 0.4)  # cylinder radius, height
-PLAN_START = (-1.88, -0.38, 0.3)
-PLAN_GOAL = (0.59, 0.73, 0.0)
-PLAN_CONFIG = dict(num_samples=512, seed=2, connection_radius=1.5,
-                   max_iterations=1024, step_size=0.3, planning_timeout=30.0)
 PLAN_EXTRA_IDS = ("FMTstar", "AITstar")  # registry ids with no reference row
 PLAN_REL = 1e-4  # card vs CPU on the same draws: nodes and costs
 PLAN_REPLAY_ITERS = 100  # graph == eager: 3 chunks of 32 and a remainder of 4
 PLAN_TIMED = ("RRTstar", "RRTConnect", "EST")
 PLAN_TIMED_ITERS = 128  # 4 chunks
 PLAN_FLEET_ROBOTS = 16
-
-
-def plan_problem():
-    """(map meta, obstacle cloud, {planner id: reference CSV row})."""
-    import csv
-    import os
-
-    with open(os.path.join(PLAN_DIR, "map_meta.json")) as f:
-        meta = json.load(f)
-    cloud = np.load(os.path.join(PLAN_DIR, "turtlebot_map.npy"))
-    with open(os.path.join(PLAN_DIR, "test_results_geometric_ref.csv")) as f:
-        ref = {row["method"].rsplit(".", 1)[-1]: row for row in csv.DictReader(f)}
-    return meta, cloud, ref
 
 
 def make_planner(planner_id, device, problem=None, **overrides):
@@ -5367,6 +5168,133 @@ def phase_recorded(kernels, device):
     return launches
 
 
+# the benchmark runner's nine workloads in run_all's order, each with the
+# kernel it launches once per dispatch on the card
+BENCH_WORKLOADS = (("DWA_2025x30", "K1"), ("DWA_LargeBatch_65k", "K1"),
+                   ("DWA_Fleet_64", "K1"), ("CostEvaluator_5k_Trajs", "K1"),
+                   ("Mapper_Dense_400x400", "K5"), ("Mapper_Bayesian_400x400", "K5"),
+                   ("Mapper_PointCloud_100k", "K5"), ("CriticalZone_100k_Cloud", None),
+                   ("CriticalZone_Dense_Scan", None))
+BENCH_RECORD_KEYS = {"name", "runs", "mean_ms", "min_ms", "p50_ms", "p99_ms", "method"}
+BENCH_LARGE = (255, 255, 30, 512, 384)  # DWA_LargeBatch_65k: samples per axis, steps, rows
+BENCH_LOOP_KS = (4, 12)  # the device loop's two chain lengths
+BENCH_LOOP_REPEATS = 1
+
+
+def _recorded_k1(kernels, fn):
+    """(what ``fn()`` returned, the one K1 call it made: (its arguments,
+    its outputs)), K1 reached through the solver's module as a solve
+    reaches it."""
+    from kompass_core_tpu_torch.ops import solver as tsolver
+
+    calls = []
+    launch = tsolver.fused_min_dist_sq
+
+    def record(*args, **kw):
+        out = launch(*args, **kw)
+        calls.append((args, out))
+        return out
+
+    tsolver.fused_min_dist_sq = record
+    try:
+        out = fn()
+    finally:
+        tsolver.fused_min_dist_sq = launch
+    assert len(calls) == 1, f"{len(calls)} K1 calls"
+    return out, calls[0]
+
+
+def phase_benchmark(kernels, device, card):
+    """Phase 41: the benchmark layer on the card. ``BenchmarkRunner.run_all``
+    once: each record's schema and a finite, positive p50; each DWA
+    workload and the evaluator launch K1 and each mapper workload K5
+    exactly once per dispatch; then the DWA device loop (K = 4 and 12, one
+    repeat). Then the comparisons: one DWA_2025x30 variant against the
+    CPU port, K1's call of one DWA_LargeBatch_65k solve against its plain
+    version bit for bit, and the device loop's replayed final cost against
+    the same chain run eagerly on the card, bit for bit. Returns (the
+    main-path launches by kernel, K1's max abs difference)."""
+    import torch
+
+    from kompass_core_tpu_torch.benchmark import device_loop
+    from kompass_core_tpu_torch.benchmark.runner import (
+        BenchmarkRunner,
+        slope_variants_needed,
+    )
+    from kompass_core_tpu_torch.ops.solver import get_packed_dwa_solver
+
+    t0 = time.perf_counter()
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    runner = BenchmarkRunner(device)
+    made = {}
+
+    def counted(bench):
+        def run():
+            before, n = kernels.launch_counts(), len(runner.results)
+            bench()
+            (rec,) = runner.results[n:]
+            made[rec["name"]] = _launches_made(kernels, before)
+        return run
+
+    for attr in [a for a in dir(runner) if a.startswith("bench_")]:
+        setattr(runner, attr, counted(getattr(runner, attr)))
+    records = runner.run_all()
+    assert runner.platform == "cuda_" + torch.cuda.get_device_name(0).replace(" ", "_")
+    assert [r["name"] for r in records] == [n for n, _ in BENCH_WORKLOADS], records
+    dispatches = slope_variants_needed()
+    for rec, (name, key) in zip(records, BENCH_WORKLOADS):
+        assert BENCH_RECORD_KEYS <= set(rec), rec
+        assert math.isfinite(rec["p50_ms"]) and rec["p50_ms"] > 1e-9, rec
+        assert made[name] == ({key: dispatches} if key else {}), (name, made[name])
+        log(f"benchmark record ({card}): {json.dumps(rec)}; launches {made[name]}")
+    launches = {key: sum(m.get(key, 0) for m in made.values()) for key in ("K1", "K5")}
+
+    loops = {}
+    spec, variants = device_loop._dwa_baseline_buffers(2 * BENCH_LOOP_REPEATS + 2, device)
+    before = kernels.launch_counts()
+    rec = device_loop.measure_device_loop(
+        "DWA_2025x30_device_loop",
+        lambda k: loops.setdefault(k, device_loop.make_dwa_device_loop(spec, k, device)),
+        variants, ks=BENCH_LOOP_KS, repeats=BENCH_LOOP_REPEATS)
+    # the wrapper counts the capture's warm-up (run) and its capture (not
+    # run); a replay calls no wrapper: the card ran each K's warm-up and K
+    # per replay (one warm-up dispatch and one per repeat)
+    wrapped = _launches_made(kernels, before)
+    assert wrapped == {"K1": 2 * sum(BENCH_LOOP_KS)}, wrapped
+    assert {k: c for k, c in kernels.launch_counts().items() if c} == {
+        "K1": launches["K1"] + wrapped["K1"], "K5": launches["K5"]}
+    loop_launches = sum(BENCH_LOOP_KS) * (2 + BENCH_LOOP_REPEATS)
+    launches["K1"] += loop_launches
+    assert math.isfinite(rec["p50_ms"]), rec
+    assert rec["method"] == "device_loop_k{}_k{}".format(*BENCH_LOOP_KS), rec
+    log(f"benchmark record ({card}): {json.dumps(rec)}; launches {{'K1': {loop_launches}}}")
+
+    # the comparisons (their launches are not the main path's)
+    k = max(BENCH_LOOP_KS)
+    replay = loops[k](variants[0])
+    eager = device_loop.dwa_chain(spec, k)(variants[0])
+    assert torch.equal(replay, eager), f"device loop replay {replay} != eager {eager}"
+    out = get_packed_dwa_solver(spec, device)(variants[0]).cpu().numpy()
+    ties = []
+    _cpu_check(spec, variants[0].cpu().numpy(), out, ties)
+    solver, large = runner._dwa_workload(*BENCH_LARGE, "large")
+    out, (args, fields) = _recorded_k1(kernels, lambda: solver(large[0]))
+    assert args[0].shape[-2:] == (BENCH_LARGE[0] * BENCH_LARGE[1], BENCH_LARGE[2]), (
+        args[0].shape)
+    # the plain version sweeps in slabs of samples (kernels._sweep_reference):
+    # the 65025 x 30 x 896 pairs (7 GB at once) never materialise
+    err = _check_equal("K1 at DWA_LargeBatch_65k", fields,
+                       kernels.fused_min_dist_sq_reference(*args))
+    assert bool(out[0] > 0.5) and math.isfinite(float(out[1])), out[:4]
+    log(f"benchmark checks ({card}): the device loop's K = {k} replay == its eager chain "
+        f"on the card ({float(replay):.6f}); DWA_2025x30 variant 0 agrees with the CPU "
+        f"port (ties {ties}); K1 at DWA_LargeBatch_65k ({args[0].shape[-2]} x "
+        f"{args[0].shape[-1]} vs {args[2].shape[-2]} + {args[3].shape[-1]} rows) == plain "
+        f"bit for bit; launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     import torch
 
@@ -5488,6 +5416,7 @@ def main() -> int:
     phase_mesh_times(kernels, device, card, mp_wall, runtime_ms)
     log(f"mesh phases: {time.perf_counter() - t_mesh:.1f} s")
     recorded = phase_recorded(kernels, device)
+    bench, bench_err = phase_benchmark(kernels, device, card)
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -5506,8 +5435,8 @@ def main() -> int:
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
             k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"]
-            + mesh["K1"] + recorded["K1"],
-            max(k1_err, peer_errs["K1"]), *static_times["K1"]),
+            + mesh["K1"] + recorded["K1"] + bench["K1"],
+            max(k1_err, peer_errs["K1"], bench_err), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches + mesh["K2"], k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
@@ -5519,7 +5448,7 @@ def main() -> int:
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES,
             k4_launches + mesh["K4"], k4_err, *static_times["K4"]),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES,
-            k5_launches + recorded["K5"], k5_err, *k5_times),
+            k5_launches + recorded["K5"] + bench["K5"], k5_err, *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
             form_launches["K6"] + served["K6"] + mesh["K6"],
             max(form_errs["K6"], peer_errs["K6"]),

@@ -48,12 +48,16 @@ def test_port_import_loads_no_jax_and_no_triton():
         "import kompass_core_tpu_torch.datatypes.obstacles\n"
         "import kompass_core_tpu_torch.datatypes.path_sample\n"
         "import kompass_core_tpu_torch.datatypes.pcd\n"
+        "import kompass_core_tpu_torch.benchmark\n"
+        "from kompass_core_tpu_torch.benchmark import baseline, device_loop, kernel_bench\n"
+        "from kompass_core_tpu_torch.benchmark import moving_bench, peer_bench\n"
+        "from kompass_core_tpu_torch.benchmark import planner_bench, roofline, runner, scaling\n"
         "import chip_smoke\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton',\n"
-        "                                    'kompass_core_tpu'))\n"
+        "                                    'kompass_core_tpu', 'bench'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -92,6 +96,19 @@ def test_port_sources_never_import_the_jax_package():
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if _JAX_PACKAGE_IMPORT.search(p.read_text())]
     assert offenders == []
+
+
+# the root ``bench.py``, which imports the JAX package
+_ROOT_BENCH_IMPORT = re.compile(r"^\s*(import\s+bench|from\s+bench\s+import)\b", re.MULTILINE)
+
+
+def test_port_sources_never_import_the_root_bench():
+    sources = sorted(PORT.rglob("*.py")) + [Path(REPO) / "chip_smoke.py"]
+    assert any(p.parent.name == "benchmark" for p in sources)
+    assert [str(p.relative_to(REPO)) for p in sources
+            if _ROOT_BENCH_IMPORT.search(p.read_text())] == []
+    assert _ROOT_BENCH_IMPORT.search("    from bench import build_scenario")
+    assert not _ROOT_BENCH_IMPORT.search("from .baseline import build_scenario")
 
 
 def test_source_scan_catches_each_import_form():
