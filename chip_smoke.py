@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the DWA control tick, of the device fleet
 tick and its k-tick loop, of the local occupancy mapper, of the global
-planners, of the serving artifacts, of the scale-out over a device mesh
-and of the benchmark runner once on an NVIDIA GPU.
+planners, of the serving artifacts, of the scale-out over a device mesh,
+of the benchmark runner and of the benchmark tools once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -270,6 +270,19 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     call of one DWA_LargeBatch_65k solve against its plain version bit
     for bit, and the device loop's replayed final cost equal to the same
     chain run eagerly on the card.
+42. The benchmark tools (``benchmark/scaling_proof.py``,
+    ``batch_cliff.py``, ``chunk_unroll_bench.py``, ``mapper_split.py``):
+    the seven mesh programs' collectives over ``[cuda, cuda]`` (none for
+    the packed solver and the plain, safety, tracked and split ticks, one
+    all-gather for the peer tick, three all-reduces for the
+    sample-parallel solve); the flagship's batched device loop at 64 and
+    80 rows, K = 4 and 12 (µs per solve); the 1024-robot fleet's tick
+    captured with its robot axis whole and in 64-row blocks, 3 replays
+    each: blocked == whole bit for bit, rows 0, 511 and 1023 against a
+    3-robot fleet of those robots on the CPU, the peak memory; the mapper
+    split (beam side, K5's cell pass, the whole update, by slope and by
+    device loop) and its shoot-out (the update through K5 == through its
+    plain version).
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -292,7 +305,10 @@ the launches of the mesh calls alone (not the one-device fleets and
 solves they are compared with) and those the two worker processes report.
 The counts are set to 0 again before phase 40, whose K1 and K5 launches
 add to their rows, and again before phase 41, whose runner dispatches
-and device loop (its warm-ups and replays) add theirs.
+and device loop (its warm-ups and replays) add theirs, and again before
+phase 42, whose launches add to K1, K3, K3s and K5: the mesh programs'
+wrapper calls, and for each captured loop or tick the warm-up's and each
+replay's (a replay calls no wrapper; its launches are the captured ones).
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -329,7 +345,7 @@ from kompass_core_tpu_torch.benchmark.roofline import (
     form_bound,
     sweep_bound,
 )
-from kompass_core_tpu_torch.benchmark.runner import evaluator_inputs
+from kompass_core_tpu_torch.benchmark.runner import evaluator_inputs, slope_variants_needed
 
 # flagship configuration: 45 x 45 samples, 30-step horizon, 512-ray scan;
 # vx_max 1.2 m/s sizes the tracked segment at 384 slots
@@ -5295,6 +5311,163 @@ def phase_benchmark(kernels, device, card):
     return launches, err
 
 
+# --- the benchmark tools (phase 42) ------------------------------------------
+# the last five modules of benchmark/, at the sizes their own entries run
+# (the full sweeps and timings are theirs: python -m
+# kompass_core_tpu_torch.benchmark.<module> --device cuda)
+
+TOOLS_SHARDS = 2  # scaling_proof's mesh: [cuda, cuda]
+CLIFF_BATCHES = (64, 80)  # batch_cliff.sweep's batches, K and repeats here
+CLIFF_KS = (4, 12)
+CLIFF_REPEATS = 1
+CHUNK_ROBOTS = 1024  # chunk_unroll_bench's fleet: 1024 robots, 512 rays
+CHUNK_RAYS = 512
+CHUNK_BLOCK = 64  # the JAX tick's block
+CHUNK_REPLAYS = 3  # replays of each captured tick, one distinct input each
+CHUNK_CPU_ROWS = (0, 511, 1023)
+SPLIT_KS = (4, 12)  # mapper_split's device loops, K and repeats here
+SPLIT_REPEATS = 3
+
+
+def _replayed_tick(kernels, fleet, block, inputs, device):
+    """(the CUDA graph of the chunk bench's tick (``block`` rows at a time,
+    None for the whole axis), its outputs after each replay on ``inputs``,
+    ms per replay by CUDA events, wrapper launches, card launches)."""
+    import torch
+
+    from kompass_core_tpu_torch.benchmark import chunk_unroll_bench as cb
+
+    before = kernels.launch_counts()
+    run = cb.graphed(cb.tick_fn(fleet, block), inputs[0], device)
+    wrapped = _launches_made(kernels, before)
+    outs = []
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for x in inputs:
+        start.record()
+        carry, out = run(x)
+        stop.record()
+        torch.cuda.synchronize()
+        outs.append(((*(t.clone() for t in carry), out.clone()), start.elapsed_time(stop)))
+    assert _launches_made(kernels, before) == wrapped, "a replay called a wrapper"
+    # the wrappers counted the capture's warm-up (run) and its capture (not
+    # run); each replay runs the captured launches once more
+    per_tick = {k: n // 2 for k, n in wrapped.items()}
+    card = {k: n * (1 + len(inputs)) for k, n in per_tick.items()}
+    return run, outs, card, per_tick
+
+
+def phase_benchmark_tools(kernels, device, card):
+    """Phase 42: the five benchmark tools on the card. ``scaling_proof.
+    build_proof`` over ``[cuda, cuda]`` (the seven collective counts);
+    ``batch_cliff.sweep`` at batches 64 and 80, K = 4 and 12, one repeat
+    (one CUDA graph per batch and K; the wrappers count one K1 per solve
+    of each capture's warm-up and capture, a replay none); the chunk
+    bench's 1024-robot fleet, its tick captured whole and in 64-row
+    blocks, 3 replays each: blocked == whole bit for bit, rows 0, 511 and
+    1023 against a 3-robot fleet of those robots on the CPU, the peak
+    memory; ``mapper_split.main`` (3 turns of slopes, device loops at K
+    = 4 and 12) and ``shootout`` (the update through K5 == through its
+    plain version).
+    Returns (the main-path launches by kernel, read from the wrappers and
+    the replays)."""
+    import torch
+
+    from kompass_core_tpu_torch.benchmark import (
+        batch_cliff,
+        chunk_unroll_bench,
+        mapper_split,
+        scaling_proof,
+    )
+    from kompass_core_tpu_torch.parallel import FleetMesh
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(made):
+        for key, n in made.items():
+            launches[key] = launches.get(key, 0) + n
+
+    made, proof = _counted(kernels, lambda: scaling_proof.build_proof(
+        FleetMesh([device] * TOOLS_SHARDS)))
+    add(made)
+    counts = {k: v["collective_counts"] for k, v in proof["programs"].items()}
+    assert counts["fleet_v2_tick_peers_mesh"] == {"all-gather": 1}, counts
+    assert counts["sample_parallel_solver"] == {"all-reduce": 3}, counts
+    assert all(not counts[k] for k in scaling_proof.STEADY_STATE), counts
+    assert {"K1", "K3", "K3s"} <= set(made), made
+    log(f"scaling proof over {TOOLS_SHARDS} shards on the card: {json.dumps(counts)}; "
+        f"launches {made}")
+
+    made, rows = _counted(kernels, lambda: batch_cliff.sweep(
+        device, batches=CLIFF_BATCHES, ks=CLIFF_KS, repeats=CLIFF_REPEATS))
+    # per batch and K: the capture's warm-up and its capture (K each); the
+    # card also ran the first dispatch's replay and one per repeat
+    assert made == {"K1": 2 * sum(CLIFF_KS) * len(CLIFF_BATCHES)}, made
+    cliff = sum(CLIFF_KS) * (2 + CLIFF_REPEATS) * len(CLIFF_BATCHES)
+    add({"K1": cliff})
+    for rec in rows:
+        assert math.isfinite(rec["us_per_solve"]) and rec["us_per_solve"] > 0, rec
+        log(f"batch cliff ({card}): batch {rec['batch']}: {rec['us_per_solve']:.3f} us "
+            f"per solve (K = {CLIFF_KS}), capture {rec['compile_s']:.2f} s")
+    log(f"batch cliff launches: {cliff} K1 on the card ({made['K1']} wrapper calls)")
+
+    fleet = chunk_unroll_bench._setup_fleet(CHUNK_ROBOTS, CHUNK_RAYS, device=device)
+    inputs = [torch.from_numpy(v).to(device)
+              for v in chunk_unroll_bench.tick_inputs(fleet, CHUNK_REPLAYS)]
+    torch.cuda.synchronize()
+    results = {}
+    for label, block in (("whole", None), (f"blocks of {CHUNK_BLOCK}", CHUNK_BLOCK)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        run, outs, made, per_tick = _replayed_tick(kernels, fleet, block, inputs, device)
+        peak = torch.cuda.max_memory_allocated(device) / 2**20
+        assert per_tick == {"K1": 1 if block is None else CHUNK_ROBOTS // CHUNK_BLOCK}, (
+            label, per_tick)
+        add(made)
+        results[label] = outs
+        ms = [t for _, t in outs]
+        log(f"1024-robot tick, {label} ({card}): {statistics.mean(ms):.4f} ms per replay "
+            f"by events {[round(t, 4) for t in ms]}, {statistics.mean(ms) / CHUNK_ROBOTS * 1e3:.3f} "
+            f"us per robot; peak {peak:.1f} MiB allocated; launches {made}")
+        del run
+    for (w, _), (b, _) in zip(results["whole"], results[f"blocks of {CHUNK_BLOCK}"]):
+        for x, y in zip(w, b):
+            assert torch.equal(x, y), "the blocked tick differs from the whole tick"
+    whole = results["whole"][0][0]
+    checked = chunk_unroll_bench.check(
+        fleet, inputs[0], CHUNK_BLOCK, CHUNK_CPU_ROWS,
+        whole=(whole[:-1], whole[-1]),
+        blocked=(results[f"blocks of {CHUNK_BLOCK}"][0][0][:-1],
+                 results[f"blocks of {CHUNK_BLOCK}"][0][0][-1]))
+    found = int(whole[-1][:, 0].sum().item())
+    log(f"1024-robot tick: blocked == whole bit for bit on {CHUNK_REPLAYS} inputs; rows "
+        f"{checked['rows']} agree with a {len(CHUNK_CPU_ROWS)}-robot fleet on the CPU "
+        f"(ties {checked['ties']}); {found} of {CHUNK_ROBOTS} found")
+    del fleet, inputs, results, whole
+    torch.cuda.empty_cache()
+
+    made, split = _counted(kernels, lambda: mapper_split.main(
+        device, repeats=SPLIT_REPEATS, ks=SPLIT_KS))
+    # one K5 per dispatch of the cell pass's and the whole update's slopes
+    # (each measured SPLIT_REPEATS times); two K5 device loops (the cell
+    # pass, the whole update): per K the wrappers counted the warm-up and
+    # the capture, the card ran the warm-up, the first replay and one per
+    # repeat
+    assert made == {"K5": 2 * SPLIT_REPEATS * slope_variants_needed()
+                    + 2 * 2 * sum(SPLIT_KS)}, made
+    add({"K5": made["K5"] + 2 * sum(SPLIT_KS) * SPLIT_REPEATS})
+    log(f"mapper split ({card}): {json.dumps(split)}; launches {made} (wrapper calls)")
+    made, shoot = _counted(kernels, lambda: mapper_split.shootout(device))
+    assert made == {"K5": 1 + slope_variants_needed()}, made
+    add(made)
+    log(f"mapper shoot-out ({card}): K5 == plain on one input (checksum "
+        f"{shoot['checksum']}); k5 {shoot['k5']:.4f} ms, plain {shoot['plain']:.4f} ms per "
+        f"update (slope)")
+    log(f"benchmark tools: launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5417,6 +5590,10 @@ def main() -> int:
     log(f"mesh phases: {time.perf_counter() - t_mesh:.1f} s")
     recorded = phase_recorded(kernels, device)
     bench, bench_err = phase_benchmark(kernels, device, card)
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    tools = phase_benchmark_tools(kernels, device, card)
+    assert all(tools.get(key) for key in ("K1", "K3", "K3s", "K5")), tools
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -5435,20 +5612,21 @@ def main() -> int:
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
             k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"]
-            + mesh["K1"] + recorded["K1"] + bench["K1"],
+            + mesh["K1"] + recorded["K1"] + bench["K1"] + tools["K1"],
             max(k1_err, peer_errs["K1"], bench_err), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches + mesh["K2"], k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
             k3_launches + peer_launches["K3"] + box_launches["K3"] + served["K3"]
-            + mesh["K3"],
+            + mesh["K3"] + tools["K3"],
             max(k3_err, peer_errs["K3"]), *k3_times),
-        row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES, split_launches["K3s"],
+        row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES,
+            split_launches["K3s"] + tools["K3s"],
             k3s_err, *k3s_times),
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES,
             k4_launches + mesh["K4"], k4_err, *static_times["K4"]),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES,
-            k5_launches + recorded["K5"] + bench["K5"], k5_err, *k5_times),
+            k5_launches + recorded["K5"] + bench["K5"] + tools["K5"], k5_err, *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
             form_launches["K6"] + served["K6"] + mesh["K6"],
             max(form_errs["K6"], peer_errs["K6"]),

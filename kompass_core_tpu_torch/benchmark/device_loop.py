@@ -43,7 +43,8 @@ def _device_loop(chain: Callable, device):
     never writes its input) as one dispatch on ``device``: on CUDA
     captured as a graph at the first call, each call copying its input
     into the graph's static input and replaying; on the CPU ``chain``
-    itself."""
+    itself. The CUDA form's ``state`` holds the graph after the first
+    call (``state["graph"]``)."""
     from ..utils.cuda_graph import capture
 
     device = torch.device(device)
@@ -63,6 +64,7 @@ def _device_loop(chain: Callable, device):
         state["graph"].replay()
         return state["out"].clone()
 
+    loop.state = state
     return loop
 
 

@@ -56,6 +56,8 @@ import torch.utils._pytree as pytree
 
 __all__ = [
     "export_callable",
+    "trace_callable",
+    "trace_fleet_tick",
     "export_packed_solver",
     "export_fleet_tick",
     "export_fleet_ticks_on_device",
@@ -93,6 +95,21 @@ class _Program(torch.nn.Module):
         return self.fn(*args)
 
 
+def trace_callable(fn: Callable, example_args: Tuple, *, device):
+    """The ``ExportedProgram`` of ``fn(*example_args)`` traced on ``device``
+    (``example_args`` as for ``export_callable``), as an artifact holds
+    it: no example inputs and no stack traces. Tracing runs no kernel."""
+    args = _on_device(tuple(example_args), torch.device(device))
+    program = torch.export.export(_Program(fn), args, strict=False)
+    # the graph's inputs keep their shapes and dtypes; the example values
+    # themselves (a fleet's path tables: megabytes) and the nodes' stack
+    # traces (the exporting machine's source paths) stay out of the file
+    program.example_inputs = None
+    for node in program.graph.nodes:
+        node.meta.pop("stack_trace", None)
+    return program
+
+
 def export_callable(
     fn: Callable,
     example_args: Tuple,
@@ -116,14 +133,7 @@ def export_callable(
     if device.type not in platforms:
         raise ValueError(f"traced on {device.type}, which platforms {platforms} "
                          "does not list")
-    args = _on_device(tuple(example_args), device)
-    program = torch.export.export(_Program(fn), args, strict=False)
-    # the graph's inputs keep their shapes and dtypes; the example values
-    # themselves (a fleet's path tables: megabytes) and the nodes' stack
-    # traces (the exporting machine's source paths) stay out of the file
-    program.example_inputs = None
-    for node in program.graph.nodes:
-        node.meta.pop("stack_trace", None)
+    program = trace_callable(fn, example_args, device=device)
     payload = io.BytesIO()
     torch.export.save(program, payload)
 
@@ -330,16 +340,27 @@ def export_fleet_tick(
     unpack. The header's meta records ``tracked_obstacles`` so a
     consumer sizing its input matrix from the header alone gets the
     right width."""
+    return export_callable(
+        _fleet_tick_program(fleet, device), fleet.tick_example_args(), path,
+        device=device, kind="fleet_tick", meta=_fleet_meta(fleet),
+        platforms=platforms,
+    )
+
+
+def _fleet_tick_program(fleet, device):
     from ..ops.fleet_solver import make_fleet_tick
 
     _register_fleet_pytrees()
     _check_exportable_fleet(fleet)
-    fn = make_fleet_tick(fleet.spec, device, peer_cfg=fleet._peer_cfg,
-                         safety=_safety(fleet))
-    return export_callable(
-        fn, fleet.tick_example_args(), path, device=device, kind="fleet_tick",
-        meta=_fleet_meta(fleet), platforms=platforms,
-    )
+    return make_fleet_tick(fleet.spec, device, peer_cfg=fleet._peer_cfg,
+                           safety=_safety(fleet))
+
+
+def trace_fleet_tick(fleet, *, device):
+    """The ``ExportedProgram`` that ``export_fleet_tick`` writes, traced on
+    ``device`` and returned instead of written (``trace_callable``)."""
+    return trace_callable(_fleet_tick_program(fleet, device),
+                          fleet.tick_example_args(), device=device)
 
 
 def _fleet_meta(fleet) -> Dict[str, Any]:

@@ -52,6 +52,9 @@ def test_port_import_loads_no_jax_and_no_triton():
         "from kompass_core_tpu_torch.benchmark import baseline, device_loop, kernel_bench\n"
         "from kompass_core_tpu_torch.benchmark import moving_bench, peer_bench\n"
         "from kompass_core_tpu_torch.benchmark import planner_bench, roofline, runner, scaling\n"
+        "from kompass_core_tpu_torch.benchmark import batch_cliff, chunk_unroll_bench\n"
+        "from kompass_core_tpu_torch.benchmark import fleet_fingerprint, mapper_split\n"
+        "from kompass_core_tpu_torch.benchmark import scaling_proof\n"
         "import chip_smoke\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

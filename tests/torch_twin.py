@@ -133,6 +133,11 @@ def tensor_args(f):
     return call
 
 
+def _np_dtype(dtype):
+    """A numpy dtype from a numpy one or a ``jnp`` scalar constructor."""
+    return dtype.dtype if isinstance(dtype, _JnpScalar) else dtype
+
+
 # ``jax.numpy``'s array constructors as the twins use them, on the CPU:
 # a twin replaces ``import jax.numpy as jnp`` by ``from torch_twin import jnp``
 jnp = types.SimpleNamespace(
@@ -140,8 +145,10 @@ jnp = types.SimpleNamespace(
     array=_jnp_asarray,
     float32=_JnpScalar(np.float32),
     int32=_JnpScalar(np.int32),
-    arange=lambda *a, dtype=np.int32: torch.as_tensor(np.arange(*a, dtype=dtype)),
-    full=lambda shape, v, dtype=np.float32: torch.as_tensor(np.full(shape, v, dtype)),
-    ones=lambda shape, dtype=np.float32: torch.as_tensor(np.ones(shape, dtype)),
-    zeros=lambda shape, dtype=np.float32: torch.as_tensor(np.zeros(shape, dtype)),
+    arange=lambda *a, dtype=np.int32: torch.as_tensor(np.arange(*a, dtype=_np_dtype(dtype))),
+    full=lambda shape, v, dtype=np.float32: torch.as_tensor(
+        np.full(shape, v, _np_dtype(dtype))),
+    ones=lambda shape, dtype=np.float32: torch.as_tensor(np.ones(shape, _np_dtype(dtype))),
+    zeros=lambda shape, dtype=np.float32: torch.as_tensor(np.zeros(shape, _np_dtype(dtype))),
+    stack=lambda arrays, axis=0: torch.stack(list(arrays), dim=axis),
 )
