@@ -2,7 +2,8 @@
 """Drive the PyTorch port of the DWA control tick, of the device fleet
 tick and its k-tick loop, of the local occupancy mapper, of the global
 planners, of the serving artifacts, of the scale-out over a device mesh,
-of the benchmark runner and of the benchmark tools once on an NVIDIA GPU.
+of the benchmark runner, of the benchmark tools and of the README's nine
+workflows (``examples_torch/``) once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -182,10 +183,11 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 27. Global planning on the turtlebot problem (the reference's own,
     ``tests/resources/reference/ompl``, at ``planner_bench.py``'s
     settings): every one of the 30 registry ids solves on the card with
-    its scans replayed as CUDA graphs, twice; each path starts at the
-    start, ends within ``goal_tolerance`` of the goal and is free by the
-    host check; its length beside the reference's, and the first (capture
-    included) and second solve's seconds.
+    its scans replayed as CUDA graphs, the three timed ids of phase 29
+    twice; each path starts at the start, ends within ``goal_tolerance``
+    of the goal and is free by the host check; its length beside the
+    reference's, and the first (capture included) and second solve's
+    seconds.
 28. The twelve planning device programs (the roadmap solve, RRT*, RRT#,
     RRT-Connect, EST, KPIECE1, SST, FMT*, TRRT, BiEST, PDST, BFMT*) at the
     bench shape on the card and on the CPU on the same draws, made once
@@ -283,6 +285,19 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     split (beam side, K5's cell pass, the whole update, by slope and by
     device loop) and its shoot-out (the update through K5 == through its
     plain version).
+43. The README's nine workflows (``examples_torch/``), each
+    ``run(cuda, ...)`` at its README size with the JAX demo's own
+    assertions: the full stack on the CPU's PRM plan (every DWA solve
+    against the CPU's solve of the same input, then the outcome lines
+    equal to the port's CPU run), the dynamic world likewise,
+    ``fleet_demo`` at 100 robots in lanes and at 8 in the host, peer,
+    prediction and mesh modes (the 8-robot lines equal to the CPU's), the
+    RTT serving at k = 1 and 8 and the AOT artifact (lines equal to the
+    CPU's), the serving restart and the sharded artifact (bit-identical
+    on the card), the vision and offline host workflows (no launch); then
+    ``python examples_torch/full_stack_demo.py`` in a subprocess with no
+    arguments (it plans and runs on the card by default). Each workflow's
+    wall time and launches by kernel are printed.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -308,7 +323,10 @@ add to their rows, and again before phase 41, whose runner dispatches
 and device loop (its warm-ups and replays) add theirs, and again before
 phase 42, whose launches add to K1, K3, K3s and K5: the mesh programs'
 wrapper calls, and for each captured loop or tick the warm-up's and each
-replay's (a replay calls no wrapper; its launches are the captured ones).
+replay's (a replay calls no wrapper; its launches are the captured ones),
+and again before phase 43, whose card runs' launches add to K1, K3 and
+K5 (the RTT workflow's k-tick loop counted as phase 42's loops are; the
+CPU runs it is compared with launch nothing).
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -316,6 +334,7 @@ JSON object describing each kernel; the last line is
 non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3811,8 +3830,9 @@ def check_plan(planner, path, what):
 
 def phase_planners(device, card):
     """Phase 27: every registry id solves the turtlebot problem on the
-    card (graph replay), twice; solved, length, ratio to the reference's,
-    first (capture included) and second solve seconds."""
+    card (graph replay), the ids of ``PLAN_TIMED`` twice; solved, length,
+    ratio to the reference's, first (capture included) and second solve
+    seconds."""
     import torch
 
     from kompass_core_tpu_torch.planning import planner_registry
@@ -3825,7 +3845,7 @@ def phase_planners(device, card):
     for pid in ids:
         planner = make_planner(pid, device)
         secs = []
-        for _ in range(2):
+        for _ in range(2 if pid in PLAN_TIMED else 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             path = planner.solve()
@@ -3837,12 +3857,12 @@ def phase_planners(device, card):
         ratio = length / ref_len if ref_len > 0 else None
         rows.append({"planner": pid, "solved": True, "length": length,
                      "ref_length": ref_len or None, "ratio": ratio,
-                     "first_s": secs[0], "second_s": secs[1]})
+                     "first_s": secs[0], "second_s": secs[1] if secs[1:] else None})
         log(f"planner {pid}: solved, length {length:.4f} m"
             + (f" ({ratio:.3f} of the reference's {ref_len:.4f})" if ratio else
                " (no reference row)")
-            + f", first solve {secs[0]:.3f} s (capture included), second "
-            f"{secs[1]:.3f} s ({card})")
+            + f", first solve {secs[0]:.3f} s (capture included)"
+            + (f", second {secs[1]:.3f} s" if secs[1:] else "") + f" ({card})")
         del planner
     ratios = [r["ratio"] for r in rows if r["ratio"]]
     log(f"planners: {len(rows)} of {len(ids)} solved, median length ratio "
@@ -5468,6 +5488,170 @@ def phase_benchmark_tools(kernels, device, card):
     return launches
 
 
+# the README's workflows (examples_torch/) at the README's sizes
+EXAMPLE_LANE_ROBOTS = 100  # `fleet_demo.py 100`
+EXAMPLE_PEER_ROBOTS = 8  # the peer, prediction, mesh and host modes
+EXAMPLE_FLEET_MODES = (("host", {"host_mode": True}), ("peers", {"peers": True}),
+                       ("predict", {"predict": True}), ("mesh", {"mesh": True}))
+EXAMPLE_RTT_KS = (1, 8)
+# the aot demo's figures that name the file, the torch build or the device
+EXAMPLE_AOT_DEVICE_FIGURES = ("path", "size_kb", "torch", "platforms")
+EXAMPLE_CLI_TIMEOUT = 300  # seconds for `python examples_torch/full_stack_demo.py`
+
+
+@contextlib.contextmanager
+def _solves_checked(ties):
+    """Every ``DWA`` solve inside the block held against the port's CPU
+    solve of the same packed input (``_cpu_check``: phase 4's rule).
+    Yields the list of faults: ``loop_step`` swallows exceptions, so a
+    fault is kept there rather than raised in the solve."""
+    from kompass_core_tpu_torch.control import DWA
+
+    original = DWA.compute_velocity_commands
+    faults = []
+
+    def checked(self, *args, **kwargs):
+        before = self._last_solver_io
+        result = original(self, *args, **kwargs)
+        io = self._last_solver_io
+        if io is not None and io is not before:
+            try:
+                _cpu_check(*io, ties)
+            except AssertionError as e:
+                faults.append(str(e))
+        return result
+
+    DWA.compute_velocity_commands = checked
+    try:
+        yield faults
+    finally:
+        DWA.compute_velocity_commands = original
+
+
+def _same_as_printed(mod, card_fig, cpu_fig, skip=()):
+    """The card's outcome lines (``mod.lines``) equal the port's CPU run's,
+    the figures in ``skip`` taken from the CPU's."""
+    got = mod.lines({**card_fig, **{k: cpu_fig[k] for k in skip}})
+    want = mod.lines(cpu_fig)
+    assert got == want, f"{mod.__name__}: card {got} != CPU {want}"
+
+
+def phase_examples(kernels, device, card):
+    """Phase 43: the README's nine workflows (``examples_torch/``), each
+    ``run(cuda, ...)`` at its README size with the JAX demo's own
+    assertions: the full stack on the CPU's PRM plan (every solve against
+    the CPU's, then card == CPU as printed), the dynamic world likewise,
+    ``fleet_demo`` at 100 robots in lanes and at 8 in the host, peer,
+    prediction and mesh modes (card == CPU as printed), the RTT serving at
+    k = 1 and 8 and the AOT artifact (card == CPU as printed), the serving
+    restart and the artifact sharded over 4 shards of the card (each
+    bit-identical on the card), the vision and offline host workflows (no
+    launch); then ``python examples_torch/full_stack_demo.py`` with no
+    arguments, which plans on the card by default.
+    Returns the launches by kernel: the wrapper calls of the card runs and
+    of the k-tick loop's warm-ups, plus its replays."""
+    import importlib
+
+    t0 = time.perf_counter()
+    launches, report = {}, {}
+
+    def demo(name):
+        return importlib.import_module(f"examples_torch.{name}")
+
+    def on_card(label, fn, expect):
+        start = time.perf_counter()
+        made, fig = _counted(kernels, fn)
+        wall = time.perf_counter() - start
+        assert set(made) == set(expect) and all(made.values()), (label, made)
+        for key, n in made.items():
+            launches[key] = launches.get(key, 0) + n
+        report[label] = {"wall_s": round(wall, 3), "launches": made}
+        log(f"workflow {label} on the card ({card}): {wall:.2f} s, wrapper calls {made}")
+        return fig
+
+    full = demo("full_stack_demo")
+    plan, _ = full.plan("cpu")
+    ties = []
+    with _solves_checked(ties) as faults:
+        card_fig = on_card("full stack", lambda: full.run(device, plan_path=plan),
+                           ("K1", "K5"))
+    assert not faults, faults
+    _same_as_printed(full, card_fig, full.run("cpu", plan_path=plan))
+    log(f"full stack on the CPU's plan: {full.lines(card_fig)}; CPU ties {ties}")
+
+    world = demo("dynamic_world_demo")
+    ties = []
+    with _solves_checked(ties) as faults:
+        card_fig = on_card("dynamic world", lambda: world.run(device), ("K3",))
+    assert not faults, faults
+    _same_as_printed(world, card_fig, world.run("cpu"))
+    log(f"dynamic world: {world.lines(card_fig)[-1]}; CPU ties {ties}")
+
+    fleet = demo("fleet_demo")
+    timings = {}
+    card_fig = on_card("fleet lanes", lambda: fleet.run(
+        device, EXAMPLE_LANE_ROBOTS, timings=timings), ("K1",))
+    assert card_fig["ticks"] == report["fleet lanes"]["launches"]["K1"], card_fig
+    steady = timings["steady_tick_s"] * 1e3
+    report["fleet lanes"]["steady_tick_ms"] = steady
+    log(f"fleet demo ({card}): {fleet.lines(card_fig)[0]}; steady tick {steady:.3f} ms")
+    for mode, kw in EXAMPLE_FLEET_MODES:
+        card_fig = on_card(f"fleet {mode}", lambda: fleet.run(
+            device, EXAMPLE_PEER_ROBOTS, **kw), ("K3",) if mode == "predict" else ("K1",))
+        _same_as_printed(fleet, card_fig, fleet.run("cpu", EXAMPLE_PEER_ROBOTS, **kw))
+        log(f"fleet demo: {fleet.lines(card_fig)[0]}")
+
+    rtt = demo("rtt_amortized_serving_demo")
+    for k in EXAMPLE_RTT_KS:
+        timings = {}
+        card_fig = on_card(f"rtt k={k}", lambda: rtt.run(device, k, timings=timings),
+                           ("K1",))
+        # the wrappers counted each single tick, the k-tick loop's warm-up and
+        # its capture; the card ran the warm-up and one replay per call
+        made = report[f"rtt k={k}"]["launches"]
+        assert made == {"K1": 1 + rtt.N_SINGLE + 2 * k}, made
+        replays = k * (1 + rtt.N_BATCHES) - k
+        launches["K1"] += replays
+        made["K1"] += replays
+        _same_as_printed(rtt, card_fig, rtt.run("cpu", k))
+        report[f"rtt k={k}"].update(timings)
+        log(f"rtt serving ({card}): single tick {timings['single_ms']:.3f} ms, k = {k} "
+            f"{timings['k_ms']:.3f} ms per tick; {rtt.lines(card_fig)[0]}; launches "
+            f"{made} (the replays' included)")
+
+    aot = demo("aot_artifact_demo")
+    timings = {}
+    card_fig = on_card("aot", lambda: aot.run(device, timings=timings), ("K1",))
+    _same_as_printed(aot, card_fig, aot.run("cpu"), EXAMPLE_AOT_DEVICE_FIGURES)
+    report["aot"].update(timings)
+    log(f"aot artifact ({card}): {aot.lines(card_fig)}; served solve "
+        f"{timings['served_solve_ms']:.3f} ms (median of {aot.SERVE_TIMED})")
+
+    for name in ("serving_restart_demo", "serving_mesh_shard_demo"):
+        mod = demo(name)
+        card_fig = on_card(name, lambda: mod.run(device), ("K1",))
+        log(f"{name}: {mod.lines(card_fig)}")
+    for name in ("vision_follow_demo", "offline_pipeline_demo"):
+        mod = demo(name)
+        with tempfile.TemporaryDirectory() as tmp:
+            on_card(name, lambda: mod.run(tmp) if name == "offline_pipeline_demo"
+                    else mod.run(), ())
+        log(f"{name} (host): passed")
+
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "examples_torch/full_stack_demo.py"],
+                          capture_output=True, text=True, timeout=EXAMPLE_CLI_TIMEOUT,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FULL STACK DEMO PASSED" in proc.stdout, proc.stdout
+    report["full stack command"] = {"wall_s": round(time.perf_counter() - start, 3)}
+    log(f"python examples_torch/full_stack_demo.py (on the card by default, {card}): "
+        f"{proc.stdout.strip().splitlines()}")
+    log(json.dumps({"workflows": report}))
+    log(f"workflows: launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5594,6 +5778,10 @@ def main() -> int:
         counter.launches = 0
     tools = phase_benchmark_tools(kernels, device, card)
     assert all(tools.get(key) for key in ("K1", "K3", "K3s", "K5")), tools
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    workflows = phase_examples(kernels, device, card)
+    assert all(workflows.get(key) for key in ("K1", "K3", "K5")), workflows
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -5612,13 +5800,13 @@ def main() -> int:
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
             k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"]
-            + mesh["K1"] + recorded["K1"] + bench["K1"] + tools["K1"],
+            + mesh["K1"] + recorded["K1"] + bench["K1"] + tools["K1"] + workflows["K1"],
             max(k1_err, peer_errs["K1"], bench_err), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches + mesh["K2"], k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
             k3_launches + peer_launches["K3"] + box_launches["K3"] + served["K3"]
-            + mesh["K3"] + tools["K3"],
+            + mesh["K3"] + tools["K3"] + workflows["K3"],
             max(k3_err, peer_errs["K3"]), *k3_times),
         row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES,
             split_launches["K3s"] + tools["K3s"],
@@ -5626,7 +5814,8 @@ def main() -> int:
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES,
             k4_launches + mesh["K4"], k4_err, *static_times["K4"]),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES,
-            k5_launches + recorded["K5"] + bench["K5"] + tools["K5"], k5_err, *k5_times),
+            k5_launches + recorded["K5"] + bench["K5"] + tools["K5"] + workflows["K5"],
+            k5_err, *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
             form_launches["K6"] + served["K6"] + mesh["K6"],
             max(form_errs["K6"], peer_errs["K6"]),

@@ -10,6 +10,13 @@ from pathlib import Path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = Path(REPO) / "kompass_core_tpu_torch"
+EXAMPLES = Path(REPO) / "examples_torch"
+# the workflows that run on a device; the vision and offline demos are
+# host workflows and take none
+DEVICE_DEMOS = ("full_stack_demo", "dynamic_world_demo", "fleet_demo",
+                "rtt_amortized_serving_demo", "aot_artifact_demo",
+                "serving_restart_demo", "serving_mesh_shard_demo")
+HOST_DEMOS = ("vision_follow_demo", "offline_pipeline_demo")
 
 # `import kompass_core_tpu`, `import kompass_core_tpu.x`, `from
 # kompass_core_tpu import ...`, `from kompass_core_tpu.x import ...`, and
@@ -94,7 +101,8 @@ def test_serving_import_loads_no_tracing_module():
 
 
 def test_port_sources_never_import_the_jax_package():
-    sources = sorted(PORT.rglob("*.py")) + [Path(REPO) / "chip_smoke.py"]
+    sources = (sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.glob("*.py"))
+               + [Path(REPO) / "chip_smoke.py"])
     assert len(sources) > 20
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if _JAX_PACKAGE_IMPORT.search(p.read_text())]
@@ -125,3 +133,65 @@ def test_source_scan_catches_each_import_form():
                  "from kompass_core_tpu_torch.native import get_lib",
                  "# ported from kompass_core_tpu/ops/solver.py"):
         assert not _JAX_PACKAGE_IMPORT.search(line), line
+
+
+def test_examples_are_the_nine_jax_demos():
+    jax_demos = sorted(p.stem for p in (Path(REPO) / "examples").glob("*.py"))
+    assert sorted(p.stem for p in EXAMPLES.glob("*.py")) == jax_demos
+    assert sorted(DEVICE_DEMOS + HOST_DEMOS) == jax_demos
+
+
+def test_examples_import_loads_no_jax():
+    """Every workflow module imports in a fresh interpreter without jax
+    and without the JAX package."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import importlib\n"
+        f"for name in {DEVICE_DEMOS + HOST_DEMOS!r}:\n"
+        "    importlib.import_module('examples_torch.' + name)\n"
+        "print(','.join(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'kompass_core_tpu', 'examples'))))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"workflows loaded: {proc.stdout.strip()}"
+
+
+def test_device_demos_exit_2_without_a_card_and_never_fall_back():
+    """On a host without a card, ``main(["--device", "cuda"])`` of every
+    device workflow exits 2 before any work, none calls the CPU-fallback
+    helper ``require_backend_or_cpu``, and the host workflows take no
+    ``--device``. Run in a fresh interpreter with CUDA reported absent."""
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "import importlib\n"
+        "from kompass_core_tpu_torch.utils import runtime\n"
+        "calls = []\n"
+        "runtime.require_backend_or_cpu = lambda *a, **k: calls.append(a)\n"
+        "codes = {}\n"
+        f"for name in {DEVICE_DEMOS + HOST_DEMOS!r}:\n"
+        "    mod = importlib.import_module('examples_torch.' + name)\n"
+        "    try:\n"
+        "        mod.main(['--device', 'cuda'])\n"
+        "        codes[name] = 0\n"
+        "    except SystemExit as e:\n"
+        "        codes[name] = e.code\n"
+        "print(codes, len(calls))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    codes = {**{n: 2 for n in DEVICE_DEMOS}, **{n: 2 for n in HOST_DEMOS}}
+    assert proc.stdout.strip() == f"{codes} 0"
+    assert proc.stderr.count("no CUDA device") == len(DEVICE_DEMOS)
+    assert proc.stderr.count("unrecognized arguments: --device") == len(HOST_DEMOS)
+    for name in DEVICE_DEMOS + HOST_DEMOS:
+        assert "require_backend_or_cpu" not in (EXAMPLES / f"{name}.py").read_text()
