@@ -3,7 +3,8 @@
 tick and its k-tick loop, of the local occupancy mapper, of the global
 planners, of the serving artifacts, of the scale-out over a device mesh,
 of the benchmark runner, of the benchmark tools and of the README's nine
-workflows (``examples_torch/``) once on an NVIDIA GPU.
+workflows (``examples_torch/``) once on an NVIDIA GPU, then the JAX
+package's own main-path tests on the card (the card twins).
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card and the CUDA toolkit:
@@ -85,7 +86,7 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     against its plain version in turns (CUDA events, back to back, the
     kernels line's times) and by the replay of a CUDA graph of its
     launches (printed beside them), with its samples per thread; the
-    tracked and the static 64-robot fleet tick over 100 ticks each (host
+    tracked and the static 64-robot fleet tick over 30 ticks each (host
     clock and CUDA events); K3 and its plain version at the fleet shapes
     over 10 distinct inputs, in turns; ``update_from_scan`` over 100
     updates, Bayesian and plain, and its host parts; K5 and its plain
@@ -140,7 +141,7 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     the pad), bit for bit.
 20. Times: those sweeps against their plain versions at the peer width,
     in turns, beside their bounds; the peer fleet's tick (median and
-    p99 of 100) and its k = 8 graph per tick, beside the same run's
+    p99 of 30) and its k = 8 graph per tick, beside the same run's
     no-peer fleet.
 21. K9 (``box_min_dist_sq``, the oriented-box field of BOX robots,
     ``csrc/box_min_dist.cu``) and K3s (``min_dist_sq_moving``, K3's
@@ -224,8 +225,8 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
 34. Serving times: per artifact the export seconds (in its own process
     for the fleet's, beside the wall time of all of them), its bytes, the
     cold load (load and first call) and the served against the live program
-    per call in turns (CUDA events, median of 20, for the solver; the
-    host clock with syncs, median of 20, for the fleet; for the k = 8
+    per call in turns (CUDA events, median of 5, for the solver; the
+    host clock with syncs, median of 5, for the fleet; for the k = 8
     artifacts also the live graph replay), and the flagship
     ``DWA.loop_step`` median of phase 12 with the kernels as operators.
 35. Scale-out, the fleet on a mesh (``parallel/multihost.py``): the
@@ -298,6 +299,18 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     ``python examples_torch/full_stack_demo.py`` in a subprocess with no
     arguments (it plans and runs on the card by default). Each workflow's
     wall time and launches by kernel are printed.
+44. The card twins (``phase_card_twins``): the JAX package's own tests
+    run against the port on the card, ``tests/test_torch_twin_cuda.py``
+    and ``tests/test_torch_twin_cuda_main.py`` (the tick, the closed loop,
+    moving obstacles, the fleet and its k-tick graph, safety, scale-out
+    on ``[cuda] * 8``, the mapper, planning, serving and the benchmark
+    runner), in this process through ``pytest.main`` with ``--noconftest
+    -m cuda``, but the turtlebot map's 28 planner solves (phase 27 solves
+    each id) and the serving file, over the budget (phases 31-34 serve on
+    the card). Fails on a pytest exit other than 0, on any failed or
+    skipped test, on a kernel of ``CARD_TWIN_KERNELS`` that did not
+    launch, or past ``CARD_TWIN_BUDGET_S``; prints the passes and seconds
+    per twinned file.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -326,7 +339,10 @@ wrapper calls, and for each captured loop or tick the warm-up's and each
 replay's (a replay calls no wrapper; its launches are the captured ones),
 and again before phase 43, whose card runs' launches add to K1, K3 and
 K5 (the RTT workflow's k-tick loop counted as phase 42's loops are; the
-CPU runs it is compared with launch nothing).
+CPU runs it is compared with launch nothing), and again before phase 44,
+whose wrapper calls add to every kernel the twins reach (a captured
+graph's replays launch without a wrapper and are not counted there).
+The script prints its seconds so far after each phase.
 
 Before the last line it prints the card's name and power limit and one
 JSON object describing each kernel; the last line is
@@ -395,7 +411,7 @@ FLEET_SHAPE = (FLEET_ROBOTS, 2025, 30, 768, 384)
 FLEET_TICKS = 30
 FLEET_CPU_TICKS = (0, 10, 20, 29)
 FLEET_CPU_ROBOTS = (0, 21, 42, 63)
-FLEET_TIMED_TICKS = 100
+FLEET_TIMED_TICKS = 30  # ticks per fleet timer
 FLEET_KERNEL_INPUTS = 10
 LANE_SPACING = 10.0
 
@@ -4107,7 +4123,7 @@ def phase_planning_fleet(device, card):
 
 SERVE_INPUTS = 10  # flagship packed inputs served per artifact
 SERVE_CALLS = 5  # chained calls per fleet artifact
-SERVE_TIMED = 20  # calls per timer, the median kept
+SERVE_TIMED = 5  # calls per timer, the median kept
 # (backend, tracked slots, the kernel one tick launches, a k = 8 artifact too)
 SERVE_FORMS = (("xla", FLEET_TRACKED, "K3", True),
                ("pallas", FLEET_TRACKED, "K7", True),
@@ -4505,8 +4521,8 @@ MESH_ROBOTS = 128  # the JAX north star's 100+ robots, the fleet width of phase 
 MESH_SHARDS = 2  # shards of the fleet mesh, all on the one card
 MESH_TICKS = 10
 MESH_K_CALLS = 2
-MESH_TIMED = 20  # ticks per timer, the median kept
-MESH_K_TIMED = 5  # k = 8 calls per timer
+MESH_TIMED = 10  # ticks per timer, the median kept
+MESH_K_TIMED = 3  # k = 8 calls per timer
 MESH_PLANNER_ROBOTS = 129  # 130 rows on 2 shards: one pad row
 SP_SHARDS = 4
 SP_SEED = 5
@@ -5652,6 +5668,95 @@ def phase_examples(kernels, device, card):
     return launches
 
 
+# phase 44: the card's twins of the JAX package's own tests, as the card
+# runs them; CARD_TWIN_LEFT_OUT: test names deselected here, each with its
+# reason (PERF.md lists them)
+CARD_TWIN_FILES = ("tests/test_torch_twin_cuda.py", "tests/test_torch_twin_cuda_main.py")
+CARD_TWIN_LEFT_OUT = (
+    # the 28 reference planner ids on the turtlebot map: phase 27 solves
+    # each id on the card
+    "test_planner_solves_turtlebot_map",
+    # the serving file's 17 tests, over the budget (88 s of torch.export
+    # traces and fresh processes on the card): phases 31-34 serve on the card
+    "Test_serving_export",
+)
+CARD_TWIN_BUDGET_S = 150.0
+# every kernel the twinned files reach on the card
+CARD_TWIN_KERNELS = ("K1", "K2", "K3", "K3s", "K5", "K6", "K7", "K8", "K9")
+
+
+class _TwinReport:
+    """A pytest plugin: each card twin's outcome and seconds by the JAX
+    file it twins (its class in the main file, else its twin file)."""
+
+    def __init__(self):
+        self.outcomes, self.seconds = {}, {}
+
+    @staticmethod
+    def group(nodeid):
+        path, _, rest = nodeid.partition("::")
+        head = rest.split("::")[0]
+        return head if head.startswith("Test_") else os.path.basename(path)
+
+    def pytest_runtest_logreport(self, report):
+        group = self.group(report.nodeid)
+        self.seconds[group] = self.seconds.get(group, 0.0) + report.duration
+        if report.when == "call" or report.outcome != "passed":
+            outcomes = self.outcomes.setdefault(group, {})
+            outcome = "error" if report.failed and report.when != "call" else report.outcome
+            outcomes.setdefault(report.nodeid, outcome)
+            if outcome != "passed":
+                outcomes[report.nodeid] = outcome
+
+
+def phase_card_twins(kernels, card):
+    """Phase 44: the card twins of the JAX package's own tests
+    (``tests/test_torch_twin_cuda.py``, ``tests/test_torch_twin_cuda_main.py``)
+    in this process through ``pytest.main`` with ``--noconftest -m cuda``,
+    but CARD_TWIN_LEFT_OUT. Fails when pytest returns non-zero, when any
+    test fails or skips (on the card a skip is a hidden failure), when a
+    kernel of CARD_TWIN_KERNELS did not launch, or past CARD_TWIN_BUDGET_S.
+    Prints the passes and seconds per twinned file. Returns the launches
+    by kernel (wrapper calls; a captured graph's replays launch without
+    one, so the k-tick tests' replays are not counted)."""
+    import pytest
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tests = os.path.join(root, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
+        counter.launches = 0
+    report = _TwinReport()
+    t0 = time.perf_counter()
+    rc = pytest.main([*(os.path.join(root, f) for f in CARD_TWIN_FILES),
+                      "--noconftest", "-m", "cuda", "-q", "-p", "no:cacheprovider",
+                      "--rootdir", root,
+                      "-k", " and ".join(f"not {name}" for name in CARD_TWIN_LEFT_OUT)],
+                     plugins=[report])
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    bad = {nodeid: outcome for outcomes in report.outcomes.values()
+           for nodeid, outcome in outcomes.items() if outcome != "passed"}
+    for group in sorted(report.outcomes):
+        outcomes = report.outcomes[group].values()
+        log(f"card twins {group}: {sum(o == 'passed' for o in outcomes)} of "
+            f"{len(outcomes)} passed in {report.seconds[group]:.2f} s")
+    passed = sum(o == "passed" for g in report.outcomes.values() for o in g.values())
+    log(f"card twins ({card}): {passed} passed, {len(bad)} not, pytest exit {int(rc)}, "
+        f"{wall:.1f} s; wrapper launches {launches}; left out "
+        f"{list(CARD_TWIN_LEFT_OUT)}")
+    assert int(rc) == 0 and not bad and passed, (int(rc), bad)
+    assert all(launches.get(key) for key in CARD_TWIN_KERNELS), launches
+    assert wall <= CARD_TWIN_BUDGET_S, f"card twins took {wall:.1f} s"
+    return launches
+
+
+def _elapsed(t_start, name):
+    """The script's seconds so far, after phase ``name``."""
+    log(f"elapsed after {name}: {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5664,43 +5769,61 @@ def main() -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
     phase_environment(kernels)
+    _elapsed(t_start, "environment")
     card = card_line()
     phase_build(kernels)
+    _elapsed(t_start, "build")
     k1_err = max(phase_kernel_vs_plain(kernels, device),
                  phase_batched_k1(kernels, device))
+    _elapsed(t_start, "kernel_vs_plain")
     k3_err = phase_moving_vs_plain(kernels, device)
+    _elapsed(t_start, "moving_vs_plain")
     k1_launches = phase_slice(kernels, device)
+    _elapsed(t_start, "slice")
     k3_launches = phase_fleet(kernels, device)
+    _elapsed(t_start, "fleet")
     k5_err = phase_mapper_kernel_vs_plain(kernels, device)
+    _elapsed(t_start, "mapper_kernel_vs_plain")
     kernels.fused_min_dist_sq.launches = 0
     kernels.fused_min_dist_sq_moving.launches = 0
     kernels.scan_to_grid_cells.launches = 0
     phase_mapping(kernels, device)
+    _elapsed(t_start, "mapping")
     k5_launches = kernels.scan_to_grid_cells.launches
     assert kernels.fused_min_dist_sq.launches == 0
     assert kernels.fused_min_dist_sq_moving.launches == 0
     k2_err, k4_err = phase_expanded_vs_plain(kernels, device)
+    _elapsed(t_start, "expanded_vs_plain")
     for counter in kernels.SWEEP_KERNELS.values():
         counter.launches = 0
     phase_fleet_solver(kernels, device)
+    _elapsed(t_start, "fleet_solver")
     k2_launches = kernels.fused_min_dist_sq_expanded.launches
     k4_launches = kernels.min_dist_sq_expanded.launches
     assert kernels.fused_min_dist_sq_moving.launches == 0
     phase_evaluator(kernels, device)
+    _elapsed(t_start, "evaluator")
     box_dwa_k9 = phase_box_dwa(kernels, device)
+    _elapsed(t_start, "box_dwa")
     form_errs = phase_tpu_forms_vs_plain(kernels, device)
+    _elapsed(t_start, "tpu_forms_vs_plain")
     for counter in kernels.SWEEP_KERNELS.values():
         counter.launches = 0
     form_launches = phase_ticks(kernels, device)
+    _elapsed(t_start, "ticks")
     log(f"k-tick loop main-path launches (run_ticks_on_device calls only): "
         f"{form_launches}")
     assert all(form_launches.get(key) for key in ("K3", "K6", "K7", "K8"))
     phase_ticks_cpu(device)
+    _elapsed(t_start, "ticks_cpu")
     phase_emergency(device)
+    _elapsed(t_start, "emergency")
     for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
         counter.launches = 0
     peer_launches = phase_peers(kernels, device)
+    _elapsed(t_start, "peers")
     peer_ticks = phase_peer_ticks(kernels, device)
+    _elapsed(t_start, "peer_ticks")
     counted = {k: c for k, c in kernels.launch_counts().items() if c}
     # the wrappers also ran the k-tick phase's eager reference loops, k per
     # call, and its capture, which launches nothing; its replays launch
@@ -5714,33 +5837,54 @@ def main() -> int:
         f"reference loops included: {counted})")
     assert all(peer_launches.get(key) for key in ("K1", "K3", "K7", "K8"))
     peer_errs = phase_peer_sweeps_vs_plain(kernels, device)
+    _elapsed(t_start, "peer_sweeps_vs_plain")
     k3s_err, k9_err = phase_box_sweeps_vs_plain(kernels, device)
+    _elapsed(t_start, "box_sweeps_vs_plain")
     phase_heading_flips(kernels, device)
+    _elapsed(t_start, "heading_flips")
     for counter in kernels.SWEEP_KERNELS.values():
         counter.launches = 0
     split_launches = phase_split_fleet(kernels, device)
+    _elapsed(t_start, "split_fleet")
     box_launches = phase_box_fleet(kernels, device)
+    _elapsed(t_start, "box_fleet")
     log(f"split and BOX fleet main-path launches: {split_launches}, {box_launches} "
         f"(wrapper calls, the comparisons and the wide split side run included: "
         f"{ {k: c for k, c in kernels.launch_counts().items() if c} })")
     assert split_launches["K3s"] and box_launches["K9"] and box_dwa_k9
     phase_controllers(device)
+    _elapsed(t_start, "controllers")
     tick_p50 = phase_times(kernels, device, card)
+    _elapsed(t_start, "times")
     static_times = phase_static_times(kernels, device, card)
+    _elapsed(t_start, "static_times")
     k3_times = phase_fleet_times(kernels, device, card)
+    _elapsed(t_start, "fleet_times")
     k5_times = phase_mapping_times(kernels, device, card)
+    _elapsed(t_start, "mapping_times")
     phase_solver_times(kernels, device, card)
+    _elapsed(t_start, "solver_times")
     form_times = phase_tpu_forms_times(kernels, device, card)
+    _elapsed(t_start, "tpu_forms_times")
     phase_ticks_times(device, card)
+    _elapsed(t_start, "ticks_times")
     phase_peer_sweep_times(kernels, device, card)
+    _elapsed(t_start, "peer_sweep_times")
     phase_peer_times(device, card)
+    _elapsed(t_start, "peer_times")
     k3s_times, k9_times = phase_split_box_times(kernels, device, card)
+    _elapsed(t_start, "split_box_times")
     phase_replay_profile(device, card)
+    _elapsed(t_start, "replay_profile")
     t_plan = time.perf_counter()
     phase_planners(device, card)
+    _elapsed(t_start, "planners")
     phase_planning_card_vs_cpu(device, card)
+    _elapsed(t_start, "planning_card_vs_cpu")
     phase_planning_replay(device, card)
+    _elapsed(t_start, "planning_replay")
     phase_planning_fleet(device, card)
+    _elapsed(t_start, "planning_fleet")
     log(f"planning phases: {time.perf_counter() - t_plan:.1f} s")
     for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
         counter.launches = 0
@@ -5755,15 +5899,20 @@ def main() -> int:
         f"live comparisons included: { {k: c for k, c in kernels.launch_counts().items() if c} })")
     assert all(served.get(key) for key in ("K1", "K3", "K6", "K7", "K8")), served
     phase_serving_times(card, serve_times, tick_p50)
+    _elapsed(t_start, "serving_times")
     log(f"serving phases: {time.perf_counter() - t_serve:.1f} s")
     for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
         counter.launches = 0
     t_mesh = time.perf_counter()
     mesh = phase_mesh_fleet(kernels, device)
+    _elapsed(t_start, "mesh_fleet")
     for key, n in phase_mesh_solver(kernels, device).items():
         mesh[key] = mesh.get(key, 0) + n
+    _elapsed(t_start, "mesh_solver")
     mp_wall, mp_launches = phase_mesh_multiprocess(kernels, device)
+    _elapsed(t_start, "mesh_multiprocess")
     runtime_launches, runtime_ms = phase_fleet_runtime(kernels, device)
+    _elapsed(t_start, "fleet_runtime")
     for key, n in (*mp_launches.items(), *runtime_launches.items()):
         mesh[key] = mesh.get(key, 0) + n
     log(f"mesh path launches: {mesh} (the mesh calls and the workers' own; every "
@@ -5771,17 +5920,24 @@ def main() -> int:
         f"{ {k: c for k, c in kernels.launch_counts().items() if c} })")
     assert all(mesh.get(key) for key in ("K1", "K2", "K3", "K4", "K6", "K7", "K8")), mesh
     phase_mesh_times(kernels, device, card, mp_wall, runtime_ms)
+    _elapsed(t_start, "mesh_times")
     log(f"mesh phases: {time.perf_counter() - t_mesh:.1f} s")
     recorded = phase_recorded(kernels, device)
+    _elapsed(t_start, "recorded")
     bench, bench_err = phase_benchmark(kernels, device, card)
+    _elapsed(t_start, "benchmark")
     for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
         counter.launches = 0
     tools = phase_benchmark_tools(kernels, device, card)
+    _elapsed(t_start, "benchmark_tools")
     assert all(tools.get(key) for key in ("K1", "K3", "K3s", "K5")), tools
     for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
         counter.launches = 0
     workflows = phase_examples(kernels, device, card)
+    _elapsed(t_start, "examples")
     assert all(workflows.get(key) for key in ("K1", "K3", "K5")), workflows
+    twins = phase_card_twins(kernels, card)
+    _elapsed(t_start, "card_twins")
     assert "jax" not in sys.modules, "the port loaded jax"
     assert not any(m.split(".")[0] == "kompass_core_tpu" for m in sys.modules), (
         "the port loaded the JAX package")
@@ -5800,36 +5956,40 @@ def main() -> int:
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
             k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"]
-            + mesh["K1"] + recorded["K1"] + bench["K1"] + tools["K1"] + workflows["K1"],
+            + mesh["K1"] + recorded["K1"] + bench["K1"] + tools["K1"] + workflows["K1"]
+            + twins.get("K1", 0),
             max(k1_err, peer_errs["K1"], bench_err), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
-            k2_launches + mesh["K2"], k2_err, *static_times["K2"]),
+            k2_launches + mesh["K2"] + twins.get("K2", 0), k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
             k3_launches + peer_launches["K3"] + box_launches["K3"] + served["K3"]
-            + mesh["K3"] + tools["K3"] + workflows["K3"],
+            + mesh["K3"] + tools["K3"] + workflows["K3"] + twins.get("K3", 0),
             max(k3_err, peer_errs["K3"]), *k3_times),
         row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES,
-            split_launches["K3s"] + tools["K3s"],
+            split_launches["K3s"] + tools["K3s"] + twins.get("K3s", 0),
             k3s_err, *k3s_times),
         row("min_dist_sq_expanded", KERNEL_SOURCE, SINGLE_REPLACES,
-            k4_launches + mesh["K4"], k4_err, *static_times["K4"]),
+            k4_launches + mesh["K4"] + twins.get("K4", 0), k4_err, *static_times["K4"]),
         row("scan_to_grid_cells", MAP_SOURCE, MAP_REPLACES,
-            k5_launches + recorded["K5"] + bench["K5"] + tools["K5"] + workflows["K5"],
+            k5_launches + recorded["K5"] + bench["K5"] + tools["K5"] + workflows["K5"]
+            + twins.get("K5", 0),
             k5_err, *k5_times),
         row("fused_min_dist_sq_broadcast", KERNEL_SOURCE, BROADCAST_REPLACES,
-            form_launches["K6"] + served["K6"] + mesh["K6"],
+            form_launches["K6"] + served["K6"] + mesh["K6"] + twins.get("K6", 0),
             max(form_errs["K6"], peer_errs["K6"]),
             *form_times["K6"]),
         row("fused_min_dist_sq_moving_expanded", KERNEL_SOURCE,
             MOVING_EXPANDED_REPLACES,
-            form_launches["K7"] + peer_launches["K7"] + served["K7"] + mesh["K7"],
+            form_launches["K7"] + peer_launches["K7"] + served["K7"] + mesh["K7"]
+            + twins.get("K7", 0),
             max(form_errs["K7"], peer_errs["K7"]), *form_times["K7"]),
         row("fused_min_dist_sq_moving_broadcast", KERNEL_SOURCE,
             MOVING_BROADCAST_REPLACES,
-            form_launches["K8"] + peer_launches["K8"] + served["K8"] + mesh["K8"],
+            form_launches["K8"] + peer_launches["K8"] + served["K8"] + mesh["K8"]
+            + twins.get("K8", 0),
             max(form_errs["K8"], peer_errs["K8"]), *form_times["K8"]),
         row("box_min_dist_sq", K9_SOURCE, K9_REPLACES,
-            box_dwa_k9 + box_launches["K9"], k9_err, *k9_times),
+            box_dwa_k9 + box_launches["K9"] + twins.get("K9", 0), k9_err, *k9_times),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

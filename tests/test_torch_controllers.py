@@ -15,8 +15,9 @@ JAX-free modules, so they must give the same commands exactly:
   goldens), ``test_follower_oracle.py`` and ``test_blocked_detection.py``
   (the port's ``Follower``), and the registry and controller-surface
   cases of ``test_api_surface.py``. Where a twin builds the port's
-  ``DWA`` it passes ``device="cpu"``: the port's entry points take their
-  device explicitly.
+  ``DWA`` it passes the CPU (``torch_twin_adapters.classic_replace``,
+  which ``test_torch_twin_cuda_main.py`` runs on the card): the port's
+  entry points take their device explicitly.
 """
 
 import math
@@ -38,13 +39,13 @@ from kompass_core_tpu_torch import control as tcontrol
 from kompass_core_tpu_torch.datatypes import LaserScanData
 
 from test_torch_host_modules import port_twin, twin_tests, to_port
+from torch_twin import device_env
+from torch_twin_adapters import classic_replace
 
 port_twin("test_dwa_closed_loop")  # the classic twin imports its helpers
-twin_tests(globals(), port_twin("test_classic_controllers", replace=[
-    ("from test_dwa_closed_loop import", "from torch_twin_test_dwa_closed_loop import"),
-    ("DWA(robot=robot, ctrl_limits=limits, config=DWAConfig())",
-     "DWA(robot=robot, ctrl_limits=limits, config=DWAConfig(), device='cpu')"),
-]))
+twin_tests(globals(), port_twin(
+    "test_classic_controllers", replace=classic_replace("torch_twin_test_dwa_closed_loop"),
+    env=device_env("cpu")))
 twin_tests(globals(), port_twin("test_controller_oracle"))
 twin_tests(globals(), port_twin("test_pp_scenario_matrix"))
 twin_tests(globals(), port_twin("test_dvz_goldens"))

@@ -1,23 +1,24 @@
 """The JAX package's planning tests (``tests/test_planning.py``) run
-against the port on the CPU (``test_torch_host_modules.port_twin``), with
-every ``GlobalPlanner`` built on ``device="cpu"``: the front end, the
+against the port on the CPU (``torch_twin.port_twin``), with
+every ``GlobalPlanner`` built on the CPU (``PLANNING_REPLACE``): the front end, the
 configuration surface, the host passes and the roadmap, RRT and fleet
 planners. Every test of that file runs in one of the three twin files;
 none is left out. The port draws its own random numbers, so its paths
 differ from the JAX package's for the same seed: what these tests hold is
 solve quality, which is what they assert."""
 
-from test_torch_host_modules import port_twin, twin_tests
+from torch_twin import device_env, port_twin, twin_tests
 
-# the test module's GlobalPlanner on the CPU; the replacement keeps the
-# original's line numbers
-TWIN_DEVICE = (
+# the test module's GlobalPlanner on the twin's device (``_device``: the
+# CPU here, the card in test_torch_twin_cuda_main.py); the replacement
+# keeps the original's line numbers
+PLANNING_REPLACE = ((
     "    planner_registry,\n)\n",
     "    planner_registry,\n); from functools import partial as _partial; "
-    "GlobalPlanner = _partial(GlobalPlanner, device=\"cpu\")\n",
-)
+    "GlobalPlanner = _partial(GlobalPlanner, device=_device)\n",
+),)
 
-twin = port_twin("test_planning", replace=(TWIN_DEVICE,))
+twin = port_twin("test_planning", replace=PLANNING_REPLACE, env=device_env("cpu"))
 
 # the families' solve tests run in test_torch_planning_twin_trees.py and
 # test_torch_planning_twin_ext.py

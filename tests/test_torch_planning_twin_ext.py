@@ -3,7 +3,7 @@
 ``test_torch_planning_twin.py``."""
 
 from test_torch_planning_twin import twin
-from test_torch_host_modules import twin_tests
+from torch_twin import twin_tests
 
 twin_tests(globals(), twin, names=[
     "robot", "test_extended_planners_solve_around_wall",

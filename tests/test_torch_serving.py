@@ -6,7 +6,9 @@ helpers, on the CPU.
   device rule (``device=CPU`` at every export and load), its version key
   (``torch_version``), its platforms (``("cpu", "cuda")``) and four CPU
   ``torch.device``s in place of XLA's virtual devices for the sharded
-  serving tests. None is left out.
+  serving tests (``torch_twin_adapters.serving_replace``, a function of
+  the device, which ``test_torch_twin_cuda_main.py`` gives the card).
+  None is left out.
 - The port's own: each served program's graph holds the kernels as
   ``kompass_torch::`` operators, as many as its path launches, and its
   export traces no plain sweep (each plain version raises meanwhile); served == live bit for bit for the packed solver at each
@@ -38,43 +40,13 @@ from kompass_core_tpu_torch.utils import runtime
 
 from test_torch_fleet import assert_rows_match
 from test_torch_host_modules import port_twin, twin_tests
+from torch_twin_adapters import serving_env, serving_replace
 
 import test_serving_export as jax_serving
 
 CPU = torch.device("cpu")
 
-twin = port_twin("test_serving_export", replace=[
-    ("import numpy as np\nimport pytest\n",
-     "import numpy as np\nimport pytest\nimport torch\n\nCPU = torch.device('cpu')\n"
-     "DEVICES = [CPU] * 4  # four CPU devices in place of XLA's virtual ones\n"),
-    ("\"import jax; jax.config.update('jax_platforms', 'cpu');\"",
-     "\"import torch; DEVICES = [torch.device('cpu')] * 4;\""),
-    ("jax.devices()", "DEVICES"),
-    ("import jax\n\n    assert header[\"jax_version\"] == jax.__version__",
-     "assert header[\"torch_version\"] == torch.__version__"),
-    ("get_packed_dwa_solver(SPEC)", "get_packed_dwa_solver(SPEC, CPU)"),
-    ("export_packed_solver(SPEC, path)", "export_packed_solver(SPEC, path, device=CPU)"),
-    ("export_packed_solver(spec, path)", "export_packed_solver(spec, path, device=CPU)"),
-    ("export_packed_solver(SPEC, art_path)",
-     "export_packed_solver(SPEC, art_path, device=CPU)"),
-    ('platforms=("cpu", "tpu"))', 'platforms=("cpu", "cuda"), device=CPU)'),
-    ('["cpu", "tpu"]', '["cpu", "cuda"]'),
-    ('path, kind="misc")', 'path, kind="misc", device=CPU)'),
-    ("load_packed_solver(path)", "load_packed_solver(path, device=CPU)"),
-    ("path_capacity=512,\n", "path_capacity=512, device=CPU,\n"),
-    ("path_capacity=256,\n", "path_capacity=256, device=CPU,\n"),
-    ("export_fleet_tick(fleet, path)", "export_fleet_tick(fleet, path, device=CPU)"),
-    ("export_fleet_tick(shard_fleet, art_path)",
-     "export_fleet_tick(shard_fleet, art_path, device=CPU)"),
-    ("export_fleet_tick(shard_fleet, p)", "export_fleet_tick(shard_fleet, p, device=CPU)"),
-    ("export_fleet_ticks_on_device(fleet, k, path)",
-     "export_fleet_ticks_on_device(fleet, k, path, device=CPU)"),
-    ("make_fleet_ticks_on_device(\n        fleet.spec, k, chunk=fleet._chunk or None\n    )",
-     "make_fleet_ticks_on_device(fleet.spec, k, CPU)"),
-    ("load_artifact(path)", "load_artifact(path, device=CPU)"),
-    ("load_artifact(p)", "load_artifact(p, device=CPU)"),
-    ("load_artifact({art_path!r})", "load_artifact({art_path!r}, device='cpu')"),
-])
+twin = port_twin("test_serving_export", replace=serving_replace(CPU), env=serving_env(CPU))
 twin_tests(globals(), twin)
 
 SPEC = twin.SPEC

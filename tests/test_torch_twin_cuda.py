@@ -29,7 +29,7 @@ from test_torch_twin_safety import STOP_REPLACE, ZONE_REPLACE, safety_env
 from test_torch_twin_scaling import LEFT_OUT as SCALING_LEFT_OUT
 from test_torch_twin_scaling import REPLACE as SCALING_REPLACE
 from test_torch_twin_scaling import scaling_env
-from torch_twin import on_device, port_twin, twin_tests
+from torch_twin import device_env, port_twin, twin_tests
 
 pytestmark = pytest.mark.cuda
 
@@ -45,22 +45,26 @@ def _on_card(test):
     return run
 
 
+# the LocalMapper tests of test_mapping.py (test_torch_twin_cuda_main.py
+# runs the rest on the card)
+MAPPING_CARD_TESTS = (
+    "test_local_mapper_end_to_end_laserscan", "test_local_mapper_bayesian_accumulates",
+    "test_local_mapper_pointcloud_ring", "test_bayesian_grid_shift_follows_robot_motion",
+    "test_local_mapper_pointcloud_z_filter_above_ceiling",
+    "test_local_mapper_pointcloud_origin_only_points_filtered",
+    "test_local_mapper_pointcloud_empty_cloud",
+    "test_partial_fov_blind_sector_stays_unexplored")
+
 _twin = functools.partial(twin_tests, globals(), wrap=_on_card)
 _twin(port_twin("test_reference_fixtures", replace=FIXTURES_REPLACE,
-                env={"_on_device": on_device(CARD)}, as_name="test_reference_fixtures_cuda"),
+                env=device_env(CARD), as_name="test_reference_fixtures_cuda"),
       leave_out=FIXTURES_LEFT_OUT)
 _twin(port_twin("test_emergency_stop", replace=STOP_REPLACE, env=safety_env(CARD),
                 as_name="test_emergency_stop_cuda"))
 _twin(port_twin("test_critical_zone_oracle", replace=ZONE_REPLACE, env=safety_env(CARD),
                 as_name="test_critical_zone_oracle_cuda"))
 _twin(port_twin("test_mapping", replace=MAPPING_REPLACE, env=mapping_env(CARD),
-                as_name="test_mapping_cuda"), names=(
-    "test_local_mapper_end_to_end_laserscan", "test_local_mapper_bayesian_accumulates",
-    "test_local_mapper_pointcloud_ring", "test_bayesian_grid_shift_follows_robot_motion",
-    "test_local_mapper_pointcloud_z_filter_above_ceiling",
-    "test_local_mapper_pointcloud_origin_only_points_filtered",
-    "test_local_mapper_pointcloud_empty_cloud",
-    "test_partial_fov_blind_sector_stays_unexplored"))
+                as_name="test_mapping_cuda"), names=MAPPING_CARD_TESTS)
 class _CardShards:
     """The mesh fixture's devices: ``n`` shards on the card, or a skip on
     a host without one (the fixture runs before the wrapped test)."""

@@ -12,7 +12,7 @@ turtlebot map solved by each of the reference's 28 planner ids.
 
 import torch
 
-from torch_twin import on_device, port_twin, twin_tests
+from torch_twin import device_env, port_twin, twin_tests
 
 torch.set_num_threads(2)
 
@@ -31,5 +31,5 @@ FIXTURES_REPLACE = [
 LEFT_OUT = ("test_planner_solves_turtlebot_map",)
 
 twin_tests(globals(), port_twin("test_reference_fixtures", replace=FIXTURES_REPLACE,
-                                env={"_on_device": on_device("cpu")}),
+                                env=device_env("cpu")),
            leave_out=LEFT_OUT)

@@ -5,8 +5,9 @@
 
 The adapters: each mapper getter and ``LocalMapper`` gets the device
 (``_device``, ``_on_device``: the CPU here, the card in
-``test_torch_twin_cuda.py``), the functions a test calls with numpy
-arrays get tensors (``torch_twin.tensor_args``) and the probability grid
+``test_torch_twin_cuda.py`` and ``test_torch_twin_cuda_main.py``), the
+functions a test calls with numpy arrays get tensors on it
+(``torch_twin.tensor_args``) and the probability grid
 is copied with ``clone`` (a tensor on the port's device, where JAX has an
 array). Left out, beside ``LEFT_OUT``: the JAX package's TPU layout
 helpers, which the port does not have (its cell pass is one kernel).
@@ -16,7 +17,7 @@ import torch
 
 from kompass_core_tpu_torch.ops import mapping
 
-from torch_twin import on_device, port_twin, tensor_args, twin_tests
+from torch_twin import NP, device_env, port_twin, tensor_args, twin_tests
 
 torch.set_num_threads(2)
 
@@ -29,7 +30,7 @@ GETTERS = [
         ("get_scan_to_grid_bayesian_fleet", "spec"),
         ("get_scan_to_grid_bayesian", "spec")]
 ]
-MAPPING_REPLACE = GETTERS + [
+MAPPING_REPLACE = [NP] + GETTERS + [
     ("LocalMapper(config", "_on_device(LocalMapper)(config"),
     ("    mapper = LocalMapper(\n", "    mapper = _on_device(LocalMapper)(\n"),
     ("mapper._prev_prob.copy()", "mapper._prev_prob.clone()"),
@@ -38,9 +39,10 @@ MAPPING_REPLACE = GETTERS + [
 
 
 def mapping_env(device):
-    return {"_device": device, "_on_device": on_device(device),
-            "scan_to_grid": tensor_args(mapping.scan_to_grid),
-            "scan_to_grid_bayesian": tensor_args(mapping.scan_to_grid_bayesian)}
+    env = device_env(device)
+    return {**env, "scan_to_grid": tensor_args(mapping.scan_to_grid, env["_device"]),
+            "scan_to_grid_bayesian": tensor_args(mapping.scan_to_grid_bayesian,
+                                                 env["_device"])}
 
 
 # the JAX package's TPU layout helpers: the dense form of the cloud's

@@ -9,7 +9,7 @@ No test is left out.
 
 import torch
 
-from torch_twin import on_device, port_twin, twin_tests
+from torch_twin import device_env, port_twin, twin_tests
 
 torch.set_num_threads(2)
 
@@ -19,7 +19,7 @@ ZONE_REPLACE = [("get_critical_zone_checker(spec)",
 
 
 def safety_env(device):
-    return {"_device": device, "_on_device": on_device(device)}
+    return device_env(device)
 
 
 twin_tests(globals(), port_twin("test_emergency_stop", replace=STOP_REPLACE,

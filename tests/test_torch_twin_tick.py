@@ -6,81 +6,86 @@
 dynamic window (``test_window.py``), the reference path
 (``test_path.py``) and the collision model (``test_collision_model.py``).
 
-The adapters: every port entry point that takes a device gets
-``device="cpu"`` (``_on_device``), ``jax.numpy``'s constructors become
-the port's CPU tensors (``torch_twin.jnp``), and where a test calls a
-private JAX function whose port form takes other arguments, ``env``
-gives it the JAX signature over the port's function (named beside it).
-No test is left out.
+The adapters (``TICK_REPLACE``, ``tick_env(device)``: the CPU here, the
+card in ``test_torch_twin_cuda_main.py``): every port entry point that
+takes a device gets it (``_on_device``), ``jax.numpy``'s constructors
+make the port's tensors on it (``torch_twin.jnp_on``), and where a test
+calls a private JAX function whose port form takes other arguments,
+``env`` gives it the JAX signature over the port's function (named
+beside it). No test is left out.
 """
 
 import torch
 
 from kompass_core_tpu_torch.ops import kernels, solver
 
-from torch_twin import on_device, port_twin, tensor_args, twin_tests
+from torch_twin import JNP, NP, device_env, port_twin, tensor_args, twin_tests
 
 torch.set_num_threads(2)
 
-JNP = ("import jax.numpy as jnp", "from torch_twin import jnp")
-CPU = {"_on_device": on_device("cpu")}
 # dwa_solve takes tensors where the JAX tests pass the host window's numpy
 SOLVE = ("    dwa_solve,\n", "\n")
-SOLVE_ENV = {**CPU, "dwa_solve": tensor_args(solver.dwa_solve)}
 PARAMS = ("SolverParams.create(", "_on_device(SolverParams.create)(")
 
+TICK_REPLACE = {
+    "test_oracle_parity": [
+        JNP, NP, PARAMS, ("make_dwa_solver(spec)", "_on_device(make_dwa_solver)(spec)")],
+    "test_cost_evaluator_standalone": [
+        JNP, NP, PARAMS, ("get_cost_evaluator()", "get_cost_evaluator(_device)"),
+        ("get_cost_evaluator(True)", "get_cost_evaluator(_device, True)"),
+        ("get_cost_evaluator(False)", "get_cost_evaluator(_device, False)")],
+    "test_cost_parity": [
+        JNP, NP, PARAMS,
+        # the "pallas" backend's sweep is K2, whose CPU operator is its plain
+        # version and whose card operator is the kernel: nothing to stand in for
+        ("import kompass_core_tpu_torch.ops.pallas_kernels as pk",
+         "import kompass_core_tpu_torch.ops.kernels as pk"),
+        ("        import jax\n", "        pass\n"),
+        ('if jax.devices()[0].platform != "tpu":', "if False:"), SOLVE],
+    "test_costs": [
+        JNP, NP,
+        ("    _min_obstacle_dist_sq,\n", "\n"),
+        ("    _path_cost,\n", "\n"),
+        ("    _goal_cost,\n", "\n")],
+    "test_solver_modes": [
+        JNP, NP, PARAMS,
+        ("DWA(robot=robot, ctrl_limits=_limits(), config=config)",
+         "_on_device(DWA)(robot=robot, ctrl_limits=_limits(), config=config)"),
+        ("get_packed_dwa_solver(spec", "_on_device(get_packed_dwa_solver)(spec"),
+        ("make_packed_dwa_solver(spec", "_on_device(make_packed_dwa_solver)(spec"), SOLVE],
+    "test_collision_model": [NP],
+}
 
-@tensor_args
-def _min_obstacle_dist_sq(px, py, obs_xy, pt_mask):
-    """JAX's per-point obstacle sweep, over K1's plain version (the port
-    sweeps the obstacles and the segment in one pass)."""
-    active = pt_mask.sum().to(torch.int32)
-    far = torch.full((1,), 1e8)
-    return kernels.fused_min_dist_sq(px, py, obs_xy, far, far, active)[0]
+
+def tick_env(device):
+    """The tick twins' adapters on ``device``."""
+    env = device_env(device)
+    device = env["_device"]
+
+    def _min_obstacle_dist_sq(px, py, obs_xy, pt_mask):
+        """JAX's per-point obstacle sweep, over K1 (the port sweeps the
+        obstacles and the segment in one pass)."""
+        active = pt_mask.sum().to(torch.int32)
+        far = torch.full((1,), 1e8, device=device)
+        return kernels.fused_min_dist_sq(px, py, obs_xy, far, far, active)[0]
+
+    def _path_cost(px, py, seg_x, seg_y, seg_last_xy, seg_total_len, active_points):
+        """JAX's path cost, which sweeps the segment itself; the port's takes
+        the segment sweep's d2 from K1."""
+        far = torch.full((1, 2), 1e8, device=device)
+        d2_seg = kernels.fused_min_dist_sq(px, py, far, seg_x, seg_y, active_points)[1]
+        return solver._path_cost(px, py, d2_seg, seg_last_xy, seg_total_len,
+                                 active_points)
+
+    return {**env, **{name: tensor_args(f, device) for name, f in (
+        ("dwa_solve", solver.dwa_solve), ("_min_obstacle_dist_sq", _min_obstacle_dist_sq),
+        ("_path_cost", _path_cost), ("_goal_cost", solver._goal_cost))}}
 
 
-@tensor_args
-def _path_cost(px, py, seg_x, seg_y, seg_last_xy, seg_total_len, active_points):
-    """JAX's path cost, which sweeps the segment itself; the port's takes
-    the segment sweep's d2 from K1."""
-    far = torch.full((1, 2), 1e8)
-    d2_seg = kernels.fused_min_dist_sq(px, py, far, seg_x, seg_y, active_points)[1]
-    return solver._path_cost(px, py, d2_seg, seg_last_xy, seg_total_len,
-                             active_points)
+SOLVE_ENV = tick_env("cpu")
 
-
-twin_tests(globals(), port_twin(
-    "test_oracle_parity", replace=[JNP, PARAMS,
-                                   ("make_dwa_solver(spec)", "_on_device(make_dwa_solver)(spec)")],
-    env=CPU))
-twin_tests(globals(), port_twin(
-    "test_cost_evaluator_standalone", replace=[
-        JNP, PARAMS, ("get_cost_evaluator()", 'get_cost_evaluator("cpu")'),
-        ("get_cost_evaluator(True)", 'get_cost_evaluator("cpu", True)'),
-        ("get_cost_evaluator(False)", 'get_cost_evaluator("cpu", False)')],
-    env=CPU))
-twin_tests(globals(), port_twin("test_cost_parity", replace=[
-    JNP, PARAMS,
-    # the "pallas" backend's sweep is K2, whose CPU operator is its plain
-    # version: nothing to stand in for
-    ("import kompass_core_tpu_torch.ops.pallas_kernels as pk",
-     "import kompass_core_tpu_torch.ops.kernels as pk"),
-    ('if jax.devices()[0].platform != "tpu":', "if False:"), SOLVE,
-], env=SOLVE_ENV))
-twin_tests(globals(), port_twin("test_costs", replace=[
-    JNP,
-    ("    _min_obstacle_dist_sq,\n", "\n"),
-    ("    _path_cost,\n", "\n"),
-    ("    _goal_cost,\n", "\n"),
-], env={"_min_obstacle_dist_sq": _min_obstacle_dist_sq, "_path_cost": _path_cost,
-        "_goal_cost": tensor_args(solver._goal_cost)}))
-twin_tests(globals(), port_twin("test_solver_modes", replace=[
-    JNP, PARAMS,
-    ("DWA(robot=robot, ctrl_limits=_limits(), config=config)",
-     "_on_device(DWA)(robot=robot, ctrl_limits=_limits(), config=config)"),
-    ("get_packed_dwa_solver(spec", "_on_device(get_packed_dwa_solver)(spec"),
-    ("make_packed_dwa_solver(spec", "_on_device(make_packed_dwa_solver)(spec"), SOLVE,
-], env=SOLVE_ENV))
-twin_tests(globals(), port_twin("test_window"))
-twin_tests(globals(), port_twin("test_path"))
-twin_tests(globals(), port_twin("test_collision_model"))
+for _name in TICK_REPLACE:
+    if _name == "test_collision_model":  # the JAX package's order
+        twin_tests(globals(), port_twin("test_window"))
+        twin_tests(globals(), port_twin("test_path"))
+    twin_tests(globals(), port_twin(_name, replace=TICK_REPLACE[_name], env=SOLVE_ENV))

@@ -99,33 +99,37 @@ def on_device(device):
 class _JnpScalar:
     """``jnp.float32``: a scalar constructor that also names a dtype."""
 
-    def __init__(self, dtype):
+    def __init__(self, dtype, device=None):
         self.dtype = np.dtype(dtype)
+        self.device = device
 
     def __call__(self, v):
-        return torch.as_tensor(np.asarray(v, self.dtype))
+        return torch.as_tensor(np.asarray(v, self.dtype), device=self.device)
 
 
-def _jnp_asarray(x, dtype=None):
+def _jnp_asarray(x, dtype=None, device=None):
     dtype = getattr(dtype, "dtype", dtype)
     if isinstance(x, torch.Tensor):
+        x = x if device is None else x.to(device)
         return x if dtype is None else x.to(getattr(torch, np.dtype(dtype).name))
     a = np.asarray(x)
     if dtype is None:  # jax without x64: 64-bit values become 32-bit
         dtype = {np.float64: np.float32, np.int64: np.int32}.get(a.dtype.type, a.dtype)
-    return torch.as_tensor(a.astype(dtype))
+    return torch.as_tensor(a.astype(dtype), device=device)
 
 
-def tensor_args(f):
+def tensor_args(f, device=None):
     """``f`` taking numpy arrays and scalars where the port's function
-    takes tensors: the adapter of a port function that a JAX test calls
-    with numpy inputs."""
+    takes tensors (made on ``device``, the CPU by default): the adapter
+    of a port function that a JAX test calls with numpy inputs."""
     def conv(v):
         if hasattr(v, "_fields"):
             return type(v)(*map(conv, v))
         if isinstance(v, (tuple, list)):
             return type(v)(map(conv, v))
-        return torch.as_tensor(v) if isinstance(v, (np.ndarray, np.generic)) else v
+        if isinstance(v, (np.ndarray, np.generic)):
+            return torch.as_tensor(v, device=device)
+        return v
 
     @functools.wraps(f)
     def call(*args, **kwargs):
@@ -138,17 +142,79 @@ def _np_dtype(dtype):
     return dtype.dtype if isinstance(dtype, _JnpScalar) else dtype
 
 
-# ``jax.numpy``'s array constructors as the twins use them, on the CPU:
-# a twin replaces ``import jax.numpy as jnp`` by ``from torch_twin import jnp``
-jnp = types.SimpleNamespace(
-    asarray=_jnp_asarray,
-    array=_jnp_asarray,
-    float32=_JnpScalar(np.float32),
-    int32=_JnpScalar(np.int32),
-    arange=lambda *a, dtype=np.int32: torch.as_tensor(np.arange(*a, dtype=_np_dtype(dtype))),
-    full=lambda shape, v, dtype=np.float32: torch.as_tensor(
-        np.full(shape, v, _np_dtype(dtype))),
-    ones=lambda shape, dtype=np.float32: torch.as_tensor(np.ones(shape, _np_dtype(dtype))),
-    zeros=lambda shape, dtype=np.float32: torch.as_tensor(np.zeros(shape, _np_dtype(dtype))),
-    stack=lambda arrays, axis=0: torch.stack(list(arrays), dim=axis),
-)
+def jnp_on(device):
+    """``jax.numpy``'s array constructors as the twins use them, each
+    making its tensor on ``device``: a twin replaces ``import jax.numpy as
+    jnp`` by ``jnp = _jnp`` (``JNP``) and its ``env`` gives ``_jnp``. On a
+    host without a card, where every card twin skips, a card's
+    constructors make the module constants of a twin on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        device = torch.device("cpu")
+
+    def on(a):
+        return torch.as_tensor(a, device=device)
+
+    return types.SimpleNamespace(
+        asarray=functools.partial(_jnp_asarray, device=device),
+        array=functools.partial(_jnp_asarray, device=device),
+        float32=_JnpScalar(np.float32, device),
+        int32=_JnpScalar(np.int32, device),
+        arange=lambda *a, dtype=np.int32: on(np.arange(*a, dtype=_np_dtype(dtype))),
+        full=lambda shape, v, dtype=np.float32: on(np.full(shape, v, _np_dtype(dtype))),
+        ones=lambda shape, dtype=np.float32: on(np.ones(shape, _np_dtype(dtype))),
+        zeros=lambda shape, dtype=np.float32: on(np.zeros(shape, _np_dtype(dtype))),
+        stack=lambda arrays, axis=0: torch.stack(list(arrays), dim=axis),
+    )
+
+
+# the constructors on the CPU, for a twin that imports them by name
+jnp = jnp_on("cpu")
+JNP = ("import jax.numpy as jnp", "jnp = _jnp")
+NP = ("import numpy as np\n", "import numpy as np; np = _np\n")
+
+
+def _host(v):
+    if isinstance(v, torch.Tensor):
+        return v.cpu()
+    if hasattr(v, "_fields"):
+        return type(v)(*map(_host, v))
+    if isinstance(v, (tuple, list)):
+        return type(v)(map(_host, v))
+    if isinstance(v, dict):
+        return {k: _host(x) for k, x in v.items()}
+    return v
+
+
+class _OnHost:
+    """numpy, or one of its submodules, whose functions take tensors on
+    the card as numpy takes JAX's device arrays: each tensor argument is
+    copied to the host first. A twin on the card replaces ``import numpy
+    as np`` by ``np = _np`` (``NP``); the port's own modules keep numpy,
+    so a port function that hands numpy a tensor on the card still
+    fails."""
+
+    def __init__(self, mod):
+        self._mod = mod
+
+    def __getattr__(self, name):
+        value = getattr(self._mod, name)
+        if isinstance(value, types.ModuleType):
+            return _OnHost(value)
+        if not callable(value) or isinstance(value, type):
+            return value  # dtypes, constants, classes
+
+        @functools.wraps(value)
+        def call(*args, **kwargs):
+            return value(*map(_host, args), **{k: _host(v) for k, v in kwargs.items()})
+        return call
+
+
+def device_env(device):
+    """The adapters every twin's ``env`` gives, on ``device``: ``_device``,
+    ``_on_device`` (``on_device``), ``_jnp`` (``jnp_on``) and ``_np``
+    (numpy itself on the CPU, ``_OnHost`` numpy on the card)."""
+    device = torch.device(device)
+    return {"_device": device, "_on_device": on_device(device),
+            "_jnp": jnp_on(device),
+            "_np": np if device.type == "cpu" else _OnHost(np)}
