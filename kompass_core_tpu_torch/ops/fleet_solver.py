@@ -54,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .kernels import _sqrt
 from .solver import (
     SolverParams,
@@ -411,127 +412,128 @@ def _fleet_step(
     sweep instead of the scan bucket's tail (``obs_count`` still counts
     the real ones). A ``dynamic_box`` spec decides admissibility on each
     robot's box, ``cfg.collision_box2``."""
-    (params12, limits9, sensor_pose, rot_in_place, goal_tol, ori_tol,
-     losing_tol, interp_dist, base_h, curv_tol, vx_max, max_seg_size) = cfg[:12]
-    x, y, yaw = states[:, 0], states[:, 1], states[:, 2]
-    L = paths.x.shape[-1]
+    with tracing.span("step.follow", states.device):
+        (params12, limits9, sensor_pose, rot_in_place, goal_tol, ori_tol,
+         losing_tol, interp_dist, base_h, curv_tol, vx_max, max_seg_size) = cfg[:12]
+        x, y, yaw = states[:, 0], states[:, 1], states[:, 2]
+        L = paths.x.shape[-1]
 
-    # --- goal / losing-goal (follower.cpp:109-142) ---
-    goal_i = paths.n_points - 1
-    gx, gy = _pick(paths.x, goal_i), _pick(paths.y, goal_i)
-    # square roots before a decision are correctly rounded (_sqrt), as
-    # XLA's are: PyTorch's CPU float32 sqrt can miss by an ulp
-    d_goal = _sqrt((x - gx) * (x - gx) + (y - gy) * (y - gy))
-    at_end = (carry.seg_idx + 1) >= (paths.n_segs - 1)
-    improving = d_goal < carry.goal_dist
-    new_goal_dist = torch.where(at_end & improving, d_goal, carry.goal_dist)
-    losing = at_end & ~improving & (
-        torch.abs(d_goal - carry.goal_dist) > losing_tol
-    )
-    now_reached = carry.reached | (d_goal <= goal_tol) | losing
-
-    # --- target determination ---
-    cidx, new_seg, pos, seg_heading, _nd = _device_determine_target(
-        paths, carry.closest_idx, carry.seg_idx, carry.pos_in_seg, x, y
-    )
-    heading_error = torch.remainder(
-        seg_heading - yaw + math.pi, 2 * math.pi
-    ) - math.pi
-
-    # --- adaptive horizon (dwa.cpp:157-206) ---
-    dt = params12[:, 0]
-    peek = torch.ceil(base_h * vx_max / interp_dist).to(torch.int32)
-    j = torch.arange(L, device=states.device)
-    start = torch.minimum(cidx, paths.n_points - 1)
-    peek_end = torch.minimum(start + peek, paths.n_points - 1)
-    in_peek = (j >= start.unsqueeze(-1)) & (j <= peek_end.unsqueeze(-1))
-    kappa_max = torch.amax(
-        torch.where(in_peek, torch.abs(paths.curvature), 0.0), dim=-1
-    )
-    cap = _sqrt(
-        8.0 * curv_tol / torch.clamp(kappa_max, min=1e-9)
-    ) / torch.clamp(vx_max, min=1e-3)
-    adaptive = torch.where(
-        kappa_max > curv_tol, torch.minimum(base_h, cap), base_h
-    )
-    horizon = torch.minimum(torch.maximum(adaptive, 2.0 * dt), base_h)
-    active_points = torch.clamp(
-        (horizon / dt).to(torch.int32), 2, spec.max_points
-    )
-    max_forward = adaptive * vx_max
-
-    # --- obstacles: scan -> world, tracked movers in the tail slots ---
-    if obs_world is None:
-        obs, R = _scan_to_world_obs(
-            spec, ranges, angles, sensor_pose, x, y, yaw
+        # --- goal / losing-goal (follower.cpp:109-142) ---
+        goal_i = paths.n_points - 1
+        gx, gy = _pick(paths.x, goal_i), _pick(paths.y, goal_i)
+        # square roots before a decision are correctly rounded (_sqrt), as
+        # XLA's are: PyTorch's CPU float32 sqrt can miss by an ulp
+        d_goal = _sqrt((x - gx) * (x - gx) + (y - gy) * (y - gy))
+        at_end = (carry.seg_idx + 1) >= (paths.n_segs - 1)
+        improving = d_goal < carry.goal_dist
+        new_goal_dist = torch.where(at_end & improving, d_goal, carry.goal_dist)
+        losing = at_end & ~improving & (
+            torch.abs(d_goal - carry.goal_dist) > losing_tol
         )
-    else:
-        obs, R = obs_world, obs_world.shape[1]
-    obs_count = torch.full_like(goal_i, min(R, spec.scan_size))
-    scan_len = obs.shape[1]
-    m_rows = 0
-    mover4 = None
-    if tracked is not None and split_movers:
-        # the split form: the movers never touch the scan bucket; they run
-        # as the solver's narrow moving sweep, and count for the obstacle
-        # cost's gate as in the tail-slot form
-        mover4 = tracked
-        obs_count = obs_count + (tracked[:, :, 0] < 1e7).sum(-1).to(torch.int32)
-        tracked = None
-    if tracked is not None:
-        # positions ride the scan bucket's guaranteed-pad TAIL slots (the
-        # fleet sizes scan_size >= rays + M); pad slots sit at x >= 1e7
-        # with zero velocity and are not counted
-        m_rows = tracked.shape[1]
-        if ranges.shape[1] + m_rows > scan_len:
-            raise ValueError(
-                f"scan bucket {scan_len} cannot hold {ranges.shape[1]} rays + "
-                f"{m_rows} tracked slots — size scan_size >= rays + M"
+        now_reached = carry.reached | (d_goal <= goal_tol) | losing
+
+        # --- target determination ---
+        cidx, new_seg, pos, seg_heading, _nd = _device_determine_target(
+            paths, carry.closest_idx, carry.seg_idx, carry.pos_in_seg, x, y
+        )
+        heading_error = torch.remainder(
+            seg_heading - yaw + math.pi, 2 * math.pi
+        ) - math.pi
+
+        # --- adaptive horizon (dwa.cpp:157-206) ---
+        dt = params12[:, 0]
+        peek = torch.ceil(base_h * vx_max / interp_dist).to(torch.int32)
+        j = torch.arange(L, device=states.device)
+        start = torch.minimum(cidx, paths.n_points - 1)
+        peek_end = torch.minimum(start + peek, paths.n_points - 1)
+        in_peek = (j >= start.unsqueeze(-1)) & (j <= peek_end.unsqueeze(-1))
+        kappa_max = torch.amax(
+            torch.where(in_peek, torch.abs(paths.curvature), 0.0), dim=-1
+        )
+        cap = _sqrt(
+            8.0 * curv_tol / torch.clamp(kappa_max, min=1e-9)
+        ) / torch.clamp(vx_max, min=1e-3)
+        adaptive = torch.where(
+            kappa_max > curv_tol, torch.minimum(base_h, cap), base_h
+        )
+        horizon = torch.minimum(torch.maximum(adaptive, 2.0 * dt), base_h)
+        active_points = torch.clamp(
+            (horizon / dt).to(torch.int32), 2, spec.max_points
+        )
+        max_forward = adaptive * vx_max
+
+        # --- obstacles: scan -> world, tracked movers in the tail slots ---
+        if obs_world is None:
+            obs, R = _scan_to_world_obs(
+                spec, ranges, angles, sensor_pose, x, y, yaw
             )
-        obs = torch.cat([obs[:, : scan_len - m_rows], tracked[:, :, 0:2]], 1)
-        obs_count = obs_count + (tracked[:, :, 0] < 1e7).sum(-1).to(torch.int32)
-    peer_vel = None
-    if peers is not None:
-        peer_rows, peer_vel, peer_count = peers
-        obs = torch.cat([obs, peer_rows], 1)
-        obs_count = obs_count + peer_count
-    obs_vel = None
-    if spec.moving_obstacles and (tracked is not None or peer_vel is not None):
-        # per-row velocities in the rows' order: zero for the scan, the
-        # tracked slots' own, then the peers' (zero on a robot's own
-        # block, and without prediction)
-        vel_parts = [obs.new_zeros(obs.shape[0], scan_len - m_rows, 2)]
+        else:
+            obs, R = obs_world, obs_world.shape[1]
+        obs_count = torch.full_like(goal_i, min(R, spec.scan_size))
+        scan_len = obs.shape[1]
+        m_rows = 0
+        mover4 = None
+        if tracked is not None and split_movers:
+            # the split form: the movers never touch the scan bucket; they run
+            # as the solver's narrow moving sweep, and count for the obstacle
+            # cost's gate as in the tail-slot form
+            mover4 = tracked
+            obs_count = obs_count + (tracked[:, :, 0] < 1e7).sum(-1).to(torch.int32)
+            tracked = None
         if tracked is not None:
-            vel_parts.append(tracked[:, :, 2:4])
+            # positions ride the scan bucket's guaranteed-pad TAIL slots (the
+            # fleet sizes scan_size >= rays + M); pad slots sit at x >= 1e7
+            # with zero velocity and are not counted
+            m_rows = tracked.shape[1]
+            if ranges.shape[1] + m_rows > scan_len:
+                raise ValueError(
+                    f"scan bucket {scan_len} cannot hold {ranges.shape[1]} rays + "
+                    f"{m_rows} tracked slots — size scan_size >= rays + M"
+                )
+            obs = torch.cat([obs[:, : scan_len - m_rows], tracked[:, :, 0:2]], 1)
+            obs_count = obs_count + (tracked[:, :, 0] < 1e7).sum(-1).to(torch.int32)
+        peer_vel = None
         if peers is not None:
-            vel_parts.append(torch.zeros_like(peer_rows) if peer_vel is None
-                             else peer_vel)
-        obs_vel = torch.cat(vel_parts, 1)
+            peer_rows, peer_vel, peer_count = peers
+            obs = torch.cat([obs, peer_rows], 1)
+            obs_count = obs_count + peer_count
+        obs_vel = None
+        if spec.moving_obstacles and (tracked is not None or peer_vel is not None):
+            # per-row velocities in the rows' order: zero for the scan, the
+            # tracked slots' own, then the peers' (zero on a robot's own
+            # block, and without prediction)
+            vel_parts = [obs.new_zeros(obs.shape[0], scan_len - m_rows, 2)]
+            if tracked is not None:
+                vel_parts.append(tracked[:, :, 2:4])
+            if peers is not None:
+                vel_parts.append(torch.zeros_like(peer_rows) if peer_vel is None
+                                 else peer_vel)
+            obs_vel = torch.cat(vel_parts, 1)
 
-    # --- tracked segment window (dwa.cpp:208-233) ---
-    # path rows are seg_capacity wider than the path capacity (host pads),
-    # so the window at `start` is always in bounds
-    lookahead = torch.maximum(
-        max_seg_size, torch.ceil(max_forward / interp_dist).to(torch.int32) + 1
-    )
-    end = torch.minimum(start + lookahead, paths.n_points - 1)
-    seg_count = torch.clamp(end - start + 1, max=seg_capacity)
-    k = torch.arange(seg_capacity, device=states.device)
-    idx = start.long().clamp(0, L - seg_capacity).unsqueeze(-1) + k
-    seg_x_raw = paths.x.gather(-1, idx)
-    seg_y_raw = paths.y.gather(-1, idx)
-    seg_arc = paths.arc.gather(-1, idx)
-    in_window = k < seg_count.unsqueeze(-1)
-    seg_x = torch.where(in_window, seg_x_raw, _PAD)
-    seg_y = torch.where(in_window, seg_y_raw, _PAD)
-    cdx = seg_x_raw[:, 1:] - seg_x_raw[:, :-1]
-    cdy = seg_y_raw[:, 1:] - seg_y_raw[:, :-1]
-    chords = torch.sqrt(cdx * cdx + cdy * cdy)
-    seg_total_len = torch.where(in_window[:, 1:], chords, 0.0).sum(-1)
+        # --- tracked segment window (dwa.cpp:208-233) ---
+        # path rows are seg_capacity wider than the path capacity (host pads),
+        # so the window at `start` is always in bounds
+        lookahead = torch.maximum(
+            max_seg_size, torch.ceil(max_forward / interp_dist).to(torch.int32) + 1
+        )
+        end = torch.minimum(start + lookahead, paths.n_points - 1)
+        seg_count = torch.clamp(end - start + 1, max=seg_capacity)
+        k = torch.arange(seg_capacity, device=states.device)
+        idx = start.long().clamp(0, L - seg_capacity).unsqueeze(-1) + k
+        seg_x_raw = paths.x.gather(-1, idx)
+        seg_y_raw = paths.y.gather(-1, idx)
+        seg_arc = paths.arc.gather(-1, idx)
+        in_window = k < seg_count.unsqueeze(-1)
+        seg_x = torch.where(in_window, seg_x_raw, _PAD)
+        seg_y = torch.where(in_window, seg_y_raw, _PAD)
+        cdx = seg_x_raw[:, 1:] - seg_x_raw[:, :-1]
+        cdy = seg_y_raw[:, 1:] - seg_y_raw[:, :-1]
+        chords = torch.sqrt(cdx * cdx + cdy * cdy)
+        seg_total_len = torch.where(in_window[:, 1:], chords, 0.0).sum(-1)
 
-    # --- solve, all robots in one batch ---
-    params = SolverParams(*params12.unbind(-1))
-    window = _device_window(spec, vels, limits9, params.time_step)
+        # --- solve, all robots in one batch ---
+        params = SolverParams(*params12.unbind(-1))
+        window = _device_window(spec, vels, limits9, params.time_step)
     res = dwa_solve(
         spec, params, states[:, 0:3], window, obs, obs_count, seg_x, seg_y,
         seg_arc, seg_count, seg_total_len, paths.total_len, active_points,
@@ -540,54 +542,55 @@ def _fleet_step(
         mover4=mover4,
     )
 
-    # --- rotate-in-place / reached overrides ---
-    rotate = rot_in_place & (torch.abs(heading_error) > ori_tol * 10.0)
-    rot_omega = _div(heading_error * limits9[:, 6], math.pi)
-    first = res.velocities[:, 0]
-    cmd_vx = torch.where(rotate, 0.0, first[:, 0])
-    cmd_vy = torch.where(rotate, 0.0, first[:, 1])
-    cmd_w = torch.where(rotate, rot_omega, first[:, 2])
-    # a not-found tick emits a ZERO command, not the inadmissible argmin
-    # sample (all costs +inf -> argmin 0 = max reverse, max spin)
-    go = (rotate | res.found) & ~now_reached
-    cmd_vx = torch.where(go, cmd_vx, 0.0)
-    cmd_vy = torch.where(go, cmd_vy, 0.0)
-    cmd_w = torch.where(go, cmd_w, 0.0)
+    with tracing.span("step.gate", states.device):
+        # --- rotate-in-place / reached overrides ---
+        rotate = rot_in_place & (torch.abs(heading_error) > ori_tol * 10.0)
+        rot_omega = _div(heading_error * limits9[:, 6], math.pi)
+        first = res.velocities[:, 0]
+        cmd_vx = torch.where(rotate, 0.0, first[:, 0])
+        cmd_vy = torch.where(rotate, 0.0, first[:, 1])
+        cmd_w = torch.where(rotate, rot_omega, first[:, 2])
+        # a not-found tick emits a ZERO command, not the inadmissible argmin
+        # sample (all costs +inf -> argmin 0 = max reverse, max spin)
+        go = (rotate | res.found) & ~now_reached
+        cmd_vx = torch.where(go, cmd_vx, 0.0)
+        cmd_vy = torch.where(go, cmd_vy, 0.0)
+        cmd_w = torch.where(go, cmd_w, 0.0)
 
-    # --- fused critical-zone gate (critical_zone_check.cpp:87-119) ---
-    if safety is None:
-        safety_factor = torch.ones_like(cmd_vx)  # shape-stable output
-    else:
-        forward = cmd_vx >= 0.0
-        if obs_world is None:
-            # single tick: the scan is current, the beam form
-            safety_factor = _safety_factor_scan(safety, ranges,
-                                                sensor_pose[:, 0:2], forward)
+        # --- fused critical-zone gate (critical_zone_check.cpp:87-119) ---
+        if safety is None:
+            safety_factor = torch.ones_like(cmd_vx)  # shape-stable output
         else:
-            # k-tick loop: the frozen world points against the current pose
-            safety_factor = _safety_factor_world(safety, obs_world, x, y, yaw,
-                                                 forward)
-        cmd_vx = cmd_vx * safety_factor
-        cmd_vy = cmd_vy * safety_factor
-        cmd_w = torch.where(safety_factor <= 0.0, 0.0, cmd_w)
+            forward = cmd_vx >= 0.0
+            if obs_world is None:
+                # single tick: the scan is current, the beam form
+                safety_factor = _safety_factor_scan(safety, ranges,
+                                                    sensor_pose[:, 0:2], forward)
+            else:
+                # k-tick loop: the frozen world points against the current pose
+                safety_factor = _safety_factor_world(safety, obs_world, x, y, yaw,
+                                                     forward)
+            cmd_vx = cmd_vx * safety_factor
+            cmd_vy = cmd_vy * safety_factor
+            cmd_w = torch.where(safety_factor <= 0.0, 0.0, cmd_w)
 
-    new_carry = FleetCarry(cidx, new_seg, pos, new_goal_dist, now_reached)
-    out = torch.stack(
-        [
-            go.to(torch.float32),
-            now_reached.to(torch.float32),
-            cmd_vx,
-            cmd_vy,
-            cmd_w,
-            # host parity: a rotate-in-place result reports cost 0.0
-            torch.where(rotate, 0.0, res.cost),
-            heading_error,
-            active_points.to(torch.float32),
-            res.num_admissible.to(torch.float32),
-            safety_factor,
-        ],
-        dim=-1,
-    )
+        new_carry = FleetCarry(cidx, new_seg, pos, new_goal_dist, now_reached)
+        out = torch.stack(
+            [
+                go.to(torch.float32),
+                now_reached.to(torch.float32),
+                cmd_vx,
+                cmd_vy,
+                cmd_w,
+                # host parity: a rotate-in-place result reports cost 0.0
+                torch.where(rotate, 0.0, res.cost),
+                heading_error,
+                active_points.to(torch.float32),
+                res.num_admissible.to(torch.float32),
+                safety_factor,
+            ],
+            dim=-1,
+        )
     return new_carry, out
 
 
@@ -837,8 +840,10 @@ def make_fleet_tick(fleet_spec: FleetSpec, device=None, mesh=None, peer_cfg=None
              inputs, safety_arg=None):
         inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
         split = _split_tick_inputs(fleet_spec, inputs, safety, safety_arg, cfg)
-        return step(paths, cfg, carry, angles, split, safety_arg,
-                    None if peers is None else peers(inputs[:, 0:7]))
+        with tracing.stages(inputs.device):
+            with tracing.span("step.follow", inputs.device):
+                peer_set = None if peers is None else peers(inputs[:, 0:7])
+            return step(paths, cfg, carry, angles, split, safety_arg, peer_set)
 
     def mesh_tick(paths, cfg, carry, angles, inputs, safety_arg=None):
         parts = _shard_inputs(mesh, inputs)
@@ -900,48 +905,53 @@ def make_fleet_ticks_on_device(fleet_spec: FleetSpec, k: int, device=None,
         tracked, the frozen world obstacles, dt)."""
         states, vels, ranges, tracked = _split_tick_inputs(
             fleet_spec, inputs, safety, safety_arg, cfg)
-        obs_world, _ = _scan_to_world_obs(
-            spec, ranges, angles, cfg.sensor_pose, states[:, 0], states[:, 1],
-            states[:, 2],
-        )
+        with tracing.span("step.follow", inputs.device):
+            obs_world, _ = _scan_to_world_obs(
+                spec, ranges, angles, cfg.sensor_pose, states[:, 0], states[:, 1],
+                states[:, 2],
+            )
         return states, vels, ranges, tracked, obs_world, cfg.params12[:, 0]
 
     def advance(i, paths, cfg, carry, angles, safety_arg, loop, peer_set):
         """Tick i of one shard: (carry', out, the next loop state)."""
         states, vels, ranges, tracked, obs_world, dt = loop
         trk = None
-        if tracked is not None:
-            shift = tracked[:, :, 2:4] * (float(i) * dt)[:, None, None]
-            pos = torch.where(tracked[:, :, 0:1] < 1e7,
-                              tracked[:, :, 0:2] + shift, tracked[:, :, 0:2])
-            trk = torch.cat([pos, tracked[:, :, 2:4]], dim=-1)
+        with tracing.span("step.follow", states.device):
+            if tracked is not None:
+                shift = tracked[:, :, 2:4] * (float(i) * dt)[:, None, None]
+                pos = torch.where(tracked[:, :, 0:1] < 1e7,
+                                  tracked[:, :, 0:2] + shift, tracked[:, :, 0:2])
+                trk = torch.cat([pos, tracked[:, :, 2:4]], dim=-1)
         carry, out = _fleet_step(
             spec, paths, cfg, carry, states, vels, ranges, angles,
             spec.seg_size, trk, obs_world=obs_world, peers=peer_set,
             safety=safety_arg if safety else None,
             split_movers=fleet_spec.split_mover_sweep,
         )
-        vx, vy, om = out[:, 2], out[:, 3], out[:, 4]
-        cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])
-        states = torch.stack([
-            states[:, 0] + dt * (vx * cy - vy * sy),
-            states[:, 1] + dt * (vx * sy + vy * cy),
-            states[:, 2] + dt * om,
-            _sqrt(vx * vx + vy * vy),
-        ], dim=-1)
+        with tracing.span("step.gate", states.device):
+            vx, vy, om = out[:, 2], out[:, 3], out[:, 4]
+            cy, sy = torch.cos(states[:, 2]), torch.sin(states[:, 2])
+            states = torch.stack([
+                states[:, 0] + dt * (vx * cy - vy * sy),
+                states[:, 1] + dt * (vx * sy + vy * cy),
+                states[:, 2] + dt * om,
+                _sqrt(vx * vx + vy * vy),
+            ], dim=-1)
         return carry, out, (states, out[:, 2:5], ranges, tracked, obs_world, dt)
 
     def ticks(paths: FleetPaths, cfg: FleetConfig, carry: FleetCarry, angles,
               inputs, safety_arg=None):
         inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
-        loop = begin(cfg, angles, inputs, safety_arg)
         outs = []
-        for i in range(k):
-            peer_set = (None if peers is None
-                        else peers(torch.cat([loop[0], loop[1]], dim=1)))
-            carry, out, loop = advance(i, paths, cfg, carry, angles, safety_arg,
-                                       loop, peer_set)
-            outs.append(out)
+        with tracing.stages(inputs.device):
+            loop = begin(cfg, angles, inputs, safety_arg)
+            for i in range(k):
+                with tracing.span("step.follow", inputs.device):
+                    peer_set = (None if peers is None
+                                else peers(torch.cat([loop[0], loop[1]], dim=1)))
+                carry, out, loop = advance(i, paths, cfg, carry, angles, safety_arg,
+                                           loop, peer_set)
+                outs.append(out)
         return carry, torch.stack(outs, dim=1), loop[0]
 
     def mesh_ticks(paths, cfg, carry, angles, inputs, safety_arg=None):

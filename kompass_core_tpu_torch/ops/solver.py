@@ -47,6 +47,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import tracing
 from .kernels import (
     box_min_dist_sq,
     fused_min_dist_sq,
@@ -651,99 +652,105 @@ def dwa_solve(
     truncated positions (time still advances past a frozen pose). BOX
     robots meet the movers in the box field too."""
     T = spec.max_points
-    vels, valid = _build_velocity_grid(spec, window)
-    px, py = _rollout(spec, params, state, vels)
+    dev = state.device
+    with tracing.stages(dev):
+        with tracing.span("solve.rollout", dev):
+            vels, valid = _build_velocity_grid(spec, window)
+            px, py = _rollout(spec, params, state, vels)
 
-    # both O(S * T * rows) sweeps; the obstacle field serves collision and
-    # the obstacle cost, the segment field the path cost
-    moving = spec.moving_obstacles and obs_vel is not None
-    sweep = _sweeps(spec, obs_xy, obs_vel if moving else None,
-                    params.time_step, seg_x, seg_y, active_points)
-    d2_obs, d2_seg = sweep(px, py)
-
-    # the split movers: K3s, whatever the backend. Drop mode folds them in
-    # at once; truncate mode keeps them apart until the freeze-patch below
-    # has touched the static part alone
-    d2_mov = mover_sweep = None
-    if mover4 is not None:
-        m_xy = mover4[..., 0:2].contiguous()
-        m_vel = mover4[..., 2:4].contiguous()
-        step = params.time_step.contiguous()
-        ap = active_points.contiguous()
-
-        def mover_sweep(px, py):
-            return min_dist_sq_moving(px, py, m_xy, m_vel, step, ap)
-
-        d2_mov = mover_sweep(px, py)
-        if spec.drop_samples:
-            d2_obs = torch.minimum(d2_obs, d2_mov)
-            d2_mov = None
-    d2_adm = d2_obs if d2_mov is None else torch.minimum(d2_obs, d2_mov)
-
-    if spec.collision_box is not None or (
-        spec.dynamic_box and collision_box_dyn is not None
-    ):
-        half = spec.collision_box
-        if half is None:
-            half = (collision_box_dyn[..., 0], collision_box_dyn[..., 1])
-        d2_col = _min_box_dist_sq(params, state, vels, px, py, obs_xy,
-                                  active_points, half,
-                                  obs_vel if moving else None)
-        if mover4 is not None:
-            # the movers meet the box model too (their point field above
-            # serves the obstacle cost)
-            d2_col = torch.minimum(d2_col, _min_box_dist_sq(
-                params, state, vels, px, py, m_xy, active_points, half, m_vel))
-        admissible, truncate_ok, i_col, last_free = _admissibility(
-            spec, params, d2_col, active_points, valid, surface_distance=True
-        )
-    else:
-        admissible, truncate_ok, i_col, last_free = _admissibility(
-            spec, params, d2_adm, active_points, valid
-        )
-    if spec.drop_samples:
-        # drop mode never truncates: constant velocity along every row
-        vel_traj = vels.unsqueeze(-2).expand(vels.shape[:-1] + (T - 1, 3))
-    else:
-        px, py, vel_traj, frozen = _apply_truncation(
-            px, py, vels, truncate_ok, i_col, last_free
-        )
-        if moving:
-            # a frozen point keeps its position while time still
-            # advances, so the obstacle track keeps moving relative to
-            # it: sweep again from the truncated positions, with the same
-            # kernel, so the cost sees the field admissibility was
-            # decided on
+        with tracing.span("solve.sweep", dev):
+            # both O(S * T * rows) sweeps; the obstacle field serves collision
+            # and the obstacle cost, the segment field the path cost
+            moving = spec.moving_obstacles and obs_vel is not None
+            sweep = _sweeps(spec, obs_xy, obs_vel if moving else None,
+                            params.time_step, seg_x, seg_y, active_points)
             d2_obs, d2_seg = sweep(px, py)
-        else:
-            # frozen points sit at path[last_free]: both fields take
-            # their value there instead of a second sweep
-            lf = last_free.unsqueeze(-1)
-            d2_obs = torch.where(frozen, d2_obs.gather(-1, lf), d2_obs)
-            d2_seg = torch.where(frozen, d2_seg.gather(-1, lf), d2_seg)
-        if d2_mov is not None:
-            # split movers: a frozen point keeps its position while the
-            # movers advance, so they are swept again from the truncated
-            # positions and combined
-            d2_obs = torch.minimum(d2_obs, mover_sweep(px, py))
 
-    # in drop mode every row keeps one velocity: smoothness and jerk are
-    # exactly zero, so they are not computed
-    total = _weighted_costs(
-        params, px, py, vel_traj, d2_obs, d2_seg, obs_count, seg_x, seg_y,
-        seg_arc, seg_count, seg_total_len, ref_total_len, active_points,
-        not spec.drop_samples, custom_costs,
-    )
-    costs = torch.where(admissible, total, _INF)
-    best, cost, velocities, path = _winner(costs, vel_traj, px, py)
+            # the split movers: K3s, whatever the backend. Drop mode folds
+            # them in at once; truncate mode keeps them apart until the
+            # freeze-patch below has touched the static part alone
+            d2_mov = mover_sweep = None
+            if mover4 is not None:
+                m_xy = mover4[..., 0:2].contiguous()
+                m_vel = mover4[..., 2:4].contiguous()
+                step = params.time_step.contiguous()
+                ap = active_points.contiguous()
+
+                def mover_sweep(px, py):
+                    return min_dist_sq_moving(px, py, m_xy, m_vel, step, ap)
+
+                d2_mov = mover_sweep(px, py)
+                if spec.drop_samples:
+                    d2_obs = torch.minimum(d2_obs, d2_mov)
+                    d2_mov = None
+            d2_adm = d2_obs if d2_mov is None else torch.minimum(d2_obs, d2_mov)
+
+            box = spec.collision_box is not None or (
+                spec.dynamic_box and collision_box_dyn is not None
+            )
+            if box:
+                half = spec.collision_box
+                if half is None:
+                    half = (collision_box_dyn[..., 0], collision_box_dyn[..., 1])
+                d2_adm = _min_box_dist_sq(params, state, vels, px, py, obs_xy,
+                                          active_points, half,
+                                          obs_vel if moving else None)
+                if mover4 is not None:
+                    # the movers meet the box model too (their point field
+                    # above serves the obstacle cost)
+                    d2_adm = torch.minimum(d2_adm, _min_box_dist_sq(
+                        params, state, vels, px, py, m_xy, active_points, half,
+                        m_vel))
+
+        with tracing.span("solve.costs", dev):
+            admissible, truncate_ok, i_col, last_free = _admissibility(
+                spec, params, d2_adm, active_points, valid, surface_distance=box
+            )
+            if spec.drop_samples:
+                # drop mode never truncates: constant velocity along every row
+                vel_traj = vels.unsqueeze(-2).expand(vels.shape[:-1] + (T - 1, 3))
+            else:
+                px, py, vel_traj, frozen = _apply_truncation(
+                    px, py, vels, truncate_ok, i_col, last_free
+                )
+                if moving:
+                    # a frozen point keeps its position while time still
+                    # advances, so the obstacle track keeps moving relative
+                    # to it: sweep again from the truncated positions, with
+                    # the same kernel, so the cost sees the field
+                    # admissibility was decided on
+                    d2_obs, d2_seg = sweep(px, py)
+                else:
+                    # frozen points sit at path[last_free]: both fields take
+                    # their value there instead of a second sweep
+                    lf = last_free.unsqueeze(-1)
+                    d2_obs = torch.where(frozen, d2_obs.gather(-1, lf), d2_obs)
+                    d2_seg = torch.where(frozen, d2_seg.gather(-1, lf), d2_seg)
+                if d2_mov is not None:
+                    # split movers: a frozen point keeps its position while
+                    # the movers advance, so they are swept again from the
+                    # truncated positions and combined
+                    d2_obs = torch.minimum(d2_obs, mover_sweep(px, py))
+
+            # in drop mode every row keeps one velocity: smoothness and jerk
+            # are exactly zero, so they are not computed
+            total = _weighted_costs(
+                params, px, py, vel_traj, d2_obs, d2_seg, obs_count, seg_x, seg_y,
+                seg_arc, seg_count, seg_total_len, ref_total_len, active_points,
+                not spec.drop_samples, custom_costs,
+            )
+            costs = torch.where(admissible, total, _INF)
+            best, cost, velocities, path = _winner(costs, vel_traj, px, py)
+            found = admissible.any(dim=-1)
+            num_admissible = admissible.sum(dim=-1).to(torch.int32)
     res = SolveResult(
-        found=admissible.any(dim=-1),
+        found=found,
         cost=cost,
         best_index=best,
         velocities=velocities,
         path=path,
         costs=costs,
-        num_admissible=admissible.sum(dim=-1).to(torch.int32),
+        num_admissible=num_admissible,
     )
     if return_all_paths:
         return res, (px, py)

@@ -37,6 +37,13 @@ inputs and gets back its own robots' rows (``local_robots``). Without
 peers the mesh's k-tick loop is row-local: on CUDA devices each shard
 captures and replays the one-device loop's graph on its rows. With
 peers it gathers the shards' live states every tick and runs eagerly.
+
+Each entry call is a ``fleet.call`` span of ``utils/tracing.py`` over
+``fleet.pack`` (``_prepare_tick_inputs``), ``fleet.capture`` (when a graph
+is captured), ``fleet.enqueue`` (the input copy and the tick program's
+enqueue, or a graph replay) and ``fleet.fetch`` (the output copy and
+dict); the counters ``fleet.graph_captures`` and ``fleet.graph_replays``
+count the k-tick graphs' captures and replays.
 """
 
 import dataclasses
@@ -64,8 +71,10 @@ from ..ops.fleet_solver import (
     make_fleet_tick,
     make_fleet_ticks_on_device,
 )
+from ..ops.kernels import launch_counts
 from ..ops.solver import COLLISION_MARGIN_FACTOR, SolverSpec
 from ..ops.window import compute_linear_sample_split, num_angular_slots
+from ..utils import tracing
 from ..utils.cuda_graph import capture
 
 _PAD = 1e8
@@ -93,7 +102,10 @@ class TickGraph:
     per-tick outputs [N, k * F] then the final states [N, 4]), and the
     tensors of the fleet it read at capture (``paths``, ``angles`` and
     the ``safety`` tables, rebuilt with the angle grid; a new tensor there
-    means a new capture)."""
+    means a new capture). ``stages``: the stage runs captured with it, whose
+    timing events each replay refreshes (``utils/tracing.py``);
+    ``launches``: the sweep-wrapper launches the capture made (by
+    ``launch_counts()`` name), which each of its ``replays`` makes again."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: torch.Tensor
@@ -103,6 +115,9 @@ class TickGraph:
     paths: FleetPaths
     angles: torch.Tensor
     safety: Optional[FleetSafety]
+    stages: list = dataclasses.field(default_factory=list)
+    launches: dict = dataclasses.field(default_factory=dict)
+    replays: int = 0
 
 
 class DeviceFleet:
@@ -764,21 +779,29 @@ class DeviceFleet:
         carry = FleetCarry(*(t.clone() for t in carry))
         args = (paths, cfg, carry, angles, inputs,
                 *(() if safety is None else (safety,)))
+        launches = {}
 
         def ticks():
+            before = launch_counts()
             carry_out, outs, final = fn(*args)
+            if torch.cuda.is_current_stream_capturing():
+                launches.update((name, n - before[name])
+                                for name, n in launch_counts().items() if n != before[name])
             return carry_out, torch.cat([outs.flatten(1), final], dim=1)
 
-        with torch.cuda.device(device):
+        with (tracing.span("fleet.capture"), tracing.capture_log() as stages,
+              torch.cuda.device(device)):
             graph, (carry_out, out) = capture(ticks, device)
-        return TickGraph(graph, inputs, carry, carry_out, out, paths, angles, safety)
+        tracing.count("fleet.graph_captures")
+        return TickGraph(graph, inputs, carry, carry_out, out, paths, angles, safety,
+                         stages, launches)
 
-    def _replay(self, k: int):
-        """(carry', the [N, k * F + 4] output matrix) of one replay of the
-        k-tick graph (per shard on a mesh: lists of both), captured anew
-        when the fleet's path tables or angle grid (and with it the safety
-        tables) are new tensors. ``tick_graphs[k]`` is the TickGraph, or
-        on a mesh the list of the shards' TickGraphs."""
+    def _tick_graphs(self, k: int) -> list:
+        """The k-tick graphs, one per shard (the whole fleet on one
+        device), captured anew when the fleet's path tables or angle grid
+        (and with it the safety tables) are new tensors.
+        ``tick_graphs[k]`` is the TickGraph, or on a mesh the list of the
+        shards' TickGraphs."""
         shards = self._shards()
         for key, old in list(self.tick_graphs.items()):
             graphs = old if isinstance(old, list) else [old]
@@ -789,12 +812,18 @@ class DeviceFleet:
             graphs = [self._capture(k, *shard) for shard in shards]
             self.tick_graphs[k] = graphs if self.mesh is not None else graphs[0]
         graphs = self.tick_graphs[k]
-        graphs = graphs if isinstance(graphs, list) else [graphs]
-        for g, shard in zip(graphs, shards):
+        return graphs if isinstance(graphs, list) else [graphs]
+
+    def _replay(self, graphs: list):
+        """(carry', the [N, k * F + 4] output matrix) of one replay of the
+        shards' k-tick ``graphs`` (on a mesh: lists of both)."""
+        for g, shard in zip(graphs, self._shards()):
             g.inputs.copy_(torch.from_numpy(self._inputs[shard[6]]))
             for static, value in zip(g.carry, shard[3]):
                 static.copy_(value)
             g.graph.replay()
+            g.replays += 1
+            tracing.count("fleet.graph_replays")
         carry = [FleetCarry(*(t.clone() for t in g.carry_out)) for g in graphs]
         if self.mesh is None:
             return carry[0], graphs[0].out
@@ -827,29 +856,38 @@ class DeviceFleet:
         k = int(k)
         if k < 1:
             raise ValueError(f"run_ticks_on_device needs k >= 1, got {k}")
-        safety = self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
-        if self._graphed():
-            self._carry, out = self._replay(k)
-        elif self.mesh is not None:
-            self._carry, outs, final = self.ticks_fn(k)(
-                self._paths, self._cfg, self._carry, self._angles,
-                self._put(self._inputs), *safety,
-            )
-            out = [torch.cat([o.flatten(1), f], dim=1) for o, f in zip(outs, final)]
-        else:
-            self._carry, outs, final = self.ticks_fn(k)(
-                self._paths, self._cfg, self._carry, self._angles,
-                torch.from_numpy(self._inputs.copy()), *safety,
-            )
-            out = torch.cat([outs.flatten(1), final], dim=1)
-        n = len(self.local_robots)
-        out_np = self._host(out)[:n]  # one copy out (per shard)
-        F = len(OUT_FIELDS)
-        per_tick = out_np[:, : k * F].reshape(n, k, F)
-        result = {f: per_tick[:, :, i] for i, f in enumerate(OUT_FIELDS)}
-        result["found"] = result["found"] > 0.5
-        result["reached"] = result["reached"] > 0.5
-        result["final_states"] = out_np[:, k * F:]
+        with tracing.span("fleet.call"):
+            with tracing.span("fleet.pack"):
+                safety = self._prepare_tick_inputs(states, vels, ranges, angles,
+                                                   tracked)
+            graphs = self._tick_graphs(k) if self._graphed() else None
+            with tracing.span("fleet.enqueue"):
+                if graphs is not None:
+                    self._carry, out = self._replay(graphs)
+                elif self.mesh is not None:
+                    self._carry, outs, final = self.ticks_fn(k)(
+                        self._paths, self._cfg, self._carry, self._angles,
+                        self._put(self._inputs), *safety,
+                    )
+                    out = [torch.cat([o.flatten(1), f], dim=1)
+                           for o, f in zip(outs, final)]
+                else:
+                    self._carry, outs, final = self.ticks_fn(k)(
+                        self._paths, self._cfg, self._carry, self._angles,
+                        torch.from_numpy(self._inputs.copy()), *safety,
+                    )
+                    out = torch.cat([outs.flatten(1), final], dim=1)
+            with tracing.span("fleet.fetch"):
+                n = len(self.local_robots)
+                out_np = self._host(out)[:n]  # one copy out (per shard)
+                F = len(OUT_FIELDS)
+                per_tick = out_np[:, : k * F].reshape(n, k, F)
+                result = {f: per_tick[:, :, i] for i, f in enumerate(OUT_FIELDS)}
+                result["found"] = result["found"] > 0.5
+                result["reached"] = result["reached"] > 0.5
+                result["final_states"] = out_np[:, k * F:]
+            for g in graphs or ():
+                tracing.replayed(g.stages)
         self.last_tick_seconds = time.perf_counter() - t0
         return result
 
@@ -865,14 +903,19 @@ class DeviceFleet:
         Returns a dict of numpy arrays per robot (``OUT_FIELDS``; the rows
         of ``local_robots`` under a process group)."""
         t0 = time.perf_counter()
-        safety = self._prepare_tick_inputs(states, vels, ranges, angles, tracked)
-        inputs = self._put(self._inputs)  # one copy in (per shard)
-        self._carry, out_mat = self._tick_fn(
-            self._paths, self._cfg, self._carry, self._angles, inputs, *safety
-        )
-        out_np = self._host(out_mat)[: len(self.local_robots)]  # one copy out
-        out = {k: out_np[:, i] for i, k in enumerate(OUT_FIELDS)}
-        out["found"] = out["found"] > 0.5
-        out["reached"] = out["reached"] > 0.5
+        with tracing.span("fleet.call"):
+            with tracing.span("fleet.pack"):
+                safety = self._prepare_tick_inputs(states, vels, ranges, angles,
+                                                   tracked)
+            with tracing.span("fleet.enqueue"):
+                inputs = self._put(self._inputs)  # one copy in (per shard)
+                self._carry, out_mat = self._tick_fn(
+                    self._paths, self._cfg, self._carry, self._angles, inputs, *safety
+                )
+            with tracing.span("fleet.fetch"):
+                out_np = self._host(out_mat)[: len(self.local_robots)]  # one copy out
+                out = {k: out_np[:, i] for i, k in enumerate(OUT_FIELDS)}
+                out["found"] = out["found"] > 0.5
+                out["reached"] = out["reached"] > 0.5
         self.last_tick_seconds = time.perf_counter() - t0
         return out
