@@ -311,6 +311,20 @@ Phases (each one asserts; any failure exits non-zero with its traceback):
     skipped test, on a kernel of ``CARD_TWIN_KERNELS`` that did not
     launch, or past ``CARD_TWIN_BUDGET_S``; prints the passes and seconds
     per twinned file.
+45. K10, the goal cost's nearest-segment search (``phase_goal``, run
+    after phase 25): ``goal_nearest`` bit for bit against its plain
+    version, in its own layout and in each of ``GOAL_LAYOUTS``, at the
+    benchmark cells' widths (1024 x 2025 x 320, 256 x 2025 x 320, 64 x
+    2025 x 384), one robot's DWA (1 x 2025 x 320) and the cost
+    evaluator's (1 x 5001 x 1024), where a warp splits the segment
+    points; timed against it by events in turns and by graph replay
+    beside ``goal_bound``, and each layout by replay
+    (``kernel_bench.bench_goal``); the kernels line's K10 row times the
+    1024-robot width and gives the largest |kernel - plain| of every
+    width. Every solve on the card launches K10 once, so each phase's
+    launch check counts it beside the sweeps (``_solves``); the row's
+    launches are the main path's, read as every other row's are, plus
+    the card solves of phases 4, 5, 9, 10 and 11 and the k-tick forms'.
 
 Launch counts: the counts are set to 0 before the mapping slice, again
 before the solver slice, again before the k-tick loop and again before
@@ -891,13 +905,13 @@ def phase_slice(kernels, device):
     robot = make_robot()
     dwa = make_dwa(robot, device)
     start = goal_distance(robot)
-    kernels.fused_min_dist_sq.launches = 0
+    before = kernels.launch_counts()
     found = run_slice(robot, dwa, SLICE_TICKS, kernels, cpu_ties)
-    launches = kernels.fused_min_dist_sq.launches
+    launches = _launches_made(kernels, before)
     end = goal_distance(robot)
-    log(f"slice (drop): {SLICE_TICKS} ticks, {found} found, {launches} launches, "
+    log(f"slice (drop): {SLICE_TICKS} ticks, {found} found, launches {launches}, "
         f"goal distance {start:.3f} -> {end:.3f} m, CPU ties {len(cpu_ties)}")
-    assert launches == SLICE_TICKS
+    assert launches == _solves({"K1": SLICE_TICKS}, SLICE_TICKS), launches
     assert found == SLICE_TICKS, "the planner lost its way in an open corridor"
     assert end < start - 1.0, "the robot did not approach the goal"
 
@@ -1410,8 +1424,7 @@ def phase_fleet(kernels, device):
     ends = np.stack([p[-1] for p in fleet_scene()[1]])
     start = drive.goal_distance(ends)
     ties, found = [], 0
-    kernels.fused_min_dist_sq.launches = 0
-    kernels.fused_min_dist_sq_moving.launches = 0
+    start_counts = kernels.launch_counts()
     for tick in range(FLEET_TICKS):
         before = kernels.fused_min_dist_sq_moving.launches
         carry = [t.cpu() for t in fleet._carry]
@@ -1425,8 +1438,8 @@ def phase_fleet(kernels, device):
             _fleet_cpu_check(fleet, carry, out, tick, ties)
         found += int(out["found"].sum())
         drive.advance(out)
-    k3 = kernels.fused_min_dist_sq_moving.launches
-    k1 = kernels.fused_min_dist_sq.launches
+    made = _launches_made(kernels, start_counts)
+    k3, k1 = made.get("K3", 0), made.get("K1", 0)
     torch.cuda.synchronize()
     end = drive.goal_distance(ends)
     log(f"fleet slice: {FLEET_ROBOTS} robots x {FLEET_TICKS} ticks, "
@@ -1436,11 +1449,11 @@ def phase_fleet(kernels, device):
         f"{start.mean():.3f} -> {end.mean():.3f} m; min robot-mover distance "
         f"{drive.min_clearance:.3f} m; CPU-checked rows "
         f"{len(FLEET_CPU_TICKS) * len(FLEET_CPU_ROBOTS)}, ties {ties}")
-    assert k3 == FLEET_TICKS and k1 == 0
+    assert made == _solves({"K3": FLEET_TICKS}, FLEET_TICKS), made
     assert fleet._tick_fn.calls == FLEET_TICKS
     assert found >= 0.9 * FLEET_ROBOTS * FLEET_TICKS, "the fleet lost its way"
     assert end.mean() < start.mean() - 1.0, "the fleet did not approach its goals"
-    return k3
+    return made
 
 
 def _time_fleet(device, tracked, card):
@@ -2203,7 +2216,7 @@ def phase_box_dwa(kernels, device):
               for dwa in dwas]
         assert ok == [True, True], f"box tick {i}: {ok}"
         made = _launches_made(kernels, before)
-        assert made == {"K1": 1, "K9": 1}, f"box tick {i}: launches {made}"
+        assert made == _solves({"K1": 1, "K9": 1}, 1), f"box tick {i}: launches {made}"
         k9 += made["K9"]
         spec, buf, out = dwas[0].last_solver_io
         assert spec.collision_box == (BOX_PARAMS[0] / 2, BOX_PARAMS[1] / 2)
@@ -2413,7 +2426,8 @@ def _replay_calls(kernels, fleet, drive, device, keys, label, each=None):
         before = kernels.launch_counts()
         out = fleet.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
         made = _launches_made(kernels, before)
-        assert made == ({k: 2 * TICKS_K for k in keys} if call == 0 else {}), (
+        assert made == (_solves({k: 2 * TICKS_K for k in keys}, 2 * TICKS_K)
+                        if call == 0 else {}), (
             f"{label} call {call}: wrapper calls {made}")
         for k, n in made.items():
             counted[k] = counted.get(k, 0) + n
@@ -2454,7 +2468,8 @@ def phase_ticks(kernels, device):
 
         made, _ = _replay_calls(kernels, fleet, drive, device, (key,),
                                 f"{backend}/{tracked}", each)
-        launches.update(made)
+        for k, n in made.items():  # summed: every form launches K10
+            launches[k] = launches.get(k, 0) + n
         end = drive.goal_distance(ends)
         ticks = TICKS_CALLS * TICKS_K
         log(f"k-tick loop ({backend}, {tracked} tracked slots): {TICKS_CALLS} calls "
@@ -2886,6 +2901,19 @@ def _launches_made(kernels, before):
     return {n: c - before[n] for n, c in kernels.launch_counts().items() if c != before[n]}
 
 
+def _solves(expect, n):
+    """The launches ``expect`` plus K10, the goal cost's search, which each
+    of ``n`` solves launches once."""
+    return {**expect, "K10": n}
+
+
+def _zero_launches(kernels):
+    """Every kernel wrapper's launch count back to 0."""
+    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells,
+                    kernels.goal_nearest):
+        counter.launches = 0
+
+
 def phase_peers(kernels, device):
     """Peers, prediction and safety at full width: the 64-robot peer
     fleet for PEER_TICKS closed-loop single ticks per backend (xla: K3,
@@ -2908,7 +2936,7 @@ def phase_peers(kernels, device):
             carry = [t.cpu() for t in fleet._carry]
             out = fleet.tick(*drive.inputs()[:4], tracked=drive.inputs()[4])
             made = _launches_made(kernels, before)
-            assert made == {key: 1}, f"{backend} tick {tick}: launches {made}"
+            assert made == _solves({key: 1}, 1), f"{backend} tick {tick}: launches {made}"
             _assert_finite(out, f"{backend} tick {tick}")
             if tick in PEER_CPU_TICKS:
                 _peer_cpu_check(fleet, carry, out, tick, ties)
@@ -2919,6 +2947,7 @@ def phase_peers(kernels, device):
             found += int(out["found"].sum())
             drive.advance(out)
         launches[key] = PEER_TICKS
+        launches["K10"] = launches.get("K10", 0) + PEER_TICKS
         torch.cuda.synchronize()
         log(f"peers + prediction + safety ({backend}, {key}): {FLEET_ROBOTS} robots x "
             f"{PEER_TICKS} ticks, {PEER_ROWS} + {PEER_SHAPE[4]} rows per sweep; "
@@ -2935,9 +2964,11 @@ def phase_peers(kernels, device):
     for tick in range(PEER_STATIC_TICKS):
         before = kernels.launch_counts()
         out = fleet.tick(*drive.inputs()[:4], tracked=drive.inputs()[4])
-        assert _launches_made(kernels, before) == {"K1": 1}, "peers without prediction"
+        assert _launches_made(kernels, before) == _solves({"K1": 1}, 1), (
+            "peers without prediction")
         drive.advance(out)
     launches["K1"] = PEER_STATIC_TICKS
+    launches["K10"] += PEER_STATIC_TICKS
     log(f"peers without prediction or tracked slots: {PEER_STATIC_TICKS} ticks, one "
         f"static sweep (K1) each; closest pair {drive.min_pair:.3f} m")
     torch.cuda.empty_cache()
@@ -2963,7 +2994,8 @@ def phase_peer_ticks(kernels, device):
         made, out = _replay_calls(kernels, fleet, drive, device, (key,), backend,
                                   lambda out: factors.append(
                                       out["safety_factor"][drive.wall]))
-        launches.update(made)
+        for k, n in made.items():  # summed: every form launches K10
+            launches[k] = launches.get(k, 0) + n
         last_vx = np.abs(out["vx"][drive.wall, -1])
         log(f"k-tick loop with peers + prediction + safety ({backend}, {key}): "
             f"{TICKS_CALLS} calls of k={TICKS_K}, graph replay == eager loop bit for "
@@ -3139,6 +3171,9 @@ FLEET_BOX_PARAMS = (0.5, 0.3, 0.4)
 BOX_EVERY = 4
 BOX_FLEET_TICKS = 30
 BOX_CPU_TICKS = (0, 29)
+K10_SOURCE = "kompass_core_tpu_torch/csrc/goal_nearest.cu"
+K10_REPLACES = ("none: the goal cost's search, XLA's in kompass_core_tpu/ops/"
+                "solver.py:571 _goal_cost")
 K9_SOURCE = "kompass_core_tpu_torch/csrc/box_min_dist.cu"
 K9_REPLACES = "kompass_core_tpu/ops/solver.py:402"
 K3S_REPLACES = "kompass_core_tpu/ops/solver.py:737"
@@ -3435,7 +3470,7 @@ def phase_split_fleet(kernels, device):
         before = kernels.launch_counts()
         out = split.tick(*inputs)
         made = _launches_made(kernels, before)
-        assert made == {"K1": 1, "K3s": 1}, f"split tick {tick}: launches {made}"
+        assert made == _solves({"K1": 1, "K3s": 1}, 1), f"split tick {tick}: launches {made}"
         for k, n in made.items():
             launches[k] = launches.get(k, 0) + n
         ref = tail.tick(*inputs)
@@ -3470,7 +3505,8 @@ def phase_split_fleet(kernels, device):
         before = kernels.launch_counts()
         out = split.tick(*inputs)
         made = _launches_made(kernels, before)
-        assert made == {"K1": 1, "K3s": 1}, f"wide split tick {tick}: launches {made}"
+        assert made == _solves({"K1": 1, "K3s": 1}, 1), (
+            f"wide split tick {tick}: launches {made}")
         for k, n in made.items():
             wide_launches[k] = wide_launches.get(k, 0) + n
         ref = tail.tick(*inputs)
@@ -3510,7 +3546,7 @@ def phase_box_fleet(kernels, device):
         before = kernels.launch_counts()
         out = fleet.tick(*inputs[:4], tracked=inputs[4])
         made = _launches_made(kernels, before)
-        assert made == {"K3": 1, "K9": 1}, f"box fleet tick {tick}: launches {made}"
+        assert made == _solves({"K3": 1, "K9": 1}, 1), f"box fleet tick {tick}: launches {made}"
         for k, n in made.items():
             launches[k] = launches.get(k, 0) + n
         _assert_finite(out, f"box fleet tick {tick}")
@@ -3658,6 +3694,28 @@ def _fleet_graph_ms(fleet, drive):
     stop.record()
     torch.cuda.synchronize()
     return ms[0] / TICKS_K, start.elapsed_time(stop) / (TICKS_TIMED * TICKS_K)
+
+
+def phase_goal(device, card):
+    """Phase 45: K10 (``goal_nearest``) against its plain version at the
+    benchmark cells' widths, one robot's DWA and the cost evaluator's, bit
+    for bit in every layout, and timed (``bench_goal``). Returns (the
+    largest |kernel - plain| found, (ms, plain ms, bound ms, bound by) at
+    1024 x 2025 x 320)."""
+    from kompass_core_tpu_torch.benchmark.kernel_bench import GOAL_SHAPES, bench_goal
+
+    res = bench_goal(device)
+    for width, r in res.items():
+        layouts = ", ".join(f"{p}{' split' if s else ''} {ms:.5f}"
+                            for p, s, ms in r["layout_replay_ms"])
+        log(f"K10 goal_nearest {width} ({card}): layout {r['layout']}, {r['ms']:.5f} ms "
+            f"by events (plain {r['plain_ms']:.5f}), {r['replay_ms']:.5f} by replay (plain "
+            f"{r['plain_replay_ms']:.5f}); bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['replay_ms']:.1f}% of the replay; each layout by "
+            f"replay (samples a thread): {layouts}; max abs err {r['max_abs_err']}")
+    r = res["x".join(map(str, GOAL_SHAPES[0]))]
+    return (max(r["max_abs_err"] for r in res.values()),
+            (r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
 
 
 def phase_split_box_times(kernels, device, card):
@@ -4305,12 +4363,13 @@ def phase_serving_solver(kernels, device, tmp, times):
     served = {}
 
     def serve(art, what):
-        assert served_kernels(art) == ["fused_min_dist_sq"], served_kernels(art)
+        assert served_kernels(art) == ["fused_min_dist_sq", "goal_nearest"], (
+            served_kernels(art))
         for i, (buf, w) in enumerate(zip(bufs, want)):
             before = kernels.launch_counts()
             out = art.call(buf)
             made = _launches_made(kernels, before)
-            assert made == {"K1": 1}, f"{what} call {i}: launches {made}"
+            assert made == _solves({"K1": 1}, 1), f"{what} call {i}: launches {made}"
             assert torch.equal(out, w), f"{what} call {i}: served != live"
             _tally(served, made)
 
@@ -4399,7 +4458,7 @@ def _serve_fleet(kernels, fleet, drive, art, key, k, label, served):
         before = kernels.launch_counts()
         result = art.call(*args)
         made = _launches_made(kernels, before)
-        assert made == {key: k or 1}, f"{label} call {call}: launches {made}"
+        assert made == _solves({key: k or 1}, k or 1), f"{label} call {call}: launches {made}"
         _tally(served, made)
         carry = result[0]
         what = f"{label} call {call}"
@@ -4436,7 +4495,8 @@ def phase_serving_fleet(kernels, device, paths, times):
             art = _load_timed(lambda: serving.load_artifact(paths[label], device=device),
                               fleet.tick_example_args(), times, label)
             assert art.device == device
-            assert served_kernels(art) == [OP_NAMES[key]] * (k or 1), served_kernels(art)
+            assert served_kernels(art) == sorted([OP_NAMES[key], "goal_nearest"] * (k or 1)), (
+                served_kernels(art))
             _serve_fleet(kernels, fleet, drive, art, key, k, label, served)
             args = fleet.tick_example_args()
             live = (fleet._tick_fn if k is None else fleet.ticks_fn(k))
@@ -4493,7 +4553,7 @@ def phase_serving_resume(kernels, device, tmp, paths):
     before = kernels.launch_counts()
     carry, out = serving.sharded_fleet_call(art, args, [device, device])
     made = _launches_made(kernels, before)
-    assert made == {"K3": 2}, f"sharded call: launches {made}"
+    assert made == _solves({"K3": 2}, 2), f"sharded call: launches {made}"
     assert np.array_equal(out, live_out.cpu().numpy()), "sharded != whole fleet"
     for a, b in zip(live_carry, carry):
         assert np.array_equal(a.cpu().numpy(), b), "sharded carry != whole fleet"
@@ -4639,9 +4699,10 @@ def _mesh_graph_calls(kernels, pair, key, label):
             TICKS_K, *inputs[:4], tracked=inputs[4]))
         want = one.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
         if sharded._graphed():
-            expect = {key: 2 * TICKS_K * MESH_SHARDS} if call == 0 else {}
+            expect = (_solves({key: 2 * TICKS_K * MESH_SHARDS}, 2 * TICKS_K * MESH_SHARDS)
+                      if call == 0 else {})
         else:  # the CPU rehearsal: eager
-            expect = {key: TICKS_K * MESH_SHARDS}
+            expect = _solves({key: TICKS_K * MESH_SHARDS}, TICKS_K * MESH_SHARDS)
         assert made == expect, f"{label} k-call {call}: wrapper calls {made}"
         _outputs_equal(got, want, f"{label} k-call {call}")
         counted += made.get(key, 0)
@@ -4679,13 +4740,14 @@ def phase_mesh_fleet(kernels, device):
     for backend, key in PEER_FORMS:
         pair = _peer_pair(device, backend)
         sharded, one, mesh, drive = pair
-        add(_mesh_ticks(kernels, pair, MESH_TICKS, {key: 1}, f"mesh peers {backend}", 1))
+        add(_mesh_ticks(kernels, pair, MESH_TICKS, _solves({key: 1}, 1),
+                        f"mesh peers {backend}", 1))
         for call in range(MESH_K_CALLS):
             inputs = drive.inputs()
             made_m, got = _counted(kernels, lambda: sharded.run_ticks_on_device(
                 TICKS_K, *inputs[:4], tracked=inputs[4]))
             want = one.run_ticks_on_device(TICKS_K, *inputs[:4], tracked=inputs[4])
-            assert made_m == {key: MESH_SHARDS * TICKS_K}, (
+            assert made_m == _solves({key: MESH_SHARDS * TICKS_K}, MESH_SHARDS * TICKS_K), (
                 f"{backend} k-call {call}: the mesh launched {made_m}")
             _outputs_equal(got, want, f"mesh peers {backend} k-call {call}")
             assert mesh.collectives["all_gather"] == MESH_TICKS + (call + 1) * TICKS_K
@@ -4703,7 +4765,7 @@ def phase_mesh_fleet(kernels, device):
              _peer_pair(device, "xla", predict=False, tracked=0), "K1", 1),
             ("tracked, no peers", _lane_pair(device, "xla", FLEET_TRACKED), "K3", 0),
             ("static pallas_vpu, no peers", _lane_pair(device, "pallas_vpu", 0), "K6", 0)):
-        add(_mesh_ticks(kernels, pair, 1, {key: 1}, f"mesh {label}", gathers))
+        add(_mesh_ticks(kernels, pair, 1, _solves({key: 1}, 1), f"mesh {label}", gathers))
         log(f"mesh fleet, {label}: 1 tick == one device bit for bit, {key} x "
             f"{MESH_SHARDS}, gathers {pair[2].collectives}")
         if key == "K3":
@@ -4765,7 +4827,7 @@ def phase_mesh_solver(kernels, device):
         chunks = (MESH_SHARDS * _chunks(MESH_ROBOTS // MESH_SHARDS),
                   _chunks(MESH_ROBOTS))
         assert (made_m, made_1) == tuple(
-            {k: c * n for k, n in expect[backend].items()} for c in chunks), (
+            {k: c * n for k, n in _solves(expect[backend], 1).items()} for c in chunks), (
             backend, made_m, made_1)
         assert np.array_equal(got, want) and np.array_equal(np.signbit(got),
                                                             np.signbit(want)), backend
@@ -4782,7 +4844,8 @@ def phase_mesh_solver(kernels, device):
     assert planner.inputs.shape[0] == MESH_PLANNER_ROBOTS + 1
     planner.inputs[:MESH_PLANNER_ROBOTS] = mesh_solver_bufs(spec, MESH_PLANNER_ROBOTS, 4)
     made, got = _counted(kernels, planner.step)
-    assert made == {"K1": MESH_SHARDS * _chunks(len(planner.inputs) // MESH_SHARDS)}, made
+    n = MESH_SHARDS * _chunks(len(planner.inputs) // MESH_SHARDS)
+    assert made == _solves({"K1": n}, n), made
     add(made)
     want = make_fleet_solver(spec, device)(planner.inputs).cpu().numpy()
     assert np.array_equal(got, want[:MESH_PLANNER_ROBOTS])
@@ -4798,7 +4861,7 @@ def phase_mesh_solver(kernels, device):
     whole = baseline_scenario(spec, np.random.default_rng(SP_SEED), 0)
     made, got = _counted(kernels, lambda: mesh.host_rows(
         make_sample_parallel_solver(spec, mesh)(bufs)))
-    assert made == {"K1": SP_SHARDS}, made
+    assert made == _solves({"K1": SP_SHARDS}, SP_SHARDS), made
     add(made)
     assert mesh.collectives == {"all_gather": 0, "all_reduce": 3}, mesh.collectives
     assert (got == got[0]).all(), "the shards disagree on the winner"
@@ -4995,7 +5058,8 @@ def phase_fleet_runtime(kernels, device):
             [r.state for r in robots], scans))
         host_ms.append(runtime.last_tick_seconds * 1e3)
         if made:
-            assert made == {"K1": MESH_SHARDS}, f"runtime tick {tick}: {made}"
+            assert made == _solves({"K1": MESH_SHARDS}, MESH_SHARDS), (
+                f"runtime tick {tick}: {made}")
             solved += 1
         for k, n in made.items():
             launches[k] = launches.get(k, 0) + n
@@ -5171,8 +5235,7 @@ def phase_recorded(kernels, device):
     from kompass_core_tpu_torch.datatypes import LaserScanData, PointCloudData, PoseData
 
     t0 = time.perf_counter()
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     robot, dwa = _recorded_dwa(device)
     cpu_ties, solves, steps, reached = [], 0, 0, False
     while not reached and steps < RECORDED_STEPS:
@@ -5213,7 +5276,7 @@ def phase_recorded(kernels, device):
     assert cloud_occ > 0 and cloud_empty > 0, counts["cloud"]
     assert empty_occ == 0, counts["empty"]
     launches = _launches_made(kernels, {k: 0 for k in kernels.launch_counts()})
-    assert launches == {"K1": solves, "K5": 3}, launches
+    assert launches == _solves({"K1": solves, "K5": 3}, solves), launches
     log(f"recorded mapper updates (occupied, empty cells, beams whose table "
         f"differs from the CPU's): {counts}; launches {launches}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5276,8 +5339,7 @@ def phase_benchmark(kernels, device, card):
     from kompass_core_tpu_torch.ops.solver import get_packed_dwa_solver
 
     t0 = time.perf_counter()
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     runner = BenchmarkRunner(device)
     made = {}
 
@@ -5298,9 +5360,11 @@ def phase_benchmark(kernels, device, card):
     for rec, (name, key) in zip(records, BENCH_WORKLOADS):
         assert BENCH_RECORD_KEYS <= set(rec), rec
         assert math.isfinite(rec["p50_ms"]) and rec["p50_ms"] > 1e-9, rec
-        assert made[name] == ({key: dispatches} if key else {}), (name, made[name])
+        want = {} if key is None else {key: dispatches}
+        assert made[name] == (_solves(want, dispatches) if key == "K1" else want), (
+            name, made[name])
         log(f"benchmark record ({card}): {json.dumps(rec)}; launches {made[name]}")
-    launches = {key: sum(m.get(key, 0) for m in made.values()) for key in ("K1", "K5")}
+    launches = {key: sum(m.get(key, 0) for m in made.values()) for key in ("K1", "K5", "K10")}
 
     loops = {}
     spec, variants = device_loop._dwa_baseline_buffers(2 * BENCH_LOOP_REPEATS + 2, device)
@@ -5313,11 +5377,13 @@ def phase_benchmark(kernels, device, card):
     # run); a replay calls no wrapper: the card ran each K's warm-up and K
     # per replay (one warm-up dispatch and one per repeat)
     wrapped = _launches_made(kernels, before)
-    assert wrapped == {"K1": 2 * sum(BENCH_LOOP_KS)}, wrapped
+    assert wrapped == _solves({"K1": 2 * sum(BENCH_LOOP_KS)}, 2 * sum(BENCH_LOOP_KS)), wrapped
     assert {k: c for k, c in kernels.launch_counts().items() if c} == {
-        "K1": launches["K1"] + wrapped["K1"], "K5": launches["K5"]}
+        "K1": launches["K1"] + wrapped["K1"], "K5": launches["K5"],
+        "K10": launches["K10"] + wrapped["K10"]}
     loop_launches = sum(BENCH_LOOP_KS) * (2 + BENCH_LOOP_REPEATS)
     launches["K1"] += loop_launches
+    launches["K10"] += loop_launches
     assert math.isfinite(rec["p50_ms"]), rec
     assert rec["method"] == "device_loop_k{}_k{}".format(*BENCH_LOOP_KS), rec
     log(f"benchmark record ({card}): {json.dumps(rec)}; launches {{'K1': {loop_launches}}}")
@@ -5439,9 +5505,10 @@ def phase_benchmark_tools(kernels, device, card):
         device, batches=CLIFF_BATCHES, ks=CLIFF_KS, repeats=CLIFF_REPEATS))
     # per batch and K: the capture's warm-up and its capture (K each); the
     # card also ran the first dispatch's replay and one per repeat
-    assert made == {"K1": 2 * sum(CLIFF_KS) * len(CLIFF_BATCHES)}, made
+    n = 2 * sum(CLIFF_KS) * len(CLIFF_BATCHES)
+    assert made == _solves({"K1": n}, n), made
     cliff = sum(CLIFF_KS) * (2 + CLIFF_REPEATS) * len(CLIFF_BATCHES)
-    add({"K1": cliff})
+    add({"K1": cliff, "K10": cliff})
     for rec in rows:
         assert math.isfinite(rec["us_per_solve"]) and rec["us_per_solve"] > 0, rec
         log(f"batch cliff ({card}): batch {rec['batch']}: {rec['us_per_solve']:.3f} us "
@@ -5458,7 +5525,8 @@ def phase_benchmark_tools(kernels, device, card):
         torch.cuda.reset_peak_memory_stats(device)
         run, outs, made, per_tick = _replayed_tick(kernels, fleet, block, inputs, device)
         peak = torch.cuda.max_memory_allocated(device) / 2**20
-        assert per_tick == {"K1": 1 if block is None else CHUNK_ROBOTS // CHUNK_BLOCK}, (
+        n = 1 if block is None else CHUNK_ROBOTS // CHUNK_BLOCK
+        assert per_tick == _solves({"K1": n}, n), (
             label, per_tick)
         add(made)
         results[label] = outs
@@ -5590,7 +5658,7 @@ def phase_examples(kernels, device, card):
     ties = []
     with _solves_checked(ties) as faults:
         card_fig = on_card("full stack", lambda: full.run(device, plan_path=plan),
-                           ("K1", "K5"))
+                           ("K1", "K5", "K10"))
     assert not faults, faults
     _same_as_printed(full, card_fig, full.run("cpu", plan_path=plan))
     log(f"full stack on the CPU's plan: {full.lines(card_fig)}; CPU ties {ties}")
@@ -5598,7 +5666,7 @@ def phase_examples(kernels, device, card):
     world = demo("dynamic_world_demo")
     ties = []
     with _solves_checked(ties) as faults:
-        card_fig = on_card("dynamic world", lambda: world.run(device), ("K3",))
+        card_fig = on_card("dynamic world", lambda: world.run(device), ("K3", "K10"))
     assert not faults, faults
     _same_as_printed(world, card_fig, world.run("cpu"))
     log(f"dynamic world: {world.lines(card_fig)[-1]}; CPU ties {ties}")
@@ -5606,14 +5674,15 @@ def phase_examples(kernels, device, card):
     fleet = demo("fleet_demo")
     timings = {}
     card_fig = on_card("fleet lanes", lambda: fleet.run(
-        device, EXAMPLE_LANE_ROBOTS, timings=timings), ("K1",))
+        device, EXAMPLE_LANE_ROBOTS, timings=timings), ("K1", "K10"))
     assert card_fig["ticks"] == report["fleet lanes"]["launches"]["K1"], card_fig
     steady = timings["steady_tick_s"] * 1e3
     report["fleet lanes"]["steady_tick_ms"] = steady
     log(f"fleet demo ({card}): {fleet.lines(card_fig)[0]}; steady tick {steady:.3f} ms")
     for mode, kw in EXAMPLE_FLEET_MODES:
         card_fig = on_card(f"fleet {mode}", lambda: fleet.run(
-            device, EXAMPLE_PEER_ROBOTS, **kw), ("K3",) if mode == "predict" else ("K1",))
+            device, EXAMPLE_PEER_ROBOTS, **kw),
+            ("K3", "K10") if mode == "predict" else ("K1", "K10"))
         _same_as_printed(fleet, card_fig, fleet.run("cpu", EXAMPLE_PEER_ROBOTS, **kw))
         log(f"fleet demo: {fleet.lines(card_fig)[0]}")
 
@@ -5621,14 +5690,16 @@ def phase_examples(kernels, device, card):
     for k in EXAMPLE_RTT_KS:
         timings = {}
         card_fig = on_card(f"rtt k={k}", lambda: rtt.run(device, k, timings=timings),
-                           ("K1",))
+                           ("K1", "K10"))
         # the wrappers counted each single tick, the k-tick loop's warm-up and
         # its capture; the card ran the warm-up and one replay per call
         made = report[f"rtt k={k}"]["launches"]
-        assert made == {"K1": 1 + rtt.N_SINGLE + 2 * k}, made
+        n = 1 + rtt.N_SINGLE + 2 * k
+        assert made == _solves({"K1": n}, n), made
         replays = k * (1 + rtt.N_BATCHES) - k
-        launches["K1"] += replays
-        made["K1"] += replays
+        for key in ("K1", "K10"):
+            launches[key] += replays
+            made[key] += replays
         _same_as_printed(rtt, card_fig, rtt.run("cpu", k))
         report[f"rtt k={k}"].update(timings)
         log(f"rtt serving ({card}): single tick {timings['single_ms']:.3f} ms, k = {k} "
@@ -5637,7 +5708,7 @@ def phase_examples(kernels, device, card):
 
     aot = demo("aot_artifact_demo")
     timings = {}
-    card_fig = on_card("aot", lambda: aot.run(device, timings=timings), ("K1",))
+    card_fig = on_card("aot", lambda: aot.run(device, timings=timings), ("K1", "K10"))
     _same_as_printed(aot, card_fig, aot.run("cpu"), EXAMPLE_AOT_DEVICE_FIGURES)
     report["aot"].update(timings)
     log(f"aot artifact ({card}): {aot.lines(card_fig)}; served solve "
@@ -5645,7 +5716,7 @@ def phase_examples(kernels, device, card):
 
     for name in ("serving_restart_demo", "serving_mesh_shard_demo"):
         mod = demo(name)
-        card_fig = on_card(name, lambda: mod.run(device), ("K1",))
+        card_fig = on_card(name, lambda: mod.run(device), ("K1", "K10"))
         log(f"{name}: {mod.lines(card_fig)}")
     for name in ("vision_follow_demo", "offline_pipeline_demo"):
         mod = demo(name)
@@ -5682,7 +5753,7 @@ CARD_TWIN_LEFT_OUT = (
 )
 CARD_TWIN_BUDGET_S = 150.0
 # every kernel the twinned files reach on the card
-CARD_TWIN_KERNELS = ("K1", "K2", "K3", "K3s", "K5", "K6", "K7", "K8", "K9")
+CARD_TWIN_KERNELS = ("K1", "K2", "K3", "K3s", "K5", "K6", "K7", "K8", "K9", "K10")
 
 
 class _TwinReport:
@@ -5725,8 +5796,7 @@ def phase_card_twins(kernels, card):
     tests = os.path.join(root, "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     report = _TwinReport()
     t0 = time.perf_counter()
     rc = pytest.main([*(os.path.join(root, f) for f in CARD_TWIN_FILES),
@@ -5778,9 +5848,9 @@ def main() -> int:
     _elapsed(t_start, "kernel_vs_plain")
     k3_err = phase_moving_vs_plain(kernels, device)
     _elapsed(t_start, "moving_vs_plain")
-    k1_launches = phase_slice(kernels, device)
+    slice_launches = phase_slice(kernels, device)
     _elapsed(t_start, "slice")
-    k3_launches = phase_fleet(kernels, device)
+    fleet_launches = phase_fleet(kernels, device)
     _elapsed(t_start, "fleet")
     k5_err = phase_mapper_kernel_vs_plain(kernels, device)
     _elapsed(t_start, "mapper_kernel_vs_plain")
@@ -5794,8 +5864,7 @@ def main() -> int:
     assert kernels.fused_min_dist_sq_moving.launches == 0
     k2_err, k4_err = phase_expanded_vs_plain(kernels, device)
     _elapsed(t_start, "expanded_vs_plain")
-    for counter in kernels.SWEEP_KERNELS.values():
-        counter.launches = 0
+    _zero_launches(kernels)
     phase_fleet_solver(kernels, device)
     _elapsed(t_start, "fleet_solver")
     k2_launches = kernels.fused_min_dist_sq_expanded.launches
@@ -5805,10 +5874,12 @@ def main() -> int:
     _elapsed(t_start, "evaluator")
     box_dwa_k9 = phase_box_dwa(kernels, device)
     _elapsed(t_start, "box_dwa")
+    # every K10 launch since the fleet-solver phase: the card solves of the
+    # fleet-solver, evaluator and BOX DWA phases
+    solve_k10 = kernels.goal_nearest.launches
     form_errs = phase_tpu_forms_vs_plain(kernels, device)
     _elapsed(t_start, "tpu_forms_vs_plain")
-    for counter in kernels.SWEEP_KERNELS.values():
-        counter.launches = 0
+    _zero_launches(kernels)
     form_launches = phase_ticks(kernels, device)
     _elapsed(t_start, "ticks")
     log(f"k-tick loop main-path launches (run_ticks_on_device calls only): "
@@ -5818,8 +5889,7 @@ def main() -> int:
     _elapsed(t_start, "ticks_cpu")
     phase_emergency(device)
     _elapsed(t_start, "emergency")
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     peer_launches = phase_peers(kernels, device)
     _elapsed(t_start, "peers")
     peer_ticks = phase_peer_ticks(kernels, device)
@@ -5827,9 +5897,10 @@ def main() -> int:
     counted = {k: c for k, c in kernels.launch_counts().items() if c}
     # the wrappers also ran the k-tick phase's eager reference loops, k per
     # call, and its capture, which launches nothing; its replays launch
-    # without a wrapper (phase_peer_ticks counts them)
+    # without a wrapper (phase_peer_ticks counts them); K10 in every form
+    per_form = (2 + TICKS_CALLS) * TICKS_K
     assert counted == {k: peer_launches.get(k, 0)
-                       + (2 + TICKS_CALLS) * TICKS_K * (k in peer_ticks)
+                       + per_form * (len(PEER_FORMS) if k == "K10" else k in peer_ticks)
                        for k in set(peer_launches) | set(peer_ticks)}, counted
     for key, n in peer_ticks.items():
         peer_launches[key] = peer_launches.get(key, 0) + n
@@ -5842,8 +5913,7 @@ def main() -> int:
     _elapsed(t_start, "box_sweeps_vs_plain")
     phase_heading_flips(kernels, device)
     _elapsed(t_start, "heading_flips")
-    for counter in kernels.SWEEP_KERNELS.values():
-        counter.launches = 0
+    _zero_launches(kernels)
     split_launches = phase_split_fleet(kernels, device)
     _elapsed(t_start, "split_fleet")
     box_launches = phase_box_fleet(kernels, device)
@@ -5874,6 +5944,8 @@ def main() -> int:
     _elapsed(t_start, "peer_times")
     k3s_times, k9_times = phase_split_box_times(kernels, device, card)
     _elapsed(t_start, "split_box_times")
+    k10_err, k10_times = phase_goal(device, card)
+    _elapsed(t_start, "goal")
     phase_replay_profile(device, card)
     _elapsed(t_start, "replay_profile")
     t_plan = time.perf_counter()
@@ -5886,8 +5958,7 @@ def main() -> int:
     phase_planning_fleet(device, card)
     _elapsed(t_start, "planning_fleet")
     log(f"planning phases: {time.perf_counter() - t_plan:.1f} s")
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     t_serve = time.perf_counter()
     serve_times, served = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -5901,8 +5972,7 @@ def main() -> int:
     phase_serving_times(card, serve_times, tick_p50)
     _elapsed(t_start, "serving_times")
     log(f"serving phases: {time.perf_counter() - t_serve:.1f} s")
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     t_mesh = time.perf_counter()
     mesh = phase_mesh_fleet(kernels, device)
     _elapsed(t_start, "mesh_fleet")
@@ -5926,13 +5996,11 @@ def main() -> int:
     _elapsed(t_start, "recorded")
     bench, bench_err = phase_benchmark(kernels, device, card)
     _elapsed(t_start, "benchmark")
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     tools = phase_benchmark_tools(kernels, device, card)
     _elapsed(t_start, "benchmark_tools")
     assert all(tools.get(key) for key in ("K1", "K3", "K3s", "K5")), tools
-    for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells):
-        counter.launches = 0
+    _zero_launches(kernels)
     workflows = phase_examples(kernels, device, card)
     _elapsed(t_start, "examples")
     assert all(workflows.get(key) for key in ("K1", "K3", "K5")), workflows
@@ -5955,14 +6023,14 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [
         row("fused_min_dist_sq", KERNEL_SOURCE, KERNEL_REPLACES,
-            k1_launches + peer_launches["K1"] + split_launches["K1"] + served["K1"]
+            slice_launches["K1"] + peer_launches["K1"] + split_launches["K1"] + served["K1"]
             + mesh["K1"] + recorded["K1"] + bench["K1"] + tools["K1"] + workflows["K1"]
             + twins.get("K1", 0),
             max(k1_err, peer_errs["K1"], bench_err), *static_times["K1"]),
         row("fused_min_dist_sq_expanded", KERNEL_SOURCE, EXPANDED_REPLACES,
             k2_launches + mesh["K2"] + twins.get("K2", 0), k2_err, *static_times["K2"]),
         row("fused_min_dist_sq_moving", KERNEL_SOURCE, MOVING_REPLACES,
-            k3_launches + peer_launches["K3"] + box_launches["K3"] + served["K3"]
+            fleet_launches["K3"] + peer_launches["K3"] + box_launches["K3"] + served["K3"]
             + mesh["K3"] + tools["K3"] + workflows["K3"] + twins.get("K3", 0),
             max(k3_err, peer_errs["K3"]), *k3_times),
         row("min_dist_sq_moving", KERNEL_SOURCE, K3S_REPLACES,
@@ -5990,6 +6058,12 @@ def main() -> int:
             max(form_errs["K8"], peer_errs["K8"]), *form_times["K8"]),
         row("box_min_dist_sq", K9_SOURCE, K9_REPLACES,
             box_dwa_k9 + box_launches["K9"] + twins.get("K9", 0), k9_err, *k9_times),
+        row("goal_nearest", K10_SOURCE, K10_REPLACES,
+            solve_k10 + sum(d.get("K10", 0) for d in (
+                slice_launches, fleet_launches, form_launches, peer_launches,
+                split_launches, box_launches, served, mesh, recorded, bench, tools,
+                workflows, twins)),
+            k10_err, *k10_times),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

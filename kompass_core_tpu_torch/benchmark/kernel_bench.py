@@ -11,7 +11,12 @@ Here each form is its hand-written CUDA kernel (``ops/kernels.py``):
      against it by CUDA events over distinct device-resident inputs, in
      turns plain, kernel, kernel, plain;
   2. the full batch-64 DWA solve per backend (``make_fleet_solver``),
-     slope-timed over distinct batches — the decisive number.
+     slope-timed over distinct batches — the decisive number;
+  3. K10, the goal cost's nearest-segment search (``goal_nearest``), at
+     the benchmark cells' widths, one robot's DWA and the cost
+     evaluator's, held bit for bit against its plain version in every
+     layout and timed against it by events in turns and by graph replay,
+     each layout by replay.
 
 The event timers ``_events_ms``, ``_in_turns`` and ``_graph_ms`` are the
 ones ``chip_smoke.py`` times every kernel with: they give every ``ms``
@@ -22,6 +27,7 @@ yardstick and is reviewed as such. Run on the card:
 """
 
 import dataclasses
+import functools
 import json
 import statistics
 import sys
@@ -143,6 +149,73 @@ def bench_sweeps(device, B=64, S=2025, T=30, O=512, G=384, count=10):
     return results
 
 
+# K10's widths: (robots, samples, segment points) of disc1024.tick,
+# disc256.k8 and boxpeer64.k8, then one robot's DWA and the cost evaluator
+# (CostEvaluator_5k_Trajs), where goal_layout splits G across a warp
+GOAL_SHAPES = ((1024, 2025, 320), (256, 2025, 320), (64, 2025, 384),
+               (1, 2025, 320), (1, 5001, 1024))
+
+
+def goal_inputs(device, count, B, S, G, seed=0):
+    """``count`` distinct K10 argument tuples made on ``device`` from
+    ``seed``: end points [B, S] in [-12, 12) m and [B, G] segment points in
+    [-10, 10) m, the last sixteenth of them pads at 1e8."""
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def u(shape, span):
+        return (torch.rand(shape, generator=gen, device=device) * 2 - 1) * span
+
+    out = []
+    for _ in range(count):
+        seg_x, seg_y = u((B, G), 10.0), u((B, G), 10.0)
+        seg_x[:, G - G // 16:], seg_y[:, G - G // 16:] = 1e8, 1e8
+        out.append((u((B, S), 12.0), u((B, S), 12.0), seg_x, seg_y))
+    return out
+
+
+def bench_goal(device, shapes=GOAL_SHAPES, count=4):
+    """K10 against its plain version at each (B, S, G) of ``shapes``: both
+    outputs bit for bit on every input, in ``goal_layout``'s layout and in
+    each of ``GOAL_LAYOUTS``; then ms per call by CUDA events in turns
+    (plain, kernel, kernel, plain) and by graph replay, beside
+    ``goal_bound``, and each layout's ms by graph replay. Returns
+    {"B x S x G": {...}}; ``max_abs_err`` is the largest |kernel - plain|
+    of the squared distances over every input and layout."""
+    from ..ops import kernels
+    from .roofline import goal_bound
+
+    layouts = range(len(kernels.GOAL_LAYOUTS))
+    results = {}
+    for B, S, G in shapes:
+        inputs = goal_inputs(device, count, B, S, G)
+        err = 0.0
+        for args in inputs:
+            want = kernels.goal_nearest_reference(*args)
+            for layout in (None, *layouts):
+                got = kernels.goal_nearest(*args, _layout=layout)
+                err = max(err, float((got[0] - want[0]).abs().max()))
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"goal_nearest (layout {layout}) != its plain "
+                                         f"version at {B} x {S} x {G}")
+        ms, plain_ms, turns = _in_turns(kernels.goal_nearest,
+                                        kernels.goal_nearest_reference, inputs)
+        bound_ms, bound_by = goal_bound(B, S, G)
+        chosen = kernels.goal_layout(B, S, kernels._sm_count(torch.device(device)))
+        results[f"{B}x{S}x{G}"] = {
+            "layout": kernels.GOAL_LAYOUTS[chosen], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "replay_ms": _graph_ms(kernels.goal_nearest, inputs),
+            "plain_replay_ms": _graph_ms(kernels.goal_nearest_reference, inputs),
+            "layout_replay_ms": [
+                [*kernels.GOAL_LAYOUTS[i], _graph_ms(
+                    functools.partial(kernels.goal_nearest, _layout=i), inputs)]
+                for i in layouts],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"goal_nearest {B} x {S} x {G}: {json.dumps(results[f'{B}x{S}x{G}'])} "
+            f"({', '.join(turns)})")
+    return results
+
+
 def bench_full_solve(device, backends=("xla", "pallas", "pallas_vpu"), B=64):
     """The batch-B BASELINE solve per backend (``make_fleet_solver``),
     slope-timed over distinct device-resident batches; us per solve."""
@@ -182,6 +255,7 @@ def main(device):
     log(f"device: {platform_name(device)}")
     out = {"platform": platform_name(device)}
     out.update(bench_sweeps(device))
+    out["goal_nearest"] = bench_goal(device)
     out.update(bench_full_solve(device))
     print(json.dumps(out))
     return out

@@ -19,7 +19,8 @@ the point-cloud binning is a scatter-min of each point once
 ``FP32_OPS_PER_S`` and each input's and output's bytes, once, at
 ``HBM_BYTES_PER_S``; pct_of_roofline = floor / measured.
 
-``bound``, ``sweep_bound``, ``cells_bound`` and ``form_bound`` are the
+``bound``, ``sweep_bound``, ``cells_bound``, ``form_bound`` and
+``goal_bound`` are the
 floors ``chip_smoke.py`` sets beside every kernel's time: they give every
 ``bound_ms`` of its kernels line, so an edit to them or to the peaks
 changes that yardstick and is reviewed as such
@@ -73,6 +74,22 @@ def sweep_bound(px, rows, active, segments=0, moving=False):
     nbytes = 4.0 * (2 * B * S * T + B * (2 * rows * (2 if moving else 1) + 2 * segments)
                     + 2 * B * S * T)
     return bound(ops, nbytes)
+
+
+# FP32 operations per (sample, segment point) pair of the goal cost's
+# search (K10): 2 sub, 2 mul and an add for the squared distance, the min
+# and the select of its index
+GOAL_PAIR_OPS = 7
+
+
+def goal_bound(robots, samples, segments):
+    """The bound of K10, the goal cost's nearest-segment search of
+    ``robots`` robots' ``samples`` end points against ``segments`` points
+    each: GOAL_PAIR_OPS per (sample, point) pair; bytes: the end points
+    and segment points read once, each sample's min (4 bytes) and index
+    (8) written once."""
+    ops = GOAL_PAIR_OPS * robots * samples * segments
+    return bound(ops, robots * (8.0 * samples + 8.0 * segments + 12.0 * samples))
 
 
 def cells_bound(robots, height, width, bins, bayes=True):

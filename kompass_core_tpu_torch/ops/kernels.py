@@ -55,6 +55,13 @@ BOX robots' collision field is one kernel (``csrc/box_min_dist.cu``):
   _min_box_dist_sq``; static or moving rows, per-robot half extents, the
   headings' cos and sin given by the caller.
 
+The goal cost's search is one kernel (``csrc/goal_nearest.cu``):
+
+- ``goal_nearest`` (K10): the tracked-segment point nearest each sample's
+  end point, its squared distance and its first index, the search of the
+  JAX package's ``kompass_core_tpu/ops/solver.py::_goal_cost`` (the [S,
+  G] distances, their argmin and min), without writing those distances.
+
 The occupancy mapper's per-cell pass is one kernel:
 
 - ``scan_to_grid_cells`` is the port of
@@ -213,6 +220,8 @@ def _library() -> ctypes.CDLL:
             lib.kompass_box_min_dist_sq.argtypes = [
                 p, p, p, p, i, i, i, p, p, p, i, p, p, p, i, p,
             ]
+            lib.kompass_goal_nearest.restype = ctypes.c_int
+            lib.kompass_goal_nearest.argtypes = [p, p, i, i, p, p, i, p, p, i, i, p]
             lib.kompass_scan_to_grid_cells.restype = ctypes.c_int
             lib.kompass_scan_to_grid_cells.argtypes = [
                 p, p, i, i, p, i, p, i, i, p, p, i, p, p, p, p,
@@ -796,6 +805,91 @@ def box_min_dist_sq(px, py, cos_yaw, sin_yaw, rows, vel, dt, half,
         px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points, _points or 0)
 
 
+# --- the goal cost's nearest segment point (K10) -----------------------------------
+
+# K10's layouts (csrc/goal_nearest.cu): (samples per thread, whether a warp
+# splits the segment points across its lanes), in the order goal_layout
+# tries them
+GOAL_LAYOUTS = ((2, False), (4, True))
+_GOAL_BLOCK = 128  # threads per block
+
+
+def _goal_runs(S, layout):
+    """The blocks one robot's S samples take in ``layout``."""
+    points, split = layout
+    return -(-S // ((_GOAL_BLOCK // 32 if split else _GOAL_BLOCK) * points))
+
+
+def goal_layout(B, S, sms):
+    """K10's layout for B robots' S samples on a card of ``sms`` SMs, as an
+    index into ``GOAL_LAYOUTS``: 2 samples a thread where that grid holds
+    two warps per warp scheduler (33 robots and more at 2025 samples on
+    132 SMs), else the split warps (one robot's 2025 samples, the
+    evaluator's 5001)."""
+    warps = B * _goal_runs(S, GOAL_LAYOUTS[0]) * (_GOAL_BLOCK // 32)
+    return 0 if warps >= _TARGET_WARPS_PER_SM * sms else 1
+
+
+def _check_goal(end_x, end_y, seg_x, seg_y):
+    """Check K10's inputs; returns (B, S, G): end_x, end_y [S] (or [B, S]
+    for B robots) and seg_x, seg_y [G] (or [B, G]), float32, contiguous,
+    non-empty, on one device."""
+    name = "goal_nearest"
+    tensors = (end_x, end_y, seg_x, seg_y)
+    device = end_x.device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if device.type not in _DEVICE_TYPES:
+        raise ValueError(f"{name}: unsupported device {device}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: every tensor must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: all tensors must be contiguous")
+    if end_x.dim() not in (1, 2) or end_y.shape != end_x.shape or end_x.numel() == 0:
+        raise ValueError(f"{name}: end_x, end_y must be one non-empty [S] or [B, S] shape")
+    if (seg_x.dim() != end_x.dim() or seg_y.shape != seg_x.shape
+            or seg_x.shape[:-1] != end_x.shape[:-1] or seg_x.shape[-1] == 0):
+        raise ValueError(f"{name}: seg_x, seg_y must be non-empty [G] per robot of end_x")
+    B = end_x.shape[0] if end_x.dim() == 2 else 1
+    if B > _MAX_BATCH:
+        raise ValueError(f"{name}: B must be <= {_MAX_BATCH}")
+    return B, end_x.shape[-1], seg_x.shape[-1]
+
+
+def goal_nearest_reference(end_x, end_y, seg_x, seg_y):
+    """Plain PyTorch version of K10: the [.., S, G] squared distances, each
+    operation rounded on its own, their min and first argmin (NaN kept,
+    as ``torch.amin`` and ``torch.argmin`` keep it). Arguments as for
+    ``goal_nearest``."""
+    _check_goal(end_x, end_y, seg_x, seg_y)
+    dx = end_x.unsqueeze(-1) - seg_x.unsqueeze(-2)
+    dy = end_y.unsqueeze(-1) - seg_y.unsqueeze(-2)
+    d2 = dx * dx + dy * dy  # [..., S, G]
+    return torch.amin(d2, dim=-1), torch.argmin(d2, dim=-1)
+
+
+def goal_nearest(end_x, end_y, seg_x, seg_y, *, _layout=None):
+    """K10: the segment point nearest each sample's end point, in one
+    kernel launch (``csrc/goal_nearest.cu``) that never writes the
+    [.., S, G] distances.
+
+    end_x, end_y: [S] end points ([B, S] for B robots); seg_x, seg_y: [G]
+    segment points ([B, G]), pads at 1e8. Returns (min_d2 [.., S] float32,
+    the squared distance to the nearest point, and index [.., S] int64, the
+    first point at that distance). On CUDA it launches on the current
+    stream without synchronising and adds one to
+    ``goal_nearest.launches``; its layout is ``goal_layout``'s, or
+    ``GOAL_LAYOUTS[_layout]`` where a test forces it."""
+    if _layout is not None and _layout not in range(len(GOAL_LAYOUTS)):
+        raise ValueError(f"goal_nearest: layout {_layout}; the kernel takes "
+                         f"{len(GOAL_LAYOUTS)} ({GOAL_LAYOUTS})")
+    return torch.ops.kompass_torch.goal_nearest(
+        end_x, end_y, seg_x, seg_y, -1 if _layout is None else _layout)
+
+
+goal_nearest.launches = 0
+
+
 # the sweep kernels by their PERF.md names
 SWEEP_KERNELS = {
     "K1": fused_min_dist_sq,
@@ -813,7 +907,7 @@ for _wrapper in SWEEP_KERNELS.values():
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count by its PERF.md name (K1-K9,
+    """Every kernel wrapper's launch count by its PERF.md name (K1-K10,
     K3s): calls of the wrappers, so a CUDA graph's replay adds nothing.
     A k-tick graph's replayed launches are its ``TickGraph.launches``
     (what its capture made) times its ``replays``
@@ -821,6 +915,7 @@ def launch_counts() -> dict:
     ``utils/tracing.py`` counts every replay)."""
     counts = {k: w.launches for k, w in SWEEP_KERNELS.items()}
     counts["K5"] = scan_to_grid_cells.launches
+    counts["K10"] = goal_nearest.launches
     return dict(sorted(counts.items()))
 
 
@@ -1174,6 +1269,35 @@ def _k9_fake(px, py, cos_yaw, sin_yaw, rows, vel, dt, half, active_points, point
     return _fields_like(px, False)
 
 
+def _k10_cuda(end_x, end_y, seg_x, seg_y, layout=-1):
+    B, S, G = _check_goal(end_x, end_y, seg_x, seg_y)
+    if layout < 0:
+        layout = goal_layout(B, S, _sm_count(end_x.device))
+    points, split = GOAL_LAYOUTS[layout]
+    lib = _library()
+    min_d2 = torch.empty_like(end_x)
+    index = torch.empty(end_x.shape, dtype=torch.int64, device=end_x.device)
+    with torch.cuda.device(end_x.device):
+        stream = torch.cuda.current_stream(end_x.device).cuda_stream
+        err = lib.kompass_goal_nearest(
+            end_x.data_ptr(), end_y.data_ptr(), B, S, seg_x.data_ptr(),
+            seg_y.data_ptr(), G, min_d2.data_ptr(), index.data_ptr(), points,
+            int(split), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"goal_nearest: kernel launch failed (cudaError {err})")
+    return _launched(goal_nearest, (min_d2, index))
+
+
+def _k10_cpu(end_x, end_y, seg_x, seg_y, layout=-1):
+    return goal_nearest_reference(end_x, end_y, seg_x, seg_y)
+
+
+def _k10_fake(end_x, end_y, seg_x, seg_y, layout=-1):
+    _check_goal(end_x, end_y, seg_x, seg_y)
+    return end_x.new_empty(end_x.shape), end_x.new_empty(end_x.shape, dtype=torch.int64)
+
+
 def _k5_cuda(base, dist_m, tables, endpoint, si, sj, prev, params):
     occ, prob, _ = _scan_to_grid_cells_cuda(base, dist_m, tables, endpoint,
                                             (si, sj), prev, params)
@@ -1213,7 +1337,10 @@ _register("box_min_dist_sq(Tensor px, Tensor py, Tensor cos_yaw, Tensor sin_yaw,
 _register("scan_to_grid_cells(Tensor base, Tensor dist_m, Tensor tables, "
           "Tensor endpoint, int si, int sj, Tensor? prev, Tensor? params) "
           "-> (Tensor, Tensor)", _k5_cuda, _k5_cpu, _k5_fake)
+_register("goal_nearest(Tensor end_x, Tensor end_y, Tensor seg_x, Tensor seg_y, "
+          "int layout=-1) -> (Tensor, Tensor)", _k10_cuda, _k10_cpu, _k10_fake)
 
 # the operators by their PERF.md names
 OPS = {key: getattr(torch.ops.kompass_torch, w.__name__)
-       for key, w in (*SWEEP_KERNELS.items(), ("K5", scan_to_grid_cells))}
+       for key, w in (*SWEEP_KERNELS.items(), ("K5", scan_to_grid_cells),
+                      ("K10", goal_nearest))}

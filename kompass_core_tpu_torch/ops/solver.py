@@ -56,6 +56,7 @@ from .kernels import (
     fused_min_dist_sq_moving,
     fused_min_dist_sq_moving_broadcast,
     fused_min_dist_sq_moving_expanded,
+    goal_nearest,
     min_dist_sq_expanded,
     min_dist_sq_moving,
 )
@@ -460,13 +461,15 @@ def _path_cost(px, py, d2_seg, seg_last_xy, seg_total_len, active_points):
 
 def _goal_cost(px, py, seg_x, seg_y, seg_arc, ref_total_len, active_points):
     """Remaining arc length from the segment point nearest the end point,
-    plus the normalised euclidean tie-breaker; first minimum wins."""
+    plus the normalised euclidean tie-breaker; first minimum wins. The
+    nearest point is K10's (``goal_nearest``; pad rows sit at 1e8), over
+    the robots' leading axes flattened into one."""
     end_x, end_y = _trajectory_end_points(px, py, active_points)
-    dx = end_x.unsqueeze(-1) - seg_x.unsqueeze(-2)
-    dy = end_y.unsqueeze(-1) - seg_y.unsqueeze(-2)
-    d2 = dx * dx + dy * dy  # [..., S, G]; pad rows sit at 1e8
-    j_star = torch.argmin(d2, dim=-1)
-    min_d2 = torch.amin(d2, dim=-1)
+    S, G = end_x.shape[-1], seg_x.shape[-1]
+    min_d2, j_star = goal_nearest(
+        end_x.reshape(-1, S).contiguous(), end_y.reshape(-1, S).contiguous(),
+        seg_x.reshape(-1, G).contiguous(), seg_y.reshape(-1, G).contiguous())
+    min_d2, j_star = min_d2.reshape(end_x.shape), j_star.reshape(end_x.shape)
     arc_at = seg_arc.gather(-1, j_star)
     ref = _col(ref_total_len)
     return (ref - arc_at) / ref + torch.sqrt(min_d2) / ref

@@ -134,6 +134,23 @@ def test_bounds_give_perf_md_figures():
                                moving=True) == (ms, by)
 
 
+@pytest.mark.parametrize("B,S,G,ms", [(1024, 2025, 320, 0.13865), (256, 2025, 320, 0.03466),
+                                      (64, 2025, 384, 0.01040)])
+def test_goal_bound_counts_seven_operations_a_pair(B, S, G, ms):
+    """K10 at the benchmark cells' widths is operations-bound: 7 per
+    (sample, segment point) pair at 33.5e12 a second."""
+    assert roofline.goal_bound(B, S, G) == (pytest.approx(ms, abs=5e-6), "operations")
+
+
+def test_goal_inputs_hold_pads_past_the_path():
+    """K10's timed inputs: distinct draws, the last sixteenth of each
+    robot's segment points at the 1e8 pad."""
+    inputs = kernel_bench.goal_inputs(CPU, 2, 3, 40, 32)
+    assert [t.shape for t in inputs[0]] == [(3, 40), (3, 40), (3, 32), (3, 32)]
+    assert (inputs[0][2][:, 30:] == 1e8).all() and (inputs[0][2][:, :30].abs() <= 10).all()
+    assert not torch.equal(inputs[0][0], inputs[1][0])
+
+
 def test_roofline_peaks_are_the_h100s():
     """The peaks behind every ``bound_ms`` of ``chip_smoke.py``'s kernels
     line: FP32 at 67e12 / 2 instructions/s (no FMA), HBM3 at 3.35e12 B/s;
@@ -193,6 +210,7 @@ def test_benchmark_mains_write_no_file_without_a_path(no_new_files, monkeypatch,
     assert len(roofline.main(CPU)["workloads"]) == 7
 
     monkeypatch.setattr(kernel_bench, "bench_sweeps", lambda device: {"xla_two_sweeps_ms": 1.0})
+    monkeypatch.setattr(kernel_bench, "bench_goal", lambda device: {})
     monkeypatch.setattr(kernel_bench, "bench_full_solve", lambda device: {"solve_xla_us": 1.0})
     assert kernel_bench.main(CPU)["platform"] == "cpu_cpu"
 

@@ -809,7 +809,8 @@ def test_peer_safety_fleet_tick_on_card_matches_cpu(cuda, predict, kernel):
     """Four robots with peers (with and without prediction) and the safety
     gate: the tick on the card and on the CPU gives the same found,
     num_admissible and safety factor, the command (or a tie) and the cost
-    within rel 1e-4; one sweep launch, static without prediction."""
+    within rel 1e-4; one sweep launch, static without prediction, and one
+    goal search (K10)."""
     from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
 
     kw = dict(peer_avoidance=True, peer_prediction=predict,
@@ -819,7 +820,7 @@ def test_peer_safety_fleet_tick_on_card_matches_cpu(cuda, predict, kernel):
     before = kernels.launch_counts()
     gpu, cpu = (f.tick(*inputs[:4]) for f in (gpu_fleet, cpu_fleet))
     made = {k: c - before[k] for k, c in kernels.launch_counts().items() if c != before[k]}
-    assert made == {kernel: 1}
+    assert made == {kernel: 1, "K10": 1}
     for key in ("found", "reached", "num_admissible", "active_points", "safety_factor"):
         np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=key)
     assert (gpu["safety_factor"] < 1.0).all()
@@ -1199,6 +1200,7 @@ def _operator_args(key, device):
             "K3s": (px, py, obs[:, :8].contiguous(), vel[:, :8].contiguous(), dt, ap, -1),
             "K9": (px, py, f(B, S, T, lo=-1, hi=1), f(B, S, T, lo=-1, hi=1), obs, vel,
                    dt, f(B, 2, lo=0, hi=0.5), ap, 0),
+            "K10": (px[..., 7].contiguous(), py[..., 7].contiguous(), sx, sy, -1),
         }[key]
     return [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
 
@@ -1222,15 +1224,15 @@ def test_operator_cuda_implementation_equals_its_cpu_implementation(cuda, key):
 def test_tick_graph_captures_the_operators(cuda):
     """The k-tick loop's capture goes through the operators with no host
     sync (a sync would abort the capture): the first call counts the
-    warm-up's and the capture's launches of K3, a replay none, and the
-    replay equals the eager loop bit for bit."""
+    warm-up's and the capture's launches of K3 and K10, a replay none, and
+    the replay equals the eager loop bit for bit."""
     fleet, inputs = _small_fleet(cuda, 2)
     fleet._prepare_tick_inputs(*inputs)
     eager = fleet.ticks_fn(3)(*fleet.tick_example_args())
     before = kernels.launch_counts()
     out = fleet.run_ticks_on_device(3, *inputs[:4], tracked=inputs[4])
     made = {k: c - before[k] for k, c in kernels.launch_counts().items() if c != before[k]}
-    assert made == {"K3": 6}
+    assert made == {"K3": 6, "K10": 6}
     np.testing.assert_array_equal(out["final_states"], eager[2][:4].cpu().numpy())
     before = kernels.launch_counts()
     fleet.run_ticks_on_device(3, *inputs[:4], tracked=inputs[4])
@@ -1264,8 +1266,8 @@ def _packed_buffer(spec, seed):
 def test_served_packed_solver_on_the_card_equals_live(cuda, tmp_path):
     """The packed solver exported on the card, and exported on the CPU for
     both device types, each loaded on the card: its graph holds K1's
-    operator once, each call launches K1 once and equals the live card
-    solver bit for bit."""
+    operator and K10's once each, each call launches K1 and K10 once and
+    equals the live card solver bit for bit."""
     from kompass_core_tpu_torch import serving
 
     spec = solver.SolverSpec(is_omni=False, n_vx=45, n_vy=1, n_omega=45, max_points=30,
@@ -1278,10 +1280,111 @@ def test_served_packed_solver_on_the_card_equals_live(cuda, tmp_path):
         assert loaded == spec and art.device == cuda
         ops = [str(n.target) for n in art.program.graph.nodes
                if str(n.target).startswith("kompass_torch.")]
-        assert ops == ["kompass_torch.fused_min_dist_sq.default"]
+        assert ops == ["kompass_torch.fused_min_dist_sq.default",
+                       "kompass_torch.goal_nearest.default"]
         for seed in range(3):
             buf = _packed_buffer(spec, seed)
-            before = kernels.fused_min_dist_sq.launches
+            before = kernels.launch_counts()
             out = art.call(buf)
-            assert kernels.fused_min_dist_sq.launches == before + 1
+            made = {k: c - before[k] for k, c in kernels.launch_counts().items()
+                    if c != before[k]}
+            assert made == {"K1": 1, "K10": 1}
             assert out.device.type == "cuda" and torch.equal(out, live(buf))
+
+
+# --- K10: the goal cost's nearest segment point ------------------------------------
+
+
+def _goal_card_case(case, B, S, G, device):
+    """K10's inputs on ``device`` (made on the CPU from a seed): end points
+    [B, S] and segment points [B, G], a path's points within 10 m padded
+    at 1e8 past the last sixteenth, or the edge ``case`` names: "ties" (two
+    coinciding points, end points on them), "nan" (NaN end points and a NaN
+    segment point), "inf" (an inf end point and an inf segment point),
+    "pads" (rows of pads alone)."""
+    g = torch.Generator().manual_seed(B * 7919 + S * 31 + G + len(case))
+
+    def u(*shape, span=10.0):
+        return (torch.rand(*shape, generator=g) * 2 - 1) * span
+
+    count = max(1, G - G // 16)
+    seg_x, seg_y = torch.full((B, G), 1e8), torch.full((B, G), 1e8)
+    seg_x[:, :count], seg_y[:, :count] = u(B, count), u(B, count)
+    end_x, end_y = u(B, S, span=12.0), u(B, S, span=12.0)
+    if case == "ties" and G > 10:
+        seg_x[:, 10], seg_y[:, 10] = seg_x[:, 3], seg_y[:, 3]
+        end_x[:, ::4], end_y[:, ::4] = seg_x[:, 3:4], seg_y[:, 3:4]
+    if case == "nan":
+        end_x[:, 5] = float("nan")
+        seg_y[-1, count // 2] = float("nan")
+    if case == "inf":
+        end_y[:, 2] = float("inf")
+        seg_x[0, count - 1] = -float("inf")
+    if case == "pads":
+        seg_x[:], seg_y[:] = 1e8, 1e8
+    return [t.contiguous().to(device) for t in (end_x, end_y, seg_x, seg_y)]
+
+
+_GOAL_RUNS = [
+    # the cells' widths: disc1024.tick, boxpeer64.k8, disc256.k8, one robot
+    ("plain", 1024, 2025, 320), ("plain", 64, 2025, 384), ("plain", 256, 2025, 320),
+    ("plain", 1, 2025, 320),
+    # the CPU tests' edges and G; S past one block at every layout
+    ("ties", 3, 37, 48), ("nan", 3, 37, 48), ("inf", 2, 300, 70), ("pads", 3, 37, 48),
+    ("plain", 3, 37, 1), ("plain", 3, 37, 70), ("plain", 3, 1030, 1088),
+    ("nan", 2, 2025, 1088), ("plain", 1, 5001, 1025),
+]
+
+
+@pytest.mark.parametrize("case,B,S,G", _GOAL_RUNS)
+def test_k10_bit_identical_to_plain(cuda, case, B, S, G):
+    """K10 at its own layout and at each of ``GOAL_LAYOUTS``, against its
+    plain version on the card (the search ``_goal_cost`` made before it),
+    both outputs bit for bit: the first index on ties, NaN and the first
+    NaN's index; one launch a call."""
+    args = _goal_card_case(case, B, S, G, cuda)
+    want = kernels.goal_nearest_reference(*args)
+    for layout in (None, *range(len(kernels.GOAL_LAYOUTS))):
+        before = kernels.goal_nearest.launches
+        got = kernels.goal_nearest(*args, _layout=layout)
+        torch.cuda.synchronize()
+        assert kernels.goal_nearest.launches == before + 1
+        assert got[0].shape == got[1].shape == (B, S) and got[1].dtype == torch.int64
+        _nan_equal(got[:1], want[:1])
+        assert torch.equal(got[1], want[1]), layout
+
+
+def test_k10_without_a_robot_axis_equals_one_robot(cuda):
+    """[S] end points against [G] segment points: one robot's [1, S] call,
+    squeezed."""
+    args = _goal_card_case("ties", 1, 2025, 384, cuda)
+    got = kernels.goal_nearest(*(t[0] for t in args))
+    want = kernels.goal_nearest(*args)
+    assert got[0].shape == (2025,)
+    _nan_equal((got[0],), (want[0][0],))
+    assert torch.equal(got[1], want[1][0])
+
+
+def test_k10_in_a_cuda_graph_equals_the_eager_call(cuda):
+    """K10 captured in a CUDA graph at disc256.k8's width (one launch
+    counted at capture, no host sync) and replayed on new inputs equals
+    the eager call on them."""
+    static = _goal_card_case("plain", 256, 2025, 320, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.goal_nearest(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.goal_nearest.launches
+    with torch.cuda.graph(graph):
+        out = kernels.goal_nearest(*static)
+    assert kernels.goal_nearest.launches == before + 1
+    fresh = _goal_card_case("ties", 256, 2025, 320, cuda)
+    for dst, src in zip(static, fresh):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = kernels.goal_nearest(*fresh)
+    _nan_equal(out[:1], want[:1])
+    assert torch.equal(out[1], want[1])

@@ -1222,3 +1222,172 @@ def test_forced_points_outside_the_kernel_raise_in_every_static_wrapper(name):
         got = _static_call(name, px, py, obs, sx, sy, ap, _points=points)
         for g, w in zip(got, want):
             assert _bits_equal(g, w)
+
+
+# --- K10: the goal cost's nearest segment point ------------------------------------
+
+from kompass_core_tpu.ops.solver import _goal_cost as jax_goal_cost  # noqa: E402
+from kompass_core_tpu.ops.solver import _pad_sweep_pow2  # noqa: E402
+from kompass_core_tpu_torch.ops import solver as port_solver  # noqa: E402
+from kompass_core_tpu_torch.ops.kernels import (  # noqa: E402
+    GOAL_LAYOUTS,
+    goal_layout,
+    goal_nearest,
+    goal_nearest_reference,
+)
+
+GOAL_CASES = ("plain", "ties", "nan_end", "all_pads", "g1", "g70", "g1088")
+GOAL_LEADS = ("none", "one", "three")
+
+
+def _goal_case(case, lead, S=37):
+    """(end_x, end_y, seg_x, seg_y) as float32 numpy [B, S] and [B, G]:
+    segment points within 6 m padded at 1e8 past ``count``, end points
+    around them; ``case`` sets G or an edge, ``lead`` B (one robot with
+    no leading axis for "none")."""
+    B = 3 if lead == "three" else 1
+    G = {"g1": 1, "g70": 70, "g1088": 1088}.get(case, 48)
+    rng = np.random.default_rng([GOAL_CASES.index(case), GOAL_LEADS.index(lead)])
+    seg_x = np.full((B, G), 1e8, np.float32)
+    seg_y = np.full((B, G), 1e8, np.float32)
+    count = 0 if case == "all_pads" else max(1, G - G // 5)
+    seg_x[:, :count] = rng.uniform(-6, 6, (B, count))
+    seg_y[:, :count] = rng.uniform(-6, 6, (B, count))
+    end_x = rng.uniform(-7, 7, (B, S)).astype(np.float32)
+    end_y = rng.uniform(-7, 7, (B, S)).astype(np.float32)
+    if case == "ties":
+        # points 3 and 10 coincide, and some end points sit on them: the
+        # first index wins at distance 0
+        seg_x[:, 10], seg_y[:, 10] = seg_x[:, 3], seg_y[:, 3]
+        end_x[:, ::4], end_y[:, ::4] = seg_x[:, 3:4], seg_y[:, 3:4]
+    if case == "nan_end":
+        end_x[:, 5] = np.nan
+        end_y[-1, 9] = np.nan
+    return end_x, end_y, seg_x, seg_y
+
+
+def _goal_tensors(arrays, lead):
+    t = [torch.from_numpy(a) for a in arrays]
+    return [v[0] for v in t] if lead == "none" else t
+
+
+def _broadcast_search(end_x, end_y, seg_x, seg_y):
+    """The goal cost's search as ``_goal_cost`` wrote it before K10: the
+    [.., S, G] broadcast, argmin and amin."""
+    dx = end_x.unsqueeze(-1) - seg_x.unsqueeze(-2)
+    dy = end_y.unsqueeze(-1) - seg_y.unsqueeze(-2)
+    d2 = dx * dx + dy * dy
+    return torch.amin(d2, dim=-1), torch.argmin(d2, dim=-1)
+
+
+def _jax_search(end_x, end_y, seg_x, seg_y):
+    """The JAX package's ``_goal_cost`` search for one robot, as it writes
+    it: the segment padded to a power of two with 1e8, then argmin, min."""
+    sx, sy = _pad_sweep_pow2(jnp.asarray(seg_x)), _pad_sweep_pow2(jnp.asarray(seg_y))
+    ex, ey = jnp.asarray(end_x), jnp.asarray(end_y)
+    d2 = (ex[:, None] - sx[None, :]) ** 2 + (ey[:, None] - sy[None, :]) ** 2
+    return np.array(jnp.min(d2, axis=1)), np.array(jnp.argmin(d2, axis=1))
+
+
+@pytest.mark.parametrize("lead", GOAL_LEADS)
+@pytest.mark.parametrize("case", GOAL_CASES)
+def test_goal_search_equals_broadcast_search_and_jax(case, lead):
+    """K10's operator on the CPU (its plain version) gives the search the
+    goal cost made before it and the JAX package's, bit for bit: the
+    first index on ties, NaN and the first index for a NaN end point, the
+    first pad for a row of pads; and counts no launch."""
+    arrays = _goal_case(case, lead)
+    args = _goal_tensors(arrays, lead)
+    before = kernels.launch_counts()
+    got = goal_nearest(*args)
+    assert kernels.launch_counts() == before
+    for g, w in zip(got, torch.ops.kompass_torch.goal_nearest(*args)):
+        assert _bits_equal(g, w) if g.is_floating_point() else torch.equal(g, w)
+    want = _broadcast_search(*args)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int64
+    assert got[0].shape == got[1].shape == args[0].shape
+    assert _bits_equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    min_d2, index = (t.reshape(-1, arrays[0].shape[1]).numpy() for t in got)
+    for b in range(arrays[0].shape[0]):
+        jmin, jarg = _jax_search(*(a[b] for a in arrays))
+        assert _bits_equal(torch.from_numpy(min_d2[b]), torch.from_numpy(jmin)), b
+        assert np.array_equal(index[b], jarg), b
+    if case == "ties":
+        assert (index[:, ::4] == 3).all()
+    if case == "nan_end":
+        assert np.isnan(min_d2[:, 5]).all() and (index[:, 5] == 0).all()
+    if case == "all_pads":
+        assert (index == 0).all()
+
+
+@pytest.mark.parametrize("case", ("plain", "ties", "nan_end", "all_pads", "g1088"))
+def test_goal_cost_equals_jax_goal_cost(case):
+    """The port's ``_goal_cost`` over three robots, K10 inside, against the
+    JAX package's ``_goal_cost`` robot by robot: end points at step
+    ``active - 1`` of [S, T] rollouts, the segment's arc lengths, the
+    path's length. Within one float32 ulp, NaN where JAX has NaN: the
+    search is bit for bit (above), but PyTorch's CPU float32 ``sqrt`` of
+    the distance is not correctly rounded on every host (XLA's is), an ulp
+    that the tie-breaker term carries into the cost."""
+    end_x, end_y, seg_x, seg_y = _goal_case(case, "three")
+    B, S = end_x.shape
+    T, active = 6, 4
+    rng = np.random.default_rng(GOAL_CASES.index(case) + 40)
+    px = rng.uniform(-7, 7, (B, S, T)).astype(np.float32)
+    py = rng.uniform(-7, 7, (B, S, T)).astype(np.float32)
+    px[:, :, active - 1], py[:, :, active - 1] = end_x, end_y
+    arc = np.cumsum(rng.uniform(0, 0.2, seg_x.shape), axis=1).astype(np.float32)
+    total = np.float32(30.0)
+    got = port_solver._goal_cost(
+        torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(seg_x),
+        torch.from_numpy(seg_y), torch.from_numpy(arc),
+        torch.full((B,), float(total)), torch.full((B,), active, dtype=torch.int32))
+    for b in range(B):
+        want = np.asarray(jax_goal_cost(
+            jnp.asarray(px[b]), jnp.asarray(py[b]), jnp.asarray(seg_x[b]),
+            jnp.asarray(seg_y[b]), jnp.asarray(arc[b]), jnp.float32(total),
+            jnp.int32(active)))
+        assert np.array_equal(np.isnan(got[b].numpy()), np.isnan(want)), b
+        np.testing.assert_array_max_ulp(got[b].numpy(), want, maxulp=1)
+
+
+@pytest.mark.parametrize(
+    "change,error",
+    [
+        (dict(end_x=lambda t: t.double()), TypeError),
+        (dict(seg_y=lambda t: t.half()), TypeError),
+        (dict(seg_x=lambda t: t[:2].contiguous()), ValueError),  # robot axes differ
+        (dict(end_y=lambda t: t[:2].contiguous()), ValueError),
+        (dict(seg_x=lambda t: t[0], seg_y=lambda t: t[0]), ValueError),
+        (dict(seg_x=lambda t: t[:, :0], seg_y=lambda t: t[:, :0]), ValueError),
+        (dict(end_x=lambda t: t[:, ::2], end_y=lambda t: t[:, ::2]), ValueError),
+        (dict(seg_x=lambda t: t.to("meta")), ValueError),
+    ],
+)
+def test_goal_nearest_rejects_what_the_kernel_does_not_take(change, error):
+    """Wrong dtypes, mismatched robot axes, empty segments, strided and
+    mixed-device inputs raise, on the CPU too."""
+    args = dict(zip(("end_x", "end_y", "seg_x", "seg_y"),
+                    _goal_tensors(_goal_case("plain", "three"), "three")))
+    for k, fn in change.items():
+        args[k] = fn(args[k])
+    with pytest.raises(error):
+        goal_nearest(**args)
+
+
+def test_goal_layouts_follow_the_grid_and_forced_ones_are_checked():
+    """64, 256 and 1024 robots take 2 samples a thread, one robot's
+    2025 samples and the evaluator's 5001 split G across a warp; a forced
+    layout outside GOAL_LAYOUTS raises, one inside gives the plain
+    version on the CPU."""
+    assert [GOAL_LAYOUTS[goal_layout(B, 2025, H100_SMS)] for B in (1024, 256, 64, 1)] == [
+        (2, False), (2, False), (2, False), (4, True)]
+    assert GOAL_LAYOUTS[goal_layout(1, 5001, H100_SMS)] == (4, True)
+    args = _goal_tensors(_goal_case("plain", "three"), "three")
+    for layout in (-1, len(GOAL_LAYOUTS)):
+        with pytest.raises(ValueError, match="layout"):
+            goal_nearest(*args, _layout=layout)
+    want = goal_nearest_reference(*args)
+    for layout in range(len(GOAL_LAYOUTS)):
+        got = goal_nearest(*args, _layout=layout)
+        assert _bits_equal(got[0], want[0]) and torch.equal(got[1], want[1])

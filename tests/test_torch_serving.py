@@ -68,17 +68,18 @@ def no_plain_sweep(monkeypatch):
         raise AssertionError("a plain version was traced into the graph")
 
     for name in ("_sweep_reference", "box_min_dist_sq_reference",
-                 "scan_to_grid_cells_reference"):
+                 "scan_to_grid_cells_reference", "goal_nearest_reference"):
         monkeypatch.setattr(kernels, name, plain)
     return monkeypatch
 
 
-# (backend, the kernel operators one packed solve launches)
+# (backend, the kernel operators one packed solve launches: its sweeps and
+# the goal cost's search, K10)
 _SOLVER_KERNELS = [
-    ("xla", ["fused_min_dist_sq"]),
-    ("pallas", ["fused_min_dist_sq_expanded"]),
-    ("pallas_vpu", ["fused_min_dist_sq_broadcast"]),
-    ("pallas_v1", ["min_dist_sq_expanded", "min_dist_sq_expanded"]),
+    ("xla", ["fused_min_dist_sq", "goal_nearest"]),
+    ("pallas", ["fused_min_dist_sq_expanded", "goal_nearest"]),
+    ("pallas_vpu", ["fused_min_dist_sq_broadcast", "goal_nearest"]),
+    ("pallas_v1", ["goal_nearest", "min_dist_sq_expanded", "min_dist_sq_expanded"]),
 ]
 
 
@@ -105,9 +106,9 @@ def test_served_packed_solver_equals_live_at_each_backend(tmp_path, no_plain_swe
 
 def test_served_tracked_fleet_tick_and_loop_equal_live(tmp_path, no_plain_sweep):
     """A 3-robot fleet with 2 tracked slots and a live mover: the tick
-    artifact (one K3) and the k = 2 artifact (two), exported with no plain
-    sweep traced, equal the live tick and the live loop bit for bit, carry
-    included, over 3 chained calls."""
+    artifact (one K3 and one K10) and the k = 2 artifact (two each),
+    exported with no plain sweep traced, equal the live tick and the live
+    loop bit for bit, carry included, over 3 chained calls."""
     fleet = _tracked_port_fleet()
     paths = {}
     for k in (None, 2):
@@ -120,7 +121,8 @@ def test_served_tracked_fleet_tick_and_loop_equal_live(tmp_path, no_plain_sweep)
     for k, path in paths.items():
         art = serving.load_artifact(path, device=CPU)
         assert art.meta["tracked_obstacles"] == 2
-        assert _kernel_nodes(art) == ["fused_min_dist_sq_moving"] * (k or 1)
+        assert _kernel_nodes(art) == sorted(
+            ["fused_min_dist_sq_moving", "goal_nearest"] * (k or 1))
         live_fn = fleet._tick_fn if k is None else fleet.ticks_fn(k)
         args = fleet.tick_example_args()
         live_args, served_args = args, args
@@ -329,12 +331,13 @@ def test_scan_to_grid_operator_runs_its_plain_version_on_the_cpu():
 def test_no_wrapper_picks_its_implementation_by_device():
     """The wrappers hand every call to their operator, which the
     dispatcher routes by device: none branches on a device in Python."""
-    wrappers = [*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells]
+    wrappers = [*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells,
+                kernels.goal_nearest]
     for wrapper in wrappers:
         src = inspect.getsource(wrapper)
         assert "device" not in src.split('"""')[-1], wrapper.__name__
         assert f"torch.ops.kompass_torch.{wrapper.__name__}(" in src
-    assert len(kernels.OPS) == 10
+    assert len(kernels.OPS) == 11
 
 
 # --- the logger and the runtime helpers ----------------------------------------
