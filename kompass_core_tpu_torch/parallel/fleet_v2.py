@@ -43,7 +43,11 @@ Each entry call is a ``fleet.call`` span of ``utils/tracing.py`` over
 is captured), ``fleet.enqueue`` (the input copy and the tick program's
 enqueue, or a graph replay) and ``fleet.fetch`` (the output copy and
 dict); the counters ``fleet.graph_captures`` and ``fleet.graph_replays``
-count the k-tick graphs' captures and replays.
+count the k-tick graphs' captures and replays. While spans are on,
+``fleet.samples`` counts the robot-samples a call rolls out (rows ×
+samples × ticks) and ``fleet.dead_samples`` those of them that a
+non-omni robot of an omni-shaped grid can never take (n_vx × (n_vy − 1)
+a row and tick).
 """
 
 import dataclasses
@@ -316,6 +320,15 @@ class DeviceFleet:
             [r.robot_type != RobotType.ACKERMANN for r in robots]
             + [False] * (N - self.num_robots)
         )
+        # the counters' work per tick, over the rows this process rolls
+        # out: every row's samples, and the dead ones, which a robot's own
+        # kinematics rule out before any obstacle test (a non-omni row of
+        # an omni-shaped grid: zeroed vy limits leave one vy slot per vx)
+        rows = np.arange(N)[slice(None) if mesh is None else mesh.local_rows(N)]
+        non_omni = sum(robots[min(i, self.num_robots - 1)].robot_type != RobotType.OMNI
+                       for i in rows)
+        self._samples_per_tick = len(rows) * solver_spec.num_samples
+        self._dead_per_tick = non_omni * n_vx * (n_vy - 1) if is_omni else 0
         sensor = np.zeros((N, 3), np.float32)
         if sensor_poses is not None:
             sp = np.asarray(sensor_poses, np.float32)
@@ -724,6 +737,14 @@ class DeviceFleet:
         self._write_tracked(tracked)
         return (self._safety,) if self._safety is not None else ()
 
+    def _count_samples(self, k: int):
+        """While spans are on, add a call's k ticks of rolled-out and dead
+        robot-samples to the ``fleet.samples`` and ``fleet.dead_samples``
+        counters (as the call's spans, so they count the same calls)."""
+        if tracing.is_on():
+            tracing.count("fleet.samples", self._samples_per_tick * k)
+            tracing.count("fleet.dead_samples", self._dead_per_tick * k)
+
     def ticks_fn(self, k: int):
         """The fleet's eager k-tick loop (``make_fleet_ticks_on_device``),
         built once per k."""
@@ -860,6 +881,7 @@ class DeviceFleet:
             with tracing.span("fleet.pack"):
                 safety = self._prepare_tick_inputs(states, vels, ranges, angles,
                                                    tracked)
+            self._count_samples(k)
             graphs = self._tick_graphs(k) if self._graphed() else None
             with tracing.span("fleet.enqueue"):
                 if graphs is not None:
@@ -907,6 +929,7 @@ class DeviceFleet:
             with tracing.span("fleet.pack"):
                 safety = self._prepare_tick_inputs(states, vels, ranges, angles,
                                                    tracked)
+            self._count_samples(1)
             with tracing.span("fleet.enqueue"):
                 inputs = self._put(self._inputs)  # one copy in (per shard)
                 self._carry, out_mat = self._tick_fn(

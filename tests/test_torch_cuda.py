@@ -1057,6 +1057,78 @@ def test_split_and_box_fleet_tick_on_card_matches_cpu(cuda, form):
     np.testing.assert_allclose(gpu["cost"], cpu["cost"], rtol=1e-4, atol=1e-6)
 
 
+def _omniack_fleet(device, n=4):
+    """The benchmark's omni and Ackermann fleet at its widths, in small:
+    even robots OMNI (r = 0.35 m), odd ACKERMANN (r = 0.45 m), a 58 x 31
+    request (the 43 x (15 + 31) = 1978 omni grid), 30 steps, 512 rays;
+    the omni paths 0.7 rad off the robots' headings."""
+    from kompass_core_tpu_torch.control import DWAConfig
+    from kompass_core_tpu_torch.models import (
+        AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits, RobotGeometry,
+        RobotType,
+    )
+
+    omni = np.arange(n) % 2 == 0
+    robots = [Robot(robot_type=RobotType.OMNI if o else RobotType.ACKERMANN,
+                    geometry_type=RobotGeometry.Type.CYLINDER,
+                    geometry_params=np.array([0.35 if o else 0.45, 0.4])) for o in omni]
+    vx = LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0)
+    limits = [RobotCtrlLimits(vx_limits=vx, vy_limits=LinearCtrlLimits(0.6, 3.0, 6.0),
+                              omega_limits=AngularCtrlLimits(2.0, 3.0, 3.0)) if o else
+              RobotCtrlLimits(vx_limits=vx, omega_limits=AngularCtrlLimits(0.8, 2.0, 2.0))
+              for o in omni]
+    config = DWAConfig(max_linear_samples=58, max_angular_samples=31,
+                       prediction_horizon=30, control_horizon=6)
+    fleet = DeviceFleet(robots, limits, config, 512, path_capacity=1024, max_segments=16,
+                        device=device)
+    heading = np.where(omni, 0.7, 0.0)
+    fleet.set_paths([np.array([[0.0, 12.0 * i],
+                               [10.0 * np.cos(h), 12.0 * i + 10.0 * np.sin(h)]])
+                     for i, h in enumerate(heading)])
+    rng = np.random.default_rng(25)
+    states = np.zeros((n, 4), np.float32)
+    states[:, 1] = 12.0 * np.arange(n)
+    vels = np.where(omni[:, None], np.float32([0.4, 0.1, 0.0]),
+                    np.float32([0.4, 0.0, 0.05])).astype(np.float32)
+    ranges = rng.uniform(2.5, 9.0, (n, 512)).astype(np.float32)
+    ranges[1, 236:276] = rng.uniform(0.8, 1.5, 40)  # an arc ahead of an Ackermann robot
+    angles = np.linspace(-np.pi, np.pi, 512, endpoint=False)
+    return fleet, (states, vels, ranges, angles)
+
+
+@pytest.mark.parametrize("k", [None, 8])
+def test_omni_ackermann_fleet_at_1978x30_on_card_matches_cpu(cuda, k):
+    """The omni grid's window, rollout and k-loop vy integration on the
+    card: the mixed fleet's eager tick (k None) or k = 8 graph replay
+    against the same calls on the CPU, every output field; the replay
+    bit for bit the card's eager loop; the omni robots strafe."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
+
+    (card, inputs), (cpu, _) = _omniack_fleet(cuda), _omniack_fleet("cpu")
+    assert card.spec.solver.is_omni and card.spec.solver.num_samples == 1978
+    if k is None:
+        got, want = card.tick(*inputs), cpu.tick(*inputs)
+    else:
+        carry0 = [t.clone() for t in card._carry]
+        card._prepare_tick_inputs(*inputs, None)
+        eager = card.ticks_fn(k)(card._paths, card._cfg, type(card._carry)(*carry0),
+                                 card._angles, torch.tensor(card._inputs, device=cuda))
+        got, want = (f.run_ticks_on_device(k, *inputs) for f in (card, cpu))
+        assert k in card.tick_graphs
+        for i, f in enumerate(OUT_FIELDS):
+            np.testing.assert_array_equal(got[f].astype(np.float32),
+                                          eager[1][:4, :, i].cpu().numpy(), err_msg=f)
+        np.testing.assert_array_equal(got["final_states"], eager[2][:4].cpu().numpy())
+        np.testing.assert_allclose(got["final_states"], want["final_states"],
+                                   rtol=1e-5, atol=1e-5)
+    for f in ("found", "reached", "num_admissible", "active_points", "safety_factor"):
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    for f in ("vx", "vy", "omega", "heading_error"):
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-5, atol=1e-6, err_msg=f)
+    np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-4, atol=1e-6)
+    assert np.abs(got["vy"][0::2]).max() > 0.05 and not got["vy"][1::2].any()
+
+
 # --- global planning: the scans' CUDA graphs ----------------------------------
 
 PLAN_ITERS = 40  # a chunk of 32 iterations and a remainder of 8

@@ -318,6 +318,78 @@ def test_the_served_fleet_tick_holds_no_profiler_operator():
     assert tracing.snapshot() == {}
 
 
+# --- the sample counters --------------------------------------------------------
+
+MIXED = (RobotType.OMNI, RobotType.ACKERMANN, RobotType.DIFFERENTIAL_DRIVE,
+         RobotType.OMNI)
+
+
+def _kin_fleet(device, kinds, rays=32, samples=8, steps=6):
+    """Robots of the drives ``kinds`` on the bent lanes of ``_fleet``; an
+    omni robot has vy limits, the others the default zero ones."""
+    robots = [Robot(robot_type=kind, geometry_type=RobotGeometry.Type.CYLINDER,
+                    geometry_params=np.array([0.25, 0.4])) for kind in kinds]
+    lin = LinearCtrlLimits(max_vel=1.2, max_acc=1.5, max_decel=2.5)
+    ang = AngularCtrlLimits(max_vel=1.5, max_acc=3.0, max_decel=3.0, max_steer=np.pi)
+    limits = [RobotCtrlLimits(vx_limits=lin, omega_limits=ang,
+                              vy_limits=LinearCtrlLimits(max_vel=0.6, max_acc=1.0,
+                                                         max_decel=2.0))
+              if kind == RobotType.OMNI else RobotCtrlLimits(vx_limits=lin, omega_limits=ang)
+              for kind in kinds]
+    config = DWAConfig(max_linear_samples=samples, max_angular_samples=samples,
+                       prediction_horizon=steps, control_horizon=2, control_time_step=0.1)
+    n = len(kinds)
+    fleet = DeviceFleet(robots, limits, config, scan_rays=rays, path_capacity=1024,
+                        max_segments=16, device=device)
+    fleet.set_paths([np.array([[0.0, 3.0 * i], [3.0, 3.0 * i], [6.0, 3.0 * i + 1.0]])
+                     for i in range(n)])
+    fleet.set_scan_angles(np.linspace(-np.pi, np.pi, rays, endpoint=False))
+    return fleet
+
+
+@pytest.mark.parametrize("kinds, dead_rows", [
+    ((RobotType.DIFFERENTIAL_DRIVE,) * 4, 0),
+    ((RobotType.ACKERMANN, RobotType.DIFFERENTIAL_DRIVE) * 2, 0),
+    (MIXED, 2),  # the Ackermann and the diff-drive robot
+    ((RobotType.OMNI,) * 3, 0),
+])
+@pytest.mark.parametrize("k", [None, 3])
+def test_sample_counters_count_every_row_and_the_dead_slots(k, kinds, dead_rows):
+    """While spans are on, ``fleet.samples`` is n·S·k a call and
+    ``fleet.dead_samples`` n_vx × (n_vy − 1) per non-omni row of an
+    omni-shaped grid and tick; a fleet without an omni robot has none
+    dead. Off, they count nothing."""
+    fleet = _kin_fleet(torch.device("cpu"), kinds)
+    spec = fleet.spec.solver
+    assert spec.is_omni == (RobotType.OMNI in kinds)
+    _calls(fleet, k, 1, 5)
+    assert tracing.snapshot() == {}
+    calls = 2
+    with tracing.enable():
+        _calls(fleet, k, calls, 7)
+    ticks = calls * (k or 1)
+    snap = tracing.snapshot()
+    assert snap["fleet.samples"]["count"] == len(kinds) * spec.num_samples * ticks
+    dead = dead_rows * spec.n_vx * (spec.n_vy - 1) * ticks
+    assert snap["fleet.dead_samples"]["count"] == dead
+    if dead_rows:
+        assert (spec.n_vx, spec.n_vy, spec.n_omega) == (7, 3, 9)
+        assert dead == 2 * 14 * ticks
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_mixed_fleet_cpu_outputs_are_bit_identical_with_tracing_on_and_off(k):
+    device = torch.device("cpu")
+    off = _calls(_kin_fleet(device, MIXED), k, 3, 11)
+    with tracing.enable():
+        on = _calls(_kin_fleet(device, MIXED), k, 3, 11)
+    _assert_same(off, on)
+    snap = tracing.snapshot()
+    assert all(snap[n]["count"] == 3 for n in HOST)
+    # the omni robots strafe: the vy branch ran
+    assert any(np.abs(o["vy"]).max() > 0 for o in on)
+
+
 # --- on the card ---------------------------------------------------------------
 
 
@@ -379,7 +451,8 @@ def test_one_capture_and_a_replay_per_call_and_set_paths_recaptures(cuda):
     assert snap["fleet.graph_captures"]["count"] == 1
     assert snap["fleet.graph_replays"]["count"] == 5
     graph = fleet.tick_graphs[8]
-    assert graph.launches == {"K1": 8} and graph.replays == 5
+    # K1 and K10 (the goal cost's nearest-segment search) launch once a tick
+    assert graph.launches == {"K1": 8, "K10": 8} and graph.replays == 5
     # the wrappers ran for the warm-up and the capture, never for a replay
     assert kernels.launch_counts()["K1"] - before["K1"] == 16
     fleet.set_paths([np.array([[0.0, 3.0 * i], [5.0, 3.0 * i]]) for i in range(64)])
