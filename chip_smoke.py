@@ -1415,7 +1415,12 @@ def _compare_cpu_rows(out, cpu, robots, tick, ties, exact=()):
 
 
 def phase_fleet(kernels, device):
-    """The fleet slice: 64 robots, tracked movers, closed loop on cuda."""
+    """The fleet slice: 64 robots, tracked movers, closed loop on cuda.
+    The tick is one CUDA graph: the sync guard wraps the tick program,
+    which runs for the capture's warm-up and recording (a capture fails on
+    any host sync besides); every tick replays the graph, which launches
+    K3 once. Returns the launches the card ran: the warm-up's and the
+    replays'."""
     import torch
 
     fleet, lanes, circles = make_fleet(device)
@@ -1426,68 +1431,61 @@ def phase_fleet(kernels, device):
     ties, found = [], 0
     start_counts = kernels.launch_counts()
     for tick in range(FLEET_TICKS):
-        before = kernels.fused_min_dist_sq_moving.launches
         carry = [t.cpu() for t in fleet._carry]
-        out = fleet.tick(*drive.inputs())
-        assert kernels.fused_min_dist_sq_moving.launches == before + 1, (
-            f"fleet tick {tick}: "
-            f"{kernels.fused_min_dist_sq_moving.launches - before} moving launches")
+        out = _tick_checked(kernels, fleet, tick, {"K3": 1},
+                            lambda: fleet.tick(*drive.inputs()))
         for key, col in out.items():
             assert col.shape == (FLEET_ROBOTS,) and np.isfinite(col).all(), key
         if tick in FLEET_CPU_TICKS:
             _fleet_cpu_check(fleet, carry, out, tick, ties)
         found += int(out["found"].sum())
         drive.advance(out)
-    made = _launches_made(kernels, start_counts)
+    made = _card_runs(_launches_made(kernels, start_counts), list(fleet.tick_graphs.values()))
     k3, k1 = made.get("K3", 0), made.get("K1", 0)
     torch.cuda.synchronize()
     end = drive.goal_distance(ends)
     log(f"fleet slice: {FLEET_ROBOTS} robots x {FLEET_TICKS} ticks, "
-        f"{FLEET_TRACKED} tracked slots; moving-sweep launches {k3}, static "
-        f"{k1}; sync-checked ticks {fleet._tick_fn.calls}; found "
+        f"{FLEET_TRACKED} tracked slots, one tick graph; moving-sweep launches {k3} "
+        f"(the capture's warm-up and the replays), static {k1}; sync-checked tick "
+        f"program calls {fleet._tick_fn.calls} (the warm-up and the capture); found "
         f"{found}/{FLEET_ROBOTS * FLEET_TICKS}; mean goal distance "
         f"{start.mean():.3f} -> {end.mean():.3f} m; min robot-mover distance "
         f"{drive.min_clearance:.3f} m; CPU-checked rows "
         f"{len(FLEET_CPU_TICKS) * len(FLEET_CPU_ROBOTS)}, ties {ties}")
-    assert made == _solves({"K3": FLEET_TICKS}, FLEET_TICKS), made
-    assert fleet._tick_fn.calls == FLEET_TICKS
+    assert made == _solves({"K3": FLEET_TICKS + 1}, FLEET_TICKS + 1), made
+    assert fleet._tick_fn.calls == 2
     assert found >= 0.9 * FLEET_ROBOTS * FLEET_TICKS, "the fleet lost its way"
     assert end.mean() < start.mean() - 1.0, "the fleet did not approach its goals"
     return made
 
 
 def _time_fleet(device, tracked, card):
-    """Host clock and CUDA events over FLEET_TIMED_TICKS closed-loop
-    ticks after 10 warm-up ticks."""
+    """Host clock and CUDA events around each ``fleet.tick`` call (the
+    input copy, the graph replay and the output copy, with the card idle
+    while the host packs) over FLEET_TIMED_TICKS closed-loop ticks after
+    10 warm-up ticks."""
     import torch
 
     fleet, lanes, circles = make_fleet(device, tracked)
     drive = FleetDrive(lanes, circles, tracked)
     events = []
-    inner = fleet._tick_fn
-
-    def evented(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        result = inner(*args)
-        stop.record()
-        events.append((start, stop))
-        return result
-
-    fleet._tick_fn = evented
     lat = []
     for i in range(TIMED_WARMUP + FLEET_TIMED_TICKS):
         inputs = drive.inputs()
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         out = fleet.tick(*inputs)  # ends in the output copy, a sync
+        stop.record()
         dt_ms = (time.perf_counter() - t0) * 1e3
         if i >= TIMED_WARMUP:
             lat.append(dt_ms)
+            events.append((start, stop))
         drive.advance(out)
     torch.cuda.synchronize()
-    dev = sorted(s.elapsed_time(e) for s, e in events[TIMED_WARMUP:])
+    dev = sorted(s.elapsed_time(e) for s, e in events)
     lat.sort()
     p99 = lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
     name = f"fleet tick, {FLEET_ROBOTS} robots, tracked_obstacles={tracked}"
@@ -1495,7 +1493,7 @@ def _time_fleet(device, tracked, card):
         f"{statistics.median(lat):.4f} ms, p99 {p99:.4f} ms, min {lat[0]:.4f}, "
         f"max {lat[-1]:.4f}; {1e3 / statistics.median(lat):.2f} ticks/s, "
         f"{FLEET_ROBOTS * 1e3 / statistics.median(lat):.1f} robot-ticks/s; "
-        f"CUDA events over the device part median {statistics.median(dev):.4f} ms")
+        f"CUDA events around the call median {statistics.median(dev):.4f} ms")
     return statistics.median(lat), p99
 
 
@@ -2441,7 +2439,8 @@ def _replay_calls(kernels, fleet, drive, device, keys, label, each=None):
         if each is not None:
             each(out)
         drive.advance_ticks(out, TICKS_K)
-    assert list(fleet.tick_graphs) == [TICKS_K], "one graph per k"
+    # one k-tick graph; a fleet that also ticked holds the tick's, under None
+    assert [k for k in fleet.tick_graphs if k is not None] == [TICKS_K], "one graph per k"
     return {k: n + (TICKS_CALLS - 1) * (n // 2) for k, n in counted.items()}, out
 
 
@@ -2907,6 +2906,64 @@ def _solves(expect, n):
     return {**expect, "K10": n}
 
 
+def _card_runs(made, graphs):
+    """The launches the card ran, from the wrapper calls ``made`` of calls
+    that captured ``graphs`` (``DeviceFleet``'s TickGraphs) and replayed
+    them: a capture calls each wrapper twice, for the warm-up, which runs,
+    and for the recording, which does not; a replay calls none and runs
+    the graph's ``launches``. So each graph adds its launches times its
+    replays less one."""
+    runs = dict(made)
+    for g in graphs:
+        for key, n in g.launches.items():
+            runs[key] = runs.get(key, 0) + n * (g.replays - 1)
+    return runs
+
+
+@contextlib.contextmanager
+def _fleet_graphs():
+    """Every TickGraph a ``DeviceFleet`` captures inside the block, in the
+    list it yields."""
+    from kompass_core_tpu_torch.parallel.fleet_v2 import DeviceFleet
+
+    graphs, capture = [], DeviceFleet._capture
+
+    def recorded(self, *args):
+        graphs.append(capture(self, *args))
+        return graphs[-1]
+
+    DeviceFleet._capture = recorded
+    try:
+        yield graphs
+    finally:
+        DeviceFleet._capture = capture
+
+
+def _tick_checked(kernels, fleet, tick, expect, call, shards=1):
+    """``call()``, the ``tick``-th ``DeviceFleet.tick`` of ``fleet`` (from
+    its first), each of whose ``shards`` shards launches ``expect`` (and
+    K10) a tick. A graphed fleet's first tick captures a graph a shard,
+    calling each wrapper twice (the warm-up and the recording), and its
+    later ticks replay them, calling none; each graph records ``expect``
+    and has replayed once a tick. An eager fleet calls the wrappers every
+    tick. Returns what ``call`` returned."""
+    expect = _solves(expect, 1)
+    before = kernels.launch_counts()
+    out = call()
+    made = _launches_made(kernels, before)
+    if fleet._graphed():
+        want = {k: 2 * shards * n for k, n in expect.items()} if tick == 0 else {}
+        graphs = fleet.tick_graphs[None]
+        graphs = graphs if isinstance(graphs, list) else [graphs]
+        assert len(graphs) == shards and all(
+            g.launches == expect and g.replays == tick + 1 for g in graphs), (
+            f"tick {tick}: graphs {[(g.launches, g.replays) for g in graphs]}")
+    else:
+        want = {k: shards * n for k, n in expect.items()}
+    assert made == want, f"tick {tick}: wrapper calls {made}, expected {want}"
+    return out
+
+
 def _zero_launches(kernels):
     """Every kernel wrapper's launch count back to 0."""
     for counter in (*kernels.SWEEP_KERNELS.values(), kernels.scan_to_grid_cells,
@@ -2923,20 +2980,22 @@ def phase_peers(kernels, device):
     is stopped (factor 0, zero command) on every tick, and no two robots
     come closer than the sum of their radii. Then a peer fleet without
     prediction and tracked slots launches the static sweep K1 once per
-    tick. Returns the launches per kernel."""
+    tick. Each fleet's tick is one CUDA graph (``_tick_checked``; the sync
+    guard wraps the tick program for its warm-up and capture). Returns
+    the launches per kernel that the card ran (each graph's warm-up and
+    replays) and the wrapper calls."""
     import torch
 
     launches = {}
+    start = kernels.launch_counts()
     for backend, key in PEER_FORMS:
         fleet, drive = make_peer_fleet(device, backend)
         fleet._tick_fn = sync_guarded(fleet._tick_fn)
         ties, wall_min, found = [], 1.0, 0
         for tick in range(PEER_TICKS):
-            before = kernels.launch_counts()
             carry = [t.cpu() for t in fleet._carry]
-            out = fleet.tick(*drive.inputs()[:4], tracked=drive.inputs()[4])
-            made = _launches_made(kernels, before)
-            assert made == _solves({key: 1}, 1), f"{backend} tick {tick}: launches {made}"
+            out = _tick_checked(kernels, fleet, tick, {key: 1}, lambda: fleet.tick(
+                *drive.inputs()[:4], tracked=drive.inputs()[4]))
             _assert_finite(out, f"{backend} tick {tick}")
             if tick in PEER_CPU_TICKS:
                 _peer_cpu_check(fleet, carry, out, tick, ties)
@@ -2946,33 +3005,33 @@ def phase_peers(kernels, device):
             wall_min = min(wall_min, float(out["safety_factor"][drive.wall][:-1].min()))
             found += int(out["found"].sum())
             drive.advance(out)
-        launches[key] = PEER_TICKS
-        launches["K10"] = launches.get("K10", 0) + PEER_TICKS
+        runs = PEER_TICKS + fleet._graphed()  # the capture's warm-up ran too
+        launches[key] = runs
+        launches["K10"] = launches.get("K10", 0) + runs
         torch.cuda.synchronize()
         log(f"peers + prediction + safety ({backend}, {key}): {FLEET_ROBOTS} robots x "
             f"{PEER_TICKS} ticks, {PEER_ROWS} + {PEER_SHAPE[4]} rows per sweep; "
-            f"sync-checked ticks {fleet._tick_fn.calls}; found {found}/"
+            f"sync-checked tick program calls {fleet._tick_fn.calls}; found {found}/"
             f"{FLEET_ROBOTS * PEER_TICKS}; closest pair {drive.min_pair:.3f} m "
             f"(radii sum {2 * PEER_RADIUS}); wall robots' min safety factor "
             f"{wall_min:.4f}; boxed robot stopped every tick; CPU-checked rows "
             f"{len(PEER_CPU_TICKS) * len(PEER_CPU_ROBOTS)}, ties {ties}")
-        assert fleet._tick_fn.calls == PEER_TICKS
+        assert fleet._tick_fn.calls == (2 if fleet._graphed() else PEER_TICKS)
         assert drive.min_pair > 2 * PEER_RADIUS, f"{backend}: robots collided"
         assert wall_min < 1.0, f"{backend}: no wall robot was slowed"
         del fleet
     fleet, drive = make_peer_fleet(device, "xla", predict=False, tracked=0)
     for tick in range(PEER_STATIC_TICKS):
-        before = kernels.launch_counts()
-        out = fleet.tick(*drive.inputs()[:4], tracked=drive.inputs()[4])
-        assert _launches_made(kernels, before) == _solves({"K1": 1}, 1), (
-            "peers without prediction")
+        out = _tick_checked(kernels, fleet, tick, {"K1": 1}, lambda: fleet.tick(
+            *drive.inputs()[:4], tracked=drive.inputs()[4]))
         drive.advance(out)
-    launches["K1"] = PEER_STATIC_TICKS
-    launches["K10"] += PEER_STATIC_TICKS
+    runs = PEER_STATIC_TICKS + fleet._graphed()
+    launches["K1"] = runs
+    launches["K10"] += runs
     log(f"peers without prediction or tracked slots: {PEER_STATIC_TICKS} ticks, one "
         f"static sweep (K1) each; closest pair {drive.min_pair:.3f} m")
     torch.cuda.empty_cache()
-    return launches
+    return launches, _launches_made(kernels, start)
 
 
 def phase_peer_ticks(kernels, device):
@@ -3448,14 +3507,14 @@ def phase_box_sweeps_vs_plain(kernels, device):
 def phase_split_fleet(kernels, device):
     """The split tracked fleet: 64 robots, the fleet slice's movers in
     their own sweep, SPLIT_TICKS closed-loop ticks on the card. Every tick
-    launches K1 (512 + 384 rows) and K3s (8 rows) once and makes no host
-    sync; its outputs equal the tail-slot fleet's on the card bit for bit
+    (a replay of its CUDA graph, ``_tick_checked``) launches K1 (512 + 384
+    rows) and K3s (8 rows) once, and the tick program makes no host sync; its outputs equal the tail-slot fleet's on the card bit for bit
     (the same inputs and carry: a min over the same rows); at
     SPLIT_CPU_TICKS 4 robots' rows agree with the CPU. Then the k = 8
     graph, replay == eager, TICKS_CALLS calls. Then SPLIT_WIDE_TICKS ticks
     of a side run past K3s's point-major rows (its launches counted apart).
-    Returns the main path's launches (the 8-slot split fleet's; the
-    tail-slot fleet is the comparison)."""
+    Returns the main path's launches that the card ran (the 8-slot split
+    fleet's; the tail-slot fleet is the comparison)."""
     import torch
 
     split, lanes, circles = make_fleet(device, split=True)
@@ -3463,16 +3522,12 @@ def phase_split_fleet(kernels, device):
     assert split.spec.solver.scan_size == SPLIT_ROWS and not split.spec.solver.moving_obstacles
     drive = FleetDrive(lanes, circles, FLEET_TRACKED)
     split._tick_fn = sync_guarded(split._tick_fn)
-    launches, ties, found = {}, [], 0
+    ties, found = [], 0
     for tick in range(SPLIT_TICKS):
         inputs = drive.inputs()
         carry = [t.cpu() for t in split._carry]
-        before = kernels.launch_counts()
-        out = split.tick(*inputs)
-        made = _launches_made(kernels, before)
-        assert made == _solves({"K1": 1, "K3s": 1}, 1), f"split tick {tick}: launches {made}"
-        for k, n in made.items():
-            launches[k] = launches.get(k, 0) + n
+        out = _tick_checked(kernels, split, tick, {"K1": 1, "K3s": 1},
+                            lambda: split.tick(*inputs))
         ref = tail.tick(*inputs)
         for key in out:
             assert np.array_equal(out[key], ref[key]), f"split tick {tick}: {key} != tail"
@@ -3480,7 +3535,9 @@ def phase_split_fleet(kernels, device):
             _fleet_cpu_check(split, carry, out, tick, ties)
         found += int(out["found"].sum())
         drive.advance(out)
-    assert split._tick_fn.calls == SPLIT_TICKS
+    runs = SPLIT_TICKS + split._graphed()  # the capture's warm-up ran too
+    launches = _solves({"K1": runs, "K3s": runs}, runs)
+    assert split._tick_fn.calls == (2 if split._graphed() else SPLIT_TICKS)
     assert found >= 0.9 * FLEET_ROBOTS * SPLIT_TICKS, "the split fleet lost its way"
     log(f"split mover sweep: {FLEET_ROBOTS} robots x {SPLIT_TICKS} ticks, scan bucket "
         f"{SPLIT_ROWS} + {FLEET_TRACKED} mover rows; == the tail-slot fleet bit for bit "
@@ -3499,20 +3556,16 @@ def phase_split_fleet(kernels, device):
     split, lanes, circles = make_fleet(device, tracked=wide, split=True)
     tail, _, _ = make_fleet(device, tracked=wide)
     drive = FleetDrive(lanes, circles, wide)
-    wide_launches = {}
     for tick in range(SPLIT_WIDE_TICKS):
         inputs = drive.inputs()
-        before = kernels.launch_counts()
-        out = split.tick(*inputs)
-        made = _launches_made(kernels, before)
-        assert made == _solves({"K1": 1, "K3s": 1}, 1), (
-            f"wide split tick {tick}: launches {made}")
-        for k, n in made.items():
-            wide_launches[k] = wide_launches.get(k, 0) + n
+        out = _tick_checked(kernels, split, tick, {"K1": 1, "K3s": 1},
+                            lambda: split.tick(*inputs))
         ref = tail.tick(*inputs)
         for key in out:
             assert np.array_equal(out[key], ref[key]), f"wide split tick {tick}: {key}"
         drive.advance(out)
+    runs = SPLIT_WIDE_TICKS + split._graphed()
+    wide_launches = _solves({"K1": runs, "K3s": runs}, runs)
     log(f"split mover sweep with {wide} tracked slots (K3s past its point-major "
         f"{kernels.POINT_MAJOR_ROWS} rows, K3's layout): {SPLIT_WIDE_TICKS} ticks == the "
         f"tail-slot fleet bit for bit; its launches {wide_launches} (a side run: not "
@@ -3526,7 +3579,8 @@ def phase_box_fleet(kernels, device):
     """The mixed circle + BOX fleet (every fourth of PeerDrive's 64 robots
     a BOX) with peers, prediction, 8 tracked slots and the safety gate:
     BOX_FLEET_TICKS closed-loop ticks on the card, K3 and K9 once each per
-    tick, no host sync, 4 robots' rows on BOX_CPU_TICKS against the CPU,
+    tick (a graph replay, ``_tick_checked``), no host sync in the tick
+    program, 4 robots' rows on BOX_CPU_TICKS against the CPU,
     the boxed robot stopped, no two robots closer than a box's half width
     plus a circle's radius; then its k = 8 graph (replay == eager).
     Returns the main path's launches."""
@@ -3539,16 +3593,12 @@ def phase_box_fleet(kernels, device):
     assert np.array_equal(box2[::BOX_EVERY], np.tile(np.float32(FLEET_BOX_PARAMS[:2]) / 2,
                                                      (FLEET_ROBOTS // BOX_EVERY, 1)))
     fleet._tick_fn = sync_guarded(fleet._tick_fn)
-    launches, ties, found = {}, [], 0
+    ties, found = [], 0
     for tick in range(BOX_FLEET_TICKS):
         inputs = drive.inputs()
         carry = [t.cpu() for t in fleet._carry]
-        before = kernels.launch_counts()
-        out = fleet.tick(*inputs[:4], tracked=inputs[4])
-        made = _launches_made(kernels, before)
-        assert made == _solves({"K3": 1, "K9": 1}, 1), f"box fleet tick {tick}: launches {made}"
-        for k, n in made.items():
-            launches[k] = launches.get(k, 0) + n
+        out = _tick_checked(kernels, fleet, tick, {"K3": 1, "K9": 1},
+                            lambda: fleet.tick(*inputs[:4], tracked=inputs[4]))
         _assert_finite(out, f"box fleet tick {tick}")
         if tick in BOX_CPU_TICKS:
             _peer_cpu_check(fleet, carry, out, tick, ties)
@@ -3565,6 +3615,9 @@ def phase_box_fleet(kernels, device):
         f"ties {ties}")
     assert drive.min_pair > clear, "BOX fleet robots collided"
     assert found >= 0.8 * FLEET_ROBOTS * BOX_FLEET_TICKS, "the BOX fleet lost its way"
+    assert fleet._tick_fn.calls == (2 if fleet._graphed() else BOX_FLEET_TICKS)
+    runs = BOX_FLEET_TICKS + fleet._graphed()  # the capture's warm-up ran too
+    launches = _solves({"K3": runs, "K9": runs}, runs)
     del fleet
     fleet, drive = make_peer_fleet(device, box_every=BOX_EVERY, wall_gap=TICKS_WALL_GAP,
                                    wall_speed=TICKS_WALL_SPEED)
@@ -4661,28 +4714,25 @@ def _lane_pair(device, backend, tracked):
 def _mesh_ticks(kernels, pair, ticks, expect, label, gathers_per_tick):
     """``ticks`` closed-loop single ticks of a (mesh, one-device) pair on
     the same inputs: the mesh launches MESH_SHARDS times the one device's
-    ``expect`` per tick, its outputs equal the one device's bit for bit,
-    and its gathers count ``gathers_per_tick`` per tick. Returns the mesh
-    launches."""
+    ``expect`` (K10 added) per tick (``_tick_checked``: a graph a shard
+    without peers, eager with them), its outputs equal the one device's
+    bit for bit, and its gathers count ``gathers_per_tick`` per tick.
+    Returns the mesh launches that the card ran (a graphed mesh's
+    warm-up and replays)."""
     sharded, one, mesh, drive = pair
-    made_total = {}
     for tick in range(ticks):
         inputs = drive.inputs()
-        made_m, got = _counted(kernels, lambda: sharded.tick(*inputs[:4],
-                                                             tracked=inputs[4]))
-        made_1, want = _counted(kernels, lambda: one.tick(*inputs[:4],
-                                                          tracked=inputs[4]))
-        assert made_1 == expect, f"{label} tick {tick}: one device launched {made_1}"
-        assert made_m == {k: MESH_SHARDS * n for k, n in expect.items()}, (
-            f"{label} tick {tick}: the mesh launched {made_m}")
+        got = _tick_checked(kernels, sharded, tick, expect, lambda: sharded.tick(
+            *inputs[:4], tracked=inputs[4]), MESH_SHARDS)
+        want = _tick_checked(kernels, one, tick, expect, lambda: one.tick(
+            *inputs[:4], tracked=inputs[4]))
         _outputs_equal(got, want, f"{label} tick {tick}")
         _assert_finite(got, f"{label} tick {tick}")
         assert mesh.collectives == {"all_gather": gathers_per_tick * (tick + 1),
                                     "all_reduce": 0}, mesh.collectives
-        for k, n in made_m.items():
-            made_total[k] = made_total.get(k, 0) + n
         drive.advance(want)
-    return made_total
+    runs = MESH_SHARDS * (ticks + sharded._graphed())
+    return _solves({k: runs * n for k, n in expect.items()}, runs)
 
 
 def _mesh_graph_calls(kernels, pair, key, label):
@@ -4740,8 +4790,7 @@ def phase_mesh_fleet(kernels, device):
     for backend, key in PEER_FORMS:
         pair = _peer_pair(device, backend)
         sharded, one, mesh, drive = pair
-        add(_mesh_ticks(kernels, pair, MESH_TICKS, _solves({key: 1}, 1),
-                        f"mesh peers {backend}", 1))
+        add(_mesh_ticks(kernels, pair, MESH_TICKS, {key: 1}, f"mesh peers {backend}", 1))
         for call in range(MESH_K_CALLS):
             inputs = drive.inputs()
             made_m, got = _counted(kernels, lambda: sharded.run_ticks_on_device(
@@ -4765,7 +4814,7 @@ def phase_mesh_fleet(kernels, device):
              _peer_pair(device, "xla", predict=False, tracked=0), "K1", 1),
             ("tracked, no peers", _lane_pair(device, "xla", FLEET_TRACKED), "K3", 0),
             ("static pallas_vpu, no peers", _lane_pair(device, "pallas_vpu", 0), "K6", 0)):
-        add(_mesh_ticks(kernels, pair, 1, _solves({key: 1}, 1), f"mesh {label}", gathers))
+        add(_mesh_ticks(kernels, pair, 1, {key: 1}, f"mesh {label}", gathers))
         log(f"mesh fleet, {label}: 1 tick == one device bit for bit, {key} x "
             f"{MESH_SHARDS}, gathers {pair[2].collectives}")
         if key == "K3":
@@ -5632,8 +5681,9 @@ def phase_examples(kernels, device, card):
     bit-identical on the card), the vision and offline host workflows (no
     launch); then ``python examples_torch/full_stack_demo.py`` with no
     arguments, which plans on the card by default.
-    Returns the launches by kernel: the wrapper calls of the card runs and
-    of the k-tick loop's warm-ups, plus its replays."""
+    Returns the launches by kernel that the card ran: the wrapper calls of
+    the card runs, less each fleet graph's recording, plus its replays
+    (``_card_runs``)."""
     import importlib
 
     t0 = time.perf_counter()
@@ -5644,13 +5694,17 @@ def phase_examples(kernels, device, card):
 
     def on_card(label, fn, expect):
         start = time.perf_counter()
-        made, fig = _counted(kernels, fn)
+        with _fleet_graphs() as graphs:
+            made, fig = _counted(kernels, fn)
         wall = time.perf_counter() - start
         assert set(made) == set(expect) and all(made.values()), (label, made)
-        for key, n in made.items():
+        ran = _card_runs(made, graphs)
+        for key, n in ran.items():
             launches[key] = launches.get(key, 0) + n
-        report[label] = {"wall_s": round(wall, 3), "launches": made}
-        log(f"workflow {label} on the card ({card}): {wall:.2f} s, wrapper calls {made}")
+        report[label] = {"wall_s": round(wall, 3), "launches": ran, "wrapper_calls": made,
+                         "fleet_graphs": len(graphs)}
+        log(f"workflow {label} on the card ({card}): {wall:.2f} s, wrapper calls {made}, "
+            f"{len(graphs)} fleet graphs, launches {ran}")
         return fig
 
     full = demo("full_stack_demo")
@@ -5675,7 +5729,11 @@ def phase_examples(kernels, device, card):
     timings = {}
     card_fig = on_card("fleet lanes", lambda: fleet.run(
         device, EXAMPLE_LANE_ROBOTS, timings=timings), ("K1", "K10"))
-    assert card_fig["ticks"] == report["fleet lanes"]["launches"]["K1"], card_fig
+    # one tick graph: its capture's two wrapper calls, and on the card its
+    # warm-up and one replay a tick
+    lanes = report["fleet lanes"]
+    assert lanes["wrapper_calls"]["K1"] == 2 and lanes["fleet_graphs"] == 1, lanes
+    assert card_fig["ticks"] + 1 == lanes["launches"]["K1"], card_fig
     steady = timings["steady_tick_s"] * 1e3
     report["fleet lanes"]["steady_tick_ms"] = steady
     log(f"fleet demo ({card}): {fleet.lines(card_fig)[0]}; steady tick {steady:.3f} ms")
@@ -5691,15 +5749,13 @@ def phase_examples(kernels, device, card):
         timings = {}
         card_fig = on_card(f"rtt k={k}", lambda: rtt.run(device, k, timings=timings),
                            ("K1", "K10"))
-        # the wrappers counted each single tick, the k-tick loop's warm-up and
-        # its capture; the card ran the warm-up and one replay per call
-        made = report[f"rtt k={k}"]["launches"]
-        n = 1 + rtt.N_SINGLE + 2 * k
+        # the wrappers counted the warm-up and the capture of the tick's
+        # graph and of the k-tick loop's; the card ran each warm-up and one
+        # replay per call (1 + N_SINGLE ticks, 1 + N_BATCHES k-tick calls)
+        wrapped, made = (report[f"rtt k={k}"][key] for key in ("wrapper_calls", "launches"))
+        assert wrapped == _solves({"K1": 2 + 2 * k}, 2 + 2 * k), wrapped
+        n = 2 + rtt.N_SINGLE + 2 * k + k * rtt.N_BATCHES
         assert made == _solves({"K1": n}, n), made
-        replays = k * (1 + rtt.N_BATCHES) - k
-        for key in ("K1", "K10"):
-            launches[key] += replays
-            made[key] += replays
         _same_as_printed(rtt, card_fig, rtt.run("cpu", k))
         report[f"rtt k={k}"].update(timings)
         log(f"rtt serving ({card}): single tick {timings['single_ms']:.3f} ms, k = {k} "
@@ -5890,7 +5946,7 @@ def main() -> int:
     phase_emergency(device)
     _elapsed(t_start, "emergency")
     _zero_launches(kernels)
-    peer_launches = phase_peers(kernels, device)
+    peer_launches, peer_wrapped = phase_peers(kernels, device)
     _elapsed(t_start, "peers")
     peer_ticks = phase_peer_ticks(kernels, device)
     _elapsed(t_start, "peer_ticks")
@@ -5899,9 +5955,9 @@ def main() -> int:
     # call, and its capture, which launches nothing; its replays launch
     # without a wrapper (phase_peer_ticks counts them); K10 in every form
     per_form = (2 + TICKS_CALLS) * TICKS_K
-    assert counted == {k: peer_launches.get(k, 0)
+    assert counted == {k: peer_wrapped.get(k, 0)
                        + per_form * (len(PEER_FORMS) if k == "K10" else k in peer_ticks)
-                       for k in set(peer_launches) | set(peer_ticks)}, counted
+                       for k in set(peer_wrapped) | set(peer_ticks)}, counted
     for key, n in peer_ticks.items():
         peer_launches[key] = peer_launches.get(key, 0) + n
     log(f"peer path main-path launches: {peer_launches} (wrapper calls, the eager "

@@ -71,7 +71,7 @@ def run(device, k=8, timings=None):
     vel = np.zeros((1, 3))
     ranges = np.full((1, N_RAYS), 10.0)
 
-    # warm both programs (the card's first k-tick call captures its graph)
+    # warm both programs (on the card the first call of each captures its graph)
     fleet.run_ticks_on_device(k, state, vel, ranges, angles)
     fleet.tick(state, vel, ranges, angles)
 

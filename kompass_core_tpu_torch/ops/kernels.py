@@ -909,10 +909,10 @@ for _wrapper in SWEEP_KERNELS.values():
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count by its PERF.md name (K1-K10,
     K3s): calls of the wrappers, so a CUDA graph's replay adds nothing.
-    A k-tick graph's replayed launches are its ``TickGraph.launches``
-    (what its capture made) times its ``replays``
-    (``parallel/fleet_v2.py``; the ``fleet.graph_replays`` counter of
-    ``utils/tracing.py`` counts every replay)."""
+    A fleet graph's (the tick's or a k-tick loop's) replayed launches are
+    its ``TickGraph.launches`` (what its capture made) times its
+    ``replays`` (``parallel/fleet_v2.py``; the ``fleet.graph_replays``
+    counter of ``utils/tracing.py`` counts every replay)."""
     counts = {k: w.launches for k, w in SWEEP_KERNELS.items()}
     counts["K5"] = scan_to_grid_cells.launches
     counts["K10"] = goal_nearest.launches

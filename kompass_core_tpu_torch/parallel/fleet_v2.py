@@ -13,10 +13,11 @@ into each other; only the JAX chunk loop is gone.
 
 ``run_ticks_on_device`` runs k carry-chained ticks per call
 (``ops/fleet_solver.py::make_fleet_ticks_on_device``). On a CUDA device
-the k ticks are one CUDA graph, captured on the first call for each k and
-replayed after: the counterpart of the JAX package's single jitted
-dispatch, so the host enqueues one graph instead of k ticks' hundreds of
-kernels. On the CPU the same loop runs eagerly.
+``tick`` and the k ticks are each one CUDA graph, captured on the first
+call (for each k) and replayed after: the counterpart of the JAX
+package's single jitted dispatch, so the host enqueues one graph instead
+of a tick's hundreds of kernels. On the CPU the same programs run
+eagerly.
 
 With ``peer_avoidance`` every robot sees the others as obstacle discs in
 its sweep, re-derived from the fleet's states every tick (inside the
@@ -34,16 +35,17 @@ fleet tick per shard (``ops/fleet_solver.py``; one state all-gather per
 tick with peers, none without) and reads the outputs back in fleet row
 order. Under a process group every process passes the whole fleet's
 inputs and gets back its own robots' rows (``local_robots``). Without
-peers the mesh's k-tick loop is row-local: on CUDA devices each shard
-captures and replays the one-device loop's graph on its rows. With
-peers it gathers the shards' live states every tick and runs eagerly.
+peers the mesh's tick and k-tick loop are row-local: on CUDA devices each
+shard captures and replays the one-device program's graph on its rows.
+With peers they gather the shards' live states every tick and run
+eagerly.
 
 Each entry call is a ``fleet.call`` span of ``utils/tracing.py`` over
 ``fleet.pack`` (``_prepare_tick_inputs``), ``fleet.capture`` (when a graph
 is captured), ``fleet.enqueue`` (the input copy and the tick program's
 enqueue, or a graph replay) and ``fleet.fetch`` (the output copy and
 dict); the counters ``fleet.graph_captures`` and ``fleet.graph_replays``
-count the k-tick graphs' captures and replays. While spans are on,
+count the tick and k-tick graphs' captures and replays. While spans are on,
 ``fleet.samples`` counts the robot-samples a call rolls out (rows ×
 samples × ticks) and ``fleet.dead_samples`` those of them that a
 non-omni robot of an omni-shaped grid can never take (n_vx × (n_vy − 1)
@@ -101,8 +103,9 @@ class FleetSafetyConfig:
 
 @dataclasses.dataclass
 class TickGraph:
-    """One captured k-tick loop: the graph, the static tensors it reads
-    (``inputs``, ``carry``) and writes (``carry_out``, ``out``: the
+    """One captured program, the single tick or a k-tick loop: the graph,
+    the static tensors it reads (``inputs``, ``carry``) and writes
+    (``carry_out``, ``out``: the tick's outputs [N, F], or the loop's
     per-tick outputs [N, k * F] then the final states [N, 4]), and the
     tensors of the fleet it read at capture (``paths``, ``angles`` and
     the ``safety`` tables, rebuilt with the angle grid; a new tensor there
@@ -122,6 +125,15 @@ class TickGraph:
     stages: list = dataclasses.field(default_factory=list)
     launches: dict = dataclasses.field(default_factory=dict)
     replays: int = 0
+
+
+def graph_is_stale(graph, paths, angles, safety) -> bool:
+    """Whether ``graph`` read other path, angle or safety tensors than
+    ``paths``, ``angles`` and ``safety``: ``set_paths``,
+    ``load_state_dict`` and a new angle grid (with its safety tables) put
+    new tensors in place, which a replay would not read. ``update_path``
+    writes rows in place, which it does."""
+    return graph.paths is not paths or graph.angles is not angles or graph.safety is not safety
 
 
 class DeviceFleet:
@@ -281,7 +293,8 @@ class DeviceFleet:
             safety=self._safety_cfgs is not None,
         )
         self._ticks_fns = {}  # k -> the eager k-tick loop
-        self.tick_graphs = {}  # k -> TickGraph (a list of one per shard on a mesh)
+        # k -> TickGraph (a list of one per shard on a mesh), None the tick's
+        self.tick_graphs = {}
         self._scan_rays = scan_rays
 
         # per-robot config arrays
@@ -536,7 +549,7 @@ class DeviceFleet:
         ONLY its follower carry, in place on the device; every other
         robot's tracking state is untouched. Under a mesh only the shard
         that holds robot i is written (in another process's shard, none
-        here)."""
+        here). A captured graph reads the new row on its next replay."""
         if self._paths is None:
             raise ValueError("update_path before set_paths")
         if not 0 <= i < self.num_robots:
@@ -756,11 +769,11 @@ class DeviceFleet:
         return self._ticks_fns[k]
 
     def _graphed(self) -> bool:
-        """Whether ``run_ticks_on_device`` replays CUDA graphs: on a CUDA
-        device, and on a mesh of CUDA devices without peers, where each
-        shard's loop is row-local and replays a graph of its own. With
-        peers every tick of the mesh's loop gathers the shards' states,
-        and the loop runs eagerly."""
+        """Whether ``tick`` and ``run_ticks_on_device`` replay CUDA graphs:
+        on a CUDA device, and on a mesh of CUDA devices without peers,
+        where each shard's program is row-local and replays a graph of its
+        own. With peers every tick of the mesh gathers the shards' states,
+        and the mesh runs eagerly."""
         if self.mesh is None:
             return self._device.type == "cuda"
         return (self._peer_cfg is None
@@ -780,54 +793,61 @@ class DeviceFleet:
                  safety[d], slice(first + d * n_loc, first + (d + 1) * n_loc))
                 for d, dev in enumerate(self.mesh.devices)]
 
-    def _shard_ticks_fn(self, k: int, device):
-        """The one-device k-tick loop on a shard's ``device``: a mesh
-        fleet without peers runs it per shard."""
+    def _shard_fn(self, k: Optional[int], device):
+        """The one-device program on a shard's ``device``: the tick for
+        ``k`` None, else the k-tick loop. A mesh fleet without peers runs
+        it per shard."""
         if self.mesh is None:
-            return self.ticks_fn(k)
+            return self._tick_fn if k is None else self.ticks_fn(k)
         if (k, device) not in self._ticks_fns:
-            self._ticks_fns[(k, device)] = make_fleet_ticks_on_device(
-                self.spec, k, device, safety=self._safety_cfgs is not None)
+            safety = self._safety_cfgs is not None
+            self._ticks_fns[(k, device)] = (
+                make_fleet_tick(self.spec, device, safety=safety) if k is None
+                else make_fleet_ticks_on_device(self.spec, k, device, safety=safety))
         return self._ticks_fns[(k, device)]
 
-    def _capture(self, k: int, device, paths, cfg, carry, angles, safety,
+    def _capture(self, k: Optional[int], device, paths, cfg, carry, angles, safety,
                  rows) -> TickGraph:
-        """Capture one shard's k-tick loop on its tensors as one CUDA graph
-        on its device, after one eager warm-up run on a side stream (what
-        PyTorch's graph capture requires). A capture that fails raises."""
-        fn = self._shard_ticks_fn(k, device)
+        """Capture one shard's tick (``k`` None) or k-tick loop on its
+        tensors as one CUDA graph on its device, after one eager warm-up
+        run on a side stream (what PyTorch's graph capture requires). A
+        capture that fails raises."""
+        fn = self._shard_fn(k, device)
         inputs = torch.tensor(self._inputs[rows], device=device)
         carry = FleetCarry(*(t.clone() for t in carry))
         args = (paths, cfg, carry, angles, inputs,
                 *(() if safety is None else (safety,)))
         launches = {}
 
-        def ticks():
+        def program():
             before = launch_counts()
-            carry_out, outs, final = fn(*args)
+            if k is None:
+                carry_out, out = fn(*args)
+            else:
+                carry_out, outs, final = fn(*args)
+                out = torch.cat([outs.flatten(1), final], dim=1)
             if torch.cuda.is_current_stream_capturing():
                 launches.update((name, n - before[name])
                                 for name, n in launch_counts().items() if n != before[name])
-            return carry_out, torch.cat([outs.flatten(1), final], dim=1)
+            return carry_out, out
 
         with (tracing.span("fleet.capture"), tracing.capture_log() as stages,
               torch.cuda.device(device)):
-            graph, (carry_out, out) = capture(ticks, device)
+            graph, (carry_out, out) = capture(program, device)
         tracing.count("fleet.graph_captures")
         return TickGraph(graph, inputs, carry, carry_out, out, paths, angles, safety,
                          stages, launches)
 
-    def _tick_graphs(self, k: int) -> list:
-        """The k-tick graphs, one per shard (the whole fleet on one
-        device), captured anew when the fleet's path tables or angle grid
-        (and with it the safety tables) are new tensors.
-        ``tick_graphs[k]`` is the TickGraph, or on a mesh the list of the
-        shards' TickGraphs."""
+    def _tick_graphs(self, k: Optional[int]) -> list:
+        """The graphs of the tick (``k`` None) or of the k-tick loop, one
+        per shard (the whole fleet on one device), captured anew when any
+        graph of the fleet is stale (``graph_is_stale``), which frees them
+        all. ``tick_graphs[k]`` is the TickGraph, or on a mesh the list of
+        the shards' TickGraphs."""
         shards = self._shards()
         for key, old in list(self.tick_graphs.items()):
             graphs = old if isinstance(old, list) else [old]
-            if any(g.paths is not s[1] or g.angles is not s[4] or g.safety is not s[5]
-                   for g, s in zip(graphs, shards)):
+            if any(graph_is_stale(g, s[1], s[4], s[5]) for g, s in zip(graphs, shards)):
                 del self.tick_graphs[key]  # stale: free its memory first
         if k not in self.tick_graphs:
             graphs = [self._capture(k, *shard) for shard in shards]
@@ -836,8 +856,9 @@ class DeviceFleet:
         return graphs if isinstance(graphs, list) else [graphs]
 
     def _replay(self, graphs: list):
-        """(carry', the [N, k * F + 4] output matrix) of one replay of the
-        shards' k-tick ``graphs`` (on a mesh: lists of both)."""
+        """(carry', the output matrix: [N, F] of the tick, [N, k * F + 4]
+        of a k-tick loop) of one replay of the shards' ``graphs`` (on a
+        mesh: lists of both)."""
         for g, shard in zip(graphs, self._shards()):
             g.inputs.copy_(torch.from_numpy(self._inputs[shard[6]]))
             for static, value in zip(g.carry, shard[3]):
@@ -865,9 +886,7 @@ class DeviceFleet:
         frozen world points from the current pose. On a CUDA device the k
         ticks run as one CUDA graph (captured on the first call for each
         k, and again after ``set_paths``, ``load_state_dict`` or a new
-        angle grid); over a mesh of CUDA devices without peers each shard
-        replays a graph of its own; on the CPU, and over a mesh with
-        peers, they run eagerly.
+        angle grid), as ``tick`` does.
 
         Same inputs as ``tick``. Returns the usual output dict with a
         trailing per-tick axis ([num_robots, k] per field) plus
@@ -923,22 +942,36 @@ class DeviceFleet:
         [m_i, 4] world (x, y, vx, vy) rows; each enters the robot's sweep
         at its constant-velocity predicted position.
         Returns a dict of numpy arrays per robot (``OUT_FIELDS``; the rows
-        of ``local_robots`` under a process group)."""
+        of ``local_robots`` under a process group).
+
+        On a CUDA device the tick is one CUDA graph of the tick program
+        (``_tick_fn``), captured on the first call, and again after
+        ``set_paths``, ``load_state_dict`` or a new angle grid; each call
+        copies the inputs and the carry into it, replays it and reads its
+        outputs. Over a mesh of CUDA devices without peers each shard
+        replays a graph of its own; on the CPU, and over a mesh with peers,
+        the tick runs eagerly."""
         t0 = time.perf_counter()
         with tracing.span("fleet.call"):
             with tracing.span("fleet.pack"):
                 safety = self._prepare_tick_inputs(states, vels, ranges, angles,
                                                    tracked)
             self._count_samples(1)
+            graphs = self._tick_graphs(None) if self._graphed() else None
             with tracing.span("fleet.enqueue"):
-                inputs = self._put(self._inputs)  # one copy in (per shard)
-                self._carry, out_mat = self._tick_fn(
-                    self._paths, self._cfg, self._carry, self._angles, inputs, *safety
-                )
+                if graphs is not None:
+                    self._carry, out_mat = self._replay(graphs)
+                else:
+                    inputs = self._put(self._inputs)  # one copy in (per shard)
+                    self._carry, out_mat = self._tick_fn(
+                        self._paths, self._cfg, self._carry, self._angles, inputs,
+                        *safety)
             with tracing.span("fleet.fetch"):
                 out_np = self._host(out_mat)[: len(self.local_robots)]  # one copy out
                 out = {k: out_np[:, i] for i, k in enumerate(OUT_FIELDS)}
                 out["found"] = out["found"] > 0.5
                 out["reached"] = out["reached"] > 0.5
+            for g in graphs or ():
+                tracing.replayed(g.stages)
         self.last_tick_seconds = time.perf_counter() - t0
         return out

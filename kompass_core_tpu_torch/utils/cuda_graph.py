@@ -1,5 +1,5 @@
-"""Capture of a function as one CUDA graph, shared by the fleet's k-tick
-loop (``parallel/fleet_v2.py``) and the planners' scans
+"""Capture of a function as one CUDA graph, shared by the fleet's tick and
+k-tick loop (``parallel/fleet_v2.py``) and the planners' scans
 (``planning/_scan.py``)."""
 
 from typing import Callable, Optional

@@ -203,7 +203,9 @@ def test_batched_static_kernel_equals_per_robot_launches(cuda):
 def test_fleet_tick_on_card_matches_cpu(cuda):
     """Four diff-drive robots with tracked movers: the same fleet tick on
     the card and on the CPU gives the same found, num_admissible and
-    command, and the cost within rel 1e-4; one moving-sweep launch."""
+    command, and the cost within rel 1e-4. The card's first tick captures
+    its graph: two moving-sweep wrapper calls (the warm-up's and the
+    capture's), one recorded in the graph."""
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits,
@@ -236,7 +238,8 @@ def test_fleet_tick_on_card_matches_cpu(cuda):
         f.set_paths([np.array([[0.0, 2.0 * i], [6.0, 2.0 * i]]) for i in range(4)])
     before = kernels.fused_min_dist_sq_moving.launches
     gpu, cpu = (f.tick(states, vels, ranges, angles, tracked=tracked) for f in fleets)
-    assert kernels.fused_min_dist_sq_moving.launches == before + 1
+    assert kernels.fused_min_dist_sq_moving.launches == before + 2
+    assert fleets[0].tick_graphs[None].launches == {"K3": 1, "K10": 1}
     for key in ("found", "reached", "num_admissible", "active_points", "vx",
                 "vy", "omega"):
         np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=key)
@@ -809,8 +812,9 @@ def test_peer_safety_fleet_tick_on_card_matches_cpu(cuda, predict, kernel):
     """Four robots with peers (with and without prediction) and the safety
     gate: the tick on the card and on the CPU gives the same found,
     num_admissible and safety factor, the command (or a tie) and the cost
-    within rel 1e-4; one sweep launch, static without prediction, and one
-    goal search (K10)."""
+    within rel 1e-4; the card's graph holds one sweep launch, static
+    without prediction, and one goal search (K10), and its capture called
+    each wrapper twice (the warm-up and the recording)."""
     from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
 
     kw = dict(peer_avoidance=True, peer_prediction=predict,
@@ -820,7 +824,8 @@ def test_peer_safety_fleet_tick_on_card_matches_cpu(cuda, predict, kernel):
     before = kernels.launch_counts()
     gpu, cpu = (f.tick(*inputs[:4]) for f in (gpu_fleet, cpu_fleet))
     made = {k: c - before[k] for k, c in kernels.launch_counts().items() if c != before[k]}
-    assert made == {kernel: 1, "K10": 1}
+    assert made == {kernel: 2, "K10": 2}
+    assert gpu_fleet.tick_graphs[None].launches == {kernel: 1, "K10": 1}
     for key in ("found", "reached", "num_admissible", "active_points", "safety_factor"):
         np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=key)
     assert (gpu["safety_factor"] < 1.0).all()
@@ -863,6 +868,139 @@ def test_k_tick_graph_replay_with_peers_and_safety(cuda):
     np.testing.assert_allclose(got["safety_factor"], want["safety_factor"], atol=1e-6)
     np.testing.assert_allclose(got["final_states"], want["final_states"],
                                rtol=1e-5, atol=1e-6)
+
+
+# --- DeviceFleet.tick as one CUDA graph ---------------------------------------
+
+TICK_CALLS = 6  # closed-loop calls of each benchmark fleet
+
+
+def _bench_fleet(cell, device, seed=2026):
+    """A benchmark cell's fleet and scene (``portbench``), driven one tick
+    a call: (fleet, scene)."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.harness.main import load_cell, make_scene, system_module
+
+    _, _, cfg, traffic, _ = load_cell(cell)
+    scene = make_scene(dict(traffic, k=1), cfg, seed)
+    fleet = system_module(cfg).build_fleet(cfg, scene.n, device)
+    fleet.set_paths(scene.paths)
+    fleet.set_scan_angles(scene.angles)
+    return fleet, scene
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("cell", ["disc1024.tick", "boxpeer64.k8", "omniack256.k8"])
+def test_graphed_tick_equals_the_eager_tick_program_bit_for_bit(cuda, cell):
+    """``DeviceFleet.tick`` on the card replays one captured graph of the
+    tick program: over closed-loop calls of a benchmark fleet, one tick a
+    call, every output column and the carry equal the eager tick program's
+    (``fleet._tick_fn`` on the same packed inputs and carry) bit for bit.
+    The fleets: 1024 disc robots at 2025 x 30 and 512 rays; the mixed
+    circle and BOX peer fleet with prediction, tracked movers and the beam
+    form of the safety gate; the mixed omni and Ackermann fleet at 1978 x
+    30."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS, FleetCarry
+
+    fleet, scene = _bench_fleet(cell, cuda)
+    for call in range(TICK_CALLS):
+        states, vels, ranges, tracked = scene.inputs()
+        safety = fleet._prepare_tick_inputs(states, vels, ranges, scene.angles, tracked)
+        carry = FleetCarry(*(t.clone() for t in fleet._carry))
+        want_carry, want = fleet._tick_fn(fleet._paths, fleet._cfg, carry, fleet._angles,
+                                          torch.tensor(fleet._inputs, device=cuda), *safety)
+        out = fleet.tick(states, vels, ranges, scene.angles, tracked=tracked)
+        got = np.stack([np.asarray(out[f], np.float32) for f in OUT_FIELDS], 1)
+        want = want[:scene.n].cpu().numpy()
+        differ = [f for i, f in enumerate(OUT_FIELDS)
+                  if not np.array_equal(_bits(got[:, i]), _bits(want[:, i]))]
+        assert not differ, f"call {call}: {differ} replay != eager"
+        for name, a, b in zip(FleetCarry._fields, fleet._carry, want_carry):
+            assert torch.equal(a, b), f"call {call}: carry {name}"
+        scene.advance(out)
+    graph = fleet.tick_graphs[None]
+    assert graph.replays == TICK_CALLS and list(fleet.tick_graphs) == [None]
+
+
+def test_tick_captures_once_replays_and_recaptures_on_new_tables(cuda):
+    """The safety-gated small fleet: the first tick captures, the second
+    replays the same graph without a wrapper call; ``update_path`` writes
+    in place, so the next tick replays the same graph and reads the new
+    row and the reset carry row (bit for bit the eager tick program on the
+    updated tables); ``set_paths`` and a new angle grid capture anew."""
+    from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS, FleetCarry
+    from kompass_core_tpu_torch.parallel.fleet_v2 import FleetSafetyConfig
+
+    fleet, inputs = _small_fleet(cuda, 2, safety_config=FleetSafetyConfig())
+    states, vels, ranges, angles, trk = inputs
+    before = kernels.launch_counts()
+    first = fleet.tick(*inputs[:4], tracked=trk)
+    graph = fleet.tick_graphs[None]
+    made = {k: c - before[k] for k, c in kernels.launch_counts().items() if c != before[k]}
+    assert made == {"K3": 2, "K10": 2} and graph.launches == {"K3": 1, "K10": 1}
+    before = kernels.launch_counts()
+    fleet.tick(*inputs[:4], tracked=trk)
+    assert fleet.tick_graphs[None] is graph and kernels.launch_counts() == before
+    assert graph.replays == 2
+
+    fleet.update_path(1, np.array([[0.0, 2.0], [0.0, 8.0]]))  # turns robot 1 left
+    assert fleet._carry.pos_in_seg[1].item() == -1.0
+    safety = fleet._prepare_tick_inputs(states, vels, ranges, angles, trk)
+    want_carry, want = fleet._tick_fn(
+        fleet._paths, fleet._cfg, FleetCarry(*(t.clone() for t in fleet._carry)),
+        fleet._angles, torch.tensor(fleet._inputs, device=cuda), *safety)
+    before = kernels.launch_counts()
+    out = fleet.tick(*inputs[:4], tracked=trk)
+    assert fleet.tick_graphs[None] is graph and kernels.launch_counts() == before
+    got = np.stack([np.asarray(out[f], np.float32) for f in OUT_FIELDS], 1)
+    assert np.array_equal(_bits(got), _bits(want[:4].cpu().numpy()))
+    assert all(torch.equal(a, b) for a, b in zip(fleet._carry, want_carry))
+    assert out["heading_error"][1] != first["heading_error"][1]
+    assert out["heading_error"][0] == first["heading_error"][0]
+
+    fleet.set_paths([np.array([[0.0, 2.0 * i], [5.0, 2.0 * i]]) for i in range(4)])
+    fleet.tick(*inputs[:4], tracked=trk)
+    renewed = fleet.tick_graphs[None]
+    assert renewed is not graph and renewed.replays == 1
+    fleet.tick(*inputs[:3], angles + np.float32(0.01), tracked=trk)
+    assert fleet.tick_graphs[None] is not renewed
+    assert fleet.tick_graphs[None].safety is fleet._safety
+
+
+@pytest.mark.parametrize("peers", [False, True])
+def test_mesh_tick_graphs_one_per_shard_and_none_with_peers(cuda, peers):
+    """The 4-robot fleet on a 2-shard mesh of the card: without peers its
+    tick captures one graph per shard on the first call and replays them
+    without a wrapper call after; with peers (and prediction) it holds no
+    graph and ticks eagerly. Both equal the one-device fleet bit for bit."""
+    from kompass_core_tpu_torch.parallel import FleetMesh
+
+    kw = dict(peer_avoidance=True, peer_prediction=True) if peers else {}
+    mesh = FleetMesh([cuda, cuda])
+    sharded, inputs = _small_fleet(None, 2, mesh=mesh, **kw)
+    one, _ = _small_fleet(cuda, 2, **kw)
+    for call in range(3):
+        before = kernels.launch_counts()
+        got = sharded.tick(*inputs[:4], tracked=inputs[4])
+        replayed = kernels.launch_counts() == before
+        want = one.tick(*inputs[:4], tracked=inputs[4])
+        for key in want:
+            assert np.array_equal(_bits(got[key]), _bits(want[key])), (call, key)
+        assert replayed == (call > 0 and not peers)
+    if peers:
+        assert not sharded.tick_graphs
+    else:
+        graphs = sharded.tick_graphs[None]
+        assert len(graphs) == 2 and all(g.replays == 3 for g in graphs)
+        assert mesh.collectives == {"all_gather": 0, "all_reduce": 0}
 
 
 # --- K3s and K9 (the split movers and BOX robots) --------------------------------
@@ -1012,7 +1150,9 @@ def test_k3s_in_a_cuda_graph_equals_the_eager_call(cuda):
 @pytest.mark.parametrize("form", ["split", "box"])
 def test_split_and_box_fleet_tick_on_card_matches_cpu(cuda, form):
     """A small split or mixed BOX fleet: the card's tick agrees with the
-    CPU's (the solver tolerances) and launches K3s or K9."""
+    CPU's (the solver tolerances), and its graph launches K3s or K9 once
+    (its capture called the wrapper twice: the warm-up and the
+    recording)."""
     from kompass_core_tpu_torch.control import DWAConfig
     from kompass_core_tpu_torch.models import (
         AngularCtrlLimits, LinearCtrlLimits, Robot, RobotCtrlLimits, RobotGeometry,
@@ -1050,7 +1190,8 @@ def test_split_and_box_fleet_tick_on_card_matches_cpu(cuda, form):
         fleet.set_paths([np.array([[0.0, 3.0 * i], [5.0, 3.0 * i]]) for i in range(3)])
         before = wrapper.launches
         outs.append(fleet.tick(states, np.zeros((3, 3)), ranges, angles, tracked=trk))
-        assert wrapper.launches == before + (1 if fleet.device.type == "cuda" else 0)
+        assert wrapper.launches == before + (2 if fleet.device.type == "cuda" else 0)
+    assert fleets[0].tick_graphs[None].launches[key] == 1
     gpu, cpu = outs
     for k in ("found", "num_admissible", "active_points"):
         np.testing.assert_array_equal(gpu[k], cpu[k])
@@ -1099,9 +1240,9 @@ def _omniack_fleet(device, n=4):
 @pytest.mark.parametrize("k", [None, 8])
 def test_omni_ackermann_fleet_at_1978x30_on_card_matches_cpu(cuda, k):
     """The omni grid's window, rollout and k-loop vy integration on the
-    card: the mixed fleet's eager tick (k None) or k = 8 graph replay
-    against the same calls on the CPU, every output field; the replay
-    bit for bit the card's eager loop; the omni robots strafe."""
+    card: the mixed fleet's tick graph (k None) or k = 8 graph replay
+    against the same calls on the CPU, every output field; the k = 8
+    replay bit for bit the card's eager loop; the omni robots strafe."""
     from kompass_core_tpu_torch.ops.fleet_solver import OUT_FIELDS
 
     (card, inputs), (cpu, _) = _omniack_fleet(cuda), _omniack_fleet("cpu")

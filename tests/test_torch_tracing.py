@@ -434,9 +434,9 @@ def test_card_outputs_are_bit_identical_with_tracing_on_and_off(cuda, k, peers):
     with tracing.enable():
         on = _calls(make(), k, 4, 21, peers)
     _assert_same(off, on)
-    # k = 8: the first call's capture warms up with one eager run of the
-    # loop, timed as the replays are
-    calls = 4 + (k is not None)
+    # the first call's capture warms up with one eager run of the tick or
+    # the loop, timed as the replays are
+    calls = 4 + 1
     assert tracing.snapshot()["solve.costs"]["device_n"] == calls * (k or 1)
 
 
